@@ -1,0 +1,43 @@
+"""Carry a resident blob and its codec configuration between the JAX
+package and the port.
+
+The codec has no weights: its state is the configuration and the blob. On
+the JAX side the blob is four device arrays (``header`` u8, ``stream`` u32
+words, ``meta`` i32, ``starts`` i32) that ``numpy.asarray`` brings to the
+host; on the port's side the same four are tensors, with the u32 words held
+in an int32 tensor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def blob_from_numpy(header, stream, meta, starts, device="cuda"):
+    """numpy (header u8, stream u32, meta i32, starts i32) -> the port's
+    tensors on `device`."""
+    header = np.ascontiguousarray(header, dtype=np.uint8)
+    stream = np.ascontiguousarray(stream, dtype=np.uint32)
+    return (torch.from_numpy(header.copy()).to(device),
+            torch.from_numpy(stream.view(np.int32).copy()).to(device),
+            torch.from_numpy(np.asarray(meta, dtype=np.int32).copy()).to(device),
+            torch.from_numpy(np.asarray(starts, dtype=np.int32).copy()).to(device))
+
+
+def blob_to_numpy(header, stream, meta, starts):
+    """The port's blob tensors -> numpy (header u8, stream u32, meta i32,
+    starts i32), as the JAX codec takes them."""
+    return (header.cpu().numpy().astype(np.uint8),
+            stream.cpu().numpy().view(np.uint32),
+            meta.cpu().numpy().astype(np.int32),
+            starts.cpu().numpy().astype(np.int32))
+
+
+def codec_kwargs(h: int, w: int, d: int, dtype, max_z_error: float, version: int,
+                 nb_cap: int) -> dict:
+    """Keyword arguments of the port's ``FusedResidentCodec`` matching a JAX
+    ``FusedResidentCodec(h, w, d, dtype, max_z_error, version, nb_cap)``;
+    plain values only. Use as ``FusedResidentCodec(**codec_kwargs(...),
+    device=...)``."""
+    return dict(h=int(h), w=int(w), d=int(d), dtype=np.dtype(dtype),
+                max_z_error=float(max_z_error), version=int(version), nb_cap=int(nb_cap))

@@ -1,0 +1,128 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each ``.cu`` source in this directory is compiled by ``nvcc`` into a shared
+library with a plain C interface, on first use, into ``.torch_ext_build/``
+at the root of the checkout (listed in ``.gitignore``). The libraries are
+loaded with ``ctypes``; tensor pointers and the current CUDA stream pass as
+integers. A source that includes no PyTorch header builds in seconds, where
+``torch.utils.cpp_extension.load`` spends minutes compiling PyTorch's
+headers. All sources compile in parallel, one ``nvcc`` each.
+
+Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that no multiply-add is
+contracted behind the code's back -- the decode ScaleBack must round the
+product and the sum separately, and the one fused multiply-add the encoder
+needs is written out as ``__fmaf_rn``.
+
+A failed build raises with the compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
+SOURCES = ("encode", "fletcher32", "decode")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel name -> launches since the last reset (one per kernel launch,
+# counted by its wrapper in lerc_tpu_torch.ops)
+LAUNCHES = {"encode_blocks": 0, "write_records": 0,
+            "fletcher32_parts": 0, "decode_records": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source whose library is missing, all in parallel.
+    Returns {source: ptxas report} for the sources compiled by this call
+    (register and shared-memory use per kernel); raises RuntimeError with
+    the compiler output on failure."""
+    todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        reports[name] = log
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of source `name`, building it on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        _libs[name] = lib
+    return lib
+
+
+def on_cuda(*tensors) -> bool:
+    """True when every tensor lies on a CUDA device (launch the kernel),
+    False when every one lies on the CPU (run the plain version); raises on
+    a mix or any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors must all be on CUDA or all on the CPU, got {sorted(kinds)}")
+
+
+def launch_stream(t) -> ctypes.c_void_p:
+    """The current CUDA stream of tensor t's device, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")

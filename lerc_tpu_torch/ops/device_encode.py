@@ -1,0 +1,304 @@
+"""Device Lerc2 tile encoding (kernels K1 ``encode_blocks`` and K2
+``write_records``, with their plain versions).
+
+Port of ``lerc_tpu/ops/device_encode.py::encode_tiles`` (:486) for the
+resident codec's all-valid float32 path: 8x8 micro blocks, H and W
+multiples of 8, no LUT mode, version >= 4, any depth. It makes the same
+encoder choices byte for byte: block min/max, f32 quantization with
+round-half-even and the sign-directed +-1 fixup, numBits, the mode
+(const-0, const-offset, raw, bit-stuffed), the reduced offset width, the
+integrity bits and the record layout. Records are numbered r = b*D + di.
+
+K1 reduces each block and decides its record; ``starts`` is the exclusive
+scan of the record lengths (``torch.cumsum`` on the int32 lengths); K2
+writes each record at byte ``starts[r]`` into a zeroed stream of u32 words
+(held in an int32 tensor). One pack serves every ``nb_cap``: the cap only
+decides ``fits``, as in the JAX encoder.
+
+FMA: XLA:CPU contracts the fixup's reconstruction ``zmin + q * inv_scale``
+into a fused multiply-add (device_encode.py:621,623), so K1 writes exactly
+that as ``__fmaf_rn`` and the plain version emulates it (``_fmaf``). A
+tie-prone test (values half a quantization step off the grid) holds both to
+the JAX encoder.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..constants import DataType
+from ..kernels import build
+from .device_scan import _as_i32
+
+RAW_LEN = 1 + 64 * 4  # flag + 64 raw f32 values
+_REC_BYTES = 264       # widest record (257 B) rounded up to whole words
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodeParams:
+    """Scalars of one encoder configuration, computed on the host once."""
+
+    mze: float         # maxZError as f32
+    scale: float       # f32 1 / (2 * mze), 0 when mze == 0
+    inv: float         # f32 2 * mze
+    integ_mask: int    # integrity bits kept in the flag byte (version >= 5: bits 3-5)
+    cap_nb: int        # widest bit-stuffed record that fits (32: no cap)
+    raw_ok: bool       # raw records fit under the cap
+
+
+def encode_params(max_z_error: float, version: int, nb_cap: int = 0) -> EncodeParams:
+    """The f32 scalars exactly as the JAX encoder derives them
+    (device_encode.py:551-553) and the nb_cap window arithmetic
+    (:516-546) that decides `fits`."""
+    mze = np.float32(max_z_error)
+    if not mze >= 0:
+        raise ValueError(f"max_z_error must be >= 0, got {max_z_error}")
+    inv = np.float32(2.0) * mze
+    scale = np.float32(1.0) / inv if mze > 0 else np.float32(0.0)
+    max_nb = 31
+    eff_cap = max_nb if nb_cap <= 0 else min(nb_cap, max_nb)
+    always_fits = eff_cap >= max_nb
+    pw = (64 * eff_cap + 31) // 32 + 1
+    stuff_w = max((8 + 4 * (pw - 1) + 3) // 4, pw + 3) + 1
+    raw_w = (RAW_LEN + 3) // 4
+    return EncodeParams(
+        mze=float(mze), scale=float(scale), inv=float(inv),
+        integ_mask=0b111000 if version >= 5 else 0b111100,
+        cap_nb=32 if always_fits else eff_cap,
+        raw_ok=always_fits or raw_w <= stuff_w,
+    )
+
+
+def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d: int,
+                 dt: DataType, all_valid: bool, version: int, cap: int,
+                 enable_lut: bool = False, mb: int = 8, nb_cap: int = 0):
+    """Returns (stream [cap/4] int32 u32 words, total 0-d int32, z_min [D]
+    f32, z_max [D] f32, starts [nRec] int32, fits 0-d bool), all on
+    data's device, with no host synchronization."""
+    if not all_valid or mask is not None:
+        raise NotImplementedError("masked encode: ROADMAP queue 1 item 4 (masked main path)")
+    if enable_lut or mb != 8:
+        raise NotImplementedError("LUT blocks and the 16x16 retrial: ROADMAP queue 1 item 6")
+    if dt != DataType.FLOAT:
+        raise NotImplementedError("integer dtypes: ROADMAP queue 1 item 5; float64: item 9")
+    if version < 4:
+        raise NotImplementedError("versions < 4: ROADMAP queue 1 item 6 (band codec)")
+    if h % 8 or w % 8 or d < 1:
+        raise NotImplementedError("H, W not multiples of 8: ROADMAP queue 1 item 6 (band codec)")
+    if cap % 4:
+        raise ValueError("cap must be a multiple of 4")
+    _check_data(data, h, w, d)
+    p = encode_params(max_z_error, version, nb_cap)
+    rec_info, zrange, fits = encode_blocks(data, p)
+    length = rec_info[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    total = starts[-1] + length[-1]
+    stream = write_records(data, rec_info, starts, cap // 4, p)
+    return stream, total, zrange[:d], zrange[d:], starts, fits[0] != 0
+
+
+def _check_data(data, h, w, d):
+    if data.dtype != torch.float32 or tuple(data.shape) != (h, w, d):
+        raise ValueError(f"data must be float32 [{h}, {w}, {d}], got {data.dtype} {tuple(data.shape)}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+
+
+def _n_rec(data) -> int:
+    h, w, d = data.shape
+    return (h // 8) * (w // 8) * d
+
+
+# ---------------------------------------------------------------------------
+# K1 encode_blocks
+# ---------------------------------------------------------------------------
+
+
+def encode_blocks(data: torch.Tensor, p: EncodeParams):
+    """Per-record decisions: (rec_info [nRec, 4] int32 = {length, desc,
+    offset word, zmin bits}, desc = flag | mode<<8 | numBits<<16 |
+    offset width<<24; zrange [2D] f32 = per-depth min then max; fits [1]
+    int32)."""
+    h, w, d = data.shape
+    if not build.on_cuda(data):
+        return encode_blocks_ref(data, p)
+    fn = build.library("encode").encode_blocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = data.device
+    with torch.cuda.device(dev):
+        rec_info = torch.empty(_n_rec(data), 4, dtype=torch.int32, device=dev)
+        zrange = torch.cat([torch.full((d,), float("inf"), device=dev),
+                            torch.full((d,), float("-inf"), device=dev)])
+        fits = torch.ones(1, dtype=torch.int32, device=dev)
+        err = fn(data.data_ptr(), h, w, d, p.mze, p.scale, p.inv, p.integ_mask,
+                 p.cap_nb, int(p.raw_ok), rec_info.data_ptr(), zrange.data_ptr(),
+                 fits.data_ptr(), build.launch_stream(data))
+        build.check(err, "encode_blocks")
+    build.LAUNCHES["encode_blocks"] += 1
+    return rec_info, zrange, fits
+
+
+def _blocks(data: torch.Tensor) -> torch.Tensor:
+    """[H, W, D] -> [nRec, 64], record r = b*D + di, row-major in the block."""
+    h, w, d = data.shape
+    return (data.reshape(h // 8, 8, w // 8, 8, d).permute(0, 2, 4, 1, 3)
+            .reshape(-1, 64).contiguous())
+
+
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 fused multiply-add a*b + c without an FMA
+    instruction: the f64 product of two f32 values is exact; the f64 sum is
+    made round-to-odd (TwoSum error term, then a one-ulp step toward it when
+    the sum is inexact and its last bit is even), and round-to-odd in 53
+    bits followed by one rounding to 24 bits is the correctly rounded
+    result. Plain f64 rounding twice would be wrong exactly when the f64
+    sum lands on an f32 rounding midpoint."""
+    prod = a.double() * b.double()
+    cd = c.double()
+    s = prod + cd
+    bv = s - prod
+    err = (prod - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def quantize_ref(x: torch.Tensor, zmin: torch.Tensor, p: EncodeParams) -> torch.Tensor:
+    """int64 quantized values of f32 x against per-row zmin [n, 1]
+    (device_encode.py:617-625)."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scale, inv = torch.tensor(p.scale, **f32), torch.tensor(p.inv, **f32)
+    q0 = torch.round((x - zmin) * scale)
+    resid = x - _fmaf(q0, inv, zmin)
+    qc = torch.clamp_min(q0 + torch.sign(resid), 0.0)
+    errc = (x - _fmaf(qc, inv, zmin)).abs()
+    best = torch.where(errc < resid.abs(), qc, q0)
+    return best.clamp(0.0, 2.0**31).to(torch.int64)
+
+
+def encode_blocks_ref(data: torch.Tensor, p: EncodeParams):
+    """Plain PyTorch version of K1 (int64 bit arithmetic)."""
+    h, w, d = data.shape
+    x = _blocks(data)
+    n = x.shape[0]
+    dev = x.device
+    zmin = x.amin(1)
+    zmax = x.amax(1)
+    q = quantize_ref(x, zmin[:, None], p)
+    max_q = q.amax(1)
+    nb = (max_q[:, None] >= (1 << torch.arange(32, device=dev))).sum(1)
+    max_val = (zmax - zmin) * torch.tensor(p.scale, dtype=torch.float32, device=dev)
+    const0 = (zmin == 0) & (zmax == 0)
+    # maxZError 0 stores every non-constant block raw; otherwise blocks whose
+    # quantized range passes 2^30 - 1 (f32: 2^30) do
+    force_raw = (zmax > zmin) if p.mze == 0 else (max_val > 1073741823.0)
+    is_int = (zmin == torch.round(zmin)) & (zmin.abs() < 2.0**31)
+    tc = torch.where(is_int & (zmin >= 0) & (zmin <= 255), 2,
+                     torch.where(is_int & (zmin >= -32768) & (zmin <= 32767), 1, 0))
+    off_w = torch.where(tc == 2, 1, torch.where(tc == 1, 2, 4))
+    as_i = torch.where(tc > 0, torch.round(zmin), 0.0).to(torch.int64)
+    zbits = zmin.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    off_word = torch.where(tc == 2, as_i & 0xFF, torch.where(tc == 1, as_i & 0xFFFF, zbits))
+    stuff_len = 1 + off_w + torch.where(max_q > 0, 2 + 8 * nb, 0)
+    use_stuff = ~force_raw & (stuff_len < RAW_LEN)
+    mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
+    length = torch.where(mode == 2, 1, torch.where(mode == 0, RAW_LEN, stuff_len))
+    b = torch.arange(n, device=dev) // d
+    integ = (((b % (w // 8)) & 15) << 2) & p.integ_mask
+    flag = integ | mode | torch.where((mode == 1) | (mode == 3), tc << 6, 0)
+    desc = flag | (mode << 8) | (nb << 16) | (off_w << 24)
+    rec_info = torch.stack([length, desc, _as_i32(off_word).to(torch.int64),
+                            zmin.view(torch.int32).to(torch.int64)], 1).to(torch.int32)
+    zrange = torch.cat([zmin.view(-1, d).amin(0), zmax.view(-1, d).amax(0)])
+    bad = ((mode == 1) & (nb > p.cap_nb)) | ((mode == 0) & (not p.raw_ok))
+    fits = (~bad.any()).to(torch.int32).reshape(1)
+    return rec_info, zrange, fits
+
+
+# ---------------------------------------------------------------------------
+# K2 write_records
+# ---------------------------------------------------------------------------
+
+
+def write_records(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
+                  cap_w: int, p: EncodeParams) -> torch.Tensor:
+    """The record stream: [cap_w] int32 u32 words, zero past the last
+    record. Records running past the capacity are cut (K1 has cleared
+    `fits` for them)."""
+    h, w, d = data.shape
+    n = _n_rec(data)
+    if rec_info.shape != (n, 4) or starts.shape != (n,):
+        raise ValueError("rec_info / starts do not match the data's record count")
+    if not build.on_cuda(data, rec_info, starts):
+        return write_records_ref(data, rec_info, starts, cap_w, p)
+    fn = build.library("encode").write_records
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(data.device):
+        out = torch.zeros(cap_w, dtype=torch.int32, device=data.device)
+        err = fn(data.data_ptr(), h, w, d, p.scale, p.inv, rec_info.data_ptr(),
+                 starts.data_ptr(), out.data_ptr(), cap_w, build.launch_stream(data))
+        build.check(err, "write_records")
+    build.LAUNCHES["write_records"] += 1
+    return out
+
+
+def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
+                      cap_w: int, p: EncodeParams) -> torch.Tensor:
+    """Plain PyTorch version of K2: each record as a byte row, scattered at
+    its start."""
+    x = _blocks(data)
+    n = x.shape[0]
+    dev = x.device
+    info = rec_info.to(torch.int64)
+    length, desc = info[:, 0], info[:, 1]
+    off_word = info[:, 2] & 0xFFFFFFFF
+    flag, mode = desc & 0xFF, (desc >> 8) & 3
+    nb, off_w = (desc >> 16) & 0xFF, desc >> 24
+    zmin = rec_info[:, 3].contiguous().view(torch.float32)
+
+    # payload bits, LSB-first: value j at bits [j*width, (j+1)*width)
+    raw = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    vals = torch.where((mode == 0)[:, None], raw, quantize_ref(x, zmin[:, None], p))
+    width = torch.where(mode == 0, 32, nb)[:, None]
+    bitpos = torch.arange(64, device=dev)[None, :] * width
+    wi, bit = bitpos >> 5, bitpos & 31
+    lo = (vals << bit) & 0xFFFFFFFF
+    hi = torch.where(bit > 0, vals >> (32 - bit), 0)
+    words = torch.zeros(n, _REC_BYTES // 4 + 1, dtype=torch.int64, device=dev)
+    words.scatter_add_(1, wi, lo).scatter_add_(1, wi + 1, hi)
+    shifts = torch.arange(0, 32, 8, device=dev)
+    payload = ((words[:, :, None] >> shifts) & 0xFF).reshape(n, -1)
+
+    # header: flag, offset bytes (modes 1, 3), numBits byte and count (mode 1)
+    k8 = torch.arange(8, device=dev)[None, :]
+    hdr = torch.zeros(n, 8, dtype=torch.int64, device=dev)
+    hdr[:, 0] = flag
+    offb = (off_word[:, None] >> (8 * (k8 - 1)).clamp(min=0)) & 0xFF
+    has_off = ((mode == 1) | (mode == 3))[:, None] & (k8 >= 1) & (k8 <= off_w[:, None])
+    hdr = torch.where(has_off, offb, hdr)
+    is_stuff = mode == 1
+    hdr.scatter_(1, (1 + off_w)[:, None], torch.where(is_stuff, nb | 0x80, 0)[:, None])
+    hdr.scatter_(1, (2 + off_w)[:, None], torch.where(is_stuff, 64, 0)[:, None])
+    hl = torch.where(mode == 0, 1, torch.where(is_stuff, 3 + off_w,
+                                               torch.where(mode == 3, 1 + off_w, 1)))[:, None]
+
+    kk = torch.arange(_REC_BYTES, device=dev)[None, :]
+    rec = torch.where(kk < hl, hdr.gather(1, kk.clamp(max=7).expand(n, -1)),
+                      payload.gather(1, (kk - hl).clamp(min=0)))
+    pos = starts.to(torch.int64)[:, None] + kk
+    keep = (kk < length[:, None]) & (pos >= 0) & (pos < 4 * cap_w)
+    out = torch.zeros(4 * cap_w, dtype=torch.uint8, device=dev)
+    out[pos[keep]] = rec[keep].to(torch.uint8)
+    return out.view(torch.int32)

@@ -1,0 +1,46 @@
+"""The port stands alone: lerc_tpu_torch and chip_smoke.py import neither
+JAX nor anything of the lerc_tpu package, at run time or in their sources."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "lerc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top == "jax" or top.startswith("jax") or top == "lerc_tpu"
+
+
+def test_import_loads_no_jax_and_no_lerc_tpu():
+    code = (
+        "import sys, json\n"
+        "import lerc_tpu_torch\n"
+        "import lerc_tpu_torch.interop, lerc_tpu_torch.kernels.build\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "lerc_tpu_torch" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_sources_import_no_jax_and_no_lerc_tpu(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert bad == []
