@@ -1,7 +1,8 @@
 """Device-resident fused codec: the blob stays on the device end to end.
 
 Port of ``lerc_tpu/codec/resident.py::FusedResidentCodec`` (:327-569) for
-all-valid float32 rasters. ``encode_fast`` builds the whole blob on the
+float32 rasters, all-valid or with a validity mask (:76-102, :343-377).
+``encode_fast`` builds the whole blob on the
 device -- the record stream (kernels K1, K2), the header with its blobSize,
 zMin/zMax and ranges fields, and the Fletcher32 checksum (K3) -- and
 ``decode_fast`` verifies the checksum and decodes through the encoder's
@@ -9,8 +10,15 @@ record-offset index (K4). Neither reads anything back to the host.
 
 The header layout and the Fletcher32 split carry over: the device builds
 only the small dynamic header (fixed head + ranges + flags); the static
-mask section (4 zero bytes for all-valid data) folds into the checksum as
-two host constants, and ``blob_to_bytes`` splices it back for the wire.
+mask section (4 zero bytes for all-valid data, else the int32 length and
+the RLE of the bit mask) folds into the checksum as two host constants,
+and ``blob_to_bytes`` splices it back for the wire. An odd section's last
+byte rides at the front of the dynamic tail, so the static part stays
+even.
+
+A mask is turned once per codec into two u32 validity words per 8x8 block
+(``device_encode.block_valid_words``) on the codec's device; the masked
+kernels read those. An all-True mask takes the all-valid wire and kernels.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ import torch
 from ..constants import DT_SIZE, FILE_KEY_LERC2, NUMPY_TO_DT, DataType, dt_is_int
 from ..ops import device_decode, device_encode, device_scan
 from . import header as hdr
+from . import rle
+from .bitmask import bool_to_bits
 from .fletcher32 import fletcher32_partials
 
 
@@ -40,11 +50,13 @@ def resolve_device(device) -> torch.device:
 
 class FusedResidentCodec:
     """Encode/decode of [H, W, D] float32 tiles as device-resident Lerc2
-    blobs (version >= 4, 8x8 micro blocks, all valid)."""
+    blobs (version >= 4, 8x8 micro blocks). `mask` is an optional [H, W]
+    bool validity mask (numpy or tensor) shared by every depth; invalid
+    pixels decode to +0.0."""
 
     def __init__(self, h: int, w: int, d: int = 1, dtype=np.float32,
                  max_z_error: float = 0.001, version: int = 6, nb_cap: int = 0,
-                 *, device="cuda"):
+                 mask=None, *, device="cuda"):
         self.device = resolve_device(device)
         self.dt = NUMPY_TO_DT[np.dtype(dtype)]
         if dt_is_int(self.dt):
@@ -59,7 +71,7 @@ class FusedResidentCodec:
         self.version = version
         self.mze = float(max_z_error)
         self.nb_cap = int(nb_cap)
-        self.num_valid = h * w
+        mask_section = self._set_mask(mask)
         n_rec = (h // 8) * (w // 8) * d
         self.n_rec = n_rec
         raw = h * w * DT_SIZE[self.dt] * d + n_rec * 12 + 4096
@@ -79,11 +91,13 @@ class FusedResidentCodec:
         head_bytes = hdr.write_header(head)
         self._head_len = len(head_bytes)
         self._skip = hdr.checksum_skip(version)
-        # all-valid mask section: an int32 0, static and even-length
-        self._static_mid = struct.pack("<i", 0)
+        # the static mask section's even part folds into the checksum; an
+        # odd last byte is the first byte of the dynamic tail
+        odd = len(mask_section) % 2
+        self._static_mid = mask_section[: len(mask_section) - odd]
         self._static_ab = fletcher32_partials(
             self._static_mid, (self._head_len - self._skip) // 2) + (len(self._static_mid),)
-        template = bytearray(head_bytes)
+        template = bytearray(head_bytes) + mask_section[len(mask_section) - odd :]
         self._ranges_off = len(template)
         template += b"\x00" * (2 * d * DT_SIZE[self.dt])  # ranges
         template += b"\x00"  # one-sweep flag
@@ -95,6 +109,27 @@ class FusedResidentCodec:
         self._blob_size_off = len(FILE_KEY_LERC2) + 4 + 4 + 5 * 4
         self._zmin_off = len(FILE_KEY_LERC2) + 4 + 4 + 8 * 4 + 4 + 8
 
+    def _set_mask(self, mask) -> bytes:
+        """Sets num_valid and the block validity words `valid` (None: all
+        valid); returns the wire's mask section."""
+        h, w = self.h, self.w
+        self.num_valid, self.valid = h * w, None
+        if mask is None:
+            return struct.pack("<i", 0)
+        if isinstance(mask, torch.Tensor):
+            mask = mask.cpu().numpy()
+        mask_np = np.ascontiguousarray(mask, dtype=bool)
+        if mask_np.shape != (h, w):
+            raise ValueError(f"mask shape {mask_np.shape} does not match ({h}, {w})")
+        self.num_valid = int(mask_np.sum())
+        if self.num_valid == 0:
+            raise ValueError("resident codec requires >= 1 valid pixel")
+        if self.num_valid == h * w:  # an all-True mask: the all-valid wire
+            return struct.pack("<i", 0)
+        self.valid = device_encode.block_valid_words(torch.from_numpy(mask_np).to(self.device))
+        mask_rle = rle.compress(bool_to_bits(mask_np))
+        return struct.pack("<i", len(mask_rle)) + mask_rle
+
     # ---- encode -----------------------------------------------------------
 
     def encode_fast(self, data: torch.Tensor):
@@ -104,8 +139,8 @@ class FusedResidentCodec:
             raise ValueError(f"data is on {data.device}, the codec on {self.device}")
         d_ = self.d
         stream, total, zminv, zmaxv, starts, fits = device_encode.encode_tiles(
-            data, None, self.mze, self.h, self.w, d_, self.dt, True, self.version,
-            self.cap, nb_cap=self.nb_cap)
+            data, self.valid, self.mze, self.h, self.w, d_, self.dt, self.valid is None,
+            self.version, self.cap, nb_cap=self.nb_cap)
         dev = data.device
         header = self._template.to(dev, copy=True)
         bs = self._blob_size_off
@@ -128,13 +163,15 @@ class FusedResidentCodec:
         """-> (img [H, W, D] float32, ok 0-d bool = checksum ok & index ok &
         fits), scan-free through the encoder's record-offset index."""
         if starts is None:
+            if self.valid is not None:
+                raise ValueError("masked resident decode requires the record-offset index")
             raise NotImplementedError(
                 "decode without the record-offset index: ROADMAP queue 1 item 5 "
                 "(device record scan)")
         if header.shape != (self._hdr_small_len,) or header.dtype != torch.uint8:
             raise ValueError(
                 "header length does not match this codec's configuration "
-                "(different shape/dtype/version?)")
+                "(different mask/shape/dtype/version?)")
         total = (_rd_u32(header, self._blob_size_off) - self._hdr_len).to(torch.int32)
         stored = _rd_u32(header, self._skip - 4)
         computed = device_scan.fletcher32_parts(
@@ -146,7 +183,7 @@ class FusedResidentCodec:
         zmax_vec = zmax_vec.clone().view(torch.float32)
         img, index_ok, fits = device_decode.decode_tiles_fast(
             stream, starts, self.mze, zmax_vec, self.h, self.w, self.d, self.dt,
-            self.version, nb_cap=self.nb_cap)
+            self.version, nb_cap=self.nb_cap, mask=self.valid)
         return img, ok & index_ok & fits
 
     def blob_to_bytes(self, header: torch.Tensor, stream: torch.Tensor,

@@ -34,10 +34,11 @@ def blob_to_numpy(header, stream, meta, starts):
 
 
 def codec_kwargs(h: int, w: int, d: int, dtype, max_z_error: float, version: int,
-                 nb_cap: int) -> dict:
+                 nb_cap: int, mask=None) -> dict:
     """Keyword arguments of the port's ``FusedResidentCodec`` matching a JAX
-    ``FusedResidentCodec(h, w, d, dtype, max_z_error, version, nb_cap)``;
-    plain values only. Use as ``FusedResidentCodec(**codec_kwargs(...),
-    device=...)``."""
+    ``FusedResidentCodec(h, w, d, dtype, max_z_error, version, nb_cap,
+    mask=mask)``; plain values only (the mask as a numpy bool array). Use as
+    ``FusedResidentCodec(**codec_kwargs(...), device=...)``."""
     return dict(h=int(h), w=int(w), d=int(d), dtype=np.dtype(dtype),
-                max_z_error=float(max_z_error), version=int(version), nb_cap=int(nb_cap))
+                max_z_error=float(max_z_error), version=int(version), nb_cap=int(nb_cap),
+                mask=None if mask is None else np.array(mask, dtype=bool))

@@ -36,7 +36,9 @@ NVCC_FLAGS = (
 # kernel name -> launches since the last reset (one per kernel launch,
 # counted by its wrapper in lerc_tpu_torch.ops)
 LAUNCHES = {"encode_blocks": 0, "write_records": 0,
-            "fletcher32_parts": 0, "decode_records": 0}
+            "fletcher32_parts": 0, "decode_records": 0,
+            "encode_blocks_masked": 0, "write_records_masked": 0,
+            "decode_records_masked": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -2,12 +2,20 @@
 ``write_records``, with their plain versions).
 
 Port of ``lerc_tpu/ops/device_encode.py::encode_tiles`` (:486) for the
-resident codec's all-valid float32 path: 8x8 micro blocks, H and W
-multiples of 8, no LUT mode, version >= 4, any depth. It makes the same
-encoder choices byte for byte: block min/max, f32 quantization with
+resident codec's float32 path, all-valid or masked: 8x8 micro blocks, H
+and W multiples of 8, no LUT mode, version >= 4, any depth. It makes the
+same encoder choices byte for byte: block min/max, f32 quantization with
 round-half-even and the sign-directed +-1 fixup, numBits, the mode
 (const-0, const-offset, raw, bit-stuffed), the reduced offset width, the
 integrity bits and the record layout. Records are numbered r = b*D + di.
+
+Masks: the [H, W] bool mask becomes two u32 validity words per 8x8 block
+(``block_valid_words``), bit j = block position j in row-major order, once
+per codec. The masked kernels (``encode_blocks_masked``,
+``write_records_masked``) reduce over the valid lanes only, count a
+block's values as popc of its words, and write value j at its rank among
+the valid positions -- the stable left compaction of ``make_compactor``
+(:303), whose plain version is ``compact_ref``. One mask serves every depth.
 
 K1 reduces each block and decides its record; ``starts`` is the exclusive
 scan of the record lengths (``torch.cumsum`` on the int32 lengths); K2
@@ -77,9 +85,13 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
                  enable_lut: bool = False, mb: int = 8, nb_cap: int = 0):
     """Returns (stream [cap/4] int32 u32 words, total 0-d int32, z_min [D]
     f32, z_max [D] f32, starts [nRec] int32, fits 0-d bool), all on
-    data's device, with no host synchronization."""
-    if not all_valid or mask is not None:
-        raise NotImplementedError("masked encode: ROADMAP queue 1 item 4 (masked main path)")
+    data's device, with no host synchronization.
+
+    mask: the [nBlocks, 2] int32 block validity words of the [H, W] mask
+    (``block_valid_words``), on data's device; ignored when all_valid."""
+    valid = None if all_valid else mask
+    if not all_valid and mask is None:
+        raise ValueError("a masked encode needs the block validity words")
     if enable_lut or mb != 8:
         raise NotImplementedError("LUT blocks and the 16x16 retrial: ROADMAP queue 1 item 6")
     if dt != DataType.FLOAT:
@@ -92,11 +104,11 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
         raise ValueError("cap must be a multiple of 4")
     _check_data(data, h, w, d)
     p = encode_params(max_z_error, version, nb_cap)
-    rec_info, zrange, fits = encode_blocks(data, p)
+    rec_info, zrange, fits = encode_blocks(data, p, valid)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     total = starts[-1] + length[-1]
-    stream = write_records(data, rec_info, starts, cap // 4, p)
+    stream = write_records(data, rec_info, starts, cap // 4, p, valid)
     return stream, total, zrange[:d], zrange[d:], starts, fits[0] != 0
 
 
@@ -113,23 +125,92 @@ def _n_rec(data) -> int:
 
 
 # ---------------------------------------------------------------------------
+# block validity words and the plain rank routing
+# ---------------------------------------------------------------------------
+
+
+def block_valid_words(mask: torch.Tensor) -> torch.Tensor:
+    """[H, W] bool mask -> [nBlocks, 2] int32 u32 validity words on the
+    mask's device: bit j of word k is position 32k + j of the 8x8 block in
+    row-major order (the order of ``_blocks`` and the kernels' lanes).
+    Built once per codec; the kernels read these 8 B per block instead of
+    64 B of bools."""
+    h, w = mask.shape
+    if mask.dtype != torch.bool or h % 8 or w % 8:
+        raise ValueError(f"mask must be bool [H, W] with H, W multiples of 8, got {mask.dtype} {tuple(mask.shape)}")
+    vb = (mask.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
+          .reshape(-1, 2, 32).to(torch.int64))
+    words = (vb << torch.arange(32, device=mask.device)).sum(2)
+    return _as_i32(words).contiguous()
+
+
+def valid_lanes(valid: torch.Tensor) -> torch.Tensor:
+    """[nBlocks, 2] validity words -> [nBlocks, 64] bool, position order."""
+    bits = (valid.to(torch.int64)[:, :, None] >> torch.arange(32, device=valid.device)) & 1
+    return bits.reshape(-1, 64) != 0
+
+
+def _check_valid(valid: torch.Tensor, n_blocks: int) -> None:
+    if (valid.dtype != torch.int32 or tuple(valid.shape) != (n_blocks, 2)
+            or not valid.is_contiguous()):
+        raise ValueError(f"validity words must be a contiguous int32 [{n_blocks}, 2] tensor")
+
+
+def _record_lanes(valid, d: int, n_rec: int, dev):
+    """Per-record validity [nRec, 64] bool (record r = b*D + di takes block
+    b's lanes) and value count [nRec] int64; all lanes when valid is None."""
+    if valid is None:
+        return (torch.ones(n_rec, 64, dtype=torch.bool, device=dev),
+                torch.full((n_rec,), 64, dtype=torch.int64, device=dev))
+    vb = valid_lanes(valid).repeat_interleave(d, 0)
+    return vb, vb.sum(1)
+
+
+def compact_ref(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Stable left compaction of each row (``make_compactor``,
+    device_encode.py:303): the value at valid position j moves to slot
+    rank(j) = number of valid positions before j; the other slots are 0."""
+    rank = (valid.cumsum(1) - 1).clamp(min=0)
+    return torch.zeros_like(vals).scatter_add_(1, rank, torch.where(valid, vals, 0))
+
+
+def expand_ref(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The inverse (``make_expander``, device_encode.py:357): valid position
+    j takes the value of slot rank(j); invalid positions are 0."""
+    rank = (valid.cumsum(1) - 1).clamp(min=0)
+    return torch.where(valid, vals.gather(1, rank), 0)
+
+
+# ---------------------------------------------------------------------------
 # K1 encode_blocks
 # ---------------------------------------------------------------------------
 
 
-def encode_blocks(data: torch.Tensor, p: EncodeParams):
+def _valid_args(valid, h: int, w: int):
+    """(the validity tensor as a tuple, to share the other inputs' device;
+    the kernel's name suffix; the validity pointer) for an all-valid (None)
+    or masked launch."""
+    if valid is None:
+        return (), "", None
+    _check_valid(valid, (h // 8) * (w // 8))
+    return (valid,), "_masked", valid.data_ptr()
+
+
+def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
     """Per-record decisions: (rec_info [nRec, 4] int32 = {length, desc,
     offset word, zmin bits}, desc = flag | mode<<8 | numBits<<16 |
-    offset width<<24; zrange [2D] f32 = per-depth min then max; fits [1]
-    int32)."""
+    offset width<<24; zrange [2D] f32 = per-depth min then max over the
+    valid values; fits [1] int32). valid: block validity words, or None
+    when every pixel is valid."""
     h, w, d = data.shape
-    if not build.on_cuda(data):
-        return encode_blocks_ref(data, p)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    if not build.on_cuda(data, *vt):
+        return encode_blocks_ref(data, p, valid)
     fn = build.library("encode").encode_blocks
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = data.device
     with torch.cuda.device(dev):
@@ -137,11 +218,11 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams):
         zrange = torch.cat([torch.full((d,), float("inf"), device=dev),
                             torch.full((d,), float("-inf"), device=dev)])
         fits = torch.ones(1, dtype=torch.int32, device=dev)
-        err = fn(data.data_ptr(), h, w, d, p.mze, p.scale, p.inv, p.integ_mask,
-                 p.cap_nb, int(p.raw_ok), rec_info.data_ptr(), zrange.data_ptr(),
-                 fits.data_ptr(), build.launch_stream(data))
-        build.check(err, "encode_blocks")
-    build.LAUNCHES["encode_blocks"] += 1
+        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.mze, p.scale, p.inv,
+                 p.integ_mask, p.cap_nb, int(p.raw_ok), rec_info.data_ptr(),
+                 zrange.data_ptr(), fits.data_ptr(), build.launch_stream(data))
+        build.check(err, "encode_blocks" + sfx)
+    build.LAUNCHES["encode_blocks" + sfx] += 1
     return rec_info, zrange, fits
 
 
@@ -185,15 +266,17 @@ def quantize_ref(x: torch.Tensor, zmin: torch.Tensor, p: EncodeParams) -> torch.
     return best.clamp(0.0, 2.0**31).to(torch.int64)
 
 
-def encode_blocks_ref(data: torch.Tensor, p: EncodeParams):
+def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
     """Plain PyTorch version of K1 (int64 bit arithmetic)."""
     h, w, d = data.shape
     x = _blocks(data)
     n = x.shape[0]
     dev = x.device
-    zmin = x.amin(1)
-    zmax = x.amax(1)
-    q = quantize_ref(x, zmin[:, None], p)
+    vb, cnt = _record_lanes(valid, d, n, dev)
+    has = cnt > 0
+    zmin = torch.where(has, torch.where(vb, x, float("inf")).amin(1), 0.0)
+    zmax = torch.where(has, torch.where(vb, x, float("-inf")).amax(1), 0.0)
+    q = torch.where(vb, quantize_ref(x, zmin[:, None], p), 0)
     max_q = q.amax(1)
     nb = (max_q[:, None] >= (1 << torch.arange(32, device=dev))).sum(1)
     max_val = (zmax - zmin) * torch.tensor(p.scale, dtype=torch.float32, device=dev)
@@ -208,17 +291,21 @@ def encode_blocks_ref(data: torch.Tensor, p: EncodeParams):
     as_i = torch.where(tc > 0, torch.round(zmin), 0.0).to(torch.int64)
     zbits = zmin.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     off_word = torch.where(tc == 2, as_i & 0xFF, torch.where(tc == 1, as_i & 0xFFFF, zbits))
-    stuff_len = 1 + off_w + torch.where(max_q > 0, 2 + 8 * nb, 0)
-    use_stuff = ~force_raw & (stuff_len < RAW_LEN)
+    # count byte width 1 (an 8x8 block has < 256 values); raw: 4 B a value
+    stuff_len = 1 + off_w + torch.where(max_q > 0, 2 + (cnt * nb + 7) // 8, 0)
+    raw_len = 1 + 4 * cnt
+    use_stuff = ~force_raw & (stuff_len < raw_len)
     mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
-    length = torch.where(mode == 2, 1, torch.where(mode == 0, RAW_LEN, stuff_len))
+    length = torch.where(mode == 2, 1, torch.where(mode == 0, raw_len, stuff_len))
     b = torch.arange(n, device=dev) // d
     integ = (((b % (w // 8)) & 15) << 2) & p.integ_mask
     flag = integ | mode | torch.where((mode == 1) | (mode == 3), tc << 6, 0)
     desc = flag | (mode << 8) | (nb << 16) | (off_w << 24)
     rec_info = torch.stack([length, desc, _as_i32(off_word).to(torch.int64),
                             zmin.view(torch.int32).to(torch.int64)], 1).to(torch.int32)
-    zrange = torch.cat([zmin.view(-1, d).amin(0), zmax.view(-1, d).amax(0)])
+    # blocks without a valid value take no part in the per-depth range
+    zrange = torch.cat([torch.where(has, zmin, float("inf")).view(-1, d).amin(0),
+                        torch.where(has, zmax, float("-inf")).view(-1, d).amax(0)])
     bad = ((mode == 1) & (nb > p.cap_nb)) | ((mode == 0) & (not p.raw_ok))
     fits = (~bad.any()).to(torch.int32).reshape(1)
     return rec_info, zrange, fits
@@ -230,37 +317,40 @@ def encode_blocks_ref(data: torch.Tensor, p: EncodeParams):
 
 
 def write_records(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
-                  cap_w: int, p: EncodeParams) -> torch.Tensor:
+                  cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
     """The record stream: [cap_w] int32 u32 words, zero past the last
     record. Records running past the capacity are cut (K1 has cleared
-    `fits` for them)."""
+    `fits` for them). With validity words, each record holds its block's
+    valid values only, in position order."""
     h, w, d = data.shape
     n = _n_rec(data)
     if rec_info.shape != (n, 4) or starts.shape != (n,):
         raise ValueError("rec_info / starts do not match the data's record count")
-    if not build.on_cuda(data, rec_info, starts):
-        return write_records_ref(data, rec_info, starts, cap_w, p)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    if not build.on_cuda(data, *vt, rec_info, starts):
+        return write_records_ref(data, rec_info, starts, cap_w, p, valid)
     fn = build.library("encode").write_records
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(data.device):
         out = torch.zeros(cap_w, dtype=torch.int32, device=data.device)
-        err = fn(data.data_ptr(), h, w, d, p.scale, p.inv, rec_info.data_ptr(),
+        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.scale, p.inv, rec_info.data_ptr(),
                  starts.data_ptr(), out.data_ptr(), cap_w, build.launch_stream(data))
-        build.check(err, "write_records")
-    build.LAUNCHES["write_records"] += 1
+        build.check(err, "write_records" + sfx)
+    build.LAUNCHES["write_records" + sfx] += 1
     return out
 
 
 def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
-                      cap_w: int, p: EncodeParams) -> torch.Tensor:
+                      cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K2: each record as a byte row, scattered at
-    its start."""
+    its start; masked payloads go through ``compact_ref``."""
     x = _blocks(data)
     n = x.shape[0]
     dev = x.device
+    vb, cnt = _record_lanes(valid, data.shape[2], n, dev)
     info = rec_info.to(torch.int64)
     length, desc = info[:, 0], info[:, 1]
     off_word = info[:, 2] & 0xFFFFFFFF
@@ -271,6 +361,8 @@ def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.
     # payload bits, LSB-first: value j at bits [j*width, (j+1)*width)
     raw = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     vals = torch.where((mode == 0)[:, None], raw, quantize_ref(x, zmin[:, None], p))
+    if valid is not None:
+        vals = compact_ref(vals, vb)
     width = torch.where(mode == 0, 32, nb)[:, None]
     bitpos = torch.arange(64, device=dev)[None, :] * width
     wi, bit = bitpos >> 5, bitpos & 31
@@ -290,7 +382,7 @@ def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.
     hdr = torch.where(has_off, offb, hdr)
     is_stuff = mode == 1
     hdr.scatter_(1, (1 + off_w)[:, None], torch.where(is_stuff, nb | 0x80, 0)[:, None])
-    hdr.scatter_(1, (2 + off_w)[:, None], torch.where(is_stuff, 64, 0)[:, None])
+    hdr.scatter_(1, (2 + off_w)[:, None], torch.where(is_stuff, cnt, 0)[:, None])
     hl = torch.where(mode == 0, 1, torch.where(is_stuff, 3 + off_w,
                                                torch.where(mode == 3, 1 + off_w, 1)))[:, None]
 

@@ -97,7 +97,7 @@ def test_tampered_index_fails_in_both(r, delta):
 def test_unported_options_name_their_roadmap_item():
     args = (torch.zeros(1024, dtype=torch.int32), torch.zeros(4, dtype=torch.int32), 0.01,
             torch.zeros(1), 16, 16, 1, DataType.FLOAT, 6)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        device_decode.decode_tiles_fast(*args, mask=torch.ones(16, 16, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        device_decode.decode_tiles_fast(*args, n_tiles=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         device_decode.decode_tiles_fast(*args, enable_lut=True)

@@ -142,7 +142,7 @@ def test_tie_tile_separates_fused_from_unfused():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(all_valid=False), "item 4"),
+    (dict(version=3), "item 6"),
     (dict(enable_lut=True), "item 6"),
     (dict(mb=16), "item 6"),
     (dict(dt=DataType.INT), "item 5"),
