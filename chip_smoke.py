@@ -6,28 +6,43 @@
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel from the sources in this checkout (nvcc, parallel);
-  3. hold each kernel (K1 encode_blocks, K2 write_records, K3
-     fletcher32_parts, K4 decode_records, and the masked K1m
-     encode_blocks_masked, K2m write_records_masked, K4m
-     decode_records_masked) against its plain PyTorch version on the same
-     CUDA tensors, at 64x64, at 2048x2048 and on small edge tiles: outputs
-     must be equal (bytes, starts, flags; images bit-equal);
-  4. the main path: FusedResidentCodec on the bench's 4096^2 float32 DEM as
-     four 2048^2 tiles at maxZError 0.001, nb_cap 0 and 16 (bench.py:209-298),
-     all-valid and then with the bench's mask (a 500x1000 hole plus 2%
-     speckle, bench.py:242-298) on every tile: encode_fast, decode_fast with
-     the record index, ok True, max error over the valid pixels <= 1.1 *
-     maxZError, invalid pixels +0.0, each blob byte-equal to the plain
-     path's (device="cpu"), each header parsed by read_header with its
-     valid-pixel count; launch counts show every kernel of each path ran on
-     it and no kernel of the other path did;
-  5. timings: encode/decode MB/s of the whole DEM (CUDA events; the masked
+  3. hold each kernel against its plain PyTorch version on the same CUDA
+     tensors (outputs equal: bytes, starts, flags, descriptors; images
+     bit-equal): K1 encode_blocks, K2 write_records, K3 fletcher32_parts,
+     K4 decode_records and the masked K1m/K2m/K4m at 64x64, 2048x2048 and
+     on small edge tiles; then K5 scan_records (its sizes, doubling and
+     describe kernels, step by step) and K6 decode_scanned on float32
+     streams at 64x64 and 2048x2048 (nb_cap 0 and 16) and on the edge
+     tiles, and every integer instance of K1, K2, K4 (all-valid and
+     masked) and K6 on 64x64 tiles of each integer dtype (lossless v6 with
+     depth-diff records, v4, lossy under nb_cap 16, masked);
+  4. the paths, each run with every launch count at 0 before it and read
+     after it -- a kernel of the path launched no time, or a kernel of
+     another path launched, fails:
+     a. FusedResidentCodec on the bench's 4096^2 float32 DEM as four 2048^2
+        tiles at maxZError 0.001, nb_cap 0 and 16 (bench.py:209-298),
+        all-valid and then with the bench's mask (a 500x1000 hole plus 2%
+        speckle, bench.py:242-298): encode_fast, decode_fast with the
+        record index, ok True, max error over the valid pixels <= 1.1 *
+        maxZError, invalid pixels +0.0, each blob byte-equal to the plain
+        path's (device="cpu"), each header parsed back;
+     b. the same all-valid blobs decoded without the index
+        (decode_fast(header, stream): K3, K5, K6 and not K4), ok True and
+        bit-equal to the indexed decode;
+     c. three integer cells on the same DEM: int16 in whole metres at
+        maxZError 0.5, int32 at maxZError 2, and an 8-bit three-band image
+        (bands following the DEM, so depth-diff records occur; their count
+        is printed), each through encode_fast, both decodes and
+        ResidentCodec.encode/decode: lossless exact, lossy within
+        maxZError, blobs byte-equal to the plain path's, the indexed decode
+        over depth-diff records ok False;
+  5. timings: encode/decode MB/s of each path (CUDA events; the masked
      pass counts the full tiles' raw bytes, as bench.py:295), the
-     compression ratio, each kernel's device time per launch
-     (torch.profiler) beside its plain version's time (CUDA events) and
-     its bound;
-  6. where the time goes: device time per encode + decode round by
-     kernel, and the device's busy and idle shares, for each path.
+     index-free decode beside the indexed one, compression ratios, each
+     kernel's device time per launch (torch.profiler) beside its plain
+     version's time (CUDA events), its launches and its bound;
+  6. where the time goes: device time per round by kernel, and the
+     device's busy and idle shares, for each path.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -63,6 +78,19 @@ SOURCES = {
     "decode_records_masked": ("lerc_tpu_torch/kernels/decode.cu",
                               "lerc_tpu/ops/device_encode.py:357"),
 }
+
+SOURCES.update({name: ("lerc_tpu_torch/kernels/scan.cu", "lerc_tpu/ops/device_scan.py:35")
+                for name in ("scan_records_sizes", "scan_records_double", "scan_records_describe")})
+for _sfx in ("", "_i8", "_u8", "_i16", "_u16", "_i32", "_u32"):
+    SOURCES["decode_scanned" + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
+                                        "lerc_tpu/ops/device_decode.py:493")
+    if _sfx:  # the integer instances of K1, K2 and K4
+        SOURCES["encode_blocks" + _sfx] = ("lerc_tpu_torch/kernels/encode.cu",
+                                           "lerc_tpu/ops/device_encode.py:591")
+        SOURCES["write_records" + _sfx] = ("lerc_tpu_torch/kernels/encode.cu",
+                                           "lerc_tpu/ops/device_encode.py:677")
+        SOURCES["decode_records" + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
+                                            "lerc_tpu/ops/device_decode.py:189")
 
 
 def fail(msg):
@@ -475,17 +503,21 @@ def main_path(tiles, mask, card):
     return launches, results
 
 
-def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3):
-    """Phase 6: torch.profiler over `rounds` encode + decode rounds of a
-    main path (nb_cap 0). Prints the device time per round by operator and
-    its share of `round_ms`, the unprofiled CUDA-event time of one round;
-    the rest is the device waiting on the host."""
+def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3, round_fn=None):
+    """Phase 6: torch.profiler over `rounds` rounds of a path (by default
+    encode + indexed decode of the four tiles, nb_cap 0). Prints the device
+    time per round by operator and its share of `round_ms`, the unprofiled
+    CUDA-event time of one round; the rest is the device waiting on the
+    host."""
     from torch.profiler import ProfilerActivity, profile
+
+    def one_round():
+        outs = [codec.encode_fast(t) for t in tiles]
+        [codec.decode_fast(o[0], o[1], o[3]) for o in outs]
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
-            outs = [codec.encode_fast(t) for t in tiles]
-            [codec.decode_fast(o[0], o[1], o[3]) for o in outs]
+            (round_fn or one_round)()
         torch.cuda.synchronize()
     rows = [(us / rounds / 1e3, n // rounds, key) for key, n, us in _kernel_rows(prof)]
     if not rows:
@@ -493,11 +525,456 @@ def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile ({label}): device busy {busy:.4f} ms of {round_ms:.4f} ms per encode+decode "
-          f"round of the 4096^2 DEM ({busy / round_ms:.1%} busy, {1 - busy / round_ms:.1%} idle) "
-          f"[{card}]")
+    print(f"profile ({label}): device busy {busy:.4f} ms of {round_ms:.4f} ms per round of the "
+          f"four tiles ({busy / round_ms:.1%} busy, {1 - busy / round_ms:.1%} idle) [{card}]")
     for ms, n, name in rows[:10]:
         print(f"  profile ({label}): {ms:.4f} ms/round  {n:4d} calls/round  {name[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# The index-free decode (K5 scan_records, K6 decode_scanned) and the integer
+# instances of K1, K2, K4 and K6
+# ---------------------------------------------------------------------------
+
+
+def int_name(base, dt, masked=False):
+    from lerc_tpu_torch.constants import DT_SUFFIX
+
+    return base + ("_masked" if masked else "") + DT_SUFFIX[dt]
+
+
+def check_scan(stream, total, n_rec, dt, version, mze, zmax, shape):
+    """K5's three kernels step by step and K6 against their plain versions
+    on one all-valid stream. Returns ({kernel: max_abs_err}, the kernel
+    scan's outputs)."""
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    h, w, d = shape
+    tag = f"{h}x{w}x{d} {dt.name} v{version}"
+    j_k = scan.scan_records_sizes(stream, dt, version)
+    j_r = scan.scan_records_sizes_ref(stream, dt, version)
+    require(torch.equal(j_k, j_r), f"K5 scan_records_sizes != plain ({tag})")
+    rp_k = torch.zeros(n_rec, dtype=torch.int32, device=stream.device)
+    rp_r = rp_k.clone()
+    filled = 1
+    while filled < n_rec:
+        take = min(filled, n_rec - filled)
+        square = filled + take < n_rec
+        j_k, rp_k = scan.scan_records_double(j_k, rp_k, filled, take, square)
+        j_r, rp_r = scan.scan_records_double_ref(j_r, rp_r, filled, take, square)
+        require(torch.equal(j_k, j_r) and torch.equal(rp_k, rp_r),
+                f"K5 scan_records_double != plain at step {filled} ({tag})")
+        filled += take
+    d_k = scan.scan_records_describe(stream, rp_k, dt, version, total)
+    d_r = scan.scan_records_describe_ref(stream, rp_r, dt, version, total)
+    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t for t in (*d_k[:8], *d_r[:8])]
+    require(all(torch.equal(a, b) for a, b in zip(bits[:8], bits[8:]))
+            and bool(d_k[8]) == bool(d_r[8]), f"K5 scan_records_describe != plain ({tag})")
+    require(bool(d_k[8]), f"K5: the record chain does not end at total ({tag})")
+    full = scan.scan_records(stream, n_rec, dt, version, total)
+    mode, offset, nb = full[1], full[2], full[3]
+    ppos = full[5]
+    img_k, ok_k = dec.decode_scanned(stream, mode, ppos, offset, nb, full[4], full[6], full[7],
+                                     full[8], None, mze, zmax, h, w, d, dt, True, False)
+    img_r, ok_r = dec.decode_scanned_ref(stream, mode, ppos, offset, nb, 2.0 * mze,
+                                         dec._inv_i(mze), zmax, h, w, d, dt)
+    same = (torch.equal(img_k.view(torch.int32), img_r.view(torch.int32))
+            if img_k.dtype == torch.float32 else torch.equal(img_k, img_r))
+    require(same and bool(ok_k) == bool(ok_r) and bool(ok_k), f"K6 decode_scanned != plain ({tag})")
+    err = {n: 0.0 for n in ("scan_records_sizes", "scan_records_double", "scan_records_describe")}
+    err[int_name("decode_scanned", dt)] = max_abs(img_k, img_r)
+    return err, full
+
+
+def check_int_kernels(codec, tiles):
+    """The integer K1, K2, K4 instances (the masked ones when the codec has
+    a mask) against their plain versions on the same CUDA tensors, and on
+    all-valid codecs K5 and K6 on the streams. Returns ({kernel:
+    max_abs_err}, per-tile inputs)."""
+    from lerc_tpu_torch.constants import DEC_MAX_NB, DT_SIZE
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = tiles[0].shape
+    dt, v = codec.dt, codec.valid
+    k1, k2, k4 = (int_name(b, dt, v is not None)
+                  for b in ("encode_blocks", "write_records", "decode_records"))
+    max_nb = DEC_MAX_NB[DT_SIZE[dt]]
+    eff = max_nb if codec.nb_cap <= 0 else min(codec.nb_cap, max_nb)
+    cap_nb, lut = (32 if eff >= max_nb else eff), 0 < codec.nb_cap <= 16
+    p = enc.encode_params(codec.mze, codec.version, codec.nb_cap, dt)
+    tag = f"{h}x{w}x{d} {dt.name} maxZError {codec.mze} v{codec.version} nb_cap {codec.nb_cap}"
+    err, ins = {}, []
+    for t in tiles:
+        ri, zr, fi = enc.encode_blocks(t, p, v)
+        ri_r, zr_r, fi_r = enc.encode_blocks_ref(t, p, v)
+        require(torch.equal(ri, ri_r) and torch.equal(zr, zr_r) and torch.equal(fi, fi_r),
+                f"K1 {k1} != plain ({tag})")
+        length = ri[:, 0]
+        starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+        s_k = enc.write_records(t, ri, starts, codec.cap // 4, p, v)
+        s_r = enc.write_records_ref(t, ri, starts, codec.cap // 4, p, v)
+        require(torch.equal(s_k, s_r), f"K2 {k2} != plain ({tag})")
+        zmax = zr[d:].contiguous()
+        args = (s_k, starts, zmax, dec._inv_i(codec.mze), h, w, d, dt, codec.version, cap_nb,
+                lut, v)
+        (i_k, f_k), (i_r, f_r) = dec.decode_records_int(*args), dec.decode_records_int_ref(*args)
+        # (over depth-diff records index_ok drops and the image is
+        # meaningless, but it is the same bytes' parse in both versions)
+        require(torch.equal(f_k, f_r) and torch.equal(i_k, i_r), f"K4 {k4} != plain ({tag})")
+        err[k4] = max(err.get(k4, 0.0), max_abs(i_k, i_r))
+        err[k1] = max(err.get(k1, 0.0), max_abs(ri, ri_r), max_abs(zr, zr_r))
+        err[k2] = max(err.get(k2, 0.0), max_abs(s_k, s_r))
+        total = (starts[-1] + length[-1]).reshape(1)
+        ins.append(dict(p=p, rec_info=ri, starts=starts, stream=s_k, total=total, zmax=zmax,
+                        fits=int(fi)))
+        if v is None and int(fi):
+            e, _ = check_scan(s_k, total, codec.n_rec, dt, codec.version, codec.mze, zmax,
+                              (h, w, d))
+            for k, x in e.items():
+                err[k] = max(err.get(k, 0.0), x)
+    return err, ins
+
+
+def int_tile_small(npdt, h, w, d, seed=0):
+    """A small integer tile: band-correlated slices (depth-diff records),
+    block minima at the offset reduction boundaries, a constant block, a
+    raw block, lossy-quantization ties and, for 4-byte types, a block
+    spanning the dtype (int32 wrap-around)."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(npdt)
+    lo, hi = max(info.min, -40000), min(info.max, 70000)
+    x = np.linspace(0, 6, w)[None, :]
+    y = np.linspace(0, 4, h)[:, None]
+    base = (np.sin(x + y) * 0.5 + 0.5) * (hi - lo) * 0.3 + lo + (hi - lo) * 0.2
+    bands = [base + rng.integers(-2, 3, (h, w))]
+    for _ in range(1, d):
+        bands.append(bands[-1] + rng.integers(-3, 2, (h, w)))
+    z = np.stack(bands, -1)
+    marks = [b for b in (-129, -128, 127, 255, 256, 32767, 65535, 0, 7) if lo <= b <= hi - 10]
+    for i, v in enumerate(marks):
+        r, c = divmod(i, w // 8)
+        z[r * 8:(r + 1) * 8, c * 8:(c + 1) * 8] = v + rng.integers(0, 10, (8, 8, d))
+    z[-8:, -8:] = z[-8, -8, 0]
+    z[-16:-8, :8] = rng.integers(lo, hi, (8, 8, d))
+    z[-8:, 8:16] = (lo + 10 + 2 * np.arange(64).reshape(8, 8))[:, :, None]
+    if info.bits == 32:
+        z[-16:-8, 8:16] = rng.integers(info.min, info.max, (8, 8, d), dtype=np.int64)
+    return np.clip(z, info.min, info.max).astype(npdt)
+
+
+def int_edge_configs():
+    """(dtype, depth, maxZError, version, nb_cap, masked) of the integer
+    edge tiles: every dtype lossless with depth-diff records (v6) and at v4,
+    lossy at depth 1 under nb_cap 16, and masked."""
+    out = []
+    for npdt in (np.uint8, np.int8, np.int16, np.uint16, np.int32, np.uint32):
+        out += [(npdt, 3, 0.5, 6, 0, False), (npdt, 3, 0.5, 4, 0, False),
+                (npdt, 1, 2.0, 6, 16, False), (npdt, 3, 0.5, 6, 0, True),
+                (npdt, 1, 2.0, 5, 0, True)]
+    return out
+
+
+def int_cell_tiles(dem_tiles, npdt, d):
+    """The bench DEM as an integer raster: rounded to whole metres (int16,
+    int32), or an 8-bit three-band image whose bands follow the DEM (the
+    second a few levels above the first, the third a few below, each with
+    0..2 levels of the DEM's hash noise), so that depth-diff records occur."""
+    out = []
+    for dem in dem_tiles:
+        if d == 1:
+            out.append(torch.round(dem).to(torch.int32 if npdt == np.int32 else torch.int16))
+            continue
+        r = torch.clamp(torch.round(dem[:, :, 0] / 6.5), 0, 255)
+        frac = dem[:, :, 0] - torch.floor(dem[:, :, 0])  # the hash noise, in [0, 1)
+        n1, n2 = torch.floor(frac * 3), torch.floor((frac * 7) % 1 * 3)
+        g = torch.clamp(r + 4 + n1, 0, 255)
+        b = torch.clamp(r - 6 + n2, 0, 255)
+        out.append(torch.stack([r, g, b], -1).to(torch.uint8).contiguous())
+    return out
+
+
+INT_CELLS = (  # (label, dtype, depth, maxZError)
+    ("int16 DEM in whole metres", np.int16, 1, 0.5),
+    ("int32 DEM", np.int32, 1, 2.0),
+    ("uint8 three-band", np.uint8, 3, 0.5),
+)
+SCAN = ("scan_records_sizes", "scan_records_double", "scan_records_describe")
+
+
+def run_counted(names, label, fn):
+    """Drive one path with every launch count at 0 before it; require each
+    kernel in `names` launched and no other. Returns the counts."""
+    from lerc_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in build.LAUNCHES.items() if n}
+    for name in names:
+        require(counts.get(name, 0) > 0, f"kernel {name} was not launched on the {label}")
+    extra = sorted(set(counts) - set(names))
+    require(not extra, f"kernels {extra} were launched on the {label}")
+    return counts, out
+
+
+def best_ms(fn, rounds=ROUNDS):
+    """Best CUDA-event ms of fn() over `rounds` after a warm-up."""
+    best = float("inf")
+    for _ in range(rounds + 1):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def index_free_path(tiles, card):
+    """Phase 4b: decode_fast(header, stream) -- no index -- on the four
+    2048^2 float32 tiles at nb_cap 0 and 16: ok True, bit-equal to the
+    indexed decode, K3, K5 and K6 launched and K4 not. Returns (launches,
+    {nb_cap: (index-free MB/s, indexed MB/s, ms, ms)}, the nb_cap-0 codec
+    and blobs)."""
+    from lerc_tpu_torch import FusedResidentCodec
+
+    names = ("fletcher32_parts", *SCAN, "decode_scanned")
+    mb = N_TILES * TILE * TILE * 4 / 1e6
+    launches, results, keep = {}, {}, None
+    for nb_cap in (0, 16):
+        codec = FusedResidentCodec(TILE, TILE, 1, np.float32, MAX_Z_ERROR, nb_cap=nb_cap)
+        outs = [codec.encode_fast(t) for t in tiles]
+        label = f"index-free decode path (nb_cap={nb_cap})"
+        counts, decs = run_counted(names, label,
+                                   lambda: [codec.decode_fast(o[0], o[1]) for o in outs])
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        for i, ((img, ok), o, t) in enumerate(zip(decs, outs, tiles)):
+            ref, ref_ok = codec.decode_fast(o[0], o[1], o[3])
+            require(bool(ok) and bool(ref_ok), f"{label}: ok False on tile {i}")
+            require(torch.equal(img.view(torch.int32), ref.view(torch.int32)),
+                    f"{label}: tile {i} differs from the indexed decode")
+            require(float((img - t).abs().max()) <= MAX_Z_ERROR * 1.1,
+                    f"{label}: error bound violated on tile {i}")
+        ms_free = best_ms(lambda: [codec.decode_fast(o[0], o[1]) for o in outs])
+        ms_idx = best_ms(lambda: [codec.decode_fast(o[0], o[1], o[3]) for o in outs])
+        results[nb_cap] = (mb / (ms_free / 1e3), mb / (ms_idx / 1e3), ms_free, ms_idx)
+        print(f"{label}: 4 tiles ok, bit-equal to the indexed decode, launches {counts}; "
+              f"index-free {results[nb_cap][0]:.1f} MB/s ({ms_free:.3f} ms / 4096^2 DEM) vs "
+              f"indexed {results[nb_cap][1]:.1f} MB/s ({ms_idx:.3f} ms) [{card}]", flush=True)
+        if nb_cap == 0:
+            keep = (codec, outs)
+    return launches, results, keep
+
+
+def int_cell(label, npdt, d, mze, dem_tiles, card):
+    """Phase 4c: one integer cell on four 2048^2 tiles: encode_fast, decode
+    with and without the index, ResidentCodec.encode/decode, counted as one
+    path; lossless exact / lossy within maxZError, blobs byte-equal to the
+    plain path's (device="cpu"). Returns (launches, the codec, its tiles,
+    the fused blobs, the ms of an encode + index-free decode round)."""
+    from lerc_tpu_torch import FusedResidentCodec, ResidentCodec
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    tiles = int_cell_tiles(dem_tiles, npdt, d)
+    args = (TILE, TILE, d, npdt, mze)
+    codec, rcodec = FusedResidentCodec(*args), ResidentCodec(*args)
+    plain = FusedResidentCodec(*args, device="cpu")
+    names = (int_name("encode_blocks", dt), int_name("write_records", dt), "fletcher32_parts",
+             int_name("decode_records", dt), *SCAN, int_name("decode_scanned", dt))
+
+    def path():
+        outs = [codec.encode_fast(t) for t in tiles]
+        idx = [codec.decode_fast(o[0], o[1], o[3]) for o in outs]
+        free = [codec.decode_fast(o[0], o[1]) for o in outs]
+        rblobs = [rcodec.encode(t) for t in tiles]
+        r_idx = []
+        for b in rblobs:
+            try:
+                r_idx.append(rcodec.decode(b))
+            except ValueError as e:  # an index over depth-diff records
+                r_idx.append(e)
+        starts = [b.starts for b in rblobs]
+        for b in rblobs:
+            b.starts = None
+        r_free = [rcodec.decode(b) for b in rblobs]
+        for b, s in zip(rblobs, starts):
+            b.starts = s
+        return outs, idx, free, rblobs, r_idx, r_free
+
+    counts, (outs, idx, free, rblobs, r_idx, r_free) = run_counted(names, f"{label} cell", path)
+    bound = 0 if mze == 0.5 else int(np.floor(mze))
+    n_diff = blob_bytes = 0
+    for i, t in enumerate(tiles):
+        header, stream, meta, starts = outs[i]
+        require(int(meta[2]) == 1, f"{label}: tile {i} does not fit")
+        flags = stream.view(torch.uint8)[starts.long()]
+        diff = int(((flags & 4) != 0).sum())
+        n_diff += diff
+        err = lambda img: int((img.to(torch.int64) - t.to(torch.int64)).abs().max())  # noqa: E731
+        img, ok = free[i]
+        require(bool(ok) and err(img) <= bound, f"{label}: index-free decode of tile {i} wrong")
+        require(torch.equal(r_free[i], img), f"{label}: ResidentCodec decode of tile {i} differs")
+        img_i, ok_i = idx[i]
+        if diff:
+            require(not bool(ok_i), f"{label}: indexed decode ok over depth-diff records")
+            require(isinstance(r_idx[i], ValueError),
+                    f"{label}: ResidentCodec indexed decode over depth-diff records did not raise")
+        else:
+            require(bool(ok_i) and torch.equal(img_i, img), f"{label}: indexed decode of tile {i}")
+            require(torch.equal(r_idx[i], img), f"{label}: ResidentCodec indexed decode of tile {i}")
+        blob = codec.blob_to_bytes(header, stream, meta)
+        ref = plain.blob_to_bytes(*plain.encode_fast(t.cpu())[:3])
+        require(blob == ref, f"{label}: blob of tile {i} differs from the plain path's")
+        require(rblobs[i].to_bytes() == blob, f"{label}: ResidentCodec blob of tile {i} differs")
+        blob_bytes += len(blob)
+    if d > 1:
+        require(n_diff > 0, f"{label}: no depth-diff record in the cell")
+    raw_mb = N_TILES * tiles[0].numel() * tiles[0].element_size() / 1e6
+    enc_ms = best_ms(lambda: [codec.encode_fast(t) for t in tiles])
+    free_ms = best_ms(lambda: [codec.decode_fast(o[0], o[1]) for o in outs])
+    idx_ms = best_ms(lambda: [codec.decode_fast(o[0], o[1], o[3]) for o in outs])
+    ratio = raw_mb * 1e6 / blob_bytes
+    idx_txt = (f"indexed {raw_mb / (idx_ms / 1e3):.1f} MB/s ({idx_ms:.3f} ms)" if not n_diff else
+               f"indexed decode not ok over the depth-diff records ({idx_ms:.3f} ms)")
+    print(f"{label} cell ({d} x {np.dtype(npdt).name}, maxZError {mze}): 4 tiles ok, "
+          f"{n_diff} depth-diff records, launches {counts}; encode {raw_mb / (enc_ms / 1e3):.1f} "
+          f"MB/s ({enc_ms:.3f} ms), index-free decode {raw_mb / (free_ms / 1e3):.1f} MB/s "
+          f"({free_ms:.3f} ms), {idx_txt}, compression ratio {ratio:.4f} [{card}]", flush=True)
+    return counts, codec, tiles, outs, enc_ms + free_ms
+
+
+def timed_scan_kernels(stream_sets, dt, version, mze, shape):
+    """Device ms per launch of K5's three kernels and of K6 over the given
+    (stream, total, zmax) sets (one torch.profiler window of full scan +
+    decode calls), the plain versions' ms on the first set (CUDA events),
+    and the doubling steps per scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    h, w, d = shape
+    n_rec = (h // 8) * (w // 8) * d
+    steps = int(np.ceil(np.log2(n_rec)))
+    k6 = int_name("decode_scanned", dt)
+
+    def call(s, total, zmax):
+        out = scan.scan_records(s, n_rec, dt, version, total)
+        return dec.decode_scanned(s, out[1], out[5], out[2], out[3], out[4], out[6], out[7],
+                                  out[8], None, mze, zmax, h, w, d, dt, True, False)
+
+    fns = [lambda a=a: call(*a) for a in stream_sets]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    reps = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for f in fns:
+                f()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    calls = reps * len(fns)
+    per = {}
+    for name, match, n in ((SCAN[0], "scan_records_sizes_kernel", 1),
+                           (SCAN[1], "scan_records_double_kernel", steps),
+                           (SCAN[2], "scan_records_describe_kernel", 1),
+                           (k6, "decode_scanned_kernel", 1)):
+        us = sum(r[2] for r in rows if match in r[0])
+        require(us > 0, f"profiler shows no device time for {match}")
+        per[name] = us / 1e3 / (calls * n)
+    s0, t0, z0 = stream_sets[0]
+    j = scan.scan_records_sizes(s0, dt, version)
+    rp = torch.zeros(n_rec, dtype=torch.int32, device=s0.device)
+    half = 1 << (steps - 1)  # a middle doubling step: half the starts known
+    out = scan.scan_records(s0, n_rec, dt, version, t0)
+    plain = {
+        SCAN[0]: cuda_ms([lambda: scan.scan_records_sizes_ref(s0, dt, version)], reps=1),
+        SCAN[1]: cuda_ms([lambda: scan.scan_records_double_ref(j, rp, half // 2, half // 2,
+                                                                True)], reps=1),
+        SCAN[2]: cuda_ms([lambda: scan.scan_records_describe_ref(s0, out[0], dt, version, t0)],
+                         reps=1),
+        k6: cuda_ms([lambda: dec.decode_scanned_ref(
+            s0, out[1], out[5], out[2], out[3], 2.0 * mze, dec._inv_i(mze), z0, h, w, d, dt)],
+            reps=1),
+    }
+    return per, plain, steps
+
+
+def scan_bounds(totals, shape, size, steps):
+    """Least time of K5 and of K6 for this run's streams (mean over the
+    tiles): the bytes each function needs, each input read once and each
+    output written once, over HBM bandwidth (the operations bound is far
+    below). Streams count their `total` bytes, the part a record lives in.
+
+    K5's bound (stream in, nine [nRec] fields out) is shared out among its
+    kernels by who does that part of the work: the sizes kernel reads the
+    stream, the doubling steps write the record starts, the describe kernel
+    writes the other eight fields. A scan's launches' bounds thus add up to
+    K5's, and the jump table that the sizes and doubling kernels write and
+    read counts as their excess, not as their bound."""
+    h, w, d = shape
+    n_rec = (h // 8) * (w // 8) * d
+    s = float(np.mean(totals))
+    ms = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    return {
+        SCAN[0]: ms(s),                                   # the stream, read once
+        SCAN[1]: ms(4 * (n_rec - 1) / steps),             # one step's share of the starts
+        SCAN[2]: ms(32 * n_rec + 4),                      # 8 fields and the first start
+        "K5": ms(s + 36 * n_rec),                         # the whole scan: stream in, 9 fields out
+        "K6": ms(s + 16 * n_rec + 4 * d + h * w * d * size),
+    }
+
+
+def int_kernel_times(codec, tiles, ins):
+    """Device ms per launch of one cell's K1, K2, K4 instances (profiler),
+    their plain ms (CUDA events) and bounds."""
+    from lerc_tpu_torch.constants import DT_SIZE
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = tiles[0].shape
+    dt, size = codec.dt, DT_SIZE[codec.dt]
+    p, cw = ins[0]["p"], codec.cap // 4
+    inv_i = dec._inv_i(codec.mze)
+    k1, k2, k4 = (int_name(b, dt) for b in ("encode_blocks", "write_records", "decode_records"))
+
+    def dargs(k):
+        return (k["stream"], k["starts"], k["zmax"], inv_i, h, w, d, dt, codec.version, 32,
+                False, None)
+
+    fns = {
+        k1: ([lambda t=t: enc.encode_blocks(t, p) for t in tiles],
+             [lambda t=t: enc.encode_blocks_ref(t, p) for t in tiles], "encode_blocks_int_kernel"),
+        k2: ([lambda t=t, k=k: enc.write_records(t, k["rec_info"], k["starts"], cw, p)
+              for t, k in zip(tiles, ins)],
+             [lambda t=t, k=k: enc.write_records_ref(t, k["rec_info"], k["starts"], cw, p)
+              for t, k in zip(tiles, ins)], "write_records_int_kernel"),
+        k4: ([lambda k=k: dec.decode_records_int(*dargs(k)) for k in ins],
+             [lambda k=k: dec.decode_records_int_ref(*dargs(k)) for k in ins],
+             "decode_records_int_kernel"),
+    }
+    n_rec, n_px = codec.n_rec, h * w * d
+    bnd = {}
+    for name in (k1, k2, k4):
+        rows = []
+        for k in ins:
+            total = int(k["total"])
+            mode = (k["rec_info"][:, 1] >> 8) & 3
+            coded = 64 * int(((mode == 0) | (mode == 1)).sum())
+            rows.append({k1: (size * n_px + 16 * n_rec + 8 * d + 4, 20 * n_px),
+                         k2: (size * coded + 20 * n_rec + total, 12 * coded),
+                         k4: (total + 4 * n_rec + 4 * d + size * n_px + 8, 4 * n_px)}[name])
+        b = float(np.mean([r[0] for r in rows])) / HBM_BYTES_PER_S * 1e3
+        o = float(np.mean([r[1] for r in rows])) / F32_OPS_PER_S * 1e3
+        bnd[name] = (max(b, o), "bytes" if b >= o else "operations")
+    return {name: (device_ms(kf, match), cuda_ms(rf, reps=1), *bnd[name])
+            for name, (kf, rf, match) in fns.items()}
 
 
 def main():
@@ -562,30 +1039,105 @@ def main():
               f"tile ({h}x{w}x{d}, {int(m.sum())} valid, maxZError {mze}, nb_cap={nb_cap}); "
               f"{how}", flush=True)
 
+    # ---- 3b. K5, K6 and the integer instances against their plain versions
+    for nb_cap in (0, 16):
+        for t in (small[0], tiles[0]):
+            h, w, _ = t.shape
+            codec = FusedResidentCodec(h, w, 1, np.float32, MAX_Z_ERROR, nb_cap=nb_cap)
+            header, stream, meta, _ = codec.encode_fast(t)
+            check_scan(stream, meta[0].reshape(1), codec.n_rec, codec.dt, codec.version,
+                       codec.mze, codec._zmax_vec(header), (h, w, 1))
+            print(f"check: K5 (3 kernels) and K6 equal to their plain versions on the float32 "
+                  f"{h}x{w} stream, nb_cap={nb_cap}", flush=True)
+    for name, data, mze, nb_cap in edge_tiles():
+        h, w, d = data.shape
+        codec = FusedResidentCodec(h, w, d, np.float32, mze, nb_cap=nb_cap)
+        header, stream, meta, _ = codec.encode_fast(torch.from_numpy(data).to(dev))
+        if not int(meta[2]):  # an unfit capped stream is invalid by contract
+            continue
+        check_scan(stream, meta[0].reshape(1), codec.n_rec, codec.dt, codec.version, codec.mze,
+                   codec._zmax_vec(header), (h, w, d))
+        print(f"check: K5 and K6 equal to their plain versions on the {name} tile "
+              f"({h}x{w}x{d}, maxZError {mze}, nb_cap={nb_cap})", flush=True)
+    for npdt, d, mze, version, nb_cap, masked in int_edge_configs():
+        m = hole_speckle(64, 64, np.random.default_rng(3)) if masked else None
+        codec = FusedResidentCodec(64, 64, d, npdt, mze, version, nb_cap, mask=m)
+        tile = torch.from_numpy(int_tile_small(npdt, 64, 64, d)).to(dev)
+        err, _ = check_int_kernels(codec, [tile])
+        print(f"check: {', '.join(sorted(err))} equal to their plain versions on the 64x64x{d} "
+              f"{np.dtype(npdt).name} tile (maxZError {mze}, v{version}, nb_cap={nb_cap}"
+              f"{', masked' if masked else ''})", flush=True)
+
     # ---- 4, 5. the main paths, counted, then timed
     launches, results = main_path(tiles, None, card)
     m_launches, m_results = main_path(tiles, mask, card)
-    for name, n in m_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    f_launches, f_results, (fcodec, fouts) = index_free_path(tiles, card)
+    cells = [int_cell(label, npdt, d, mze, tiles, card) for label, npdt, d, mze in INT_CELLS]
+    for counts in (m_launches, f_launches, *(c[0] for c in cells)):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = []
+
+    def add_row(name, err, ms, plain_ms, bound_ms, bound_by):
+        print(f"kernel {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound, "
+              f"{launches.get(name, 0)} launches on the paths) [{card}]")
+        src, replaces = SOURCES[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
     for m, res in ((None, results), (mask, m_results)):
         codec = FusedResidentCodec(TILE, TILE, 1, np.float32, MAX_Z_ERROR, mask=m)
         err, (times, scan_ms, ins) = check_kernels(codec, tiles, timed=True)
         bnd = bounds(codec, ins)
         for name, (ms, plain_ms) in times.items():
-            bound_ms, bound_by = bnd[name]
-            print(f"kernel {name}: {ms:.4f} ms/tile (plain {plain_ms:.3f} ms, bound "
-                  f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound) [{card}]")
-            src, replaces = SOURCES[name]
-            kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                                launches=launches[name], max_abs_err=err[name], ms=ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=None))
+            add_row(name, err[name], ms, plain_ms, *bnd[name])
         label = "all-valid" if m is None else "masked"
         print(f"exclusive scan torch.cumsum (65536 int32 lengths, {label}): {scan_ms:.4f} ms/tile "
               f"[{card}]")
         where_the_time_goes(codec, tiles, sum(res[0][3:]), card, label)
+
+    # K5 and K6: the float32 index-free path at nb_cap 0, then each integer cell
+    sets = [(o[1], o[2][0].reshape(1), fcodec._zmax_vec(o[0])) for o in fouts]
+    scan_err = {}
+    for s, t, z in sets:
+        e, _ = check_scan(s, t, fcodec.n_rec, fcodec.dt, fcodec.version, fcodec.mze, z,
+                          (TILE, TILE, 1))
+        for k, x in e.items():
+            scan_err[k] = max(scan_err.get(k, 0.0), x)
+    per, plain, steps = timed_scan_kernels(sets, fcodec.dt, fcodec.version, fcodec.mze,
+                                           (TILE, TILE, 1))
+    bnd = scan_bounds([int(o[2][0]) for o in fouts], (TILE, TILE, 1), 4, steps)
+    for name in (*SCAN, "decode_scanned"):
+        b = bnd["K6"] if name == "decode_scanned" else bnd[name]
+        add_row(name, scan_err[name], per[name], plain[name], b, "bytes")
+    k5_ms = per[SCAN[0]] + steps * per[SCAN[1]] + per[SCAN[2]]
+    print(f"K5 scan_records, whole (sizes + {steps} doubling steps + describe) on a {TILE}^2 "
+          f"float32 tile at nb_cap 0: {k5_ms:.4f} ms (bound {bnd['K5']:.4f} ms by bytes: "
+          f"stream read once, 9 descriptor fields written) [{card}]")
+    where_the_time_goes(fcodec, tiles, f_results[0][2], card, "index-free decode, float32",
+                        round_fn=lambda: [fcodec.decode_fast(o[0], o[1]) for o in fouts])
+    for _counts, codec, ctiles, _outs, round_ms in cells:
+        err, ins = check_int_kernels(codec, ctiles)
+        h, w, d = ctiles[0].shape
+        for name, (ms, plain_ms, bound_ms, bound_by) in int_kernel_times(codec, ctiles,
+                                                                          ins).items():
+            add_row(name, err[name], ms, plain_ms, bound_ms, bound_by)
+        sets = [(k["stream"], k["total"], k["zmax"]) for k in ins]
+        per, plain, steps = timed_scan_kernels(sets, codec.dt, codec.version, codec.mze, (h, w, d))
+        size = ctiles[0].element_size()
+        bnd = scan_bounds([int(k["total"]) for k in ins], (h, w, d), size, steps)
+        k6 = int_name("decode_scanned", codec.dt)
+        add_row(k6, err[k6], per[k6], plain[k6], bnd["K6"], "bytes")
+        print(f"K5 on the {h}x{w}x{d} {codec.dt.name} cell: sizes {per[SCAN[0]]:.4f}, doubling "
+              f"{per[SCAN[1]]:.4f} x {steps}, describe {per[SCAN[2]]:.4f} ms/launch (bounds "
+              f"{bnd[SCAN[0]]:.4f}, {bnd[SCAN[1]]:.4f}, {bnd[SCAN[2]]:.4f} ms; whole scan "
+              f"{bnd['K5']:.4f} ms) [{card}]")
+        where_the_time_goes(
+            codec, ctiles, round_ms, card, f"{codec.dt.name} x {d} cell, encode + index-free decode",
+            round_fn=lambda c=codec, ts=ctiles: [c.decode_fast(*c.encode_fast(t)[:2]) for t in ts])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,13 +2,15 @@
 
 The port's own copy of the subset of ``lerc_tpu.constants`` it needs (the
 port imports nothing of the JAX package), plus ``MAX_BITS`` from
-``lerc_tpu/ops/pack_tables.py``.
+``lerc_tpu/ops/pack_tables.py`` and the per-dtype widths of
+``lerc_tpu/ops/device_encode.py:514-519``.
 """
 from __future__ import annotations
 
 import enum
 
 import numpy as np
+import torch
 
 CURRENT_VERSION = 6
 FILE_KEY_LERC2 = b"Lerc2 "
@@ -55,5 +57,38 @@ DT_SIZE = {
 }
 
 
+DT_TO_TORCH = {
+    DataType.CHAR: torch.int8,
+    DataType.BYTE: torch.uint8,
+    DataType.SHORT: torch.int16,
+    DataType.USHORT: torch.uint16,
+    DataType.INT: torch.int32,
+    DataType.UINT: torch.uint32,
+    DataType.FLOAT: torch.float32,
+    DataType.DOUBLE: torch.float64,
+}
+
+# kernel-name suffix of each dtype's instances (build.LAUNCHES); float32
+# keeps the plain names of the first slices
+DT_SUFFIX = {
+    DataType.CHAR: "_i8",
+    DataType.BYTE: "_u8",
+    DataType.SHORT: "_i16",
+    DataType.USHORT: "_u16",
+    DataType.INT: "_i32",
+    DataType.UINT: "_u32",
+    DataType.FLOAT: "",
+}
+
+# widest numBits of an encoded bit-stuffed block per value size
+# (device_encode.py:519); the decoder sizes its window for 32 at 4 B
+ENC_MAX_NB = {1: 8, 2: 16, 4: MAX_BITS}
+DEC_MAX_NB = {1: 8, 2: 16, 4: 32}
+
+
 def dt_is_int(dt: DataType) -> bool:
     return dt < DataType.FLOAT
+
+
+def dt_is_signed(dt: DataType) -> bool:
+    return dt in (DataType.CHAR, DataType.SHORT, DataType.INT)

@@ -2,15 +2,19 @@
 package and the port.
 
 The codec has no weights: its state is the configuration and the blob. On
-the JAX side the blob is four device arrays (``header`` u8, ``stream`` u32
-words, ``meta`` i32, ``starts`` i32) that ``numpy.asarray`` brings to the
-host; on the port's side the same four are tensors, with the u32 words held
-in an int32 tensor.
+the JAX side the fused blob is four device arrays (``header`` u8, ``stream``
+u32 words, ``meta`` i32, ``starts`` i32) that ``numpy.asarray`` brings to
+the host; on the port's side the same four are tensors, with the u32 words
+held in an int32 tensor. A ``ResidentBlob`` carries its header as host
+bytes, the stream, total, checksum and the optional index.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .codec import header as hdr
+from .codec.resident import ResidentBlob
 
 
 def blob_from_numpy(header, stream, meta, starts, device="cuda"):
@@ -33,11 +37,38 @@ def blob_to_numpy(header, stream, meta, starts):
             starts.cpu().numpy().astype(np.int32))
 
 
+def resident_blob_from_numpy(header: bytes, stream, total: int, checksum: int,
+                             starts=None, device="cuda") -> ResidentBlob:
+    """A JAX ``ResidentBlob``'s fields (header bytes, stream u32 or u8
+    array, total, checksum, starts i32 array or None) -> the port's
+    ``ResidentBlob`` on `device` (its header parsed again by the port)."""
+    stream = np.ascontiguousarray(stream)
+    if stream.dtype == np.uint8:
+        stream = np.concatenate([stream, np.zeros(-stream.size % 4, np.uint8)]).view(np.uint32)
+    words = torch.from_numpy(np.asarray(stream, dtype=np.uint32).view(np.int32).copy()).to(device)
+    idx = None if starts is None else torch.from_numpy(
+        np.asarray(starts, dtype=np.int32).copy()).to(device)
+    head, _ = hdr.read_header(bytes(header))
+    head.checksum = int(checksum)
+    return ResidentBlob(bytes(header), words, int(total), int(checksum), head, idx)
+
+
+def resident_blob_to_numpy(blob: ResidentBlob) -> dict:
+    """The port's ``ResidentBlob`` -> plain fields (header bytes, stream u32
+    array, total, checksum, starts i32 array or None), from which the JAX
+    ``ResidentBlob(header, jnp.asarray(stream), total, checksum, hd,
+    starts)`` is built."""
+    return dict(header=blob.header, stream=blob.stream.cpu().numpy().view(np.uint32),
+                total=blob.total, checksum=blob.checksum,
+                starts=None if blob.starts is None else blob.starts.cpu().numpy().astype(np.int32))
+
+
 def codec_kwargs(h: int, w: int, d: int, dtype, max_z_error: float, version: int,
                  nb_cap: int, mask=None) -> dict:
-    """Keyword arguments of the port's ``FusedResidentCodec`` matching a JAX
-    ``FusedResidentCodec(h, w, d, dtype, max_z_error, version, nb_cap,
-    mask=mask)``; plain values only (the mask as a numpy bool array). Use as
+    """Keyword arguments of the port's ``ResidentCodec`` and
+    ``FusedResidentCodec`` matching the JAX ``ResidentCodec(h, w, d, dtype,
+    max_z_error, version, nb_cap, mask=mask)`` (any float32 or integer
+    dtype); plain values only (the mask as a numpy bool array). Use as
     ``FusedResidentCodec(**codec_kwargs(...), device=...)``."""
     return dict(h=int(h), w=int(w), d=int(d), dtype=np.dtype(dtype),
                 max_z_error=float(max_z_error), version=int(version), nb_cap=int(nb_cap),

@@ -26,7 +26,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
-SOURCES = ("encode", "fletcher32", "decode")
+SOURCES = ("encode", "fletcher32", "decode", "scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -34,11 +34,19 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset (one per kernel launch,
-# counted by its wrapper in lerc_tpu_torch.ops)
+# counted by its wrapper in lerc_tpu_torch.ops). Integer instances carry
+# their dtype's suffix (constants.DT_SUFFIX), e.g. encode_blocks_i16.
+INT_SUFFIXES = ("_i8", "_u8", "_i16", "_u16", "_i32", "_u32")
 LAUNCHES = {"encode_blocks": 0, "write_records": 0,
             "fletcher32_parts": 0, "decode_records": 0,
             "encode_blocks_masked": 0, "write_records_masked": 0,
-            "decode_records_masked": 0}
+            "decode_records_masked": 0,
+            "scan_records_sizes": 0, "scan_records_double": 0, "scan_records_describe": 0,
+            "decode_scanned": 0}
+LAUNCHES.update({f"{k}{m}{sfx}": 0 for sfx in INT_SUFFIXES
+                 for k in ("encode_blocks", "write_records", "decode_records")
+                 for m in ("", "_masked")})
+LAUNCHES.update({f"decode_scanned{sfx}": 0 for sfx in INT_SUFFIXES})
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -61,7 +69,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

@@ -22,17 +22,33 @@ The index is untrusted: a record whose parsed length disagrees with the
 next index entry, a stuffed count other than the block's valid count (64
 without a mask), or a LUT bit clears ``index_ok``; so does a mask that
 disagrees with the stream. Records wider than ``nb_cap`` clear ``fits``.
+
+Integer dtypes (:189-198 and the integer dequant :390-408) run the integer
+instances of K4 (``decode_records_int``, counted as e.g.
+``decode_records_i16``): per-dtype offset widths and signs, raw values of
+1, 2 or 4 bytes, exact ``min(offset + q * round(2 mze), zMax)`` in int32,
+the image in the native dtype. A depth-diff record (flag bit 2 at version
+>= 5) clears ``index_ok``: it needs the previous slice, which only the
+scanned decode adds.
+
+Kernel K6 ``decode_scanned`` decodes from the descriptors of the record
+scan (``device_scan.scan_records``, K5) without any index: a port of
+``decode_tiles`` (:493-708) for 8x8 aligned all-valid records, float32 and
+every integer dtype, including the integer depth-diff chain (:625-648).
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
-from ..constants import DataType
+from ..constants import DEC_MAX_NB, DT_SIZE, DT_SUFFIX, DT_TO_TORCH, DataType, dt_is_int, dt_is_signed
 from ..kernels import build
 from .device_encode import _record_lanes, _valid_args, expand_ref
-from .device_scan import _as_i32
+from .device_scan import (_as_i32, _i32, float_offset_ref, int_offset_ref, offset_width_ref,
+                          raw_int_ref)
 
 _WIN = 264  # bytes read per record: the widest record and its 5-byte tail
 
@@ -41,9 +57,11 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
                       z_max_vec: torch.Tensor, h: int, w: int, d: int, dt: DataType,
                       version: int, nb_cap: int = 0, mask=None, mb: int = 8,
                       n_tiles: int = 1, enable_lut: bool = False):
-    """Returns (img [H, W, D] float32, index_ok 0-d bool, fits 0-d bool) on
-    the stream's device, with no host synchronization.
+    """Returns (img [H, W, D], index_ok 0-d bool, fits 0-d bool) on the
+    stream's device, with no host synchronization. img is float32, or the
+    native dtype of an integer `dt`.
 
+    z_max_vec: [D] float32 clamp values, int32 for integer dtypes.
     mask: None, or the [nBlocks, 2] int32 block validity words of the
     [H, W] mask (``device_encode.block_valid_words``) on the stream's
     device."""
@@ -51,16 +69,36 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
         raise NotImplementedError("LUT blocks and the 16x16 retrial: ROADMAP queue 1 item 6")
     if n_tiles != 1:
         raise NotImplementedError("batched tiles: ROADMAP queue 1 item 10 (mosaic)")
-    if dt != DataType.FLOAT:
-        raise NotImplementedError("integer dtypes: ROADMAP queue 1 item 5; float64: item 9")
+    if dt == DataType.DOUBLE:
+        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
     if version < 4:
         raise NotImplementedError("versions < 4: ROADMAP queue 1 item 6 (band codec)")
     if h % 8 or w % 8 or d < 1:
         raise NotImplementedError("H, W not multiples of 8: ROADMAP queue 1 item 6 (band codec)")
-    cap_nb = 32 if nb_cap <= 0 else min(nb_cap, 32)
-    img, flags = decode_records(stream, starts, z_max_vec, 2.0 * float(max_z_error),
-                                h, w, d, cap_nb, 0 < nb_cap <= 16, mask)
+    max_nb = DEC_MAX_NB[DT_SIZE[dt]]
+    eff_cap = max_nb if nb_cap <= 0 else min(nb_cap, max_nb)
+    cap_nb = 32 if eff_cap >= max_nb else eff_cap  # 32: every record fits
+    if dt_is_int(dt):
+        img, flags = decode_records_int(stream, starts, z_max_vec, _inv_i(max_z_error), h, w, d,
+                                        dt, version, cap_nb, 0 < nb_cap <= 16, mask)
+    else:
+        img, flags = decode_records(stream, starts, z_max_vec, 2.0 * float(max_z_error),
+                                    h, w, d, cap_nb, 0 < nb_cap <= 16, mask)
     return img, flags[0] != 0, flags[1] != 0
+
+
+def _inv_i(max_z_error: float) -> int:
+    """The integer dequantization step round(f32(2 * f32(maxZError)))."""
+    return int(np.round(np.float32(2.0) * np.float32(max_z_error)))
+
+
+def _check_records(stream, starts, zmax, n_rec, d, ztype):
+    if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
+        raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
+    if starts.dtype != torch.int32 or starts.shape != (n_rec,) or not starts.is_contiguous():
+        raise ValueError(f"starts must be a contiguous int32 [{n_rec}] tensor")
+    if zmax.dtype != ztype or zmax.shape != (d,) or not zmax.is_contiguous():
+        raise ValueError(f"zmax must be a contiguous {ztype} [{d}] tensor")
 
 
 def decode_records(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
@@ -73,12 +111,7 @@ def decode_records(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tenso
     fits (32: all); lut_unfit: a LUT record also clears fits; valid: block
     validity words, or None when every pixel is valid."""
     n_rec = (h // 8) * (w // 8) * d
-    if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
-        raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
-    if starts.dtype != torch.int32 or starts.shape != (n_rec,) or not starts.is_contiguous():
-        raise ValueError(f"starts must be a contiguous int32 [{n_rec}] tensor")
-    if zmax.dtype != torch.float32 or zmax.shape != (d,) or not zmax.is_contiguous():
-        raise ValueError(f"zmax must be a contiguous float32 [{d}] tensor")
+    _check_records(stream, starts, zmax, n_rec, d, torch.float32)
     vt, sfx, valid_ptr = _valid_args(valid, h, w)
     if not build.on_cuda(stream, starts, zmax, *vt):
         return decode_records_ref(stream, starts, zmax, inv, h, w, d, cap_nb, lut_unfit, valid)
@@ -99,12 +132,20 @@ def decode_records(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tenso
     return img, flags
 
 
-def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
-                       inv: float, h: int, w: int, d: int, cap_nb: int, lut_unfit: bool,
-                       valid: torch.Tensor | None = None):
-    """Plain PyTorch version of K4: a byte window per record, int64 bit
-    arithmetic, f64 ScaleBack as two separately rounded operations; masked
-    values go back to their positions through ``expand_ref``."""
+def _to_image(z: torch.Tensor, h: int, w: int, d: int, dtype) -> torch.Tensor:
+    """Record-major values [nRec, 64] (r = b*D + di) -> [H, W, D] of dtype
+    (integers wrap to the dtype's width)."""
+    return (z.reshape(h // 8, w // 8, d, 8, 8).permute(0, 3, 1, 4, 2)
+            .reshape(h, w, d).to(dtype).contiguous())
+
+
+def _parse_records(stream: torch.Tensor, starts: torch.Tensor, dt: DataType, d: int,
+                   valid: torch.Tensor | None) -> SimpleNamespace:
+    """What both plain K4s read of each record at its index entry, from a
+    byte window per record (int64 bit arithmetic): flag fields, the offset
+    bytes `acc`, the values `q` [nRec, 64] (raw words or stuffed quants, in
+    block positions: masked values go back through ``expand_ref``), the
+    lane validity `vb`, and the parsed record length."""
     dev = stream.device
     sb = stream.view(torch.uint8)
     n_bytes = sb.numel()
@@ -119,18 +160,16 @@ def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.T
 
     flag = win[:, 0]
     mode, b67 = flag & 3, flag >> 6
-    off_w = torch.where(b67 == 2, 1, torch.where(b67 == 1, 2, 4))
+    off_w = offset_width_ref(dt, b67)
     acc = win[:, 1] | win[:, 2] << 8 | win[:, 3] << 16 | win[:, 4] << 24
     acc = torch.where(off_w == 1, acc & 0xFF, torch.where(off_w == 2, acc & 0xFFFF, acc))
-    i16 = ((acc & 0xFFFF) ^ 0x8000) - 0x8000
-    offset = torch.where(b67 == 2, (acc & 0xFF).float(),
-                         torch.where(b67 == 1, i16.float(), _as_i32(acc).view(torch.float32)))
     nbb = byte(1 + off_w)
     cw_code = nbb >> 6
     cw = torch.where(cw_code == 0, 4, 3 - cw_code)
     nb = nbb & 31
     is_lut = ((nbb & 32) > 0) & (mode == 1)
-    width = torch.where(mode == 0, 32, nb)
+    size = DT_SIZE[dt]
+    width = torch.where(mode == 0, 8 * size, nb)
     pay = torch.where(mode == 0, 1, 2 + off_w + cw)
 
     bitpos = torch.arange(64, device=dev)[None, :] * width[:, None]
@@ -142,24 +181,206 @@ def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.T
     if valid is not None:
         q = expand_ref(q, vb)
 
-    zm = zmax.repeat(n // d)[:, None]
-    z_stuff = (offset.double()[:, None] + q.double() * inv).float()
-    z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
-    z_raw = _as_i32(q).view(torch.float32)
-    m2 = mode[:, None]
-    z = torch.where(m2 == 0, z_raw,
-                    torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset[:, None], z_stuff)))
-    z = torch.where(vb, z, 0.0)
-    img = (z.reshape(h // 8, w // 8, d, 8, 8).permute(0, 3, 1, 4, 2)
-           .reshape(h, w, d).contiguous())
-
     ne = byte(2 + off_w) | torch.where(cw == 2, byte(3 + off_w) << 8, 0)
     stuff_bytes = (ne * nb + 7) >> 3
     length = torch.where(mode == 2, 1, torch.where(
-        mode == 3, 1 + off_w, torch.where(mode == 0, 1 + 4 * cnt, 1 + off_w + 1 + cw + stuff_bytes)))
-    bad = ((mode == 1) & (ne != cnt)) | is_lut
-    delta = ((p[1:] - p[:-1] + 2**31) % 2**32) - 2**31  # int32 wrap, as the kernel
-    bad[:-1] |= delta != length[:-1]
-    unfit = (((mode == 0) | (mode == 1)) & (width > cap_nb)) | (is_lut & lut_unfit)
-    flags = torch.stack([~bad.any(), ~unfit.any()]).to(torch.int32)
+        mode == 3, 1 + off_w, torch.where(mode == 0, 1 + size * cnt,
+                                          1 + off_w + 1 + cw + stuff_bytes)))
+    return SimpleNamespace(p=p, flag=flag, mode=mode, b67=b67, off_w=off_w, acc=acc, ne=ne,
+                           is_lut=is_lut, width=width, q=q, vb=vb, cnt=cnt, length=length)
+
+
+def _index_flags(r: SimpleNamespace, cap_nb: int, lut_unfit: bool, bad):
+    """{index_ok, fits}: a record whose parsed length disagrees with the
+    next index entry (int32 wrap, as the kernels), a stuffed count other
+    than the block's value count, a LUT record or any record marked `bad`
+    clears index_ok; a record wider than cap_nb clears fits."""
+    bad = bad | ((r.mode == 1) & (r.ne != r.cnt)) | r.is_lut
+    delta = ((r.p[1:] - r.p[:-1] + 2**31) % 2**32) - 2**31
+    bad[:-1] |= delta != r.length[:-1]
+    unfit = (((r.mode == 0) | (r.mode == 1)) & (r.width > cap_nb)) | (r.is_lut & lut_unfit)
+    return torch.stack([~bad.any(), ~unfit.any()]).to(torch.int32)
+
+
+def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
+                       inv: float, h: int, w: int, d: int, cap_nb: int, lut_unfit: bool,
+                       valid: torch.Tensor | None = None):
+    """Plain PyTorch version of K4: f64 ScaleBack as two separately rounded
+    operations, invalid positions +0.0."""
+    r = _parse_records(stream, starts, DataType.FLOAT, d, valid)
+    offset = float_offset_ref(r.acc, r.b67)
+    zm = zmax.repeat(r.p.numel() // d)[:, None]
+    z_stuff = (offset.double()[:, None] + r.q.double() * inv).float()
+    z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
+    z_raw = _as_i32(r.q).view(torch.float32)
+    m2 = r.mode[:, None]
+    z = torch.where(m2 == 0, z_raw,
+                    torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset[:, None], z_stuff)))
+    img = _to_image(torch.where(r.vb, z, 0.0), h, w, d, torch.float32)
+    return img, _index_flags(r, cap_nb, lut_unfit, torch.zeros_like(r.vb[:, 0]))
+
+
+# ---------------------------------------------------------------------------
+# integer K4
+# ---------------------------------------------------------------------------
+
+
+def decode_records_int(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
+                       inv_i: int, h: int, w: int, d: int, dt: DataType, version: int,
+                       cap_nb: int, lut_unfit: bool, valid: torch.Tensor | None = None):
+    """(img [H, W, D] in dt's dtype, flags [2] int32 = {index_ok, fits}).
+
+    zmax: [D] int32 clamp values; inv_i: the integer step round(2 mze);
+    otherwise as ``decode_records``."""
+    n_rec = (h // 8) * (w // 8) * d
+    _check_records(stream, starts, zmax, n_rec, d, torch.int32)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    if not build.on_cuda(stream, starts, zmax, *vt):
+        return decode_records_int_ref(stream, starts, zmax, inv_i, h, w, d, dt, version, cap_nb,
+                                      lut_unfit, valid)
+    fn = build.library("decode").decode_records_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    dev = stream.device
+    name = "decode_records" + sfx + DT_SUFFIX[dt]
+    with torch.cuda.device(dev):
+        img = torch.empty(h, w, d, dtype=DT_TO_TORCH[dt], device=dev)
+        flags = torch.ones(2, dtype=torch.int32, device=dev)
+        err = fn(stream.data_ptr(), 4 * stream.numel(), starts.data_ptr(), valid_ptr,
+                 zmax.data_ptr(), inv_i, h, w, d, int(dt), DT_SIZE[dt], int(dt_is_signed(dt)),
+                 int(version >= 5), cap_nb, int(lut_unfit), img.data_ptr(), flags.data_ptr(),
+                 build.launch_stream(stream))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return img, flags
+
+
+def decode_records_int_ref(stream, starts, zmax, inv_i: int, h: int, w: int, d: int,
+                           dt: DataType, version: int, cap_nb: int, lut_unfit: bool,
+                           valid: torch.Tensor | None = None):
+    """Plain PyTorch version of the integer K4 instances (int64 arithmetic
+    wrapped to int32 where JAX computes in int32); a depth-diff record
+    (flag bit 2 at version >= 5) clears index_ok."""
+    r = _parse_records(stream, starts, dt, d, valid)
+    off2 = int_offset_ref(r.acc, r.off_w, dt, r.b67)[:, None]
+    zm = zmax.to(torch.int64).repeat(r.p.numel() // d)[:, None]
+    z_stuff = torch.minimum(_i32(off2 + r.q * inv_i), zm)
+    m2 = r.mode[:, None]
+    z = torch.where(m2 == 0, raw_int_ref(r.q, DT_SIZE[dt], dt_is_signed(dt)),
+                    torch.where(m2 == 2, 0, torch.where(m2 == 3, off2, z_stuff)))
+    img = _to_image(torch.where(r.vb, z, 0), h, w, d, DT_TO_TORCH[dt])
+    diff = ((r.flag & 4) != 0) & (version >= 5)
+    return img, _index_flags(r, cap_nb, lut_unfit, diff)
+
+
+# ---------------------------------------------------------------------------
+# K6 decode_scanned
+# ---------------------------------------------------------------------------
+
+
+def decode_scanned(stream: torch.Tensor, mode: torch.Tensor, payload_pos: torch.Tensor,
+                   offset: torch.Tensor, num_bits: torch.Tensor, num_elements: torch.Tensor,
+                   lut_pos: torch.Tensor, n_lut: torch.Tensor, nbits_lut: torch.Tensor,
+                   mask, max_z_error: float, z_max_vec: torch.Tensor, h: int, w: int, d: int,
+                   dt: DataType, all_valid: bool, has_lut: bool):
+    """Decode from scanned record descriptors (``decode_tiles``,
+    device_decode.py:493, same arguments). Returns (img [H, W, D] float32
+    or the native dtype, ok 0-d bool) with no host synchronization. ok is
+    False where this decode cannot be right: a float depth-diff record, a
+    raw or slice-0 diff record, a LUT record.
+
+    offset: [nRec] float32 (int32 for integer dtypes); z_max_vec: [D] of
+    the same type. num_elements, lut_pos, n_lut and nbits_lut serve the
+    masked and LUT records of ROADMAP queue 1 item 6 and are not read."""
+    if has_lut:
+        raise NotImplementedError("LUT records: ROADMAP queue 1 item 6")
+    if not all_valid:
+        raise NotImplementedError(
+            "masked records without the index: ROADMAP queue 1 item 6 (host tile scanner)")
+    if h % 8 or w % 8 or d < 1:
+        raise NotImplementedError("edge blocks (H, W not multiples of 8): ROADMAP queue 1 item 6")
+    if dt == DataType.DOUBLE:
+        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+    n_rec = (h // 8) * (w // 8) * d
+    ztype = torch.int32 if dt_is_int(dt) else torch.float32
+    if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
+        raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
+    for name, t, kind in (("mode", mode, torch.int32), ("payload_pos", payload_pos, torch.int32),
+                          ("offset", offset, ztype), ("num_bits", num_bits, torch.int32)):
+        if t.dtype != kind or t.shape != (n_rec,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {kind} [{n_rec}] tensor")
+    if z_max_vec.dtype != ztype or z_max_vec.shape != (d,) or not z_max_vec.is_contiguous():
+        raise ValueError(f"z_max_vec must be a contiguous {ztype} [{d}] tensor")
+    inv, inv_i = 2.0 * float(max_z_error), _inv_i(max_z_error)
+    if not build.on_cuda(stream, mode, payload_pos, offset, num_bits, z_max_vec):
+        return decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, inv, inv_i,
+                                  z_max_vec, h, w, d, dt)
+    fn = build.library("decode").decode_scanned
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_double] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    dev = stream.device
+    name = "decode_scanned" + DT_SUFFIX[dt]
+    with torch.cuda.device(dev):
+        img = torch.empty(h, w, d, dtype=DT_TO_TORCH[dt], device=dev)
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        err = fn(stream.data_ptr(), 4 * stream.numel(), mode.data_ptr(), payload_pos.data_ptr(),
+                 offset.data_ptr(), num_bits.data_ptr(), z_max_vec.data_ptr(), inv, inv_i, h, w,
+                 d, int(dt), DT_SIZE[dt], int(dt_is_signed(dt)), img.data_ptr(), ok.data_ptr(),
+                 build.launch_stream(stream))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return img, ok[0] != 0
+
+
+def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, inv: float, inv_i: int,
+                       z_max_vec, h: int, w: int, d: int, dt: DataType):
+    """Plain PyTorch version of K6 (int64 arithmetic; f64 ScaleBack as two
+    separately rounded operations; the diff chain as a loop over depth)."""
+    dev = stream.device
+    sb = stream.view(torch.uint8).to(torch.int64)
+    n_bytes = sb.numel()
+
+    def rd(idx):  # clamped reads, as JAX's gathers
+        return sb[idx.clamp(0, n_bytes - 1)]
+
+    n = mode.numel()
+    m = mode.to(torch.int64)[:, None]
+    m8, dif = m & 7, m >= 8
+    nb = num_bits.to(torch.int64)[:, None]
+    pp = payload_pos.to(torch.int64)[:, None]
+    j = torch.arange(64, device=dev)[None, :]
+    bitpos = j * nb
+    at, sh = pp + (bitpos >> 3), bitpos & 7
+    acc = sum(rd(at + t) << (8 * t) for t in range(4))
+    hi = torch.where(sh > 0, (rd(at + 4) << (32 - sh)) & 0xFFFFFFFF, 0)
+    qmask = torch.where(nb >= 32, 0xFFFFFFFF, (1 << nb.clamp(max=32)) - 1)
+    q = ((acc >> sh) | hi) & qmask
+    size = DT_SIZE[dt]
+    word = sum(rd(pp + j * size + t) << (8 * t) for t in range(size))
+    zm = z_max_vec.repeat(n // d)[:, None]
+    if dt_is_int(dt):
+        off = offset.to(torch.int64)[:, None]
+        zm = zm.to(torch.int64)
+        a = _i32(off + q * inv_i)
+        z = torch.where(m8 == 0, raw_int_ref(word, size, dt_is_signed(dt)), torch.where(
+            m8 == 2, 0, torch.where(m8 == 3, off, torch.minimum(a, zm))))
+        if d > 1:  # the depth-diff chain, slice by slice (:625-648)
+            z, a, zm = (t.expand(n, 64).reshape(-1, d, 64) for t in (z, torch.where(m8 == 3, off, a), zm))
+            m8d, difd = m8.reshape(-1, d, 1), dif.reshape(-1, d, 1)
+            slices, prev = [], torch.zeros_like(z[:, 0])
+            for di in range(d):
+                zd = torch.where(m8d[:, di] == 2, prev, torch.minimum(_i32(a[:, di] + prev), zm[:, di]))
+                prev = torch.where(difd[:, di], zd, z[:, di])
+                slices.append(prev)
+            z = torch.stack(slices, 1).reshape(n, 64)
+    else:
+        off = offset[:, None]
+        z_stuff = (off.double() + q.double() * inv).float()
+        z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
+        z = torch.where(m8 == 0, _as_i32(word).view(torch.float32), torch.where(
+            m8 == 2, 0.0, torch.where(m8 == 3, off, z_stuff)))
+    di = (torch.arange(n, device=dev) % d)[:, None]
+    bad = (dif & ((m8 == 0) | (di == 0) | (not dt_is_int(dt)))) | (m8 == 4)
+    return _to_image(z, h, w, d, DT_TO_TORCH[dt]), ~bad.any()

@@ -1,4 +1,5 @@
-"""Device Fletcher32 of a resident Lerc2 blob (kernel K3 and its plain version).
+"""Device Fletcher32 of a resident Lerc2 blob (kernel K3) and the
+index-free record scan (kernel K5), with their plain versions.
 
 Port of ``lerc_tpu/ops/device_scan.py::fletcher32_device_parts`` (:306).
 The message is four pieces: ``pre`` (the header bytes after the checksum
@@ -16,9 +17,11 @@ s1 = 0xffff + A, s2 = 0xffff*(M+1) + M*A - B (mod 65535, 0 -> 65535).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
+from ..constants import DT_SIZE, DataType, dt_is_int
 from ..kernels import build
 
 _MOD = 65535
@@ -102,3 +105,256 @@ def _check(pre, tail, stream, total, static_ab):
         raise ValueError("pre and tail must be contiguous")
     if pre.numel() % 2 or static_ab[2] % 2:
         raise ValueError("pre and the static segment must have even lengths")
+
+
+# ---------------------------------------------------------------------------
+# record-header fields shared by the plain decoders (kernels/record.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 it wraps to, still held in int64."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def offset_width_ref(dt, b67: torch.Tensor) -> torch.Tensor:
+    """Offset byte width by dtype code (a DataType or a tensor of codes;
+    0..5 integers, 6 float) and flag bits 6-7 (Lerc2.h:457-499)."""
+    dt = torch.as_tensor(int(dt) if isinstance(dt, DataType) else dt, device=b67.device)
+    w_short = torch.where(b67 > 0, 1, 2)
+    w_int = torch.where(b67 == 3, 1, torch.where(b67 > 0, 2, 4))
+    w_other = torch.where(b67 == 2, 1, torch.where(b67 == 1, 2, 4))  # UINT, FLOAT
+    return torch.where(dt <= 1, 1, torch.where(dt <= 3, w_short,
+                                               torch.where(dt == 4, w_int, w_other)))
+
+
+def int_offset_ref(acc, off_w, dt, b67) -> torch.Tensor:
+    """Integer offset (int64) from its off_w LE bytes in acc, sign-extended
+    when its reduced type is signed (CHAR; SHORT at tc 0 or 2; INT at tc 2)."""
+    dt = torch.as_tensor(int(dt) if isinstance(dt, DataType) else dt, device=acc.device)
+    s8 = (dt == 0) | ((dt == 2) & (b67 == 2))
+    s16 = ((dt == 4) & (b67 == 2)) | ((dt == 2) & (b67 == 0))
+    v8, v16 = acc & 0xFF, acc & 0xFFFF
+    v8 = torch.where(s8, (v8 ^ 0x80) - 0x80, v8)
+    v16 = torch.where(s16, (v16 ^ 0x8000) - 0x8000, v16)
+    return torch.where(off_w == 1, v8, torch.where(off_w == 2, v16, _i32(acc)))
+
+
+def float_offset_ref(acc: torch.Tensor, b67: torch.Tensor) -> torch.Tensor:
+    """Float offset (f32): byte (tc 2), short (tc 1) or the f32 bits."""
+    i16 = ((acc & 0xFFFF) ^ 0x8000) - 0x8000
+    return torch.where(b67 == 2, (acc & 0xFF).float(),
+                       torch.where(b67 == 1, i16.float(), _as_i32(acc & 0xFFFFFFFF).view(torch.float32)))
+
+
+def raw_int_ref(v: torch.Tensor, size: int, signed: bool) -> torch.Tensor:
+    """A raw integer value of `size` bytes (int64), sign-extended if signed."""
+    if size == 4:
+        return _i32(v)
+    top = 1 << (8 * size - 1)
+    v = v & (2 * top - 1)
+    return (v ^ top) - top if signed else v
+
+
+# ---------------------------------------------------------------------------
+# K5 scan_records: record starts and descriptors without the index
+# ---------------------------------------------------------------------------
+
+
+def _scan_consts(dt: DataType, version: int):
+    """(dtype code, diff flag meaningful, raw record length) of a scan. Raw
+    records hold a whole 8x8 block: the scan serves all-valid streams."""
+    if dt == DataType.DOUBLE:
+        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+    return int(dt), int(version >= 5), _raw_len(dt)
+
+
+def _raw_len(dt: DataType) -> int:
+    return 1 + 64 * DT_SIZE[dt]
+
+
+def _check_stream(stream):
+    if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
+        raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
+
+
+def scan_records(stream: torch.Tensor, n_rec: int, dt: DataType, version: int,
+                 total: torch.Tensor):
+    """Record starts of a tile stream without the record-offset index
+    (``scan_records_device``, device_scan.py:35), on the stream's device
+    with no host synchronization. Returns (rp, mode, offset, num_bits,
+    num_elements, payload_pos, lut_pos, n_lut, nbits_lut, chain_ok): [nRec]
+    int32 each but offset (f32 for float32, int32 for integer dtypes), and
+    chain_ok, a 0-d bool: the last record ends exactly at `total` (a 0-d or
+    one-element int32 tensor). Diff records (version >= 5, flag bit 2) have
+    mode + 8 and, for integer dtypes, offsets reduced as DataType INT.
+
+    stream: [S / 4] int32 u32 words; record 0 starts at byte 0."""
+    _check_stream(stream)
+    jump = scan_records_sizes(stream, dt, version)
+    rp = torch.zeros(n_rec, dtype=torch.int32, device=stream.device)
+    filled = 1
+    while filled < n_rec:
+        take = min(filled, n_rec - filled)
+        jump, rp = scan_records_double(jump, rp, filled, take, filled + take < n_rec)
+        filled += take
+    return (rp, *scan_records_describe(stream, rp, dt, version, total))
+
+
+def scan_records_sizes(stream: torch.Tensor, dt: DataType, version: int) -> torch.Tensor:
+    """The jump table [S + 1] int32: J[p] = min(p + size(p), S), J[S] = S."""
+    _check_stream(stream)
+    code, diff_v5, raw_len = _scan_consts(dt, version)
+    if not build.on_cuda(stream):
+        return scan_records_sizes_ref(stream, dt, version)
+    fn = build.library("scan").scan_records_sizes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    s = 4 * stream.numel()
+    with torch.cuda.device(stream.device):
+        jump = torch.empty(s + 1, dtype=torch.int32, device=stream.device)
+        err = fn(stream.data_ptr(), s, code, diff_v5, raw_len, jump.data_ptr(),
+                 build.launch_stream(stream))
+        build.check(err, "scan_records_sizes")
+    build.LAUNCHES["scan_records_sizes"] += 1
+    return jump
+
+
+def scan_records_double(jump: torch.Tensor, rp: torch.Tensor, filled: int, take: int,
+                        square: bool):
+    """One pointer-doubling step: rp[filled : filled + take] =
+    J[rp[:take]], and J squared (J[J]) when `square`. Returns (J or J[J],
+    rp); the kernel writes rp in place."""
+    if not build.on_cuda(jump, rp):
+        return scan_records_double_ref(jump, rp, filled, take, square)
+    fn = build.library("scan").scan_records_double
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(jump.device):
+        jump2 = torch.empty_like(jump) if square else jump
+        err = fn(jump.data_ptr(), jump2.data_ptr(), jump.numel(), rp.data_ptr(), filled, take,
+                 int(square), build.launch_stream(jump))
+        build.check(err, "scan_records_double")
+    build.LAUNCHES["scan_records_double"] += 1
+    return jump2, rp
+
+
+def scan_records_describe(stream: torch.Tensor, rp: torch.Tensor, dt: DataType, version: int,
+                          total: torch.Tensor):
+    """Descriptors at the record starts rp: (mode, offset, num_bits,
+    num_elements, payload_pos, lut_pos, n_lut, nbits_lut, chain_ok)."""
+    _check_stream(stream)
+    code, diff_v5, raw_len = _scan_consts(dt, version)
+    if total.dtype != torch.int32 or total.numel() != 1:
+        raise TypeError("total must be a one-element int32 tensor")
+    if not build.on_cuda(stream, rp, total):
+        return scan_records_describe_ref(stream, rp, dt, version, total)
+    fn = build.library("scan").scan_records_describe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = rp.numel()
+    with torch.cuda.device(stream.device):
+        out = torch.empty(8, n, dtype=torch.int32, device=stream.device)
+        chain_ok = torch.zeros(1, dtype=torch.int32, device=stream.device)
+        err = fn(stream.data_ptr(), 4 * stream.numel(), rp.data_ptr(), n, code, diff_v5,
+                 raw_len, total.data_ptr(), out.data_ptr(), chain_ok.data_ptr(),
+                 build.launch_stream(stream))
+        build.check(err, "scan_records_describe")
+    build.LAUNCHES["scan_records_describe"] += 1
+    mode, offset, *rest = out.unbind(0)
+    if dt == DataType.FLOAT:
+        offset = offset.view(torch.float32)
+    return (mode, offset, *rest, chain_ok[0] != 0)
+
+
+def _stream_bytes(stream: torch.Tensor):
+    u = stream.view(torch.uint8).to(torch.int64)
+    s = u.numel()
+    return u, s, lambda idx: u[idx.clamp(0, s - 1)]
+
+
+def _offset_dtype(flag, dt: DataType, version: int):
+    """Per-record offset dtype codes: integer diff records reduce as INT."""
+    if version >= 5 and dt_is_int(dt):
+        return torch.where((flag & 4) != 0, int(DataType.INT), int(dt))
+    return torch.full_like(flag, int(dt))
+
+
+def _read_head_ref(g, p, dt: DataType, version: int) -> SimpleNamespace:
+    """Header fields of records starting at byte positions p (int64),
+    read through the clamped byte reader g (device_scan.py:50-100)."""
+    flag = g(p)
+    code, b67 = flag & 3, flag >> 6
+    odt = _offset_dtype(flag, dt, version)
+    off_w = offset_width_ref(odt, b67)
+    nbb_pos = p + 1 + off_w
+    nbb = g(nbb_pos)
+    cw_code = nbb >> 6
+    cw = torch.where(cw_code == 0, 4, 3 - cw_code)
+    ne = _i32(sum(torch.where(i < cw, g(nbb_pos + 1 + i) << (8 * i), 0) for i in range(4)))
+    n_lut = g(nbb_pos + 1 + cw) - 1
+    nbits_lut = sum(((n_lut >> i) > 0).to(torch.int64) for i in range(8))
+    return SimpleNamespace(flag=flag, code=code, b67=b67, odt=odt, off_w=off_w,
+                           nbb_pos=nbb_pos, cw=cw, is_lut=(nbb & 32) > 0, nb=nbb & 31, ne=ne,
+                           n_lut=n_lut, nbits_lut=nbits_lut)
+
+
+def _record_size_ref(h: SimpleNamespace, s: int, dt: DataType):
+    """Record sizes from their header fields, clamped to [1, S]."""
+    ne = h.ne.clamp(0, 64 * 64)
+    head = 1 + h.off_w + 1 + h.cw
+    sz_lut = head + 1 + ((h.n_lut * h.nb + 7) >> 3) + ((ne * h.nbits_lut + 7) >> 3)
+    sz_simple = head + ((ne * h.nb + 7) >> 3)
+    size = torch.where(h.code == 2, 1, torch.where(
+        h.code == 3, 1 + h.off_w, torch.where(h.code == 0, _raw_len(dt),
+                                              torch.where(h.is_lut, sz_lut, sz_simple))))
+    return size.clamp(1, s)
+
+
+def scan_records_sizes_ref(stream: torch.Tensor, dt: DataType, version: int) -> torch.Tensor:
+    """Plain PyTorch version of the sizes kernel (int64 arithmetic)."""
+    _scan_consts(dt, version)
+    _u, s, g = _stream_bytes(stream)
+    p = torch.arange(s, device=stream.device)
+    size = _record_size_ref(_read_head_ref(g, p, dt, version), s, dt)
+    jump = torch.minimum(p + size, torch.tensor(s, device=stream.device))
+    return torch.cat([jump, jump.new_tensor([s])]).to(torch.int32)
+
+
+def scan_records_double_ref(jump: torch.Tensor, rp: torch.Tensor, filled: int, take: int,
+                            square: bool):
+    """Plain PyTorch version of one doubling step (returns new tensors)."""
+    rp = rp.clone()
+    rp[filled : filled + take] = jump[rp[:take].long()]
+    return (jump[jump.long()] if square else jump), rp
+
+
+def scan_records_describe_ref(stream: torch.Tensor, rp: torch.Tensor, dt: DataType,
+                              version: int, total: torch.Tensor):
+    """Plain PyTorch version of the describe kernel (device_scan.py:116-181,
+    with the diff-record offsets and modes of the native scanner)."""
+    _scan_consts(dt, version)
+    _u, s, g = _stream_bytes(stream)
+    rp64 = rp.to(torch.int64)
+    h = _read_head_ref(g, rp64, dt, version)
+    lut_pos = h.nbb_pos + 1 + h.cw + 1
+    payload_pos = torch.where(h.code == 0, rp64 + 1, torch.where(
+        h.is_lut, lut_pos + ((h.n_lut * h.nb + 7) >> 3), h.nbb_pos + 1 + h.cw))
+    mode = torch.where(h.code == 1, torch.where(h.is_lut, 4, 1), h.code)
+    if version >= 5:
+        mode = mode + torch.where((h.flag & 4) != 0, 8, 0)
+    acc = sum(torch.where(i < h.off_w, g(rp64 + 1 + i) << (8 * i), 0) for i in range(4))
+    if dt == DataType.FLOAT:
+        offset = float_offset_ref(acc, h.b67)
+    else:
+        offset = int_offset_ref(acc, h.off_w, h.odt, h.b67).to(torch.int32)
+    last, tot = rp64[-1], total.reshape(()).to(torch.int64)
+    end = last + _record_size_ref(h, s, dt)[-1]
+    chain_ok = (last < tot) & (end == tot)
+    i32 = [t.to(torch.int32) for t in (mode, h.nb, h.ne, payload_pos, lut_pos, h.n_lut,
+                                       h.nbits_lut)]
+    return (i32[0], offset, *i32[1:], chain_ok)

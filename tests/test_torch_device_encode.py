@@ -145,7 +145,7 @@ def test_tie_tile_separates_fused_from_unfused():
     (dict(version=3), "item 6"),
     (dict(enable_lut=True), "item 6"),
     (dict(mb=16), "item 6"),
-    (dict(dt=DataType.INT), "item 5"),
+    (dict(dt=DataType.DOUBLE), "item 9"),
 ])
 def test_unported_options_name_their_roadmap_item(kwargs, item):
     args = dict(mask=None, max_z_error=0.01, h=16, w=16, d=1, dt=DataType.FLOAT,

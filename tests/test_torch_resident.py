@@ -180,9 +180,16 @@ def test_default_device_needs_cuda():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    codec = _port(16, 16, 1, 0.01)
-    header, stream, _meta, _starts = codec.encode_fast(torch.zeros(16, 16, 1))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        codec.decode_fast(header, stream)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        FusedResidentCodec(16, 16, 1, np.int32, 0.5, device="cpu")
+    # integer dtypes and decode without the index are ported (queue 1 item
+    # 5); a masked decode without the index and float64 are not
+    from lerc_tpu_torch import ResidentCodec
+
+    mask = np.ones((16, 16), bool)
+    mask[3, 4] = False
+    codec = ResidentCodec(16, 16, 1, np.float32, 0.01, mask=mask, device="cpu")
+    blob = codec.encode(torch.arange(256, dtype=torch.float32).reshape(16, 16, 1))
+    blob.starts = None
+    with pytest.raises(NotImplementedError, match="item 6"):
+        codec.decode(blob)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        FusedResidentCodec(16, 16, 1, np.float64, 0.5, device="cpu")
