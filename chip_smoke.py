@@ -42,7 +42,29 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      kernel's device time per launch (torch.profiler) beside its plain
      version's time (CUDA events), its launches and its bound;
   6. where the time goes: device time per round by kernel, and the
-     device's busy and idle shares, for each path.
+     device's busy and idle shares, for each path;
+  7. the band codec's kernels against their plain versions: the LUT
+     instances of K1/K2 on 8x8 and 16x16 blocks (float32 and int32 input)
+     and K6 (masked, edge, LUT, 16x16) on 64x64, 61x47 and 130x77 crops of
+     the DEM, of a 12-zone class grid and of an int16 three-band image,
+     all-valid and with the bench mask's crop; K6 on a hand-built float32
+     depth-diff blob; the host scanner against tile_scan_ref and the LUT
+     instances on 2048^2 tiles, and the scanner and K6 on the 2048^2
+     masked and the 2047x1999 edge-crop blobs of the band cells below;
+  8-11. the band cells through encode_band_device -> bytes ->
+     decode_band_device, each counted: the float32 DEM (four 2048^2 tiles,
+     maxZError 0.001) all-valid and with the bench mask, a 2047x1999 crop
+     with the mask's crop, a uint16 class grid (must take 16x16 blocks and
+     LUT records) and an int16 three-band image (depth-diff records); blobs
+     byte-equal to the plain path's (device="cpu") on the first tiles,
+     decodes within 1.1 * maxZError (exact when lossless), invalid pixels
+     0, masks round-tripped;
+  12. the masked ResidentCodec decoded without its index (the host
+     scanner and the masked K6), bit-equal to the indexed decode;
+  13. times: band encode/decode MB/s, host-scanner and analyses ms per
+     tile, copies each way, the bench mask's RLE each way beside the
+     masked cell's extra time, each new instance's ms against its bound
+     and plain ms, device busy share of a band round.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -81,9 +103,19 @@ SOURCES = {
 
 SOURCES.update({name: ("lerc_tpu_torch/kernels/scan.cu", "lerc_tpu/ops/device_scan.py:35")
                 for name in ("scan_records_sizes", "scan_records_double", "scan_records_describe")})
+# the band codec's LUT instances of K1/K2 (8x8 and 16x16, float32 and int32)
+SOURCES.update({f"{k}{m}{t}": ("lerc_tpu_torch/kernels/encode.cu",
+                               "lerc_tpu/ops/device_encode.py:407" if k == "encode_blocks"
+                               else "lerc_tpu/ops/device_encode.py:440")
+                for k in ("encode_blocks", "write_records") for m in ("_lut", "_lut16")
+                for t in ("", "_int")})
+SOURCES["tile_scan"] = ("lerc_tpu_torch/kernels/tile_scan.cpp",
+                        "lerc_tpu/native/lerc_native.cpp:70")
 for _sfx in ("", "_i8", "_u8", "_i16", "_u16", "_i32", "_u32"):
-    SOURCES["decode_scanned" + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
-                                        "lerc_tpu/ops/device_decode.py:493")
+    for _k6 in ("decode_scanned", "decode_scanned_masked", "decode_scanned16",
+                "decode_scanned16_masked"):
+        SOURCES[_k6 + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
+                               "lerc_tpu/ops/device_decode.py:493")
     if _sfx:  # the integer instances of K1, K2 and K4
         SOURCES["encode_blocks" + _sfx] = ("lerc_tpu_torch/kernels/encode.cu",
                                            "lerc_tpu/ops/device_encode.py:591")
@@ -162,22 +194,41 @@ def _kernel_rows(prof):
     return rows
 
 
-def device_ms(fns, match=None, reps=5):
-    """Mean device ms per call of fns from torch.profiler: the time of the
-    kernels whose name contains `match` (all kernels when None), free of the
-    host's launch overhead. Calls round-robin as cuda_ms."""
+def profiled_rows(fns, reps, matches=(None,), tries=3):
+    """The CUDA kernel rows of a torch.profiler window over `reps` rounds of
+    fns (after a warm-up pass). The profiler's trace has come back empty
+    now and then on the card; the window is taken again, up to `tries`
+    times, until every pattern of `matches` (None: any kernel) has a row.
+    Returns the rows, or None when it never does."""
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for f in fns:
-                f()
-        torch.cuda.synchronize()
-    rows = [r for r in _kernel_rows(prof) if match is None or match in r[0]]
-    require(rows, f"profiler shows no device time for {match or 'the calls'}")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for f in fns:
+                    f()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        if all(any(m is None or m in r[0] for r in rows) for m in matches):
+            return rows
+    return None
+
+
+def device_ms(fns, match=None, reps=5):
+    """Mean device ms per call of fns from torch.profiler: the time of the
+    kernels whose name contains `match` (all kernels when None), free of the
+    host's launch overhead. Calls round-robin as cuda_ms. Where the profiler
+    shows no device time, the CUDA-event time of the calls stands in (and
+    says so)."""
+    rows = profiled_rows(fns, reps, (match,))
+    if rows is None:
+        print(f"profiler shows no device time for {match or 'the calls'}: CUDA events instead",
+              flush=True)
+        return cuda_ms(fns, reps)
+    rows = [r for r in rows if match is None or match in r[0]]
     return sum(r[2] for r in rows) / 1e3 / (reps * len(fns))
 
 
@@ -577,8 +628,9 @@ def check_scan(stream, total, n_rec, dt, version, mze, zmax, shape):
     ppos = full[5]
     img_k, ok_k = dec.decode_scanned(stream, mode, ppos, offset, nb, full[4], full[6], full[7],
                                      full[8], None, mze, zmax, h, w, d, dt, True, False)
-    img_r, ok_r = dec.decode_scanned_ref(stream, mode, ppos, offset, nb, 2.0 * mze,
-                                         dec._inv_i(mze), zmax, h, w, d, dt)
+    img_r, ok_r = dec.decode_scanned_ref(stream, mode, ppos, offset, nb, full[4], full[6], full[7],
+                                         full[8], None, 2.0 * mze, dec._inv_i(mze), zmax, h, w,
+                                         d, dt)
     same = (torch.equal(img_k.view(torch.int32), img_r.view(torch.int32))
             if img_k.dtype == torch.float32 else torch.equal(img_k, img_r))
     require(same and bool(ok_k) == bool(ok_r) and bool(ok_k), f"K6 decode_scanned != plain ({tag})")
@@ -853,8 +905,6 @@ def timed_scan_kernels(stream_sets, dt, version, mze, shape):
     (stream, total, zmax) sets (one torch.profiler window of full scan +
     decode calls), the plain versions' ms on the first set (CUDA events),
     and the doubling steps per scan."""
-    from torch.profiler import ProfilerActivity, profile
-
     from lerc_tpu_torch.ops import device_decode as dec
     from lerc_tpu_torch.ops import device_scan as scan
 
@@ -869,16 +919,11 @@ def timed_scan_kernels(stream_sets, dt, version, mze, shape):
                                   out[8], None, mze, zmax, h, w, d, dt, True, False)
 
     fns = [lambda a=a: call(*a) for a in stream_sets]
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
     reps = 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for f in fns:
-                f()
-        torch.cuda.synchronize()
-    rows = _kernel_rows(prof)
+    kernels = ("scan_records_sizes_kernel", "scan_records_double_kernel",
+               "scan_records_describe_kernel", "decode_scanned_kernel")
+    rows = profiled_rows(fns, reps, kernels)
+    require(rows is not None, "profiler shows no device time for the scan's kernels")
     calls = reps * len(fns)
     per = {}
     for name, match, n in ((SCAN[0], "scan_records_sizes_kernel", 1),
@@ -900,8 +945,8 @@ def timed_scan_kernels(stream_sets, dt, version, mze, shape):
         SCAN[2]: cuda_ms([lambda: scan.scan_records_describe_ref(s0, out[0], dt, version, t0)],
                          reps=1),
         k6: cuda_ms([lambda: dec.decode_scanned_ref(
-            s0, out[1], out[5], out[2], out[3], 2.0 * mze, dec._inv_i(mze), z0, h, w, d, dt)],
-            reps=1),
+            s0, out[1], out[5], out[2], out[3], out[4], out[6], out[7], out[8], None, 2.0 * mze,
+            dec._inv_i(mze), z0, h, w, d, dt)], reps=1),
     }
     return per, plain, steps
 
@@ -950,7 +995,8 @@ def int_kernel_times(codec, tiles, ins):
 
     fns = {
         k1: ([lambda t=t: enc.encode_blocks(t, p) for t in tiles],
-             [lambda t=t: enc.encode_blocks_ref(t, p) for t in tiles], "encode_blocks_int_kernel"),
+             [lambda t=t: enc.encode_blocks_ref(t, p) for t in tiles],
+             "encode_blocks_int_kernel"),
         k2: ([lambda t=t, k=k: enc.write_records(t, k["rec_info"], k["starts"], cw, p)
               for t, k in zip(tiles, ins)],
              [lambda t=t, k=k: enc.write_records_ref(t, k["rec_info"], k["starts"], cw, p)
@@ -975,6 +1021,545 @@ def int_kernel_times(codec, tiles, ins):
         bnd[name] = (max(b, o), "bytes" if b >= o else "operations")
     return {name: (device_ms(kf, match), cuda_ms(rf, reps=1), *bnd[name])
             for name, (kf, rf, match) in fns.items()}
+
+# ---------------------------------------------------------------------------
+# The band codec (encode_band_device / decode_band_device): the LUT and 16x16
+# instances of K1/K2, K6 with masks, edge blocks, LUT records, 16x16 blocks
+# and the f32 depth-diff chain, and the host record scanner
+# ---------------------------------------------------------------------------
+
+
+def lut_name(base, mb, is_int):
+    return base + ("_lut16" if mb == 16 else "_lut") + ("_int" if is_int else "")
+
+
+def k6_name(mb, masked, dt):
+    from lerc_tpu_torch.constants import DT_SUFFIX
+
+    return "decode_scanned" + ("16" if mb == 16 else "") + ("_masked" if masked else "") \
+        + DT_SUFFIX[dt]
+
+
+def band_inputs(data, mask, mze, mb, version=6):
+    """The LUT instances' inputs for one band at block size mb: (data as
+    int32 or float32, params, validity words, dtype)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, dt_is_int
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    dt = NUMPY_TO_DT[np.dtype(str(data.dtype).removeprefix("torch."))]
+    x = data.to(torch.int32 if dt_is_int(dt) else torch.float32).contiguous()
+    m = torch.ones(h, w, dtype=torch.bool, device=data.device) if mask is None else \
+        torch.from_numpy(mask).to(data.device)
+    return x, enc.encode_params(mze, version, 0, dt, mb), enc.block_valid_words(m, mb), dt
+
+
+def check_lut_kernels(data, mask, mze, mb, tag):
+    """The LUT instances of K1 and K2 at block size mb against their plain
+    versions on the same CUDA tensors. Returns ({kernel: max_abs_err},
+    LUT records, records)."""
+    from lerc_tpu_torch.constants import dt_is_int
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    x, p, valid, dt = band_inputs(data, mask, mze, mb)
+    k1, k2 = (lut_name(b, mb, dt_is_int(dt)) for b in ("encode_blocks", "write_records"))
+    rk, zk, fk = enc.encode_blocks(x, p, valid, mb, True)
+    rr, zr, fr = enc.encode_blocks_ref(x, p, valid, mb, True)
+    require(torch.equal(rk, rr) and torch.equal(zk, zr) and torch.equal(fk, fr),
+            f"K1 {k1} != plain ({tag})")
+    length = rk[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    cap_w = (int(length.sum()) + 4096) // 4
+    sk = enc.write_records(x, rk, starts, cap_w, p, valid, mb, True)
+    sr = enc.write_records_ref(x, rk, starts, cap_w, p, valid, mb, True)
+    require(torch.equal(sk, sr), f"K2 {k2} != plain ({tag})")
+    n_lut = int(((rk[:, 1] >> 11) & 1).sum())
+    return {k1: max(max_abs(rk, rr), max_abs(zk, zr)), k2: max_abs(sk, sr)}, n_lut, rk.shape[0]
+
+
+def band_z_max(blob, head, pos):
+    """The [D] zMax ranges of a v4+ tiling blob whose tile stream starts at
+    pos (right after the one-sweep flag)."""
+    from lerc_tpu_torch.constants import DT_SIZE, DT_TO_NUMPY
+
+    size = DT_SIZE[head.dt]
+    return np.frombuffer(blob, DT_TO_NUMPY[head.dt], head.n_depth,
+                         pos - 1 - head.n_depth * size).astype(np.float64)
+
+
+def tile_section(blob):
+    """(tile stream uint8, mask, header, stream offset) of a tiling blob;
+    None for a blob without a tile stream (empty, constant, one-sweep)."""
+    import struct
+
+    from lerc_tpu_torch.codec import header as hdr
+    from lerc_tpu_torch.codec import rle
+    from lerc_tpu_torch.codec.bitmask import bits_to_bool
+    from lerc_tpu_torch.constants import DT_SIZE
+
+    head, pos = hdr.read_header(blob)
+    n_mask = struct.unpack_from("<i", blob, pos)[0]
+    pos += 4
+    h, w = head.n_rows, head.n_cols
+    mask = np.ones((h, w), bool)
+    if 0 < head.num_valid_pixel < h * w:
+        mask = bits_to_bool(rle.decompress(blob[pos:pos + n_mask], (h * w + 7) // 8), w, h)
+    pos += n_mask + 2 * head.n_depth * DT_SIZE[head.dt] + 1
+    if head.z_min == head.z_max or pos > head.blob_size or blob[pos - 1] != 0:
+        return None
+    if head.try_huffman_int() or head.try_huffman_flt():
+        pos += 1
+    return np.frombuffer(blob[pos:head.blob_size], np.uint8), mask, head, pos
+
+
+def scanned_band(blob):
+    """One tiling blob's records on the card: (the host scanner's arguments,
+    its descriptors, the bytes it used, K6's arguments, the header)."""
+    from lerc_tpu_torch.codec import device_codec as band
+    from lerc_tpu_torch.codec import header as hdr
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+    from lerc_tpu_torch.ops import tile_scan as ts
+
+    stream, mask, head, pos = tile_section(blob)
+    cnts, j0s, n = ts.block_scan_inputs(mask, head.micro_block_size)
+    scan_args = (stream, cnts, j0s, n, head.n_depth, int(head.dt), head.version)
+    recs, used = ts.tile_scan(*scan_args)
+    skip = hdr.checksum_skip(head.version)
+    words = band._words(torch.frombuffer(bytearray(blob[skip:head.blob_size]),
+                                         dtype=torch.uint8).cuda())
+    valid = None if mask.all() else enc.block_valid_words(torch.from_numpy(mask).cuda(),
+                                                          head.micro_block_size)
+    a = dec.scanned_args(words, pos - skip, recs, valid, head, band_z_max(blob, head, pos))
+    return scan_args, recs, used, a, head
+
+
+def k6_plain(a, head):
+    """K6's plain version on K6's arguments `a` (``scanned_args``)."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    return dec.decode_scanned_ref(*a[:10], 2.0 * head.max_z_error, dec._inv_i(head.max_z_error),
+                                  a[11], *a[12:16], a[18])
+
+
+def check_scanned_band(blob, tag):
+    """The host scanner against tile_scan_ref, then K6 against its plain
+    version, on one band blob's records (CUDA tensors). Returns ({kernel:
+    max_abs_err}, modes)."""
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import tile_scan as ts
+
+    if tile_section(blob) is None:
+        return {}, np.zeros(0, np.int32)
+    scan_args, recs, used, a, head = scanned_band(blob)
+    recs_r, used_r = ts.tile_scan_ref(*scan_args)
+    require(used == used_r == scan_args[0].size and recs.tobytes() == recs_r.tobytes(),
+            f"host scanner != tile_scan_ref ({tag})")
+    img_k, ok_k = dec.decode_scanned(*a)
+    img_r, ok_r = k6_plain(a, head)
+    same = torch.equal(img_k.view(torch.uint8) if img_k.dtype != torch.float32
+                       else img_k.view(torch.int32),
+                       img_r.view(torch.uint8) if img_r.dtype != torch.float32
+                       else img_r.view(torch.int32))
+    require(same and bool(ok_k) and bool(ok_r), f"K6 != plain ({tag})")
+    name = k6_name(head.micro_block_size, a[9] is not None, head.dt)
+    return {name: max_abs(img_k, img_r), "tile_scan": 0.0}, recs["mode"]
+
+
+def float_diff_blob(tile, mask, mze):
+    """A float32 depth-2 band (slice 1 = slice 0 plus a small wave, const
+    and LUT-sized blocks) whose slice-1 records (const-0, const-offset,
+    stuffed, LUT) are rewritten as depth-diff records (flag bit 2) with the
+    checksum refixed: slice 1 then decodes as offset (+ q * invScale) +
+    slice 0 (Lerc2.cpp:2026-2230), K6's exact f32 chain."""
+    import struct
+
+    from lerc_tpu_torch import encode_band_device
+    from lerc_tpu_torch.codec import fletcher32
+    from lerc_tpu_torch.codec import header as hdr
+    from lerc_tpu_torch.ops import tile_scan as ts
+
+    h, w = tile.shape[:2]
+    s1 = tile[:, :, 0] + 0.25 * torch.sin(torch.arange(w, device=tile.device))[None, :]
+    data = torch.stack([tile[:, :, 0], s1], -1).contiguous()
+    data[8:16, 8:24, 1] = 5.0
+    data[24:32, 0:8, :] = 0.0
+    data[32:40, 16:24, 1] = torch.where(torch.arange(8, device=tile.device) % 2 == 1, 1.0, 9.0)
+    blob = bytearray(encode_band_device(data, mask, mze))
+    stream, m, head, base = tile_section(bytes(blob))
+    cnts, j0s, n = ts.block_scan_inputs(m, 8)
+    recs = ts.tile_scan(stream, cnts, j0s, n, 2, int(head.dt), head.version)[0]
+    pos, flipped = 0, set()
+    for r, rec in enumerate(recs):
+        flag, mode = int(stream[pos]), int(rec["mode"]) % 8
+        if r % 2 == 1 and mode != 0:
+            blob[base + pos] = flag | 4
+            flipped.add(mode)
+        if mode == 2:
+            pos += 1
+        elif mode == 3:
+            pos += 1 + {2: 1, 1: 2}.get(flag >> 6, 4)
+        elif mode == 0:
+            pos = int(rec["payload_pos"]) + int(cnts[r // 2]) * 4
+        else:
+            nbits = rec["nbits_lut"] if mode == 4 else rec["num_bits"]
+            pos = int(rec["payload_pos"]) + (int(rec["num_elements"]) * int(nbits) + 7) // 8
+    require(pos == stream.size and {1, 2, 3} <= flipped, "float diff blob: records not rewritten")
+    skip = hdr.checksum_skip(head.version)
+    struct.pack_into("<I", blob, skip - 4, fletcher32.fletcher32(bytes(blob[skip:head.blob_size])))
+    return bytes(blob)
+
+
+def class_grid(dem):
+    """The DEM binned into 12 elevation zones coded 5000*k + 100, uint16 (a
+    classified raster stored at 16 bits)."""
+    lo, hi = float(dem.min()), float(dem.max())
+    k = torch.clamp(((dem - lo) / (hi - lo) * 12).floor(), 0, 11)
+    return (5000 * k + 100).to(torch.int32).to(torch.uint16).contiguous()
+
+
+def int16_three_band(dem):
+    """The DEM in whole metres, +4 and -6, each with 0..2 levels of its hash
+    noise (as the uint8 cell, at 16 bits): depth-diff records."""
+    r = torch.round(dem[:, :, 0])
+    frac = dem[:, :, 0] - torch.floor(dem[:, :, 0])
+    n1, n2 = torch.floor(frac * 3), torch.floor((frac * 7) % 1 * 3)
+    return torch.stack([r, r + 4 + n1, r - 6 + n2], -1).to(torch.int16).contiguous()
+
+
+def run_counted_band(required, optional, label, fn):
+    """run_counted for a band path: every kernel of `required` launched, the
+    ones of `optional` (the 16x16 retrial, where its gate opens) allowed, no
+    other. Returns (counts, fn's result)."""
+    from lerc_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in build.LAUNCHES.items() if n}
+    for name in required:
+        require(counts.get(name, 0) > 0, f"kernel {name} was not launched on the {label}")
+    extra = sorted(set(counts) - set(required) - set(optional))
+    require(not extra, f"kernels {extra} were launched on the {label}")
+    return counts, out
+
+
+def band_cell(label, tiles, mask, mze, required, optional, card, n_plain=1, lossless=False):
+    """One band cell: encode_band_device -> bytes -> decode_band_device on
+    each tile, counted; the first n_plain blobs byte-equal to the plain
+    path's (device="cpu"); decode within 1.1 * maxZError (exact when
+    lossless), invalid pixels 0, the mask round-trips. Returns (counts,
+    blobs, encode ms, decode ms per round of the tiles, raw MB)."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+
+    def path():
+        blobs = [encode_band_device(t, mask, mze) for t in tiles]
+        return blobs, [decode_band_device(b) for b in blobs]
+
+    counts, (blobs, decs) = run_counted_band(required, optional, label, path)
+    sel = None if mask is None else torch.from_numpy(mask).cuda()
+    for i, (t, b, dband) in enumerate(zip(tiles, blobs, decs)):
+        err = (dband.data.to(torch.float64) - t.to(torch.float64)).abs()
+        if sel is not None:
+            require(np.array_equal(dband.mask, mask), f"{label}: mask of tile {i} differs")
+            require(not dband.data.view(torch.uint8).reshape(*t.shape[:2], -1)[~sel].any(),
+                    f"{label}: invalid pixels of tile {i} are not 0")
+            err = err[sel]
+        limit = 0.0 if lossless else dband.hd.max_z_error * 1.1
+        require(float(err.max()) <= limit, f"{label}: error bound violated on tile {i}")
+        if i < n_plain:
+            require(encode_band_device(t.cpu(), mask, mze, device="cpu") == b,
+                    f"{label}: blob of tile {i} differs from the plain path's")
+    raw_mb = len(tiles) * tiles[0].numel() * tiles[0].element_size() / 1e6
+
+    def timed(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    enc_ms = timed(lambda: [encode_band_device(t, mask, mze) for t in tiles])
+    dec_ms = timed(lambda: [decode_band_device(b) for b in blobs])
+    ratio = raw_mb * 1e6 / sum(len(b) for b in blobs)
+    print(f"band cell {label}: {len(tiles)} tiles ok, micro blocks {decs[0].hd.micro_block_size}, "
+          f"launches {counts}; encode {raw_mb / (enc_ms / 1e3):.1f} MB/s ({enc_ms:.3f} ms), "
+          f"decode {raw_mb / (dec_ms / 1e3):.1f} MB/s ({dec_ms:.3f} ms), compression ratio "
+          f"{ratio:.4f} [{card}]", flush=True)
+    return counts, blobs, enc_ms, dec_ms, raw_mb
+
+
+def lut_kernel_times(data, mask, mze, mb, is_int):
+    """Device ms per launch of one LUT instance pair of K1/K2 at block size
+    mb (profiler), their plain ms (CUDA events) and bounds, on one band."""
+    from lerc_tpu_torch.constants import DT_SIZE
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    x, p, valid, dt = band_inputs(data, mask, mze, mb)
+    k1, k2 = (lut_name(b, mb, is_int) for b in ("encode_blocks", "write_records"))
+    rk, _, _ = enc.encode_blocks(x, p, valid, mb, True)
+    length = rk[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    total = int(length.sum())
+    cap_w = (total + 4096) // 4
+    h, w, d = x.shape
+    bs = mb * mb
+    n_rec, size = rk.shape[0], DT_SIZE[dt]
+    n_val = int(enc.valid_lanes(valid).sum()) * d
+    mode = (rk[:, 1] >> 8) & 3
+    n_lut_rec = int(((rk[:, 1] >> 11) & 1).sum())
+    coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
+    v_bytes = valid.numel() * 4
+    s = int(np.log2(bs))
+    sort_ops = (bs // 2) * s * (s + 1) // 2 * 2  # bitonic compare-exchanges, min + max
+    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d + 4
+    k1_o = 20 * n_val + n_rec * sort_ops * (2 if (p.diff_ok and d > 1) else 1)
+    k2_b = size * coded + v_bytes + 20 * n_rec + total
+    k2_o = 12 * coded + n_lut_rec * sort_ops
+    rows = {}
+    for name, kf, rf, b, o, match in (
+            (k1, lambda: enc.encode_blocks(x, p, valid, mb, True),
+             lambda: enc.encode_blocks_ref(x, p, valid, mb, True), k1_b, k1_o,
+             "encode_blocks_lut_kernel"),
+            (k2, lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True),
+             lambda: enc.write_records_ref(x, rk, starts, cap_w, p, valid, mb, True), k2_b, k2_o,
+             "write_records_lut_kernel")):
+        bms, oms = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
+        rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), max(bms, oms),
+                      "bytes" if bms >= oms else "operations")
+    return rows, n_lut_rec, n_rec
+
+
+def k6_times(blob):
+    """Device ms per launch of K6 (profiler) on one band blob's records,
+    its plain ms (CUDA events) and its bound; the scanner's ms and plain
+    ms."""
+    from lerc_tpu_torch.constants import DT_SIZE
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import tile_scan as ts
+
+    scan_args, recs, _used, a, head = scanned_band(blob)
+    stream, valid = scan_args[0], a[9]
+    ms = device_ms([lambda: dec.decode_scanned(*a)], "decode_scanned_kernel")
+    plain = cuda_ms([lambda: k6_plain(a, head)], reps=1)
+    h, w, d = head.n_rows, head.n_cols, head.n_depth
+    n_rec = recs.size
+    bound = (stream.size + 32 * n_rec + (0 if valid is None else valid.numel() * 4) + 4 * d
+             + h * w * d * DT_SIZE[head.dt]) / HBM_BYTES_PER_S * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ts.tile_scan(*scan_args)
+    scan_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    ts.tile_scan_ref(*scan_args)
+    scan_plain = (time.perf_counter() - t0) * 1e3
+    scan_bound = (stream.size + 40 * n_rec + 8 * scan_args[3]) / HBM_BYTES_PER_S * 1e3
+    return (ms, plain, bound), (scan_ms, scan_plain, scan_bound), n_rec
+
+
+def band_phases(tiles, mask, card, launches, add_row, rows_done):
+    """Phases 7-13: the band codec's kernel checks, its five cells (float32
+    all-valid and masked, the edge crop, the uint16 class grid, the int16
+    three-band image), the masked index-free resident decode, and their
+    times. add_row adds a kernel's record unless its name is in
+    rows_done."""
+    from lerc_tpu_torch import ResidentCodec, decode_band_device, encode_band_device
+    from lerc_tpu_torch.codec import lerc2_encode
+    from lerc_tpu_torch.constants import DataType
+
+    dev = tiles[0].device
+    err = {}
+
+    def merge(e):
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+
+    # ---- 7. the new instances against their plain versions
+    cls_tile = class_grid(tiles[0])
+    i16_tile = int16_three_band(tiles[0])
+    small = [("64x64", (slice(0, 64), slice(0, 64))), ("61x47", (slice(3, 64), slice(5, 52))),
+             ("130x77", (slice(100, 230), slice(450, 527)))]
+    mask_full = mask
+    for name, crop in small:
+        for t, mze, kind in ((tiles[0], MAX_Z_ERROR, "float32"), (cls_tile, 0.5, "uint16 classes"),
+                             (i16_tile, 0.5, "int16 x 3")):
+            for m in (None, mask_full[crop]):
+                data = t[crop].contiguous()
+                for mb in (8, 16):
+                    e, n_lut, n_rec = check_lut_kernels(data, m, mze, mb, f"{name} {kind}")
+                    merge(e)
+                blob = encode_band_device(data, m, mze)
+                e, modes = check_scanned_band(blob, f"{name} {kind}")
+                merge(e)
+        print(f"check: K1/K2 LUT instances (8x8, 16x16) and K6 equal to their plain versions on "
+              f"the {name} crops (float32, uint16 classes, int16 x 3; all-valid and masked)",
+              flush=True)
+    diff_blob = float_diff_blob(tiles[0][:64, :64].contiguous(), mask_full[:64, :64], 0.01)
+    e, modes = check_scanned_band(diff_blob, "hand-built float depth-diff")
+    merge(e)
+    require((modes >= 8).sum() > 10, "the float diff blob has no diff records")
+    dref = decode_band_device(diff_blob, device="cpu").data
+    require(torch.equal(decode_band_device(diff_blob).data.cpu().view(torch.int32),
+                        dref.view(torch.int32)), "float diff blob: decode != plain decode")
+    print(f"check: K6 equal to its plain version on the hand-built float depth-diff blob "
+          f"({int((modes >= 8).sum())} diff records)", flush=True)
+    for t, mze, kind, mb in ((tiles[0], MAX_Z_ERROR, "float32", 8), (cls_tile, 0.5, "uint16", 8),
+                             (cls_tile, 0.5, "uint16", 16)):
+        e, n_lut, n_rec = check_lut_kernels(t, None, mze, mb, f"{TILE}^2 {kind}")
+        merge(e)
+        print(f"check: {', '.join(sorted(e))} equal to their plain versions on the {TILE}^2 "
+              f"{kind} tile ({n_lut} LUT records of {n_rec})", flush=True)
+    blob0 = encode_band_device(tiles[0], None, MAX_Z_ERROR)
+    e, _ = check_scanned_band(blob0, f"{TILE}^2 float32")
+    merge(e)
+    print(f"check: the host scanner equals tile_scan_ref, K6 its plain version, on the {TILE}^2 "
+          f"float32 band", flush=True)
+
+    # ---- 8-11. the band cells, counted then timed
+    core = ("fletcher32_parts", "tile_scan")
+    f_lut = (lut_name("encode_blocks", 8, False), lut_name("write_records", 8, False))
+    f_16 = (lut_name("encode_blocks", 16, False), lut_name("write_records", 16, False))
+    i_lut = (lut_name("encode_blocks", 8, True), lut_name("write_records", 8, True))
+    i_16 = (lut_name("encode_blocks", 16, True), lut_name("write_records", 16, True))
+    cells = []
+    cells.append(("float32 DEM", band_cell(
+        f"float32 DEM {N_TILES} x {TILE}^2, maxZError 0.001", tiles, None, MAX_Z_ERROR,
+        (*f_lut, *core, "decode_scanned"), (*f_16, "decode_scanned16"), card, n_plain=2)))
+    cells.append(("float32 DEM, bench mask", band_cell(
+        f"float32 DEM {N_TILES} x {TILE}^2 with the bench mask, maxZError 0.001", tiles, mask, MAX_Z_ERROR,
+        (*f_lut, *core, "decode_scanned_masked"), (*f_16, "decode_scanned16_masked"), card,
+        n_plain=2)))
+    crop = (slice(0, TILE - 1), slice(0, TILE - 49))  # 2047 x 1999
+    edge_mask = np.ascontiguousarray(mask[crop])
+    cells.append(("float32 edge crop", band_cell(
+        f"float32 {TILE - 1}x{TILE - 49} crop with the bench mask's crop",
+        [tiles[0][crop].contiguous()],
+        edge_mask, MAX_Z_ERROR, (*f_lut, *core, "decode_scanned_masked"),
+        (*f_16, "decode_scanned16_masked"), card)))
+    for (label, c), size in zip(cells[1:3], (f"{TILE}^2", f"{TILE - 1}x{TILE - 49}")):
+        e, _ = check_scanned_band(c[1][0], f"{label}, tile 0")
+        merge(e)
+        print(f"check: the host scanner equals tile_scan_ref, K6 "
+              f"{', '.join(k for k in sorted(e) if k != 'tile_scan')} its plain version, on the "
+              f"{size} {label} blob of the cell", flush=True)
+    cls_counts = band_cell(f"uint16 class grid {TILE}^2, maxZError 0.5", [cls_tile], None, 0.5,
+                           (*i_lut, *i_16, *core, "decode_scanned16_u16"), (), card,
+                           lossless=True)
+    cells.append(("uint16 class grid", cls_counts))
+    cls_blob = cls_counts[1][0]
+    _, cls_modes = check_scanned_band(cls_blob, "class grid")
+    from lerc_tpu_torch.codec import header as hdr
+
+    require(hdr.read_header(cls_blob)[0].micro_block_size == 16,
+            "class grid: the 16x16 retrial was not taken")
+    n_lut_cls = int((cls_modes % 8 == 4).sum())
+    require(n_lut_cls > 0, "class grid: no LUT record")
+    print(f"band cell uint16 class grid: 16x16 blocks, {n_lut_cls} LUT records of "
+          f"{cls_modes.size}", flush=True)
+    i16_cell = band_cell(f"int16 three-band {TILE}^2, lossless v6", [i16_tile], None, 0.5,
+                         (*i_lut, *core, "decode_scanned_i16"), (*i_16, "decode_scanned16_i16"),
+                         card, lossless=True)
+    cells.append(("int16 three-band", i16_cell))
+    _, i16_modes = check_scanned_band(i16_cell[1][0], "int16 three-band")
+    n_diff, n_lut_diff = int((i16_modes >= 8).sum()), int((i16_modes == 12).sum())
+    require(n_diff > 0, "int16 three-band: no depth-diff record")
+    print(f"band cell int16 three-band: {n_diff} depth-diff records ({n_lut_diff} of them LUT) "
+          f"of {i16_modes.size}", flush=True)
+    for _label, c in cells:
+        for k, n in c[0].items():
+            launches[k] = launches.get(k, 0) + n
+
+    # ---- 12. the masked index-free resident decode
+    rcodec = ResidentCodec(TILE, TILE, 1, np.float32, MAX_Z_ERROR, mask=mask)
+    rblobs = [rcodec.encode(t) for t in tiles]
+    indexed = [rcodec.decode(b) for b in rblobs]
+    for b in rblobs:
+        b.starts = None
+    counts, free = run_counted_band(("tile_scan", "fletcher32_parts", "decode_scanned_masked"),
+                                    (), "masked index-free resident decode",
+                                    lambda: [rcodec.decode(b) for b in rblobs])
+    for i, (a, b) in enumerate(zip(free, indexed)):
+        require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                f"masked index-free decode of tile {i} differs from the indexed decode")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    free_ms = best_ms(lambda: [rcodec.decode(b) for b in rblobs], rounds=3)
+    print(f"masked index-free resident decode: 4 tiles bit-equal to the indexed decode, "
+          f"launches {counts}, {N_TILES * TILE * TILE * 4 / 1e6 / (free_ms / 1e3):.1f} MB/s "
+          f"({free_ms:.3f} ms) [{card}]", flush=True)
+
+    # ---- 13. times
+    m_t = torch.ones(TILE, TILE, dtype=torch.bool, device=dev)
+
+    def host_ms(fn, reps=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    ana_ms = host_ms(lambda: lerc2_encode.try_raise_max_z_error(tiles[0], m_t, MAX_Z_ERROR))
+    bp_ms = host_ms(lambda: lerc2_encode.try_bit_plane_compression(
+        i16_tile, m_t, DataType.SHORT, 3, TILE * TILE, 0.01), reps=1)
+    blob_t = torch.frombuffer(bytearray(blob0), dtype=torch.uint8)
+    h2d = host_ms(lambda: blob_t.to(dev))
+    dev_blob = blob_t.to(dev)
+    d2h = host_ms(lambda: dev_blob.cpu())
+    from lerc_tpu_torch.codec import rle
+    from lerc_tpu_torch.codec.bitmask import bits_to_bool, bool_to_bits
+
+    packed = rle.compress(bool_to_bits(mask))
+    # best of 3, as the band cells' times it is set against
+    rle_enc = min(host_ms(lambda: rle.compress(bool_to_bits(mask)), reps=1) for _ in range(3))
+    rle_dec = min(host_ms(lambda: bits_to_bool(rle.decompress(packed, (TILE * TILE + 7) // 8),
+                                               TILE, TILE), reps=1) for _ in range(3))
+    more_enc, more_dec = ((cells[1][1][i] - cells[0][1][i]) / N_TILES for i in (2, 3))
+    print(f"mask section of the bench mask ({len(packed)} B of RLE), host: bits + RLE compress "
+          f"{rle_enc:.3f} ms, RLE decompress + bits {rle_dec:.3f} ms per {TILE}^2 band; the "
+          f"masked float32 band cell over the all-valid one, per tile: encode +{more_enc:.3f} ms, "
+          f"decode +{more_dec:.3f} ms [{card}]", flush=True)
+    print(f"band analyses: maxZError auto-raise {ana_ms:.3f} ms per 2048^2 float32 tile, "
+          f"bit-plane cut {bp_ms:.3f} ms per 2048^2 x 3 int16 tile (off the cells' path); copies "
+          f"of a {len(blob0)} B blob: host to device {h2d:.3f} ms, device to host {d2h:.3f} ms "
+          f"[{card}]", flush=True)
+    rows = {}
+    for t, m, mze, mb, is_int in ((tiles[0], None, MAX_Z_ERROR, 8, False),
+                                  (tiles[0], None, MAX_Z_ERROR, 16, False),
+                                  (cls_tile, None, 0.5, 8, True), (cls_tile, None, 0.5, 16, True)):
+        r, _n_lut, _n = lut_kernel_times(t, m, mze, mb, is_int)
+        rows.update(r)
+    for name, (ms, plain_ms, bound_ms, bound_by) in rows.items():
+        add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, bound_by)
+    scan_rows = {}
+    for label, blob in (("float32 all-valid", blob0), ("float32 masked", cells[1][1][1][0]),
+                        ("uint16 class grid, 16x16", cls_blob),
+                        ("int16 three-band", i16_cell[1][0])):
+        (ms, plain_ms, bound_ms), (scan_ms, scan_plain, scan_bound), n_rec = k6_times(blob)
+        _, mask_b, head, _ = tile_section(blob)
+        name = k6_name(head.micro_block_size, not mask_b.all(), head.dt)
+        print(f"band K6 {name} ({label}): {ms:.4f} ms/launch; host scanner {scan_ms:.3f} ms per "
+              f"tile ({n_rec} records) [{card}]", flush=True)
+        if name not in rows_done:
+            add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes")
+        scan_rows[label] = (scan_ms, scan_plain, scan_bound)
+    add_row("tile_scan", 0.0, *scan_rows["float32 all-valid"], "bytes")
+
+    # ---- where the time goes in a band round
+    where_the_time_goes(
+        None, tiles, cells[0][1][2] + cells[0][1][3], card,
+        "float32 band cell, encode_band_device + decode_band_device",
+        round_fn=lambda: [decode_band_device(encode_band_device(t, None, MAX_Z_ERROR))
+                          for t in tiles])
+    where_the_time_goes(
+        None, [cls_tile], cls_counts[2] + cls_counts[3], card,
+        "uint16 class grid cell, encode_band_device + decode_band_device",
+        round_fn=lambda: [decode_band_device(encode_band_device(cls_tile, None, 0.5))])
+
 
 
 def main():
@@ -1138,6 +1723,9 @@ def main():
         where_the_time_goes(
             codec, ctiles, round_ms, card, f"{codec.dt.name} x {d} cell, encode + index-free decode",
             round_fn=lambda c=codec, ts=ctiles: [c.decode_fast(*c.encode_fast(t)[:2]) for t in ts])
+
+    # ---- 7-13. the band codec
+    band_phases(tiles, mask, card, launches, add_row, {k["name"] for k in kernels})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,360 @@
+"""The band codec: one Lerc2 band encoded on the device, and decoded from its
+wire bytes on the device.
+
+Port of the tiling path of ``lerc_tpu/codec/device_codec.py``:
+``encode_band_device`` (:55-277) with ``_round_cap`` (:41),
+``supports_encode`` (:47) and ``_verify_device_encode`` (:280), and the
+tiling branch of ``decode_band_device`` (:829-1015).
+
+Encode: the maxZError analyses (``lerc2_encode``, torch operations on the
+band's device), the 8x8 tiling encode with the LUT candidate (K1/K2 LUT
+instances; edge blocks and masks through validity words), the host header
+and mask section, the constant and empty shortcuts, the 16x16 retrial at
+low bit rates (Lerc2.cpp:333-357, taken when it is no larger), the one-sweep
+rule (raw valid values when they are no larger than the tiles), and the
+Fletcher32 checksum through K3 over the payload where it lies.
+
+Decode: the blob's bytes after the checksum field go to the device once;
+K3 checks the checksum there; the host parses the header, mask and ranges,
+the host record scanner (``ops/tile_scan``) walks the tile stream, and K6
+decodes every record from its descriptor: masks, edge blocks, LUT records,
+16x16 blocks and the depth-diff chains. One-sweep blobs are a
+``masked_scatter`` of the valid values on the device.
+
+Not in this slice, and refused before any work with NotImplementedError
+naming their ROADMAP queue 1 item: 8-bit Huffman (maxZError 0.5 on 8-bit
+types: item 7), fpl lossless float (maxZError 0 at version 6: item 8),
+float64 (item 9), versions below 3 and micro blocks other than 8 and 16
+(item 12, with the host codec). Nothing falls back to a host decoder: where
+JAX's ``decode_band_device`` returns None for the host path, this one
+decodes or raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import struct
+
+import numpy as np
+import torch
+
+from ..constants import (DT_SIZE, DT_TO_NUMPY, DT_TO_TORCH, NUMPY_TO_DT, DataType,
+                         ImageEncodeMode, dt_is_int)
+from ..ops import device_decode, device_encode, device_scan
+from ..ops import tile_scan as scanner
+from . import header as hdr
+from . import lerc2_encode, rle
+from .bitmask import bits_to_bool, bool_to_bits
+from .resident import resolve_device
+
+_NO_STATIC = (0, 0, 0)  # Fletcher32 partials of an empty static segment
+
+
+@dataclasses.dataclass
+class DecodedBand:
+    """One decoded band (the fields of ``lerc2_decode.DecodedBand``); data
+    is a tensor on the decode device."""
+
+    hd: hdr.HeaderInfo
+    mask: np.ndarray  # [nRows, nCols] bool
+    data: torch.Tensor  # [nRows, nCols, nDepth]
+    z_min_vec: np.ndarray | None
+    z_max_vec: np.ndarray | None
+    consumed: int
+
+
+def _round_cap(n: int) -> int:
+    """Capacity rounded up to a power of two (as JAX, which compiles once
+    per size)."""
+    return 1 << max(12, (n - 1).bit_length())
+
+
+def supports_encode(dt: DataType, max_z_error: float, n_depth: int, all_valid: bool = True,
+                    version: int = 6) -> bool:
+    """Whether this slice encodes the configuration: not float64, not an
+    8-bit type at maxZError below 1 (Huffman), not float at maxZError 0 on
+    version 6 (fpl), version >= 3. A negative integer maxZError (the
+    bit-plane cut) may still end in Huffman, which encode refuses."""
+    if dt == DataType.DOUBLE or version < 3:
+        return False
+    if dt in (DataType.CHAR, DataType.BYTE) and 0 <= max_z_error < 1:
+        return False
+    return not (dt == DataType.FLOAT and max_z_error == 0 and version >= 6)
+
+
+def _unported(head: hdr.HeaderInfo) -> None:
+    """Raise for the configurations this slice leaves out."""
+    if head.dt == DataType.DOUBLE:
+        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+    if head.version < 3:
+        raise NotImplementedError(
+            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+    if head.try_huffman_int():
+        raise NotImplementedError("8-bit Huffman (maxZError 0.5 on 8-bit types): "
+                                  "ROADMAP queue 1 item 7")
+    if head.try_huffman_flt():
+        raise NotImplementedError("fpl lossless float (maxZError 0 at version 6): "
+                                  "ROADMAP queue 1 item 8")
+
+
+def _words(payload: torch.Tensor) -> torch.Tensor:
+    """uint8 bytes -> int32 u32 words (zero-padded), on the same device."""
+    pad = -payload.numel() % 4
+    if pad:
+        payload = torch.cat([payload, payload.new_zeros(pad)])
+    return payload.view(torch.int32)
+
+
+def _checksum(prefix: bytes, words: torch.Tensor, total: int) -> int:
+    """Fletcher32 of prefix || words[:total] bytes through K3 on the words'
+    device."""
+    tail = torch.frombuffer(bytearray(prefix), dtype=torch.uint8).to(words.device)
+    total_t = torch.tensor([total], dtype=torch.int32, device=words.device)
+    return int(device_scan.fletcher32_parts(tail[:0], _NO_STATIC, tail, words, total_t)) & 0xFFFFFFFF
+
+
+def encode_band_device(data, mask, max_z_error: float, version: int = 6,
+                       encode_mask: bool = True, n_blobs_more: int = 0, verify: bool = False,
+                       return_index: bool = False, *, device="cuda"):
+    """Encode one [H, W, D] band (numpy array or tensor, float32 or an
+    integer dtype) with an optional [H, W] bool validity mask -> the Lerc2
+    blob's bytes, byte-equal to JAX's ``encode_band_device``. verify decodes
+    the fresh blob and holds it to 1.1 * maxZError (0 when lossless) and the
+    mask; return_index returns (blob, None): tiling blobs carry no
+    acceleration index."""
+    dev = resolve_device(device)
+    if isinstance(data, torch.Tensor):
+        data_t = data.to(dev)
+        np_dtype = np.dtype(str(data.dtype).removeprefix("torch."))
+    else:
+        np_dtype = np.dtype(data.dtype)
+        data_t = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+    if data_t.dim() != 3:
+        raise ValueError(f"data must be [H, W, D], got shape {tuple(data_t.shape)}")
+    dt = NUMPY_TO_DT[np_dtype]
+    h, w, d = data_t.shape
+    if version < 4 and d > 1:
+        raise ValueError("depth > 1 needs version >= 4 (no nDepth field before)")
+    all_valid = mask is None or bool(np.asarray(mask).all())
+    if all_valid:
+        num_valid = h * w
+        mask_np = np.ones((h, w), dtype=bool)
+    else:
+        mask_np = np.ascontiguousarray(np.asarray(mask, dtype=bool))
+        num_valid = int(mask_np.sum())
+    if dt == DataType.DOUBLE or version < 3:
+        _unported(hdr.HeaderInfo(version=version, dt=dt))
+    mask_t = (torch.ones(h, w, dtype=torch.bool, device=dev) if all_valid
+              else torch.from_numpy(mask_np).to(dev))
+
+    # maxZError analyses (Lerc2.cpp:210-218 cheat code, :1071-1339)
+    mze = float(max_z_error)
+    if mze == 777:
+        mze = -0.01
+    if dt_is_int(dt):
+        if mze < 0:
+            ok, new_mze = lerc2_encode.try_bit_plane_compression(data_t, mask_t, dt, d, num_valid,
+                                                                 -mze)
+            mze = new_mze if ok else 0
+        mze = max(0.5, float(np.floor(mze)))
+    else:
+        if mze < 0:
+            raise ValueError("negative maxZError not allowed for float types")
+        if mze > 0:
+            ok, new_mze = lerc2_encode.try_raise_max_z_error(data_t, mask_t, mze)
+            if ok:
+                mze = new_mze
+    head = hdr.HeaderInfo(
+        version=version, n_rows=h, n_cols=w, n_depth=d, num_valid_pixel=num_valid,
+        micro_block_size=8, dt=dt, max_z_error=mze,
+        n_blobs_more=n_blobs_more if version >= 6 else 0,
+    )
+    _unported(head)
+
+    need_mask = 0 < num_valid < h * w
+    if need_mask and encode_mask:
+        mask_rle = rle.compress(bool_to_bits(mask_np))
+        mask_section = struct.pack("<i", len(mask_rle)) + mask_rle
+    else:
+        mask_section = struct.pack("<i", 0)
+    np_dt = DT_TO_NUMPY[dt]
+    skip = hdr.checksum_skip(version)
+
+    def assemble(ranges: bytes, body: bytes, payload=None, n_payload: int = 0) -> bytes:
+        """The blob: header, mask section, ranges, body bytes, then
+        n_payload bytes of the payload words on the device."""
+        head.blob_size = (hdr.header_size(version) + len(mask_section) + len(ranges) + len(body)
+                          + n_payload)
+        blob = bytearray(hdr.write_header(head)) + mask_section + ranges + body
+        if payload is None:
+            payload = torch.zeros(1, dtype=torch.int32, device=dev)
+        head.checksum = _checksum(bytes(blob[skip:]), payload, n_payload)
+        struct.pack_into("<I", blob, skip - 4, head.checksum)
+        blob += payload.view(torch.uint8)[:n_payload].cpu().numpy().tobytes()
+        result = bytes(blob)
+        if verify:
+            _verify_device_encode(result, data_t, mask_np, mze, dt, dev)
+        return (result, None) if return_index else result
+
+    if num_valid == 0:
+        return assemble(b"", b"")
+
+    enc_data = data_t.to(torch.int32 if dt_is_int(dt) else torch.float32).contiguous()
+    n_rec = -(-h // 8) * -(-w // 8) * d
+    cap = _round_cap(num_valid * DT_SIZE[dt] * d + n_rec * 12 + 4096)
+    valid8 = None if all_valid else device_encode.block_valid_words(mask_t, 8)
+    stream, total, zminv, zmaxv, _starts, _fits = device_encode.encode_tiles(
+        enc_data, valid8, mze, h, w, d, dt, all_valid, version, cap, enable_lut=True)
+    total = int(total)
+    if total > cap:
+        raise ValueError("device encode capacity exceeded")
+    zmin_vec = zminv.cpu().numpy().astype(np.float64)
+    zmax_vec = zmaxv.cpu().numpy().astype(np.float64)
+    head.z_min = float(zmin_vec.min())
+    head.z_max = float(zmax_vec.max())
+    if head.z_min == head.z_max:
+        return assemble(b"", b"")
+    ranges = b""
+    if version >= 4:
+        ranges = zmin_vec.astype(np_dt).tobytes() + zmax_vec.astype(np_dt).tobytes()
+        if np.array_equal(zmin_vec, zmax_vec):
+            return assemble(ranges, b"")
+
+    payload, n_bytes_data = stream, total
+    # 16x16 micro-block retrial at low bit rates (Lerc2.cpp:333-357): half
+    # the per-block header overhead when blocks compress below ~1.5 bpp
+    n_one_sweep = DT_SIZE[dt] * d * num_valid
+    if total * 8 < h * w * d * 1.5 and total < 4 * n_one_sweep and (h > 8 or w > 8):
+        valid16 = None if all_valid else device_encode.block_valid_words(mask_t, 16)
+        s16, t16, *_ = device_encode.encode_tiles(
+            enc_data, valid16, mze, h, w, d, dt, all_valid, version, cap, enable_lut=True, mb=16)
+        t16 = int(t16)
+        if t16 <= n_bytes_data:
+            head.micro_block_size = 16
+            payload, n_bytes_data = s16, t16
+
+    if n_one_sweep <= n_bytes_data:  # the valid values raw, in pixel order
+        vals = data_t[mask_t].to(DT_TO_TORCH[dt]).contiguous()
+        return assemble(ranges, b"\x01", _words(vals.view(torch.uint8).reshape(-1)), n_one_sweep)
+    return assemble(ranges, b"\x00", payload, n_bytes_data)
+
+
+def _verify_device_encode(blob: bytes, data: torch.Tensor, mask_np: np.ndarray, mze: float,
+                          dt: DataType, dev) -> None:
+    """ENCODE_VERIFY (reference Lerc.cpp:1081-1211): decode the fresh blob
+    and compare with the input at the valid pixels, within maxZError * 1.1
+    (exactly when lossless); the mask must round-trip."""
+    res = decode_band_device(blob, device=dev)
+    if not np.array_equal(res.mask, mask_np):
+        raise ValueError("ENCODE_VERIFY: mask mismatch")
+    if mask_np.any():
+        sel = torch.from_numpy(mask_np).to(dev)
+        err = float((res.data.to(torch.float64) - data.to(torch.float64)).abs()[sel].max())
+        lossless = mze == 0 or (dt_is_int(dt) and mze == 0.5)
+        limit = 0 if lossless else mze * 1.1
+        if err > limit:
+            raise ValueError(f"ENCODE_VERIFY: error {err} exceeds {limit}")
+
+
+def decode_band_device(buf, prev_mask: np.ndarray | None = None, verify_checksum: bool = True,
+                       *, device="cuda") -> DecodedBand:
+    """Decode one Lerc2 band blob (bytes-like) on the device -> DecodedBand,
+    its data a tensor on the decode device, bit-equal to the host decoder
+    ``lerc2_decode.decode_band``. prev_mask is the previous band's mask, for
+    a blob that reuses it (mask section of length 0). Raises ValueError on a
+    corrupt blob."""
+    dev = resolve_device(device)
+    src = memoryview(buf).cast("B")
+    head, pos = hdr.read_header(src)
+    if len(src) < head.blob_size:
+        raise ValueError("buffer shorter than blobSize")
+    if head.dt == DataType.DOUBLE or head.version < 3:
+        _unported(head)
+    h, w, d = head.n_rows, head.n_cols, head.n_depth
+    np_dt = DT_TO_NUMPY[head.dt]
+
+    # the bytes after the checksum field, on the device once
+    skip = hdr.checksum_skip(head.version)
+    words = _words(torch.frombuffer(bytearray(src[skip:head.blob_size]), dtype=torch.uint8).to(dev))
+    if verify_checksum:
+        total_t = torch.tensor([head.blob_size - skip], dtype=torch.int32, device=dev)
+        empty = torch.zeros(0, dtype=torch.uint8, device=dev)
+        if int(device_scan.fletcher32_parts(empty, _NO_STATIC, empty, words, total_t)) & 0xFFFFFFFF \
+                != head.checksum:
+            raise ValueError("Lerc2 checksum mismatch")
+
+    # mask section (Lerc2.cpp:961-1008)
+    num_bytes_mask = int.from_bytes(src[pos : pos + 4], "little", signed=True)
+    pos += 4
+    if num_bytes_mask < 0 or num_bytes_mask > len(src) - pos:
+        raise ValueError("bad mask section size")
+    num_total = h * w
+    if head.num_valid_pixel in (0, num_total) and num_bytes_mask != 0:
+        raise ValueError("unexpected mask bytes")
+    if head.num_valid_pixel == 0:
+        mask = np.zeros((h, w), dtype=bool)
+    elif head.num_valid_pixel == num_total:
+        mask = np.ones((h, w), dtype=bool)
+    elif num_bytes_mask > 0:
+        bits = rle.decompress(src[pos : pos + num_bytes_mask], (num_total + 7) >> 3)
+        mask = bits_to_bool(bits, w, h)
+        pos += num_bytes_mask
+    else:
+        if prev_mask is None:
+            raise ValueError("mask reuse requested but no previous mask")
+        mask = np.array(prev_mask, dtype=bool)
+
+    out = DecodedBand(head, mask, torch.zeros(h, w, d, dtype=DT_TO_TORCH[head.dt], device=dev),
+                      None, None, head.blob_size)
+    if head.num_valid_pixel == 0:
+        return out
+    mask_t = torch.from_numpy(np.ascontiguousarray(mask)).to(dev)
+    if head.z_min == head.z_max:
+        out.data[mask_t] = torch.full((d,), np_dt(head.z_min).item(), dtype=out.data.dtype,
+                                      device=dev)
+        return out
+    if head.version >= 4:
+        nb = d * DT_SIZE[head.dt]
+        out.z_min_vec = np.frombuffer(src[pos : pos + nb], dtype=np_dt).astype(np.float64)
+        out.z_max_vec = np.frombuffer(src[pos + nb : pos + 2 * nb], dtype=np_dt).astype(np.float64)
+        pos += 2 * nb
+        if np.array_equal(out.z_min_vec, out.z_max_vec):
+            vals = out.z_min_vec.astype(np_dt) if d > 1 else np.full(1, np_dt(head.z_min))
+            out.data[mask_t] = torch.from_numpy(vals).to(dev)
+            return out
+
+    if pos >= len(src):
+        raise ValueError("truncated blob: missing flag bytes")
+    one_sweep = src[pos]
+    pos += 1
+    if one_sweep:  # the valid values raw, in pixel order
+        n_valid = int(np.count_nonzero(mask))
+        nbytes = n_valid * d * DT_SIZE[head.dt]
+        if len(src) - pos < nbytes:
+            raise ValueError("truncated one-sweep data")
+        vals = words.view(torch.uint8)[pos - skip : pos - skip + nbytes].clone().view(out.data.dtype)
+        out.data[mask_t] = vals.reshape(n_valid, d)
+        return out
+    if head.try_huffman_int() or head.try_huffman_flt():
+        if pos >= len(src):
+            raise ValueError("truncated blob: missing image-mode byte")
+        flag = src[pos]
+        pos += 1
+        if (flag > ImageEncodeMode.DELTA_DELTA_HUFFMAN
+                or (flag > ImageEncodeMode.HUFFMAN and head.version < 6)
+                or (flag > ImageEncodeMode.DELTA_HUFFMAN and head.version < 4)):
+            raise ValueError("bad image encode mode flag")
+        if flag != ImageEncodeMode.TILING:
+            _unported(head)
+
+    mb = head.micro_block_size
+    if mb not in (8, 16):
+        raise NotImplementedError(
+            f"micro blocks of {mb}: ROADMAP queue 1 item 12 (host codec)")
+    cnts, j0s, n_blocks = scanner.block_scan_inputs(mask, mb)
+    stream_np = np.frombuffer(src[pos : head.blob_size], dtype=np.uint8)
+    scan = scanner.tile_scan if dev.type == "cuda" else scanner.tile_scan_ref
+    recs, _used = scan(stream_np, cnts, j0s, n_blocks, d, int(head.dt), head.version)
+    z_max = out.z_max_vec if out.z_max_vec is not None else np.full(d, head.z_max)
+    valid = None if mask.all() else device_encode.block_valid_words(mask_t, mb)
+    out.data = device_decode.decode_tiles(words, pos - skip, recs, valid, head, z_max)
+    return out

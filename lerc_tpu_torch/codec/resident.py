@@ -27,8 +27,10 @@ even.
 A mask is turned once per codec into two u32 validity words per 8x8 block
 (``device_encode.block_valid_words``) on the codec's device; the masked
 kernels read those. An all-True mask takes the all-valid wire and kernels.
-Without the index a masked blob needs the host tile scanner (ROADMAP queue
-1 item 6).
+Without the index a masked blob's records are found by the host record
+scanner (``ops/tile_scan``; a masked record's size depends on its block's
+valid count, which the device scan K5 cannot know) and decoded by the masked
+K6, depth-diff records included (:269-315, where JAX refuses those).
 
 Integer dtypes use maxZError max(0.5, floor(maxZError)) (:58-59); 1- and
 2-byte ranges are the low bytes of the int32 range values.
@@ -43,7 +45,7 @@ import torch
 
 from ..constants import (DT_SIZE, DT_TO_NUMPY, DT_TO_TORCH, FILE_KEY_LERC2, NUMPY_TO_DT,
                          DataType, dt_is_int, dt_is_signed)
-from ..ops import device_decode, device_encode, device_scan
+from ..ops import device_decode, device_encode, device_scan, tile_scan
 from . import header as hdr
 from . import rle
 from .bitmask import bool_to_bits
@@ -121,7 +123,7 @@ class ResidentCodec:
         """Sets num_valid and the block validity words `valid` (None: all
         valid); returns the wire's mask section."""
         h, w = self.h, self.w
-        self.num_valid, self.valid = h * w, None
+        self.num_valid, self.valid, self._mask_np = h * w, None, None
         if mask is None:
             return struct.pack("<i", 0)
         if isinstance(mask, torch.Tensor):
@@ -135,6 +137,7 @@ class ResidentCodec:
         if self.num_valid == h * w:  # an all-True mask: the all-valid wire
             return struct.pack("<i", 0)
         self.valid = device_encode.block_valid_words(torch.from_numpy(mask_np).to(self.device))
+        self._mask_np = mask_np
         mask_rle = rle.compress(bool_to_bits(mask_np))
         return struct.pack("<i", len(mask_rle)) + mask_rle
 
@@ -228,14 +231,24 @@ class ResidentCodec:
                 raise ValueError("record-offset index inconsistent with stream")
             return img
         if self.valid is not None:
-            raise NotImplementedError(
-                "masked resident decode without the record-offset index: ROADMAP queue 1 "
-                "item 6 (host tile scanner)")
+            return self._decode_masked_scan(blob, head, z_max_vec)
         total = torch.tensor([blob.total], dtype=torch.int32, device=dev)
         img, ok = self._decode_scanned(blob.stream, total, head.max_z_error, zmax_arg, head)
         if not bool(ok):
             raise ValueError("Lerc2 record chain inconsistent with the blob's payload size")
         return img
+
+    def _decode_masked_scan(self, blob: ResidentBlob, head: hdr.HeaderInfo,
+                            z_max_vec: np.ndarray) -> torch.Tensor:
+        """A masked blob without the index (resident.py:269-315): the host
+        record scanner over the stream's bytes (one copy to the host), then
+        the masked K6 on the device."""
+        stream_np = blob.stream.view(torch.uint8)[: blob.total].cpu().numpy()
+        cnts, j0s, n_blocks = tile_scan.block_scan_inputs(self._mask_np, 8)
+        scan = tile_scan.tile_scan if blob.stream.is_cuda else tile_scan.tile_scan_ref
+        recs, _used = scan(stream_np, cnts, j0s, n_blocks, head.n_depth, int(head.dt),
+                           head.version)
+        return device_decode.decode_tiles(blob.stream, 0, recs, self.valid, head, z_max_vec)
 
     def _decode_indexed(self, blob: ResidentBlob, head: hdr.HeaderInfo, zmax_arg, nb_cap: int):
         return device_decode.decode_tiles_fast(

@@ -1,4 +1,4 @@
-"""Constants of the LERC wire format used by the resident codec.
+"""Constants of the LERC wire format used by the resident and band codecs.
 
 The port's own copy of the subset of ``lerc_tpu.constants`` it needs (the
 port imports nothing of the JAX package), plus ``MAX_BITS`` from
@@ -30,6 +30,15 @@ class DataType(enum.IntEnum):
     UINT = 5
     FLOAT = 6
     DOUBLE = 7
+
+
+class ImageEncodeMode(enum.IntEnum):
+    """Whole-image encode modes (Lerc2.h:143)."""
+
+    TILING = 0
+    DELTA_HUFFMAN = 1
+    HUFFMAN = 2
+    DELTA_DELTA_HUFFMAN = 3  # v6 lossless float path
 
 
 DT_TO_NUMPY = {

@@ -6,9 +6,14 @@ the JAX side the fused blob is four device arrays (``header`` u8, ``stream``
 u32 words, ``meta`` i32, ``starts`` i32) that ``numpy.asarray`` brings to
 the host; on the port's side the same four are tensors, with the u32 words
 held in an int32 tensor. A ``ResidentBlob`` carries its header as host
-bytes, the stream, total, checksum and the optional index.
+bytes, the stream, total, checksum and the optional index. A band codec's
+``DecodedBand`` holds its data as a tensor on the decode device;
+``decoded_band_to_numpy`` gives its fields as JAX's ``DecodedBand`` holds
+them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -73,3 +78,13 @@ def codec_kwargs(h: int, w: int, d: int, dtype, max_z_error: float, version: int
     return dict(h=int(h), w=int(w), d=int(d), dtype=np.dtype(dtype),
                 max_z_error=float(max_z_error), version=int(version), nb_cap=int(nb_cap),
                 mask=None if mask is None else np.array(mask, dtype=bool))
+
+
+def decoded_band_to_numpy(band) -> dict:
+    """The port's ``DecodedBand`` -> plain fields (the header's fields as a
+    dict, mask bool array, data array in the native dtype, z_min_vec,
+    z_max_vec, consumed), to compare field by field with JAX's
+    ``DecodedBand`` (whose ``hd`` is the JAX HeaderInfo)."""
+    return dict(hd=dataclasses.asdict(band.hd), mask=np.asarray(band.mask, dtype=bool),
+                data=band.data.cpu().numpy(), z_min_vec=band.z_min_vec,
+                z_max_vec=band.z_max_vec, consumed=int(band.consumed))

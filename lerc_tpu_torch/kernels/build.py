@@ -13,6 +13,11 @@ contracted behind the code's back -- the decode ScaleBack must round the
 product and the sum separately, and the one fused multiply-add the encoder
 needs is written out as ``__fmaf_rn``.
 
+The band decoder's record scanner (``tile_scan.cpp``) runs on the host: it
+builds the same way with the host compiler (``c++ -O3 -shared -fPIC``), by
+itself on first use (the CPU tests need no ``nvcc``) or beside the CUDA
+sources in ``build_all``.
+
 A failed build raises with the compiler's output; nothing falls back.
 """
 from __future__ import annotations
@@ -27,6 +32,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
 SOURCES = ("encode", "fletcher32", "decode", "scan")
+HOST_SOURCES = ("tile_scan",)
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -47,6 +54,14 @@ LAUNCHES.update({f"{k}{m}{sfx}": 0 for sfx in INT_SUFFIXES
                  for k in ("encode_blocks", "write_records", "decode_records")
                  for m in ("", "_masked")})
 LAUNCHES.update({f"decode_scanned{sfx}": 0 for sfx in INT_SUFFIXES})
+# the band codec's instances: K1/K2 with the LUT candidate on 8x8 and 16x16
+# blocks (float32, and int32 input for every integer dtype), K6 on 16x16
+# blocks and with validity words (masks, edge blocks), and the host scanner
+LAUNCHES.update({f"{k}{m}{t}": 0 for k in ("encode_blocks", "write_records")
+                 for m in ("_lut", "_lut16") for t in ("", "_int")})
+LAUNCHES.update({f"decode_scanned{mb}{m}{sfx}": 0 for mb in ("", "16")
+                 for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES if mb or m})
+LAUNCHES["tile_scan"] = 0
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -67,47 +82,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _cxx() -> str:
+    found = shutil.which("c++")
+    if not found:
+        raise RuntimeError("c++ not found: the host record scanner cannot be built")
+    return found
+
+
+def _source(name: str) -> Path:
+    return SRC_DIR / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
-    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name).read_bytes()
+    if name in HOST_SOURCES:
+        extra = " ".join(HOST_FLAGS).encode()
+    else:
+        headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+        extra = headers + " ".join(NVCC_FLAGS).encode()
+    key = hashlib.sha256(src + extra).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source whose library is missing, all in parallel.
-    Returns {source: ptxas report} for the sources compiled by this call
-    (register and shared-memory use per kernel); raises RuntimeError with
-    the compiler output on failure."""
-    todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
+def build_all(names=SOURCES + HOST_SOURCES) -> dict[str, str]:
+    """Compile every source of `names` whose library is missing, all in
+    parallel. Returns {source: compiler report} for the sources compiled by
+    this call (ptxas: register and shared-memory use per kernel); raises
+    RuntimeError with the compiler output on failure."""
+    todo = {n: _target(n) for n in names if not _target(n).exists()}
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        flags = (_cxx(), *HOST_FLAGS) if name in HOST_SOURCES else (_nvcc(), *NVCC_FLAGS)
+        cmd = [*flags, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            failed.append(f"--- {_source(name).name} (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         reports[name] = log
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of source `name`, building it on first use."""
+    """The loaded library of source `name`, building it on first use (a
+    CUDA source with all the others, the host scanner by itself)."""
     lib = _libs.get(name)
     if lib is None:
-        build_all()
+        build_all((name,) if name in HOST_SOURCES else SOURCES)
         lib = ctypes.CDLL(str(_target(name)))
         _libs[name] = lib
     return lib

@@ -1,7 +1,8 @@
 // K4 decode_records: index-driven Lerc2 tile decode for float32 rasters
 // with 8x8 micro blocks, all-valid or masked, with the exact double
 // ScaleBack; its integer instances (decode_records_int) and K6
-// decode_scanned follow the float kernels and are described there.
+// decode_scanned (the band decoder's, and the index-free resident decode's)
+// follow the float kernels and are described there.
 //
 // Replaces lerc_tpu/ops/device_decode.py::decode_tiles_fast (:64) and
 // _exact_f32_scale_back (:30, softfloat f64 in device_softf64.py), and for
@@ -31,12 +32,14 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "record.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t rd(const uint8_t* s, long long pos, long long n) {
     return (pos >= 0 && pos < n) ? (uint32_t)s[pos] : 0u;
@@ -265,98 +268,185 @@ int launch_decode_int(const uint8_t* words, long long n_bytes, const int* starts
 }
 
 // ---------------------------------------------------------------------------
-// K6 decode_scanned: decode from scanned record descriptors, a port of
-// decode_tiles (device_decode.py:493-708) with _unpack_records (:464) for
-// 8x8 aligned all-valid records: modes raw, stuff, const-0 and
-// const-offset, float32 (the exact f64 ScaleBack, as K4) and every integer
-// dtype. Each stream read clamps its index into the stream, as JAX's
-// gathers do.
+// K6 decode_scanned: decode from record descriptors (of the device scan K5 or
+// the host scanner), a port of decode_tiles (device_decode.py:493-708) with
+// _unpack_records (:464): 8x8 and 16x16 blocks, all-valid, masked or with
+// edge blocks, modes raw, stuff, const-0, const-offset and LUT (mode 4:
+// index i -> [0] + entries at lut_pos), float32 (the exact f64 ScaleBack,
+// as K4) and every integer dtype, and the depth-diff chains. Each stream read
+// clamps its index into the stream, as JAX's gathers do.
 //
-// The TPU version gathers five byte planes per value and resolves the
-// integer depth-diff chain (:625-648) with a lax.scan over depth; here one
-// warp owns one block and walks its D records in order, each lane keeping
-// the previous slice of its two positions in registers: a diff record
-// (mode >= 8) adds its offset (+ q * invScale) to the previous slice and
-// clamps to zMax, a diff const-0 record copies it. ok drops where this
-// kernel cannot be right: a float diff record (the exact f32 chain is
-// queue 1 item 6), a raw diff record or a diff record on slice 0 (the host
-// decoder rejects both), and a LUT record.
+// One warp owns one block and walks its D records in order; lane `lane`
+// holds positions j = 32k + lane (k < VPL = MB*MB/32) and keeps the previous
+// slice of its positions in registers. A record writes its values at the
+// valid positions, by their rank among them (popc of the validity words
+// below j) -- or, for a stuffed or LUT record whose count equals the block's
+// in-image area, at every in-image position (decode_tiles:538-548, the host
+// decoder's full-block case); raw and const-offset records write the valid
+// positions only (:593). A diff record (mode >= 8) adds its offset (+ q *
+// invScale) to the previous slice: integers in int32, float32 as
+// (float)min(a + (double)prev, zMax) with a the pre-clamp f64 sum
+// offset + q * invScale (:650-698); a diff const-0 record copies the
+// previous slice.
 //
-// Bound: bytes (the stream's `total` bytes and 16 B of descriptors per
-// record read once, the image written once).
+// ok drops where the host decoder (lerc2_decode.py:233-306, bitstuffer.py
+// :191-222) refuses the block: a stuffed count over the block's in-image
+// area, or under its valid count and not the area; a LUT index past the LUT
+// (every stuffed index is checked); a raw diff record; a diff record on
+// slice 0.
+//
+// Bound: bytes (the stream's `total` bytes and 32 B of descriptors per
+// record read once, 4*VPL B of validity words per masked block, the image
+// written once).
 // ---------------------------------------------------------------------------
 
 using lerc2::byte_clamped;
 
-template <typename Tout, bool IS_INT>
+// value i of `width` bits (LSB-first) in the bit stream at byte pos
+__device__ __forceinline__ uint32_t extract(const uint8_t* s, long long n_bytes, long long pos,
+                                            long long i, int width) {
+    const long long bitpos = i * width;
+    const long long at = pos + (bitpos >> 3);
+    const int sh = (int)(bitpos & 7);
+    uint32_t acc = 0;
+    for (int t = 0; t < 4; ++t) acc |= byte_clamped(s, at + t, n_bytes) << (8 * t);
+    const uint32_t hi = sh ? byte_clamped(s, at + 4, n_bytes) << (32 - sh) : 0u;
+    const uint32_t qmask = width >= 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
+    return ((acc >> sh) | hi) & qmask;
+}
+
+template <typename Tout, bool IS_INT, int MB, bool MASKED>
 __global__ void decode_scanned_kernel(
         const uint8_t* __restrict__ s, long long n_bytes, const int* __restrict__ mode,
         const int* __restrict__ payload_pos, const int* __restrict__ offset,
-        const int* __restrict__ num_bits, const int* __restrict__ zmax, double inv, int inv_i,
-        int w, int d, int nbh, int n_blocks, int size_t_, int is_signed,
-        Tout* __restrict__ img, int* __restrict__ ok) {
+        const int* __restrict__ num_bits, const int* __restrict__ num_elements,
+        const int* __restrict__ lut_pos, const int* __restrict__ n_lut,
+        const int* __restrict__ nbits_lut, const uint32_t* __restrict__ valid,
+        const int* __restrict__ zmax, double inv, int inv_i, int h, int w, int d, int nbh,
+        int n_blocks, int size_t_, int is_signed, Tout* __restrict__ img, int* __restrict__ ok) {
+    constexpr int VPL = MB * MB / 32;
+    using V = typename std::conditional<IS_INT, int, float>::type;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int b = blockIdx.x * WARPS + warp;
     if (b >= n_blocks) return;  // warp-uniform
-    const int row0 = (b / nbh) * 8, col = (b % nbh) * 8 + (lane & 7);
-    int prev[2] = {0, 0};  // this lane's two positions in the previous slice
+    const int row0 = (b / nbh) * MB, col0 = (b % nbh) * MB;
+    const uint32_t lt = (1u << lane) - 1u;
+    uint32_t iw[VPL], vw[VPL];  // in-image and valid positions, as ballots
+    int cnt = 0, area = 0;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+        const unsigned j = 32 * k + lane;
+        iw[k] = __ballot_sync(FULL, row0 + (int)(j / MB) < h && col0 + (int)(j % MB) < w);
+        vw[k] = MASKED ? valid[(size_t)b * VPL + k] & iw[k] : iw[k];
+        cnt += __popc(vw[k]);
+        area += __popc(iw[k]);
+    }
+    V prev[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) prev[k] = 0;
     bool bad = false;
     for (int di = 0; di < d; ++di) {
         const int r = b * d + di;
-        const int m = mode[r], m8 = m & 7, nb = num_bits[r];
-        const bool dif = m >= 8;
+        const int m = mode[r], m8 = m & 7, nb = num_bits[r], ne = num_elements[r];
+        const bool dif = m >= 8, stuffed = m8 == 1 || m8 == 4;
         const long long pp = payload_pos[r];
-        const int off = offset[r], zm = zmax[di];
-        const uint32_t qmask = nb >= 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
-        for (int k = 0; k < 2; ++k) {
-            const int j = lane + 32 * k;
-            const long long bitpos = (long long)j * nb;
-            const long long at = pp + (bitpos >> 3);
-            const int sh = (int)(bitpos & 7);
-            uint32_t acc = 0;
-            for (int t = 0; t < 4; ++t) acc |= byte_clamped(s, at + t, n_bytes) << (8 * t);
-            const uint32_t hi = sh ? byte_clamped(s, at + 4, n_bytes) << (32 - sh) : 0u;
-            const uint32_t q = ((acc >> sh) | hi) & qmask;
-            const long long rb = pp + (long long)j * size_t_;
-            uint32_t word = 0;
-            for (int t = 0; t < size_t_; ++t) word |= byte_clamped(s, rb + t, n_bytes) << (8 * t);
-            const int row = row0 + (j >> 3);
-            const size_t at_img = ((size_t)row * w + col) * d + di;
+        const int off = offset[r];
+        const bool use_all = stuffed && ne == area;
+        bad |= (stuffed && (ne > area || (ne != area && ne < cnt))) || (dif && (m8 == 0 || di == 0));
+        if (m8 == 4) {  // every stuffed index must lie in the LUT (bitstuffer.py:220)
+            const int nl = n_lut[r], nbl = nbits_lut[r];
+            for (int i = lane; i < min(ne, MB * MB); i += 32)
+                bad |= (int)extract(s, n_bytes, pp, i, nbl) > nl;
+        }
+        int base = 0;  // the rank of position 32k among the written positions
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) {
+            const uint32_t ew = use_all ? iw[k] : vw[k];
+            const bool e = (ew >> lane) & 1u, v = (vw[k] >> lane) & 1u;
+            const int rank = base + __popc(ew & lt);
+            base += __popc(ew);
+            uint32_t q = 0, word = 0;
+            if (e && stuffed) {
+                if (m8 == 4) {
+                    const uint32_t idx = extract(s, n_bytes, pp, rank, nbits_lut[r]);
+                    q = idx ? extract(s, n_bytes, lut_pos[r], (long long)idx - 1, nb) : 0u;
+                } else {
+                    q = extract(s, n_bytes, pp, rank, nb);
+                }
+            }
+            if (m8 == 0 && v) {
+                const long long rb = pp + (long long)rank * size_t_;
+                for (int t = 0; t < size_t_; ++t) word |= byte_clamped(s, rb + t, n_bytes) << (8 * t);
+            }
+            const bool write = (m8 == 3 || m8 == 0) ? v : e;
+            V z;
             if constexpr (IS_INT) {
+                const int zm = zmax[di];
                 const int a = (int)((uint32_t)off + q * (uint32_t)inv_i);
-                int z = m8 == 0 ? lerc2::raw_int(word, size_t_, is_signed)
-                      : m8 == 2 ? 0 : m8 == 3 ? off : min(a, zm);
-                if (d > 1 && dif) {  // :621-622, :643-644
+                z = m8 == 0 ? lerc2::raw_int(word, size_t_, is_signed)
+                  : m8 == 2 ? 0 : m8 == 3 ? off : min(a, zm);
+                if (dif) {  // :621-622, :643-644
                     const int ad = m8 == 3 ? off : a;
                     z = m8 == 2 ? prev[k] : min((int)((uint32_t)ad + (uint32_t)prev[k]), zm);
                 }
-                prev[k] = z;
-                img[at_img] = (Tout)z;
             } else {
-                const float offf = __int_as_float(off), zmf = __int_as_float(zm);
-                float zs = __double2float_rn(__dadd_rn((double)offf, __dmul_rn((double)q, inv)));
+                const float offf = __int_as_float(off), zmf = __int_as_float(zmax[di]);
+                const double a = __dadd_rn((double)offf, __dmul_rn((double)q, inv));
+                float zs = __double2float_rn(a);
                 zs = zmf < zs ? zmf : zs;
-                img[at_img] = m8 == 0 ? __uint_as_float(word)
-                            : m8 == 2 ? 0.f : m8 == 3 ? offf : zs;
+                z = m8 == 0 ? __uint_as_float(word) : m8 == 2 ? 0.f : m8 == 3 ? offf : zs;
+                if (dif) {  // :650-698
+                    const double ad = m8 == 3 ? (double)offf : a;
+                    float t = __double2float_rn(__dadd_rn(ad, (double)prev[k]));
+                    t = zmf < t ? zmf : t;
+                    z = m8 == 2 ? prev[k] : t;
+                }
             }
+            if (!write) z = 0;
+            prev[k] = z;
+            const unsigned j = 32 * k + lane;
+            const int row = row0 + (int)(j / MB), col = col0 + (int)(j % MB);
+            if ((iw[k] >> lane) & 1u) img[((size_t)row * w + col) * d + di] = (Tout)z;
         }
-        bad |= (dif && (!IS_INT || m8 == 0 || di == 0)) || m8 == 4;
     }
-    if (lane == 0 && bad) ok[0] = 0;
+    if (__any_sync(FULL, bad) && lane == 0) ok[0] = 0;
 }
 
-template <typename Tout, bool IS_INT>
+template <typename Tout, bool IS_INT, int MB, bool MASKED>
 int launch_scanned(const uint8_t* words, long long n_bytes, const int* mode,
                    const int* payload_pos, const int* offset, const int* num_bits,
-                   const int* zmax, double inv, int inv_i, int h, int w, int d, int size_t_,
-                   int is_signed, void* img, int* ok, cudaStream_t st) {
-    const int nbh = w / 8;
-    const int n_blocks = (h / 8) * nbh;
+                   const int* num_elements, const int* lut_pos, const int* n_lut,
+                   const int* nbits_lut, const int* valid, const int* zmax, double inv, int inv_i,
+                   int h, int w, int d, int size_t_, int is_signed, void* img, int* ok,
+                   cudaStream_t st) {
+    const int nbh = (w + MB - 1) / MB;
+    const int n_blocks = ((h + MB - 1) / MB) * nbh;
     const int grid = (n_blocks + WARPS - 1) / WARPS;
-    decode_scanned_kernel<Tout, IS_INT><<<grid, WARPS * 32, 0, st>>>(
-        words, n_bytes, mode, payload_pos, offset, num_bits, zmax, inv, inv_i, w, d, nbh,
+    decode_scanned_kernel<Tout, IS_INT, MB, MASKED><<<grid, WARPS * 32, 0, st>>>(
+        words, n_bytes, mode, payload_pos, offset, num_bits, num_elements, lut_pos, n_lut,
+        nbits_lut, reinterpret_cast<const uint32_t*>(valid), zmax, inv, inv_i, h, w, d, nbh,
         n_blocks, size_t_, is_signed, static_cast<Tout*>(img), ok);
     return (int)cudaGetLastError();
+}
+
+// the (block size, mask) instance of one output type
+template <typename Tout, bool IS_INT>
+int launch_scanned_of(int mb, const uint8_t* words, long long n_bytes, const int* mode,
+                      const int* payload_pos, const int* offset, const int* num_bits,
+                      const int* num_elements, const int* lut_pos, const int* n_lut,
+                      const int* nbits_lut, const int* valid, const int* zmax, double inv,
+                      int inv_i, int h, int w, int d, int size_t_, int is_signed, void* img,
+                      int* ok, cudaStream_t st) {
+#define K6_ARGS words, n_bytes, mode, payload_pos, offset, num_bits, num_elements, lut_pos, n_lut, \
+                nbits_lut, valid, zmax, inv, inv_i, h, w, d, size_t_, is_signed, img, ok, st
+    if (mb == 8)
+        return valid ? launch_scanned<Tout, IS_INT, 8, true>(K6_ARGS)
+                     : launch_scanned<Tout, IS_INT, 8, false>(K6_ARGS);
+    if (mb == 16)
+        return valid ? launch_scanned<Tout, IS_INT, 16, true>(K6_ARGS)
+                     : launch_scanned<Tout, IS_INT, 16, false>(K6_ARGS);
+#undef K6_ARGS
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -391,24 +481,26 @@ extern "C" int decode_records_int(const uint8_t* words, long long n_bytes, const
     }
 }
 
-// K6: dt 0..5 or 6 (float32: offset and zmax hold f32 bits); ok: 1 int32
-// set to 1 by the caller
+// K6: dt 0..5 or 6 (float32: offset and zmax hold f32 bits); mb 8 or 16;
+// valid: [nBlocks, mb*mb/32] u32 validity words, or null for an all-valid
+// image; ok: 1 int32 set to 1 by the caller
 extern "C" int decode_scanned(const uint8_t* words, long long n_bytes, const int* mode,
                               const int* payload_pos, const int* offset, const int* num_bits,
-                              const int* zmax, double inv, int inv_i, int h, int w, int d,
-                              int dt, int size_t_, int is_signed, void* img, int* ok,
-                              void* stream) {
+                              const int* num_elements, const int* lut_pos, const int* n_lut,
+                              const int* nbits_lut, const int* valid, const int* zmax, double inv,
+                              int inv_i, int h, int w, int d, int mb, int dt, int size_t_,
+                              int is_signed, void* img, int* ok, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-#define K6_ARGS words, n_bytes, mode, payload_pos, offset, num_bits, zmax, inv, inv_i, h, w, d, \
-                size_t_, is_signed, img, ok, st
+#define K6_ARGS mb, words, n_bytes, mode, payload_pos, offset, num_bits, num_elements, lut_pos, \
+                n_lut, nbits_lut, valid, zmax, inv, inv_i, h, w, d, size_t_, is_signed, img, ok, st
     switch (dt) {
-        case 0: return launch_scanned<int8_t, true>(K6_ARGS);
-        case 1: return launch_scanned<uint8_t, true>(K6_ARGS);
-        case 2: return launch_scanned<int16_t, true>(K6_ARGS);
-        case 3: return launch_scanned<uint16_t, true>(K6_ARGS);
-        case 4: return launch_scanned<int32_t, true>(K6_ARGS);
-        case 5: return launch_scanned<uint32_t, true>(K6_ARGS);
-        case 6: return launch_scanned<float, false>(K6_ARGS);
+        case 0: return launch_scanned_of<int8_t, true>(K6_ARGS);
+        case 1: return launch_scanned_of<uint8_t, true>(K6_ARGS);
+        case 2: return launch_scanned_of<int16_t, true>(K6_ARGS);
+        case 3: return launch_scanned_of<uint16_t, true>(K6_ARGS);
+        case 4: return launch_scanned_of<int32_t, true>(K6_ARGS);
+        case 5: return launch_scanned_of<uint32_t, true>(K6_ARGS);
+        case 6: return launch_scanned_of<float, false>(K6_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef K6_ARGS

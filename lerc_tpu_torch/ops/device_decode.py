@@ -31,10 +31,21 @@ the image in the native dtype. A depth-diff record (flag bit 2 at version
 >= 5) clears ``index_ok``: it needs the previous slice, which only the
 scanned decode adds.
 
-Kernel K6 ``decode_scanned`` decodes from the descriptors of the record
-scan (``device_scan.scan_records``, K5) without any index: a port of
-``decode_tiles`` (:493-708) for 8x8 aligned all-valid records, float32 and
-every integer dtype, including the integer depth-diff chain (:625-648).
+Kernel K6 ``decode_scanned`` decodes from record descriptors without any
+index -- those of the device record scan (``device_scan.scan_records``, K5)
+or of the host scanner (``tile_scan``) -- a port of ``decode_tiles``
+(:493-708) with ``_unpack_records`` (:464): 8x8 and 16x16 blocks, float32
+and every integer dtype, all-valid, masked or with edge blocks, every
+record mode with LUT records (mode 4, ``lut_full = [0] + entries``), and the
+depth-diff chains, integer (:625-648) and the exact f32 one (:650-698,
+``z = (float)min(a_diff_f64 + (double)prev, zMax)``). Its instances are
+counted as ``decode_scanned`` + ``16`` (16x16 blocks) + ``_masked``
+(validity words: masks, edge blocks) + the dtype's suffix.
+
+Where it decodes a block the host decoder refuses (lerc2_decode.py
+:233-306, bitstuffer.py:191-222), ``ok`` drops: a stuffed count over the
+block's in-image area or under its valid count (and not the area), a LUT
+index past the LUT, a raw diff record, a diff record on slice 0.
 """
 from __future__ import annotations
 
@@ -46,7 +57,7 @@ import torch
 
 from ..constants import DEC_MAX_NB, DT_SIZE, DT_SUFFIX, DT_TO_TORCH, DataType, dt_is_int, dt_is_signed
 from ..kernels import build
-from .device_encode import _record_lanes, _valid_args, expand_ref
+from .device_encode import _n_blocks, _record_lanes, _valid_args, expand_ref, valid_lanes
 from .device_scan import (_as_i32, _i32, float_offset_ref, int_offset_ref, offset_width_ref,
                           raw_int_ref)
 
@@ -66,15 +77,17 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
     [H, W] mask (``device_encode.block_valid_words``) on the stream's
     device."""
     if enable_lut or mb != 8:
-        raise NotImplementedError("LUT blocks and the 16x16 retrial: ROADMAP queue 1 item 6")
+        raise NotImplementedError(
+            "the indexed decode of LUT and 16x16 records: ROADMAP queue 1 item 10 (mosaic)")
     if n_tiles != 1:
         raise NotImplementedError("batched tiles: ROADMAP queue 1 item 10 (mosaic)")
     if dt == DataType.DOUBLE:
         raise NotImplementedError("float64: ROADMAP queue 1 item 9")
     if version < 4:
-        raise NotImplementedError("versions < 4: ROADMAP queue 1 item 6 (band codec)")
+        raise NotImplementedError("the indexed decode at versions < 4: ROADMAP queue 1 item 10")
     if h % 8 or w % 8 or d < 1:
-        raise NotImplementedError("H, W not multiples of 8: ROADMAP queue 1 item 6 (band codec)")
+        raise NotImplementedError(
+            "the indexed decode of edge blocks (H, W not multiples of 8): ROADMAP queue 1 item 10")
     max_nb = DEC_MAX_NB[DT_SIZE[dt]]
     eff_cap = max_nb if nb_cap <= 0 else min(nb_cap, max_nb)
     cap_nb = 32 if eff_cap >= max_nb else eff_cap  # 32: every record fits
@@ -283,104 +296,194 @@ def decode_scanned(stream: torch.Tensor, mode: torch.Tensor, payload_pos: torch.
                    offset: torch.Tensor, num_bits: torch.Tensor, num_elements: torch.Tensor,
                    lut_pos: torch.Tensor, n_lut: torch.Tensor, nbits_lut: torch.Tensor,
                    mask, max_z_error: float, z_max_vec: torch.Tensor, h: int, w: int, d: int,
-                   dt: DataType, all_valid: bool, has_lut: bool):
-    """Decode from scanned record descriptors (``decode_tiles``,
-    device_decode.py:493, same arguments). Returns (img [H, W, D] float32
-    or the native dtype, ok 0-d bool) with no host synchronization. ok is
-    False where this decode cannot be right: a float depth-diff record, a
-    raw or slice-0 diff record, a LUT record.
+                   dt: DataType, all_valid: bool, has_lut: bool, mb: int = 8):
+    """Decode from record descriptors (``decode_tiles``, device_decode.py:493,
+    same arguments, with the block size `mb`). Returns (img [H, W, D] float32
+    or the native dtype, ok 0-d bool) with no host synchronization; ok is
+    False where the host decoder would refuse the stream.
 
-    offset: [nRec] float32 (int32 for integer dtypes); z_max_vec: [D] of
-    the same type. num_elements, lut_pos, n_lut and nbits_lut serve the
-    masked and LUT records of ROADMAP queue 1 item 6 and are not read."""
-    if has_lut:
-        raise NotImplementedError("LUT records: ROADMAP queue 1 item 6")
-    if not all_valid:
-        raise NotImplementedError(
-            "masked records without the index: ROADMAP queue 1 item 6 (host tile scanner)")
-    if h % 8 or w % 8 or d < 1:
-        raise NotImplementedError("edge blocks (H, W not multiples of 8): ROADMAP queue 1 item 6")
+    stream: [S / 4] int32 u32 words; payload_pos and lut_pos are byte
+    offsets into it. offset: [nRec] float32 (int32 for integer dtypes);
+    z_max_vec: [D] of the same type; the other descriptors [nRec] int32.
+    mask: the [nBlocks, mb*mb/32] validity words of the [H, W] mask
+    (``device_encode.block_valid_words(mask, mb)``), ignored when all_valid.
+    LUT records decode whether or not has_lut is set (JAX sizes its graph
+    by it)."""
     if dt == DataType.DOUBLE:
         raise NotImplementedError("float64: ROADMAP queue 1 item 9")
-    n_rec = (h // 8) * (w // 8) * d
+    if mb not in (8, 16):
+        raise NotImplementedError("micro blocks other than 8x8 and 16x16: ROADMAP queue 1 item 12")
+    if d < 1:
+        raise ValueError("depth must be >= 1")
+    n_rec = _n_blocks(h, w, mb) * d
     ztype = torch.int32 if dt_is_int(dt) else torch.float32
     if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
         raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
-    for name, t, kind in (("mode", mode, torch.int32), ("payload_pos", payload_pos, torch.int32),
-                          ("offset", offset, ztype), ("num_bits", num_bits, torch.int32)):
+    descs = (("mode", mode, torch.int32), ("payload_pos", payload_pos, torch.int32),
+             ("offset", offset, ztype), ("num_bits", num_bits, torch.int32),
+             ("num_elements", num_elements, torch.int32), ("lut_pos", lut_pos, torch.int32),
+             ("n_lut", n_lut, torch.int32), ("nbits_lut", nbits_lut, torch.int32))
+    for name, t, kind in descs:
         if t.dtype != kind or t.shape != (n_rec,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {kind} [{n_rec}] tensor")
     if z_max_vec.dtype != ztype or z_max_vec.shape != (d,) or not z_max_vec.is_contiguous():
         raise ValueError(f"z_max_vec must be a contiguous {ztype} [{d}] tensor")
+    valid = None if all_valid else mask
+    if not all_valid and mask is None:
+        raise ValueError("a masked decode needs the block validity words")
+    vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
     inv, inv_i = 2.0 * float(max_z_error), _inv_i(max_z_error)
-    if not build.on_cuda(stream, mode, payload_pos, offset, num_bits, z_max_vec):
-        return decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, inv, inv_i,
-                                  z_max_vec, h, w, d, dt)
+    if not build.on_cuda(stream, z_max_vec, *(t for _, t, _ in descs), *vt):
+        return decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, num_elements,
+                                  lut_pos, n_lut, nbits_lut, valid, inv, inv_i, z_max_vec, h, w,
+                                  d, dt, mb)
     fn = build.library("decode").decode_scanned
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_double] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_double] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     dev = stream.device
-    name = "decode_scanned" + DT_SUFFIX[dt]
+    name = "decode_scanned" + ("16" if mb == 16 else "") + sfx + DT_SUFFIX[dt]
     with torch.cuda.device(dev):
         img = torch.empty(h, w, d, dtype=DT_TO_TORCH[dt], device=dev)
         ok = torch.ones(1, dtype=torch.int32, device=dev)
         err = fn(stream.data_ptr(), 4 * stream.numel(), mode.data_ptr(), payload_pos.data_ptr(),
-                 offset.data_ptr(), num_bits.data_ptr(), z_max_vec.data_ptr(), inv, inv_i, h, w,
-                 d, int(dt), DT_SIZE[dt], int(dt_is_signed(dt)), img.data_ptr(), ok.data_ptr(),
-                 build.launch_stream(stream))
+                 offset.data_ptr(), num_bits.data_ptr(), num_elements.data_ptr(),
+                 lut_pos.data_ptr(), n_lut.data_ptr(), nbits_lut.data_ptr(), valid_ptr,
+                 z_max_vec.data_ptr(), inv, inv_i, h, w, d, mb, int(dt), DT_SIZE[dt],
+                 int(dt_is_signed(dt)), img.data_ptr(), ok.data_ptr(), build.launch_stream(stream))
         build.check(err, name)
     build.LAUNCHES[name] += 1
     return img, ok[0] != 0
 
 
-def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, inv: float, inv_i: int,
-                       z_max_vec, h: int, w: int, d: int, dt: DataType):
+def scanned_args(words: torch.Tensor, base: int, recs: np.ndarray, valid: torch.Tensor | None,
+                 head, z_max: np.ndarray) -> tuple:
+    """The arguments of ``decode_scanned`` for the host scanner's descriptors
+    `recs` (``tile_scan``) of a tile stream that starts at byte `base` of
+    `words`, on the words' device. head: the blob's ``HeaderInfo``; valid:
+    the block validity words at its micro-block size, or None for an
+    all-valid band; z_max: the [D] clamp values."""
+    dev = words.device
+
+    def i32(field, add=0):
+        return torch.from_numpy((recs[field] + add).astype(np.int32)).to(dev)
+
+    if dt_is_int(head.dt):
+        offset, zmax = i32("offset"), torch.from_numpy(np.round(z_max).astype(np.int32)).to(dev)
+    else:
+        offset = torch.from_numpy(recs["offset"].astype(np.float32)).to(dev)
+        zmax = torch.from_numpy(np.asarray(z_max).astype(np.float32)).to(dev)
+    return (words, i32("mode"), i32("payload_pos", base), offset, i32("num_bits"),
+            i32("num_elements"), i32("lut_pos", base), i32("n_lut"), i32("nbits_lut"), valid,
+            head.max_z_error, zmax, head.n_rows, head.n_cols, head.n_depth, head.dt, valid is None,
+            bool((recs["mode"] % 8 == 4).any()), head.micro_block_size)
+
+
+def decode_tiles(words: torch.Tensor, base: int, recs: np.ndarray, valid: torch.Tensor | None,
+                 head, z_max: np.ndarray) -> torch.Tensor:
+    """K6 over the host scanner's descriptors (``scanned_args``) ->
+    [H, W, D] on the words' device. Raises ValueError where the host decoder
+    refuses the stream."""
+    img, ok = decode_scanned(*scanned_args(words, base, recs, valid, head, z_max))
+    if not bool(ok):
+        raise ValueError("corrupt Lerc2 tile stream")
+    return img
+
+
+def _in_image(h: int, w: int, mb: int, dev) -> torch.Tensor:
+    """[nBlocks, mb*mb] bool: the block positions inside the image."""
+    nbv, nbh = -(-h // mb), -(-w // mb)
+    rows = torch.arange(nbv * mb, device=dev) < h
+    cols = torch.arange(nbh * mb, device=dev) < w
+    return (rows[:, None] & cols[None, :]).reshape(nbv, mb, nbh, mb).permute(0, 2, 1, 3).reshape(
+        -1, mb * mb)
+
+
+def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, num_elements, lut_pos, n_lut,
+                       nbits_lut, valid, inv: float, inv_i: int, z_max_vec, h: int, w: int, d: int,
+                       dt: DataType, mb: int = 8):
     """Plain PyTorch version of K6 (int64 arithmetic; f64 ScaleBack as two
-    separately rounded operations; the diff chain as a loop over depth)."""
+    separately rounded operations; the diff chains as a loop over depth).
+    valid: validity words, or None for an all-valid image."""
     dev = stream.device
     sb = stream.view(torch.uint8).to(torch.int64)
     n_bytes = sb.numel()
+    bs = mb * mb
 
     def rd(idx):  # clamped reads, as JAX's gathers
         return sb[idx.clamp(0, n_bytes - 1)]
 
+    def extract(pos, idx, width):  # LSB-first values of `width` bits at byte pos, index idx
+        bitpos = idx * width
+        at, sh = pos + (bitpos >> 3), bitpos & 7
+        acc = sum(rd(at + t) << (8 * t) for t in range(4))
+        hi = torch.where(sh > 0, (rd(at + 4) << (32 - sh)) & 0xFFFFFFFF, 0)
+        qmask = torch.where(width >= 32, 0xFFFFFFFF, (1 << width.clamp(max=32)) - 1)
+        return ((acc >> sh) | hi) & qmask
+
     n = mode.numel()
+    in_img = _in_image(h, w, mb, dev).repeat_interleave(d, 0)
+    vb = in_img if valid is None else valid_lanes(valid).repeat_interleave(d, 0) & in_img
+    cnt, area = vb.sum(1, keepdim=True), in_img.sum(1, keepdim=True)
     m = mode.to(torch.int64)[:, None]
     m8, dif = m & 7, m >= 8
+    ne = num_elements.to(torch.int64)[:, None]
+    stuffed = (m8 == 1) | (m8 == 4)
+    use_all = stuffed & (ne == area)
+    eff = torch.where(use_all, in_img, vb)  # the positions a record writes
+    rank = (eff.cumsum(1) - 1).clamp(min=0)
     nb = num_bits.to(torch.int64)[:, None]
     pp = payload_pos.to(torch.int64)[:, None]
-    j = torch.arange(64, device=dev)[None, :]
-    bitpos = j * nb
-    at, sh = pp + (bitpos >> 3), bitpos & 7
-    acc = sum(rd(at + t) << (8 * t) for t in range(4))
-    hi = torch.where(sh > 0, (rd(at + 4) << (32 - sh)) & 0xFFFFFFFF, 0)
-    qmask = torch.where(nb >= 32, 0xFFFFFFFF, (1 << nb.clamp(max=32)) - 1)
-    q = ((acc >> sh) | hi) & qmask
+    q = extract(pp, rank, nb)
+    # LUT records: index i -> [0] + entries at lut_pos; every stuffed index
+    # must lie in the LUT (bitstuffer.py:220)
+    nbl = nbits_lut.to(torch.int64)[:, None]
+    seq = torch.arange(bs, device=dev)[None, :]
+    all_idx = extract(pp, seq, nbl)
+    bad_lut = (m8 == 4) & ((all_idx > n_lut.to(torch.int64)[:, None]) & (seq < ne)).any(1,
+                                                                                     keepdim=True)
+    idx = all_idx.gather(1, rank)
+    lut_q = extract(lut_pos.to(torch.int64)[:, None], (idx - 1).clamp(min=0), nb)
+    q = torch.where(m8 == 4, torch.where(idx == 0, 0, lut_q), q)
     size = DT_SIZE[dt]
-    word = sum(rd(pp + j * size + t) << (8 * t) for t in range(size))
+    word = sum(rd(pp + rank * size + t) << (8 * t) for t in range(size))
     zm = z_max_vec.repeat(n // d)[:, None]
+    write = torch.where((m8 == 3) | (m8 == 0), vb, eff)
     if dt_is_int(dt):
         off = offset.to(torch.int64)[:, None]
         zm = zm.to(torch.int64)
         a = _i32(off + q * inv_i)
         z = torch.where(m8 == 0, raw_int_ref(word, size, dt_is_signed(dt)), torch.where(
             m8 == 2, 0, torch.where(m8 == 3, off, torch.minimum(a, zm))))
-        if d > 1:  # the depth-diff chain, slice by slice (:625-648)
-            z, a, zm = (t.expand(n, 64).reshape(-1, d, 64) for t in (z, torch.where(m8 == 3, off, a), zm))
-            m8d, difd = m8.reshape(-1, d, 1), dif.reshape(-1, d, 1)
-            slices, prev = [], torch.zeros_like(z[:, 0])
-            for di in range(d):
-                zd = torch.where(m8d[:, di] == 2, prev, torch.minimum(_i32(a[:, di] + prev), zm[:, di]))
-                prev = torch.where(difd[:, di], zd, z[:, di])
-                slices.append(prev)
-            z = torch.stack(slices, 1).reshape(n, 64)
+        ad = torch.where(m8 == 3, off, a)
+
+        def chain(prev, ad_d, zm_d, c0):  # :641-644
+            return torch.where(c0, prev, torch.minimum(_i32(ad_d + prev), zm_d))
     else:
         off = offset[:, None]
-        z_stuff = (off.double() + q.double() * inv).float()
-        z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
+        a = off.double() + q.double() * inv  # the pre-clamp f64 sum
+        zs = a.float()
         z = torch.where(m8 == 0, _as_i32(word).view(torch.float32), torch.where(
-            m8 == 2, 0.0, torch.where(m8 == 3, off, z_stuff)))
+            m8 == 2, 0.0, torch.where(m8 == 3, off, torch.where(zm < zs, zm, zs))))
+        ad = torch.where(m8 == 3, off.double(), a)
+
+        def chain(prev, ad_d, zm_d, c0):  # (float)(a + (double)prev), then the clamp
+            t = (ad_d + prev.double()).float()
+            return torch.where(c0, prev, torch.where(zm_d < t, zm_d, t))
+    z = torch.where(write, z, 0)
+    if d > 1:  # the depth-diff chain, slice by slice
+        z, ad, zm, write = (t.expand(n, bs).reshape(-1, d, bs) for t in (z, ad, zm, write))
+        m8d, difd = m8.reshape(-1, d, 1), dif.reshape(-1, d, 1)
+        slices, prev = [], torch.zeros_like(z[:, 0])
+        for di in range(d):
+            zd = chain(prev, ad[:, di], zm[:, di], m8d[:, di] == 2)
+            prev = torch.where(difd[:, di], torch.where(write[:, di], zd, 0), z[:, di])
+            slices.append(prev)
+        z = torch.stack(slices, 1).reshape(n, bs)
     di = (torch.arange(n, device=dev) % d)[:, None]
-    bad = (dif & ((m8 == 0) | (di == 0) | (not dt_is_int(dt)))) | (m8 == 4)
-    return _to_image(z, h, w, d, DT_TO_TORCH[dt]), ~bad.any()
+    bad = ((dif & ((m8 == 0) | (di == 0))) | bad_lut
+           | (stuffed & ((ne > area) | ((ne != area) & (ne < cnt)))))
+    nbv, nbh = -(-h // mb), -(-w // mb)
+    img = (z.reshape(nbv, nbh, d, mb, mb).permute(0, 3, 1, 4, 2)
+           .reshape(nbv * mb, nbh * mb, d)[:h, :w].to(DT_TO_TORCH[dt]).contiguous())
+    return img, ~bad.any()

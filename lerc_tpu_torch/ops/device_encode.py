@@ -1,17 +1,18 @@
 """Device Lerc2 tile encoding (kernels K1 ``encode_blocks`` and K2
 ``write_records``, with their plain versions).
 
-Port of ``lerc_tpu/ops/device_encode.py::encode_tiles`` (:486) for the
-resident codec's float32 path, all-valid or masked: 8x8 micro blocks, H
-and W multiples of 8, no LUT mode, version >= 4, any depth. It makes the
-same encoder choices byte for byte: block min/max, f32 quantization with
-round-half-even and the sign-directed +-1 fixup, numBits, the mode
+Port of ``lerc_tpu/ops/device_encode.py::encode_tiles`` (:486): float32
+and every integer dtype, all-valid or masked, any H, W and depth, version
+>= 3, 8x8 micro blocks, and for the band codec the LUT block candidate on
+8x8 and 16x16 blocks. It makes the same encoder choices byte for byte:
+block min/max, f32 quantization with round-half-even and the
+sign-directed +-1 fixup, numBits, the mode
 (const-0, const-offset, raw, bit-stuffed), the reduced offset width, the
 integrity bits and the record layout. Records are numbered r = b*D + di.
 
 Masks: the [H, W] bool mask becomes two u32 validity words per 8x8 block
-(``block_valid_words``), bit j = block position j in row-major order, once
-per codec. The masked kernels (``encode_blocks_masked``,
+(eight per 16x16 block; ``block_valid_words``), bit j = block position j in
+row-major order, once per codec. The masked kernels (``encode_blocks_masked``,
 ``write_records_masked``) reduce over the valid lanes only, count a
 block's values as popc of its words, and write value j at its rank among
 the valid positions -- the stable left compaction of ``make_compactor``
@@ -38,6 +39,24 @@ integer reconstruction, offsets reduced per dtype (``_reduce_offset_int``
 :79), raw records of ``1 + cnt * size`` native bytes, and the depth-diff
 candidate of 8/16-bit lossless slices at version >= 5. The input is the
 codec's own dtype or int32 (as JAX's ``xb.astype(int32)`` takes either).
+
+Edge blocks (H or W not a multiple of the block size, :556-571) take the
+masked instances: the validity words of the in-image area, ANDed with the
+mask if there is one. The integrity bits are ``((j0 >> 3) & 15) << 2`` with
+j0 the block's first column (:573-577).
+
+The LUT candidate (``_lut_candidate_pre`` :407, ``_lut_candidate_post``
+:440; BitStuffer2::EncodeLut) has instances of K1 and K2 of its own
+(``encode_blocks_lut``, ``write_records_lut``; ``_lut16`` on 16x16 blocks,
+``_int`` for the integer dtypes, whose input is int32): per block the
+sorted distinct non-zero quantized values, n_lut of them, each value's
+index = the number of distinct non-zero values <= it (0 for 0), and the
+record ``[n_lut + 1][LUT at numBits][indices at bitlen(n_lut)]``, taken when
+``max_q > 0``, ``1 <= n_lut < 255`` and it is shorter than the plain
+stuffed record (:662-671), also inside the integer depth-diff candidate
+(:691-698). The LUT instances always read validity words (all set for an
+aligned all-valid image). A 16x16 block holds 256 values; its count takes
+two bytes only at 256 values (``cw``, :561).
 """
 from __future__ import annotations
 
@@ -74,7 +93,7 @@ class EncodeParams:
 
 
 def encode_params(max_z_error: float, version: int, nb_cap: int = 0,
-                  dt: DataType = DataType.FLOAT) -> EncodeParams:
+                  dt: DataType = DataType.FLOAT, mb: int = 8) -> EncodeParams:
     """The f32 scalars exactly as the JAX encoder derives them
     (device_encode.py:551-554, :606) and the nb_cap window arithmetic
     (:514-546) that decides `fits`, for dtype `dt`."""
@@ -87,9 +106,10 @@ def encode_params(max_z_error: float, version: int, nb_cap: int = 0,
     max_nb = ENC_MAX_NB[size]
     eff_cap = max_nb if nb_cap <= 0 else min(nb_cap, max_nb)
     always_fits = eff_cap >= max_nb
-    pw = (64 * eff_cap + 31) // 32 + 1
+    bs = mb * mb
+    pw = (bs * eff_cap + 31) // 32 + 1
     stuff_w = max((8 + 4 * (pw - 1) + 3) // 4, pw + 3) + 1
-    raw_w = (1 + 64 * size + 3) // 4
+    raw_w = (1 + bs * size + 3) // 4
     is_int = dt_is_int(dt)
     return EncodeParams(
         mze=float(mze), scale=float(scale), inv=float(inv),
@@ -112,28 +132,37 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     int32 for the integer dtypes (as JAX's).
 
     data: [H, W, D] float32, or for an integer `dt` that dtype or int32.
-    mask: the [nBlocks, 2] int32 block validity words of the [H, W] mask
-    (``block_valid_words``), on data's device; ignored when all_valid."""
-    valid = None if all_valid else mask
-    if not all_valid and mask is None:
-        raise ValueError("a masked encode needs the block validity words")
-    if enable_lut or mb != 8:
-        raise NotImplementedError("LUT blocks and the 16x16 retrial: ROADMAP queue 1 item 6")
+    mask: the block validity words of the [H, W] mask
+    (``block_valid_words(mask, mb)``), on data's device; ignored when
+    all_valid. enable_lut adds the LUT candidate; mb is 8, or 16 with it."""
     if dt == DataType.DOUBLE:
         raise NotImplementedError("float64: ROADMAP queue 1 item 9")
-    if version < 4:
-        raise NotImplementedError("versions < 4: ROADMAP queue 1 item 6 (band codec)")
-    if h % 8 or w % 8 or d < 1:
-        raise NotImplementedError("H, W not multiples of 8: ROADMAP queue 1 item 6 (band codec)")
+    if version < 3:
+        raise NotImplementedError(
+            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+    if mb not in (8, 16) or (mb == 16 and not enable_lut):
+        raise NotImplementedError(
+            "micro blocks other than 8x8, or 16x16 without the LUT candidate: ROADMAP queue 1 "
+            "item 12 (host codec)")
+    if d < 1:
+        raise ValueError("depth must be >= 1")
     if cap % 4:
         raise ValueError("cap must be a multiple of 4")
     _check_data(data, h, w, d, dt)
-    p = encode_params(max_z_error, version, nb_cap, dt)
-    rec_info, zrange, fits = encode_blocks(data, p, valid)
+    if not all_valid and mask is None:
+        raise ValueError("a masked encode needs the block validity words")
+    valid = None if all_valid else mask
+    if valid is None and (enable_lut or h % mb or w % mb):
+        # edge blocks and the LUT instances read the in-image area's words
+        valid = block_valid_words(torch.ones(h, w, dtype=torch.bool, device=data.device), mb)
+    if enable_lut and dt_is_int(dt):
+        data = data.to(torch.int32)
+    p = encode_params(max_z_error, version, nb_cap, dt, mb)
+    rec_info, zrange, fits = encode_blocks(data, p, valid, mb, enable_lut)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     total = starts[-1] + length[-1]
-    stream = write_records(data, rec_info, starts, cap // 4, p, valid)
+    stream = write_records(data, rec_info, starts, cap // 4, p, valid, mb, enable_lut)
     return stream, total, zrange[:d], zrange[d:], starts, fits[0] != 0
 
 
@@ -146,9 +175,13 @@ def _check_data(data, h, w, d, dt=DataType.FLOAT):
         raise ValueError("data must be contiguous")
 
 
-def _n_rec(data) -> int:
+def _n_blocks(h: int, w: int, mb: int = 8) -> int:
+    return -(-h // mb) * -(-w // mb)
+
+
+def _n_rec(data, mb: int = 8) -> int:
     h, w, d = data.shape
-    return (h // 8) * (w // 8) * d
+    return _n_blocks(h, w, mb) * d
 
 
 # ---------------------------------------------------------------------------
@@ -156,39 +189,42 @@ def _n_rec(data) -> int:
 # ---------------------------------------------------------------------------
 
 
-def block_valid_words(mask: torch.Tensor) -> torch.Tensor:
-    """[H, W] bool mask -> [nBlocks, 2] int32 u32 validity words on the
-    mask's device: bit j of word k is position 32k + j of the 8x8 block in
-    row-major order (the order of ``_blocks`` and the kernels' lanes).
-    Built once per codec; the kernels read these 8 B per block instead of
-    64 B of bools."""
+def block_valid_words(mask: torch.Tensor, mb: int = 8) -> torch.Tensor:
+    """[H, W] bool mask -> [nBlocks, mb*mb/32] int32 u32 validity words on
+    the mask's device: bit j of word k is position 32k + j of the mb x mb
+    block in row-major order (the order of ``_blocks`` and the kernels'
+    lanes); positions past the image's edge are 0. Built once per codec;
+    the kernels read these 8 B per 8x8 block instead of 64 B of bools."""
+    if mask.dtype != torch.bool or mask.dim() != 2:
+        raise ValueError(f"mask must be bool [H, W], got {mask.dtype} {tuple(mask.shape)}")
     h, w = mask.shape
-    if mask.dtype != torch.bool or h % 8 or w % 8:
-        raise ValueError(f"mask must be bool [H, W] with H, W multiples of 8, got {mask.dtype} {tuple(mask.shape)}")
-    vb = (mask.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
-          .reshape(-1, 2, 32).to(torch.int64))
+    nbv, nbh = -(-h // mb), -(-w // mb)
+    if h % mb or w % mb:
+        mask = torch.nn.functional.pad(mask, (0, nbh * mb - w, 0, nbv * mb - h))
+    vb = (mask.reshape(nbv, mb, nbh, mb).permute(0, 2, 1, 3)
+          .reshape(-1, mb * mb // 32, 32).to(torch.int64))
     words = (vb << torch.arange(32, device=mask.device)).sum(2)
     return _as_i32(words).contiguous()
 
 
 def valid_lanes(valid: torch.Tensor) -> torch.Tensor:
-    """[nBlocks, 2] validity words -> [nBlocks, 64] bool, position order."""
+    """[nBlocks, k] validity words -> [nBlocks, 32k] bool, position order."""
     bits = (valid.to(torch.int64)[:, :, None] >> torch.arange(32, device=valid.device)) & 1
-    return bits.reshape(-1, 64) != 0
+    return bits.reshape(valid.shape[0], -1) != 0
 
 
-def _check_valid(valid: torch.Tensor, n_blocks: int) -> None:
-    if (valid.dtype != torch.int32 or tuple(valid.shape) != (n_blocks, 2)
-            or not valid.is_contiguous()):
-        raise ValueError(f"validity words must be a contiguous int32 [{n_blocks}, 2] tensor")
+def _check_valid(valid: torch.Tensor, n_blocks: int, mb: int = 8) -> None:
+    shape = (n_blocks, mb * mb // 32)
+    if valid.dtype != torch.int32 or tuple(valid.shape) != shape or not valid.is_contiguous():
+        raise ValueError(f"validity words must be a contiguous int32 {list(shape)} tensor")
 
 
-def _record_lanes(valid, d: int, n_rec: int, dev):
-    """Per-record validity [nRec, 64] bool (record r = b*D + di takes block
+def _record_lanes(valid, d: int, n_rec: int, dev, bs: int = 64):
+    """Per-record validity [nRec, bs] bool (record r = b*D + di takes block
     b's lanes) and value count [nRec] int64; all lanes when valid is None."""
     if valid is None:
-        return (torch.ones(n_rec, 64, dtype=torch.bool, device=dev),
-                torch.full((n_rec,), 64, dtype=torch.int64, device=dev))
+        return (torch.ones(n_rec, bs, dtype=torch.bool, device=dev),
+                torch.full((n_rec,), bs, dtype=torch.int64, device=dev))
     vb = valid_lanes(valid).repeat_interleave(d, 0)
     return vb, vb.sum(1)
 
@@ -213,26 +249,44 @@ def expand_ref(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _valid_args(valid, h: int, w: int):
+def _valid_args(valid, h: int, w: int, mb: int = 8):
     """(the validity tensor as a tuple, to share the other inputs' device;
     the kernel's name suffix; the validity pointer) for an all-valid (None)
     or masked launch."""
     if valid is None:
         return (), "", None
-    _check_valid(valid, (h // 8) * (w // 8))
+    _check_valid(valid, _n_blocks(h, w, mb), mb)
     return (valid,), "_masked", valid.data_ptr()
 
 
-def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool):
+    """Checks the block size and the LUT flag against the inputs; the LUT
+    instances' kernel name (``..._lut``/``_lut16``, ``_int`` for integers)."""
+    if mb not in (8, 16) or (mb == 16 and not lut):
+        raise ValueError("blocks are 8x8, or 16x16 with the LUT candidate")
+    if not lut:
+        return None
+    if valid is None:
+        raise ValueError("the LUT instances read validity words (all set for an all-valid image)")
+    if dt_is_int(p.dt) and data.dtype != torch.int32:
+        raise ValueError("the integer LUT instances take int32 data")
+    return ("_lut16" if mb == 16 else "_lut") + ("_int" if dt_is_int(p.dt) else "")
+
+
+def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
+                  mb: int = 8, lut: bool = False):
     """Per-record decisions: (rec_info [nRec, 4] int32 = {length, desc,
-    offset word, zmin bits}, desc = flag | mode<<8 | numBits<<16 |
-    offset width<<24; zrange [2D] f32 = per-depth min then max over the
-    valid values; fits [1] int32). valid: block validity words, or None
-    when every pixel is valid."""
+    offset word, zq}, desc = flag | mode<<8 | diff<<10 | lut<<11 |
+    numBits<<16 | offset width<<24; zrange [2D] = per-depth min then max
+    over the valid values, f32 or int32; fits [1] int32). valid: block
+    validity words, or None when every pixel is valid (aligned, no LUT)."""
     h, w, d = data.shape
-    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    lut_sfx = _lut_args(data, p, valid, mb, lut)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
     if not build.on_cuda(data, *vt):
-        return encode_blocks_ref(data, p, valid)
+        return encode_blocks_ref(data, p, valid, mb, lut)
+    if lut:
+        return _encode_blocks_lut(data, p, valid_ptr, mb, "encode_blocks" + lut_sfx)
     if dt_is_int(p.dt):
         return _encode_blocks_int(data, p, valid_ptr, sfx)
     fn = build.library("encode").encode_blocks
@@ -241,17 +295,47 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | Non
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dev = data.device
-    with torch.cuda.device(dev):
-        rec_info = torch.empty(_n_rec(data), 4, dtype=torch.int32, device=dev)
-        zrange = torch.cat([torch.full((d,), float("inf"), device=dev),
-                            torch.full((d,), float("-inf"), device=dev)])
-        fits = torch.ones(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(data.device):
+        rec_info, zrange, fits = _k1_outputs(data, p, mb)
         err = fn(data.data_ptr(), valid_ptr, h, w, d, p.mze, p.scale, p.inv,
                  p.integ_mask, p.cap_nb, int(p.raw_ok), rec_info.data_ptr(),
                  zrange.data_ptr(), fits.data_ptr(), build.launch_stream(data))
         build.check(err, "encode_blocks" + sfx)
     build.LAUNCHES["encode_blocks" + sfx] += 1
+    return rec_info, zrange, fits
+
+
+def _k1_outputs(data, p: EncodeParams, mb: int):
+    """K1's outputs: rec_info, the range set to (+max, -max) of its type,
+    fits set to 1."""
+    dev, d = data.device, data.shape[2]
+    if dt_is_int(p.dt):
+        zrange = torch.cat([torch.full((d,), _I32_MAX, dtype=torch.int32, device=dev),
+                            torch.full((d,), _I32_MIN, dtype=torch.int32, device=dev)])
+    else:
+        zrange = torch.cat([torch.full((d,), float("inf"), device=dev),
+                            torch.full((d,), float("-inf"), device=dev)])
+    return (torch.empty(_n_rec(data, mb), 4, dtype=torch.int32, device=dev), zrange,
+            torch.ones(1, dtype=torch.int32, device=dev))
+
+
+def _encode_blocks_lut(data, p: EncodeParams, valid_ptr, mb: int, name: str):
+    """Launch a LUT instance of K1 (float32 or int32 data)."""
+    h, w, d = data.shape
+    fn = build.library("encode").encode_blocks_lut
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(data.device):
+        rec_info, zrange, fits = _k1_outputs(data, p, mb)
+        err = fn(data.data_ptr(), int(dt_is_int(p.dt)), valid_ptr, h, w, d, mb, int(p.dt),
+                 DT_SIZE[p.dt], p.mze, p.scale, p.inv, p.inv_i, int(p.lossless), p.maxq_cap,
+                 p.integ_mask, p.cap_nb, int(p.raw_ok), int(p.diff_ok and d > 1),
+                 rec_info.data_ptr(), zrange.data_ptr(), fits.data_ptr(),
+                 build.launch_stream(data))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return rec_info, zrange, fits
 
 
@@ -272,13 +356,9 @@ def _encode_blocks_int(data, p: EncodeParams, valid_ptr, sfx: str):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dev = data.device
     name = "encode_blocks" + sfx + DT_SUFFIX[p.dt]
-    with torch.cuda.device(dev):
-        rec_info = torch.empty(_n_rec(data), 4, dtype=torch.int32, device=dev)
-        zrange = torch.cat([torch.full((d,), _I32_MAX, dtype=torch.int32, device=dev),
-                            torch.full((d,), _I32_MIN, dtype=torch.int32, device=dev)])
-        fits = torch.ones(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(data.device):
+        rec_info, zrange, fits = _k1_outputs(data, p, 8)
         err = fn(data.data_ptr(), _in_type(data), valid_ptr, h, w, d, int(p.dt),
                  DT_SIZE[p.dt], p.mze, p.scale, p.inv_i, int(p.lossless), p.maxq_cap,
                  p.integ_mask, p.cap_nb, int(p.raw_ok), int(p.diff_ok and d > 1),
@@ -288,11 +368,15 @@ def _encode_blocks_int(data, p: EncodeParams, valid_ptr, sfx: str):
     return rec_info, zrange, fits
 
 
-def _blocks(data: torch.Tensor) -> torch.Tensor:
-    """[H, W, D] -> [nRec, 64], record r = b*D + di, row-major in the block."""
+def _blocks(data: torch.Tensor, mb: int = 8) -> torch.Tensor:
+    """[H, W, D] -> [nRec, mb*mb], record r = b*D + di, row-major in the
+    block; positions past the image's edge are 0."""
     h, w, d = data.shape
-    return (data.reshape(h // 8, 8, w // 8, 8, d).permute(0, 2, 4, 1, 3)
-            .reshape(-1, 64).contiguous())
+    nbv, nbh = -(-h // mb), -(-w // mb)
+    if h % mb or w % mb:
+        data = torch.nn.functional.pad(data, (0, 0, 0, nbh * mb - w, 0, nbv * mb - h))
+    return (data.reshape(nbv, mb, nbh, mb, d).permute(0, 2, 4, 1, 3)
+            .reshape(-1, mb * mb).contiguous())
 
 
 def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -328,21 +412,48 @@ def quantize_ref(x: torch.Tensor, zmin: torch.Tensor, p: EncodeParams) -> torch.
     return best.clamp(0.0, 2.0**31).to(torch.int64)
 
 
-def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+def _integ_bits(n: int, d: int, w: int, mb: int, p: EncodeParams, dev) -> torch.Tensor:
+    """Integrity bits of each record's flag: ((j0 >> 3) & 15) << 2, j0 the
+    block's first column (device_encode.py:573-577)."""
+    b = torch.arange(n, device=dev) // d
+    j0 = (b % -(-w // mb)) * mb
+    return (((j0 >> 3) & 15) << 2) & p.integ_mask
+
+
+def _first_nonzero(srt: torch.Tensor) -> torch.Tensor:
+    """[n, bs] rows sorted ascending -> the first element of each run of
+    equal non-zero values."""
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return first & (srt > 0)
+
+
+def _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len):
+    """The LUT record against the stuffed one (device_encode.py:662-671):
+    q [n, bs] position-space quantized values, 0 where invalid. Returns
+    (the shorter length, LUT taken)."""
+    n_lut = _first_nonzero(q.sort(1).values).sum(1)
+    lut_len = 2 + cw + off_w + 1 + (n_lut * nb + 7) // 8 + (cnt * _bit_len(n_lut) + 7) // 8
+    use = (max_q > 0) & (n_lut >= 1) & (n_lut < 255) & (lut_len < stuff_len)
+    return torch.where(use, lut_len, stuff_len), use
+
+
+def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
+                      mb: int = 8, lut: bool = False):
     """Plain PyTorch version of K1 (int64 bit arithmetic)."""
     if dt_is_int(p.dt):
-        return encode_blocks_int_ref(data, p, valid)
+        return encode_blocks_int_ref(data, p, valid, mb, lut)
     h, w, d = data.shape
-    x = _blocks(data)
+    x = _blocks(data, mb)
     n = x.shape[0]
     dev = x.device
-    vb, cnt = _record_lanes(valid, d, n, dev)
+    vb, cnt = _record_lanes(valid, d, n, dev, mb * mb)
     has = cnt > 0
     zmin = torch.where(has, torch.where(vb, x, float("inf")).amin(1), 0.0)
     zmax = torch.where(has, torch.where(vb, x, float("-inf")).amax(1), 0.0)
     q = torch.where(vb, quantize_ref(x, zmin[:, None], p), 0)
     max_q = q.amax(1)
-    nb = (max_q[:, None] >= (1 << torch.arange(32, device=dev))).sum(1)
+    nb = _bit_len(max_q)
     max_val = (zmax - zmin) * torch.tensor(p.scale, dtype=torch.float32, device=dev)
     const0 = (zmin == 0) & (zmax == 0)
     # maxZError 0 stores every non-constant block raw; otherwise blocks whose
@@ -355,16 +466,19 @@ def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor |
     as_i = torch.where(tc > 0, torch.round(zmin), 0.0).to(torch.int64)
     zbits = zmin.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     off_word = torch.where(tc == 2, as_i & 0xFF, torch.where(tc == 1, as_i & 0xFFFF, zbits))
-    # count byte width 1 (an 8x8 block has < 256 values); raw: 4 B a value
-    stuff_len = 1 + off_w + torch.where(max_q > 0, 2 + (cnt * nb + 7) // 8, 0)
+    cw = torch.where(cnt < 256, 1, 2)  # count byte width (2 only for a full 16x16 block)
+    stuff_len = 1 + off_w + torch.where(max_q > 0, 1 + cw + (cnt * nb + 7) // 8, 0)
     raw_len = 1 + 4 * cnt
+    use_lut = torch.zeros_like(has)
+    if lut:
+        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len)
     use_stuff = ~force_raw & (stuff_len < raw_len)
     mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
     length = torch.where(mode == 2, 1, torch.where(mode == 0, raw_len, stuff_len))
-    b = torch.arange(n, device=dev) // d
-    integ = (((b % (w // 8)) & 15) << 2) & p.integ_mask
-    flag = integ | mode | torch.where((mode == 1) | (mode == 3), tc << 6, 0)
-    desc = flag | (mode << 8) | (nb << 16) | (off_w << 24)
+    flag = _integ_bits(n, d, w, mb, p, dev) | mode | torch.where((mode == 1) | (mode == 3),
+                                                                  tc << 6, 0)
+    lut_bit = (use_lut & (mode == 1)).to(torch.int64)
+    desc = flag | (mode << 8) | (lut_bit << 11) | (nb << 16) | (off_w << 24)
     rec_info = torch.stack([length, desc, _as_i32(off_word).to(torch.int64),
                             zmin.view(torch.int32).to(torch.int64)], 1).to(torch.int32)
     # blocks without a valid value take no part in the per-depth range
@@ -430,15 +544,16 @@ def _prev_slice(v: torch.Tensor, d: int) -> torch.Tensor:
     return v[(torch.arange(v.shape[0], device=v.device) - 1).clamp(min=0)] if d > 1 else v
 
 
-def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
+                          mb: int = 8, lut: bool = False):
     """Plain PyTorch version of the integer K1 instances (int64 arithmetic
     wrapped to int32 where JAX computes in int32); zrange is [2D] int32."""
     h, w, d = data.shape
-    x = _blocks(data)
+    x = _blocks(data, mb)
     n = x.shape[0]
     dev = x.device
     xi, xf = _i32(x.to(torch.int64)), x.to(torch.float32)
-    vb, cnt = _record_lanes(valid, d, n, dev)
+    vb, cnt = _record_lanes(valid, d, n, dev, mb * mb)
     has = cnt > 0
     lo = torch.where(vb, xi, _I32_MAX).amin(1)
     hi = torch.where(vb, xi, _I32_MIN).amax(1)
@@ -453,8 +568,12 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
     force_raw = (fmax > zmin_f) if p.mze == 0 else (max_val > p.maxq_cap)
     tc, off_w = reduce_offset_int_ref(zmin, p.dt)
     off_word = _low_bytes(zmin, off_w)
-    stuff_len = 1 + off_w + torch.where(max_q > 0, 2 + (cnt * nb + 7) // 8, 0)
+    cw = torch.where(cnt < 256, 1, 2)
+    stuff_len = 1 + off_w + torch.where(max_q > 0, 1 + cw + (cnt * nb + 7) // 8, 0)
     raw_len = 1 + cnt * DT_SIZE[p.dt]
+    use_lut = torch.zeros_like(has)
+    if lut:
+        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len)
     zq = zmin
     use_diff = torch.zeros(n, dtype=torch.bool, device=dev)
     if p.diff_ok and d > 1:
@@ -462,10 +581,15 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
         dv = _i32(xi - _prev_slice(xi, d))
         dmin = torch.where(has, torch.where(vb, dv, 2**30).amin(1), 0)
         dmax = torch.where(has, torch.where(vb, dv, -(2**30)).amax(1), 0)
-        max_qd = torch.where(vb, _i32(dv - dmin[:, None]) & 0xFFFFFFFF, 0).amax(1)
+        qd = torch.where(vb, _i32(dv - dmin[:, None]) & 0xFFFFFFFF, 0)
+        max_qd = qd.amax(1)
         nbd = _bit_len(max_qd)
         tc_d, off_w_d = reduce_offset_int_ref(dmin, DataType.INT)
-        stuff_len_d = 1 + off_w_d + torch.where(max_qd > 0, 2 + (cnt * nbd + 7) // 8, 0)
+        stuff_len_d = 1 + off_w_d + torch.where(max_qd > 0, 1 + cw + (cnt * nbd + 7) // 8, 0)
+        use_lut_d = torch.zeros_like(has)
+        if lut:
+            stuff_len_d, use_lut_d = _lut_candidate_ref(qd, cnt, nbd, max_qd, off_w_d, cw,
+                                                        stuff_len_d)
         const0_d = (dmin == 0) & (dmax == 0)
         diff_len = torch.where(const0_d, 1, stuff_len_d)
         use_diff = ((torch.arange(n, device=dev) % d > 0) & p.lossless & has & ~const0
@@ -478,14 +602,15 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
         off_w = torch.where(use_diff, off_w_d, off_w)
         off_word = torch.where(use_diff, _low_bytes(dmin, off_w_d), off_word)
         zq = torch.where(use_diff, dmin, zq)
+        use_lut = torch.where(use_diff, use_lut_d, use_lut)
     use_stuff = ~force_raw & (stuff_len < raw_len)
     mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
     length = torch.where(mode == 2, 1, torch.where(mode == 0, raw_len, stuff_len))
-    b = torch.arange(n, device=dev) // d
-    integ = (((b % (w // 8)) & 15) << 2) & p.integ_mask
     ud = use_diff.to(torch.int64)
-    flag = integ | (ud << 2) | mode | torch.where((mode == 1) | (mode == 3), tc << 6, 0)
-    desc = flag | (mode << 8) | (ud << 10) | (nb << 16) | (off_w << 24)
+    flag = (_integ_bits(n, d, w, mb, p, dev) | (ud << 2) | mode
+            | torch.where((mode == 1) | (mode == 3), tc << 6, 0))
+    lut_bit = (use_lut & (mode == 1)).to(torch.int64)
+    desc = flag | (mode << 8) | (ud << 10) | (lut_bit << 11) | (nb << 16) | (off_w << 24)
     rec_info = torch.stack([length, desc, _i32(off_word), zq], 1).to(torch.int32)
     zrange = torch.cat([torch.where(has, lo, _I32_MAX).view(-1, d).amin(0),
                         torch.where(has, hi, _I32_MIN).view(-1, d).amax(0)]).to(torch.int32)
@@ -500,18 +625,23 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
 
 
 def write_records(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
-                  cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
+                  cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None,
+                  mb: int = 8, lut: bool = False) -> torch.Tensor:
     """The record stream: [cap_w] int32 u32 words, zero past the last
     record. Records running past the capacity are cut (K1 has cleared
     `fits` for them). With validity words, each record holds its block's
     valid values only, in position order."""
     h, w, d = data.shape
-    n = _n_rec(data)
+    n = _n_rec(data, mb)
     if rec_info.shape != (n, 4) or starts.shape != (n,):
         raise ValueError("rec_info / starts do not match the data's record count")
-    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    lut_sfx = _lut_args(data, p, valid, mb, lut)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
     if not build.on_cuda(data, *vt, rec_info, starts):
-        return write_records_ref(data, rec_info, starts, cap_w, p, valid)
+        return write_records_ref(data, rec_info, starts, cap_w, p, valid, mb, lut)
+    if lut:
+        return _write_records_lut(data, rec_info, starts, cap_w, p, valid_ptr, mb,
+                                  "write_records" + lut_sfx)
     if dt_is_int(p.dt):
         return _write_records_int(data, rec_info, starts, cap_w, p, valid_ptr, sfx)
     fn = build.library("encode").write_records
@@ -525,6 +655,25 @@ def write_records(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tens
                  starts.data_ptr(), out.data_ptr(), cap_w, build.launch_stream(data))
         build.check(err, "write_records" + sfx)
     build.LAUNCHES["write_records" + sfx] += 1
+    return out
+
+
+def _write_records_lut(data, rec_info, starts, cap_w: int, p: EncodeParams, valid_ptr, mb: int,
+                       name: str):
+    """Launch a LUT instance of K2 (float32 or int32 data)."""
+    h, w, d = data.shape
+    fn = build.library("encode").write_records_lut
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(data.device):
+        out = torch.zeros(cap_w, dtype=torch.int32, device=data.device)
+        err = fn(data.data_ptr(), int(dt_is_int(p.dt)), valid_ptr, h, w, d, mb, DT_SIZE[p.dt],
+                 p.scale, p.inv, p.inv_i, int(p.lossless), rec_info.data_ptr(), starts.data_ptr(),
+                 out.data_ptr(), cap_w, build.launch_stream(data))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -547,65 +696,98 @@ def _write_records_int(data, rec_info, starts, cap_w: int, p: EncodeParams, vali
     return out
 
 
+def _pack_fields(n: int, n_words: int, fields) -> torch.Tensor:
+    """LSB-first bit fields -> [n, 4 * n_words] payload bytes (int64). Each
+    field is (bitpos [n, F], value [n, F] < 2**width, width [n, F] or
+    scalar); fields never overlap, so adding is or-ing."""
+    dev = fields[0][0].device
+    words = torch.zeros(n, n_words + 1, dtype=torch.int64, device=dev)
+    for bitpos, vals, _width in fields:
+        wi, bit = bitpos >> 5, bitpos & 31
+        words.scatter_add_(1, wi, (vals << bit) & 0xFFFFFFFF)
+        words.scatter_add_(1, wi + 1, torch.where(bit > 0, vals >> (32 - bit), 0))
+    shifts = torch.arange(0, 32, 8, device=dev)
+    return ((words[:, :n_words, None] >> shifts) & 0xFF).reshape(n, -1)
+
+
 def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
-                      cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
+                      cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None,
+                      mb: int = 8, lut: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K2: each record as a byte row, scattered at
-    its start; masked payloads go through ``compact_ref``."""
-    x = _blocks(data)
+    its start; masked payloads go through ``compact_ref``; a LUT record's
+    entries are the sorted distinct non-zero values and its indices come
+    from ``torch.searchsorted`` over them."""
+    bs = mb * mb
+    x = _blocks(data, mb)
     n = x.shape[0]
     dev = x.device
-    vb, cnt = _record_lanes(valid, data.shape[2], n, dev)
+    vb, cnt = _record_lanes(valid, data.shape[2], n, dev, bs)
     info = rec_info.to(torch.int64)
     length, desc = info[:, 0], info[:, 1]
     off_word = info[:, 2] & 0xFFFFFFFF
     flag, mode = desc & 0xFF, (desc >> 8) & 3
+    is_lut = ((desc >> 11) & 1 == 1) & (mode == 1) & lut
     nb, off_w = (desc >> 16) & 0xFF, desc >> 24
+    cw = torch.where(cnt < 256, 1, 2)
 
-    # payload bits, LSB-first: value j at bits [j*width, (j+1)*width)
+    # values: raw native bits, or the quantized values (integers: or the
+    # differences to slice di-1 less the diff minimum, desc bit 10)
     if dt_is_int(p.dt):
-        # raw: native LE bytes; stuffed: quantized values, or differences to
-        # slice di-1 less the diff minimum (desc bit 10)
         size = DT_SIZE[p.dt]
         xi = _i32(x.to(torch.int64))
         zq = info[:, 3:4]
         diff = ((desc >> 10) & 1 == 1)[:, None]
         stuffed = torch.where(diff, _i32(_i32(xi - _prev_slice(xi, data.shape[2])) - zq) & 0xFFFFFFFF,
                               quantize_int_ref(xi, zq, p))
-        vals = torch.where((mode == 0)[:, None], _low_bytes(xi, size), stuffed)
+        raw = _low_bytes(xi, size)
         raw_width = 8 * size
     else:
         zmin = rec_info[:, 3].contiguous().view(torch.float32)
         raw = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        vals = torch.where((mode == 0)[:, None], raw, quantize_ref(x, zmin[:, None], p))
+        stuffed = quantize_ref(x, zmin[:, None], p)
         raw_width = 32
-    if valid is not None:
-        vals = compact_ref(vals, vb)
+    stuffed = torch.where(vb, stuffed, 0)
+    vals = torch.where((mode == 0)[:, None], raw, stuffed)
+    seq = torch.arange(bs, device=dev)[None, :]
     width = torch.where(mode == 0, raw_width, nb)[:, None]
-    bitpos = torch.arange(64, device=dev)[None, :] * width
-    wi, bit = bitpos >> 5, bitpos & 31
-    lo = (vals << bit) & 0xFFFFFFFF
-    hi = torch.where(bit > 0, vals >> (32 - bit), 0)
-    words = torch.zeros(n, _REC_BYTES // 4 + 1, dtype=torch.int64, device=dev)
-    words.scatter_add_(1, wi, lo).scatter_add_(1, wi + 1, hi)
-    shifts = torch.arange(0, 32, 8, device=dev)
-    payload = ((words[:, :, None] >> shifts) & 0xFF).reshape(n, -1)
+    plain = torch.where(is_lut[:, None], 0, compact_ref(vals, vb))
+    fields = [(seq * width, plain, width)]
+    if lut:
+        # [n_lut + 1][entries at nb bits][indices at bitlen(n_lut) bits]
+        srt = stuffed.sort(1).values
+        first = _first_nonzero(srt)
+        n_lut = first.sum(1)
+        nbits_lut = _bit_len(n_lut)[:, None]
+        at = (torch.searchsorted(srt, stuffed, right=True) - 1).clamp(min=0)
+        idx = first.cumsum(1).gather(1, at)
+        idx_base = 8 * (1 + (n_lut * nb + 7) // 8)[:, None]
+        lm = is_lut[:, None]
+        fields += [
+            (torch.zeros(n, 1, dtype=torch.int64, device=dev),
+             torch.where(lm, n_lut[:, None] + 1, 0), 8),
+            (8 + seq * nb[:, None], torch.where(lm, compact_ref(srt, first), 0), nb[:, None]),
+            (idx_base + seq * nbits_lut, torch.where(lm, compact_ref(idx, vb), 0), nbits_lut),
+        ]
+    payload = _pack_fields(n, bs + 2, fields)
 
     # header: flag, offset bytes (modes 1, 3), numBits byte and count (mode 1)
-    k8 = torch.arange(8, device=dev)[None, :]
-    hdr = torch.zeros(n, 8, dtype=torch.int64, device=dev)
+    k9 = torch.arange(9, device=dev)[None, :]
+    hdr = torch.zeros(n, 9, dtype=torch.int64, device=dev)
     hdr[:, 0] = flag
-    offb = (off_word[:, None] >> (8 * (k8 - 1)).clamp(min=0)) & 0xFF
-    has_off = ((mode == 1) | (mode == 3))[:, None] & (k8 >= 1) & (k8 <= off_w[:, None])
+    offb = (off_word[:, None] >> (8 * (k9 - 1)).clamp(min=0)) & 0xFF
+    has_off = ((mode == 1) | (mode == 3))[:, None] & (k9 >= 1) & (k9 <= off_w[:, None])
     hdr = torch.where(has_off, offb, hdr)
     is_stuff = mode == 1
-    hdr.scatter_(1, (1 + off_w)[:, None], torch.where(is_stuff, nb | 0x80, 0)[:, None])
-    hdr.scatter_(1, (2 + off_w)[:, None], torch.where(is_stuff, cnt, 0)[:, None])
-    hl = torch.where(mode == 0, 1, torch.where(is_stuff, 3 + off_w,
+    nbb = nb | (is_lut.to(torch.int64) << 5) | ((3 - cw) << 6)
+    hdr.scatter_(1, (1 + off_w)[:, None], torch.where(is_stuff, nbb, 0)[:, None])
+    hdr.scatter_(1, (2 + off_w)[:, None], torch.where(is_stuff, cnt & 0xFF, 0)[:, None])
+    hdr.scatter_(1, (3 + off_w)[:, None], torch.where(is_stuff & (cw == 2), cnt >> 8, 0)[:, None])
+    hl = torch.where(mode == 0, 1, torch.where(is_stuff, 2 + off_w + cw,
                                                torch.where(mode == 3, 1 + off_w, 1)))[:, None]
 
-    kk = torch.arange(_REC_BYTES, device=dev)[None, :]
-    rec = torch.where(kk < hl, hdr.gather(1, kk.clamp(max=7).expand(n, -1)),
-                      payload.gather(1, (kk - hl).clamp(min=0)))
+    kk = torch.arange(payload.shape[1] + 9, device=dev)[None, :]
+    rec = torch.where(kk < hl, hdr.gather(1, kk.clamp(max=8).expand(n, -1)),
+                      payload.gather(1, (kk - hl).clamp(min=0, max=payload.shape[1] - 1)))
     pos = starts.to(torch.int64)[:, None] + kk
     keep = (kk < length[:, None]) & (pos >= 0) & (pos < 4 * cap_w)
     out = torch.zeros(4 * cap_w, dtype=torch.uint8, device=dev)

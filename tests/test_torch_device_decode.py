@@ -99,5 +99,5 @@ def test_unported_options_name_their_roadmap_item():
             torch.zeros(1), 16, 16, 1, DataType.FLOAT, 6)
     with pytest.raises(NotImplementedError, match="item 10"):
         device_decode.decode_tiles_fast(*args, n_tiles=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         device_decode.decode_tiles_fast(*args, enable_lut=True)

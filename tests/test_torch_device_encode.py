@@ -142,9 +142,9 @@ def test_tie_tile_separates_fused_from_unfused():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(version=3), "item 6"),
-    (dict(enable_lut=True), "item 6"),
-    (dict(mb=16), "item 6"),
+    (dict(version=2), "item 12"),
+    (dict(mb=32, enable_lut=True), "item 12"),
+    (dict(mb=16), "item 12"),
     (dict(dt=DataType.DOUBLE), "item 9"),
 ])
 def test_unported_options_name_their_roadmap_item(kwargs, item):

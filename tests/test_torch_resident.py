@@ -181,15 +181,16 @@ def test_default_device_needs_cuda():
 
 def test_unported_paths_name_their_roadmap_item():
     # integer dtypes and decode without the index are ported (queue 1 item
-    # 5); a masked decode without the index and float64 are not
+    # 5), a masked decode without the index too (item 6: the host record
+    # scanner and the masked K6); float64 is not
     from lerc_tpu_torch import ResidentCodec
 
     mask = np.ones((16, 16), bool)
     mask[3, 4] = False
     codec = ResidentCodec(16, 16, 1, np.float32, 0.01, mask=mask, device="cpu")
     blob = codec.encode(torch.arange(256, dtype=torch.float32).reshape(16, 16, 1))
+    indexed = codec.decode(blob)
     blob.starts = None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        codec.decode(blob)
+    assert torch.equal(codec.decode(blob), indexed)
     with pytest.raises(NotImplementedError, match="item 9"):
         FusedResidentCodec(16, 16, 1, np.float64, 0.5, device="cpu")

@@ -191,18 +191,29 @@ def test_plain_doubling_steps_equal_one_gather_chain():
 
 
 def test_decode_scanned_refuses_what_it_cannot_decode():
-    """A float diff record, an integer raw diff record, a diff record on
-    slice 0 and a LUT record clear ok; masks, LUT streams and edge blocks
-    name their ROADMAP item."""
+    """A diff record on slice 0, an integer raw diff record and a LUT record
+    whose indices pass its LUT clear ok, as the host decoder refuses them; a
+    float diff record decodes (the exact f32 chain); micro blocks other than
+    8 and 16 and float64 name their ROADMAP item."""
     fdata = float_tile(3)
     stream, total, starts, zmax = port_stream(fdata, 0.01, 6)
     mode, off, nb, ne, pp, lp, nl, nbl = _scanned(stream, total, DataType.FLOAT, 6, 3)[1:9]
     args = (pp, off, nb, ne, lp, nl, nbl, None, 0.01, zmax, H, W, 3, DataType.FLOAT, True, False)
     assert bool(device_decode.decode_scanned(stream, mode, *args)[1])
-    for r, new_mode in ((1, int(mode[1]) + 8), (0, 9), (5, 4)):
-        m = mode.clone()
-        m[r] = new_mode
-        assert not bool(device_decode.decode_scanned(stream, m, *args)[1])
+    m = mode.clone()
+    m[1] = int(mode[1]) + 8  # a float diff record on slice 1
+    assert bool(device_decode.decode_scanned(stream, m, *args)[1])
+    m = mode.clone()
+    m[0] = 9  # a diff record on slice 0
+    assert not bool(device_decode.decode_scanned(stream, m, *args)[1])
+    r = 5  # a stuffed record read as a LUT of no entries: any non-zero index passes it
+    assert int(mode[r]) == 1
+    m, nl0, nbl8 = mode.clone(), nl.clone(), nbl.clone()
+    m[r], nl0[r], nbl8[r] = 4, 0, 8
+    first = stream.view(torch.uint8)[int(pp[r]) : int(pp[r]) + int(ne[r])]
+    assert first.any()
+    largs = (pp, off, nb, ne, lp, nl0, nbl8) + args[7:]
+    assert not bool(device_decode.decode_scanned(stream, m, *largs)[1])
     idata = int_tile(np.uint8, H, W, 3)
     istream, itotal, _s, izmax = port_stream(idata, 0.5, 6)
     imode, ioff, inb, ine, ipp, ilp, inl, inbl = _scanned(istream, itotal, DataType.BYTE, 6, 3)[1:9]
@@ -213,10 +224,10 @@ def test_decode_scanned_refuses_what_it_cannot_decode():
     m = imode.clone()
     m[raw if raw % 3 else raw + 1] = 8
     assert not bool(device_decode.decode_scanned(istream, m, *iargs)[1])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        device_decode.decode_scanned(stream, mode, *args[:-1], True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        device_decode.decode_scanned(stream, mode, *args[:-2], False, False)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        device_decode.decode_scanned(stream, mode, *args, mb=32)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        device_decode.decode_scanned(stream, mode, *args[:-3], DataType.DOUBLE, True, False)
 
 
 DIFF_CASES = [np.uint8, np.int16]
