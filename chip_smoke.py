@@ -64,7 +64,24 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   13. times: band encode/decode MB/s, host-scanner and analyses ms per
      tile, copies each way, the bench mask's RLE each way beside the
      masked cell's extra time, each new instance's ms against its bound
-     and plain ms, device busy share of a band round.
+     and plain ms, device busy share of a band round;
+  14. 8-bit whole-image Huffman: H1 symbols/histograms, H2 group bits and
+     pack, H3 decode, H4 restores (direct, column 0 + rows, masked direct,
+     masked delta) and the host lengths-only scan against their plain
+     versions, byte for byte, on 48x41 and 61x47 crops of the cells' data
+     (depth 1 and 3, uint8 and int8, no mask, a random and a stripes mask,
+     both modes), on a 24-row strip wider than a row tile, and at 2048^2;
+  15. four Huffman band cells, lossless v6, through
+     encode_band_device(return_index=True) -> decode_band_device with the
+     index and without it (the host scan), counted: a uint8 three-band
+     image (four 2048^2 tiles, delta Huffman asserted), the same with the
+     bench mask, a uint8 quality-flag band (four tiles, direct Huffman
+     asserted) and one flag tile with the bench mask as its fill (masked
+     direct); tile 0's blob equal to the plain path's, every decode equal
+     to the input;
+  16. their MB/s, ratios and host-scan ms, and H1-H4's device ms per
+     launch at 2048^2 x 3 beside their plain ms, bounds and, for H1 and the
+     row scan, torch.bincount / torch.cumsum.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -123,6 +140,16 @@ for _sfx in ("", "_i8", "_u8", "_i16", "_u16", "_i32", "_u32"):
                                            "lerc_tpu/ops/device_encode.py:677")
         SOURCES["decode_records" + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
                                             "lerc_tpu/ops/device_decode.py:189")
+# 8-bit whole-image Huffman: H1-H4 (kernels/huffman.cu) and the host scan
+SOURCES.update({name: ("lerc_tpu_torch/kernels/huffman.cu", f"lerc_tpu/ops/device_huffman.py:{line}")
+                for name, line in (("huffman_symbols", 50), ("huffman_symbols_masked", 72),
+                                   ("huffman_group_bits", 160), ("huffman_pack", 160),
+                                   ("huffman_decode", 278), ("huffman_restore", 477),
+                                   ("huffman_restore_col0", 477), ("huffman_restore_delta", 477),
+                                   ("huffman_restore_masked", 389),
+                                   ("huffman_restore_delta_masked", 432))})
+SOURCES["huffman_scan"] = ("lerc_tpu_torch/kernels/huffman_scan.cpp",
+                           "lerc_tpu/native/lerc_native.cpp:604")
 
 
 def fail(msg):
@@ -1562,6 +1589,391 @@ def band_phases(tiles, mask, card, launches, add_row, rows_done):
 
 
 
+# ---------------------------------------------------------------------------
+# 8-bit whole-image Huffman through the band codec: H1 symbols and
+# histograms, H2 group pack, H3 group-parallel decode, H4 image restore, and
+# the host lengths-only scan of foreign blobs
+# ---------------------------------------------------------------------------
+
+FLAG_CODES = (0, 1, 2, 4, 8, 16, 64, 128)  # clear, cloud, shadow, snow, water, haze, fill, saturated
+FLAG_CUM = (0.55, 0.75, 0.85, 0.91, 0.95, 0.975, 0.99)  # their cumulative frequencies
+
+
+def quality_flags(n, tile, device):
+    """uint8 quality-flag bands, [tile, tile, 1] each: the bench's integer
+    hash of each pixel (bench.py:91-117, another seed) picks one of 8 codes
+    with skewed frequencies, 55% down to 1%, as a cloud or QA mask band
+    holds them: no spatial order, so the direct Huffman mode's data."""
+    m32 = 0xFFFFFFFF
+    cum = torch.tensor(FLAG_CUM, dtype=torch.float64, device=device)
+    codes = torch.tensor(FLAG_CODES, dtype=torch.uint8, device=device)
+    out = []
+    for seed in range(n):
+        i = (torch.arange(tile * tile, dtype=torch.int64, device=device).reshape(tile, tile)
+             + ((seed * 0x9E3779B9 + 0x51ED27) & m32)) & m32
+        i = ((i ^ (i >> 16)) * 0x45D9F3B) & m32
+        i = ((i ^ (i >> 16)) * 0x45D9F3B) & m32
+        i = i ^ (i >> 16)
+        k = torch.searchsorted(cum, i.to(torch.float64) * 2.0**-32, right=True)
+        out.append(codes[k][:, :, None].contiguous())
+    return out
+
+
+def stripes_mask(h, w):
+    """Every other column valid: each valid pixel below row 0 deltas against
+    the pixel above (the masked un-delta's worst case for segments)."""
+    m = np.ones((h, w), bool)
+    m[:, ::2] = False
+    return m
+
+
+def restore_name(masked, delta):
+    return "huffman_restore" + ("_delta" if delta else "") + ("_masked" if masked else "")
+
+
+def huffman_check(data, mask, tag, scan_ref=True):
+    """H1-H4 against their plain versions on one 8-bit band (CUDA tensors):
+    H1's streams and histograms, then in each mode H2's words, total bits
+    and sidecar, H3's symbols, used bits and ok, H4's image (equal to the
+    input at the valid pixels), and the host scan (against its plain version
+    with scan_ref) equal to H2's sidecar. Returns {kernel: max_abs_err}."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+    from lerc_tpu_torch.ops import huffman_scan as hs
+
+    h, w, d = data.shape
+    dt = DataType.CHAR if data.dtype == torch.int8 else DataType.BYTE
+    x = data.to(torch.int32).contiguous()
+    m = None if mask is None else torch.from_numpy(np.ascontiguousarray(mask)).cuda()
+    k1 = dh.symbol_streams_device(x, m, dt)
+    r1 = dh.symbol_streams_device_ref(x, m, dt)
+    require(all(torch.equal(a, b) for a, b in zip(k1, r1)), f"H1 != plain ({tag})")
+    err = {"huffman_symbols" + ("" if m is None else "_masked"): 0.0}
+    nv = None if mask is None else int(mask.sum())
+    sel = torch.ones(h, w, dtype=torch.bool, device=x.device) if m is None else m
+    hist = k1[2].cpu().numpy().astype(np.int64)
+    for delta in (False, True):
+        how = f"{tag}, {'delta' if delta else 'direct'}"
+        lengths = huffman.compute_code_lengths(hist[int(delta)])
+        if lengths is None:  # one symbol: no code, the encoder takes another mode
+            continue
+        codes = huffman.canonical_codes(lengths)
+        table = dh.code_table(lengths, codes, x.device)
+        layout = dh.live_layout(h * w, d, nv, delta)
+        total = int((hist[int(delta)] * lengths).sum())
+        n_words = -(-total // 32) + 1
+        sym = k1[1] if delta else k1[0]
+        wk, tk, sk = dh.encode_stream_device(sym, table, layout, n_words)
+        wr, tr, sr = dh.encode_stream_device_ref(sym, table, layout, n_words)
+        require(torch.equal(wk, wr) and int(tk) == int(tr) == total and torch.equal(sk, sr),
+                f"H2 != plain ({how})")
+        consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+        args = (torch.cat([wk, wk.new_zeros(1)]), 32 * n_words, sk, torch.from_numpy(consts).cuda(),
+                torch.from_numpy(sorted_syms).cuda(), layout)
+        sk3, uk, ok_k = dh.decode_stream_device(*args)
+        sr3, ur, ok_r = dh.decode_stream_device_ref(*args)
+        require(torch.equal(sk3, sr3) and torch.equal(uk, ur) and bool(ok_k) and bool(ok_r),
+                f"H3 != plain ({how})")
+        if m is None:
+            ik = dh.symbols_to_image(sk3, h, w, d, dt, delta)
+            ir = dh.symbols_to_image_ref(sk3, h, w, d, dt, delta)
+        elif delta:
+            ik, ir = dh.undelta_masked_device(sk3, m, d, dt), dh.undelta_masked_device_ref(sk3, m, d, dt)
+        else:
+            ik = dh.expand_compacted_device(sk3, m, d, dt)
+            ir = dh.expand_compacted_device_ref(sk3, m, d, dt)
+        require(torch.equal(ik, ir) and torch.equal(ik[sel], data[sel])
+                and not ik.view(torch.uint8)[~sel].any(), f"H4 != plain or input ({how})")
+        stream = wk.cpu().numpy().view(np.uint8)
+        counts = dh.live_counts(sk.numel(), layout)
+        offs = hs.huffman_group_offsets(stream, lengths, codes, counts)
+        require(np.array_equal(offs, sk.cpu().numpy()), f"host scan != H2's sidecar ({how})")
+        if scan_ref:
+            require(np.array_equal(hs.huffman_group_offsets_ref(stream, lengths, codes, counts),
+                                   offs), f"host scan != plain ({how})")
+        err.update(dict.fromkeys(("huffman_group_bits", "huffman_pack", "huffman_decode",
+                                  "huffman_scan", restore_name(m is not None, delta)), 0.0))
+        if m is None and delta:
+            err["huffman_restore_col0"] = 0.0
+    return err  # every comparison above is exact
+
+
+def tiling_bytes(t, mask):
+    """The 8x8 tiling candidate's payload bytes of a lossless 8-bit band
+    (what the Huffman blob beat)."""
+    from lerc_tpu_torch.codec.device_codec import _round_cap
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = t.shape
+    nv = h * w if mask is None else int(mask.sum())
+    valid = None if mask is None else enc.block_valid_words(torch.from_numpy(mask).cuda(), 8)
+    cap = _round_cap(nv * d + (-(-h // 8)) * (-(-w // 8)) * d * 12 + 4096)
+    dt = DataType.CHAR if t.dtype == torch.int8 else DataType.BYTE
+    return int(enc.encode_tiles(t.to(torch.int32).contiguous(), valid, 0.5, h, w, d, dt,
+                                mask is None, 6, cap, enable_lut=True)[1])
+
+
+def huffman_cell(label, tiles, mask, mode, card):
+    """One Huffman band cell, lossless v6: encode_band_device(...,
+    return_index=True) -> decode_band_device with the index and without it
+    (the host scan), counted; the image-mode byte asserted; tile 0's blob
+    byte-equal to the plain path's (device="cpu"); every decode equal to the
+    input at the valid pixels, 0 elsewhere. Returns (counts, blobs, indexes,
+    times)."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+    from lerc_tpu_torch.codec.device_codec import huffman_section
+    from lerc_tpu_torch.ops import device_huffman as dh
+    from lerc_tpu_torch.ops import huffman_scan as hs
+
+    masked = mask is not None
+    required = ("encode_blocks_lut_int", "write_records_lut_int", "fletcher32_parts",
+                "huffman_symbols" + ("_masked" if masked else ""), "huffman_group_bits",
+                "huffman_pack", "huffman_decode", "huffman_scan")
+    required += ((restore_name(masked, True),) if mode == 1 else (restore_name(masked, False),))
+    if mode == 1 and not masked:
+        required += ("huffman_restore_col0",)
+    optional = ("encode_blocks_lut16_int", "write_records_lut16_int")
+
+    def path():
+        enc = [encode_band_device(t, mask, 0.5, return_index=True) for t in tiles]
+        return enc, [decode_band_device(b, index=i) for b, i in enc], \
+            [decode_band_device(b) for b, _ in enc]
+
+    counts, (enc, decs, frees) = run_counted_band(required, optional, label, path)
+    sel = None if mask is None else torch.from_numpy(mask).cuda()
+    for i, (t, (b, idx), a, f) in enumerate(zip(tiles, enc, decs, frees)):
+        sec = huffman_section(b)
+        require(sec.mode == mode, f"{label}: tile {i} took image mode {sec.mode}, not {mode}")
+        require(idx is not None and idx["huffman_sbits"].shape == (sec.n_groups,),
+                f"{label}: tile {i} has no Huffman index")
+        for what, dband in (("with the index", a), ("without the index", f)):
+            got = dband.data
+            if sel is not None:
+                require(np.array_equal(dband.mask, mask), f"{label}: mask of tile {i} differs")
+                require(not got.view(torch.uint8)[~sel].any(),
+                        f"{label}: invalid pixels of tile {i} are not 0")
+                got, want = got[sel], t[sel]
+            else:
+                want = t
+            require(torch.equal(got, want), f"{label}: tile {i} decoded {what} != input")
+    require(encode_band_device(tiles[0].cpu(), mask, 0.5, device="cpu") == enc[0][0],
+            f"{label}: blob of tile 0 differs from the plain path's")
+    raw_mb = len(tiles) * tiles[0].numel() / 1e6
+    blobs = [b for b, _ in enc]
+
+    def timed(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    enc_ms = timed(lambda: [encode_band_device(t, mask, 0.5, return_index=True) for t in tiles])
+    dec_ms = timed(lambda: [decode_band_device(b, index=i) for b, i in enc])
+    free_ms = timed(lambda: [decode_band_device(b) for b in blobs])
+    secs = [huffman_section(b) for b in blobs]
+    scan_ms = timed(lambda: [hs.huffman_group_offsets(s.stream, s.lengths, s.codes,
+                                                      dh.live_counts(s.n_groups, s.layout))
+                             for s in secs]) / len(tiles)
+    ratio = raw_mb * 1e6 / sum(len(b) for b in blobs)
+    tiling = tiling_bytes(tiles[0], mask)
+    print(f"huffman cell {label}: {len(tiles)} tiles ok, image mode {mode} "
+          f"({'delta' if mode == 1 else 'direct'} Huffman), blob 0 equal to the plain path's, "
+          f"launches {counts}; encode {raw_mb / (enc_ms / 1e3):.1f} MB/s ({enc_ms:.3f} ms), "
+          f"decode {raw_mb / (dec_ms / 1e3):.1f} MB/s with the index ({dec_ms:.3f} ms), "
+          f"{raw_mb / (free_ms / 1e3):.1f} MB/s without ({free_ms:.3f} ms; host scan "
+          f"{scan_ms:.3f} ms per tile), compression ratio {ratio:.4f}; tile 0: Huffman blob "
+          f"{len(blobs[0])} B, the tiling candidate's payload {tiling} B [{card}]", flush=True)
+    return counts, blobs, [i for _, i in enc], (enc_ms, dec_ms, free_ms, scan_ms)
+
+
+def huffman_kernel_times(u8x3, mask, flags, card):
+    """Device ms per launch of H1-H4 (torch.profiler) at 2048^2 x 3 (the
+    uint8 three-band tile; the direct restores on the flag band), their
+    plain ms (CUDA events), bounds (bytes, each input read once and each
+    output written once, over the HBM rate) and, beside H1 and H4, the one
+    PyTorch call that computes the same function. The masked H1 and masked
+    direct H4 rows time the whole wrapper (the kernel and its rank-chunk
+    glue); the kernel alone is printed beside them. Returns {kernel: (ms,
+    plain ms, bound ms, library ms or None)}."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    rows = {}
+    m = torch.from_numpy(mask).cuda()
+    nv = int(mask.sum())
+    mb = HBM_BYTES_PER_S / 1e3  # bytes per ms
+
+    def add(name, kf, rf, n_bytes, match, lib=None, alone=None):
+        rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), n_bytes / mb,
+                      None if lib is None else device_ms([lib]))
+        if alone is not None:
+            print(f"{name}: {rows[name][0]:.4f} ms per call with its rank-chunk glue, the kernel "
+                  f"alone {device_ms([kf], alone):.4f} ms [{card}]", flush=True)
+
+    for data, mk, delta in ((u8x3, None, True), (u8x3, m, True), (flags, None, False),
+                            (flags, m, False)):
+        h, w, d = data.shape
+        n, npx = h * w * d, h * w
+        x = data.to(torch.int32).contiguous()
+        direct, dl, hist = dh.symbol_streams_device(x, mk, DataType.BYTE)
+        h1 = "huffman_symbols" + ("" if mk is None else "_masked")
+        if h1 not in rows:
+            live = n if mk is None else nv * d
+            kern = "huffman_symbols_kernel"
+            add(h1, lambda x=x, mk=mk: dh.symbol_streams_device(x, mk, DataType.BYTE),
+                lambda x=x, mk=mk: dh.symbol_streams_device_ref(x, mk, DataType.BYTE),
+                4 * live + (0 if mk is None else npx) + 2 * live + 2048,
+                kern if mk is None else None,
+                lib=lambda s=direct[:n]: torch.bincount(s, minlength=256),
+                alone=None if mk is None else kern)
+        hst = hist[int(delta)].cpu().numpy().astype(np.int64)
+        lengths = huffman.compute_code_lengths(hst)
+        codes = huffman.canonical_codes(lengths)
+        table = dh.code_table(lengths, codes, x.device)
+        layout = dh.live_layout(npx, d, None if mk is None else nv, delta)
+        total = int((hst * lengths).sum())
+        n_words = -(-total // 32) + 1
+        sym = dl if delta else direct
+        g = sym.numel() // dh.GROUP
+        words, _tb, sbits = dh.encode_stream_device(sym, table, layout, n_words)
+        live = layout[2] * (n // layout[1])
+        if mk is None and delta:  # H2 and H3 at their main-path shape
+            add("huffman_group_bits", lambda: dh.encode_stream_device(sym, table, layout, n_words),
+                lambda: dh.encode_stream_device_ref(sym, table, layout, n_words),
+                n + 2048 + 4 * g, "huffman_group_bits_kernel")
+            add("huffman_pack", lambda: dh.encode_stream_device(sym, table, layout, n_words),
+                lambda: dh.encode_stream_device_ref(sym, table, layout, n_words),
+                n + 4 * g + total / 8 + 2048, "huffman_pack_kernel")
+        consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+        args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
+                torch.from_numpy(consts).cuda(), torch.from_numpy(sorted_syms).cuda(), layout)
+        if mk is None and delta:
+            add("huffman_decode", lambda: dh.decode_stream_device(*args),
+                lambda: dh.decode_stream_device_ref(*args),
+                total / 8 + 8 * g + n, "huffman_decode_kernel")
+        syms = dh.decode_stream_device(*args)[0]
+        name = restore_name(mk is not None, delta)
+        if mk is None and delta:
+            add("huffman_restore_col0", lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
+                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True),
+                2 * d * h, "huffman_restore_col0_kernel",
+                lib=lambda s=syms[:n].view(d, h, w)[:, :, 0]: torch.cumsum(s, 1, dtype=torch.uint8))
+            add(name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
+                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True),
+                2 * n + d * h, "huffman_restore_delta_kernel",
+                lib=lambda s=syms[:n].view(d, h, w): torch.cumsum(s, 2, dtype=torch.uint8))
+        elif mk is None:
+            add(name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, False),
+                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, False),
+                2 * n, "huffman_restore_kernel",
+                lib=lambda s=syms[:n]: torch.sub(s, 0))  # uint8: offset 0, wraps mod 256
+        elif delta:
+            add(name, lambda: dh.undelta_masked_device(syms, mk, d, DataType.BYTE),
+                lambda: dh.undelta_masked_device_ref(syms, mk, d, DataType.BYTE),
+                live + npx + n, "huffman_restore_delta_masked_kernel")
+        else:
+            add(name, lambda: dh.expand_compacted_device(syms, mk, d, DataType.BYTE),
+                lambda: dh.expand_compacted_device_ref(syms, mk, d, DataType.BYTE),
+                live + npx + n + 4 * (-(-npx // dh.CHUNK)), None,
+                alone="huffman_restore_masked_kernel")
+    return rows
+
+
+def huffman_phases(tiles, mask, card, launches, add_row):
+    """Phases 14-16: H1-H4 and the host scan against their plain versions
+    (48x41 and 61x47 crops of the cells' data, depth 1 and 3, uint8 and
+    int8, no mask, a random and a stripes mask, both modes; then at 2048^2),
+    the four Huffman band cells, and the kernels' times."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+    from lerc_tpu_torch.codec.device_codec import huffman_section
+    from lerc_tpu_torch.ops import device_huffman as dh
+    from lerc_tpu_torch.ops import huffman_scan as hs
+
+    u8x3 = int_cell_tiles(tiles, np.uint8, 3)
+    flags = quality_flags(N_TILES, TILE, tiles[0].device)
+    err = {}
+
+    def merge(e):
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+
+    # ---- 14. each kernel against its plain version
+    rng = np.random.default_rng(14)
+    for (ch, cw), (r0, c0) in (((48, 41), (300, 470)), ((61, 47), (1000, 1010))):
+        crop = (slice(r0, r0 + ch), slice(c0, c0 + cw))
+        masks = {"no mask": None, "random mask": rng.random((ch, cw)) > 0.3,
+                 "stripes mask": stripes_mask(ch, cw)}
+        for kind, data in (("uint8 x 3", u8x3[0][crop]), ("uint8 band 0", u8x3[0][crop][:, :, :1]),
+                           ("quality flags", flags[0][crop])):
+            for dtname, dd in (("uint8", data.contiguous()), ("int8", data.contiguous().view(torch.int8))):
+                for mname, mk in masks.items():
+                    merge(huffman_check(dd, mk, f"{ch}x{cw} {kind} {dtname}, {mname}"))
+        print(f"check: H1-H4 and the host scan equal to their plain versions on the {ch}x{cw} crops "
+              f"(uint8 x 3, one band, quality flags; uint8 and int8; no, random and stripes "
+              f"masks; direct and delta)", flush=True)
+    # rows wider than one CTA's tile (the row scans carry across tiles)
+    wide = torch.cat([u8x3[0][:24], u8x3[-1][:24], u8x3[0][:24, :500]], 1).contiguous()
+    for mname, mk in (("no mask", None), ("random mask", rng.random(wide.shape[:2]) > 0.3),
+                      ("stripes mask", stripes_mask(*wide.shape[:2]))):
+        merge(huffman_check(wide, mk, f"24x{wide.shape[1]} uint8 x 3, {mname}"))
+    print(f"check: H1-H4 and the host scan equal to their plain versions on a 24x{wide.shape[1]} "
+          f"uint8 x 3 strip (no, random and stripes masks; direct and delta)", flush=True)
+    for data, mk, what in ((u8x3[0], None, "uint8 x 3"), (u8x3[0], mask, "uint8 x 3, bench mask"),
+                           (flags[0], None, "quality flags"),
+                           (flags[0], mask, "quality flags, bench mask")):
+        merge(huffman_check(data, mk, f"{TILE}^2 {what}", scan_ref=False))
+        print(f"check: H1-H4 equal to their plain versions, the host scan to H2's sidecar, on the "
+              f"{TILE}^2 {what} band (both modes)", flush=True)
+
+    # ---- 15. the Huffman band cells, counted then timed
+    cells = [huffman_cell(f"uint8 three-band {N_TILES} x {TILE}^2, lossless v6", u8x3, None, 1,
+                          card),
+             huffman_cell(f"uint8 three-band {N_TILES} x {TILE}^2 with the bench mask, lossless v6",
+                          u8x3, mask, 1, card),
+             huffman_cell(f"uint8 quality flags {N_TILES} x {TILE}^2, lossless v6", flags, None, 2,
+                          card),
+             huffman_cell(f"uint8 quality flags {TILE}^2 with the bench mask (fill), lossless v6",
+                          flags[:1], mask, 2, card)]
+    for c in cells:
+        for k, n in c[0].items():
+            launches[k] = launches.get(k, 0) + n
+
+    # ---- 16. times
+    rows = huffman_kernel_times(u8x3[0], mask, flags[0], card)
+    for name, (ms, plain_ms, bound_ms, lib_ms) in rows.items():
+        add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes", lib_ms)
+    s = huffman_section(cells[0][1][0])
+    counts = dh.live_counts(s.n_groups, s.layout)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        hs.huffman_group_offsets(s.stream, s.lengths, s.codes, counts)
+    scan_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    require(np.array_equal(hs.huffman_group_offsets_ref(s.stream, s.lengths, s.codes, counts),
+                           cells[0][2][0]["huffman_sbits"]),
+            "host scan plain version != the encoder's sidecar on the uint8 three-band blob")
+    scan_plain = (time.perf_counter() - t0) * 1e3
+    print(f"host scan: {scan_ms:.3f} ms per {TILE}^2 x 3 uint8 blob ({s.stream.size} B of stream, "
+          f"{s.n_groups} groups), its plain numpy version {scan_plain:.1f} ms [{card}]", flush=True)
+    add_row("huffman_scan", err.get("huffman_scan", 0.0), scan_ms, scan_plain,
+            (s.stream.size + 4 * s.n_groups) / (HBM_BYTES_PER_S / 1e3), "bytes", None)
+
+    def cell_round():
+        enc = [encode_band_device(t, None, 0.5, return_index=True) for t in u8x3]
+        return [decode_band_device(b, index=i) for b, i in enc]
+
+    where_the_time_goes(None, u8x3, cells[0][3][0] + cells[0][3][1], card,
+                        "uint8 three-band Huffman cell, encode_band_device + decode_band_device",
+                        round_fn=cell_round)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -1664,14 +2076,15 @@ def main():
 
     kernels = []
 
-    def add_row(name, err, ms, plain_ms, bound_ms, bound_by):
+    def add_row(name, err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
+        lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
         print(f"kernel {name}: {ms:.4f} ms/launch (plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound, "
+              f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound{lib}, "
               f"{launches.get(name, 0)} launches on the paths) [{card}]")
         src, replaces = SOURCES[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
 
     for m, res in ((None, results), (mask, m_results)):
         codec = FusedResidentCodec(TILE, TILE, 1, np.float32, MAX_Z_ERROR, mask=m)
@@ -1726,6 +2139,8 @@ def main():
 
     # ---- 7-13. the band codec
     band_phases(tiles, mask, card, launches, add_row, {k["name"] for k in kernels})
+    # ---- 14-16. 8-bit whole-image Huffman through the band codec
+    huffman_phases(tiles, mask, card, launches, add_row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

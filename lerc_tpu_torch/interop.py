@@ -9,7 +9,11 @@ held in an int32 tensor. A ``ResidentBlob`` carries its header as host
 bytes, the stream, total, checksum and the optional index. A band codec's
 ``DecodedBand`` holds its data as a tensor on the decode device;
 ``decoded_band_to_numpy`` gives its fields as JAX's ``DecodedBand`` holds
-them.
+them. The band codec's acceleration index needs no conversion: in both
+packages ``encode_band_device(..., return_index=True)`` returns the same
+plain dict, ``{"huffman_sbits": int32 numpy array}`` for a Huffman blob
+(None otherwise), and either package's ``decode_band_device(blob,
+index=...)`` takes the other's.
 """
 from __future__ import annotations
 

@@ -13,10 +13,11 @@ contracted behind the code's back -- the decode ScaleBack must round the
 product and the sum separately, and the one fused multiply-add the encoder
 needs is written out as ``__fmaf_rn``.
 
-The band decoder's record scanner (``tile_scan.cpp``) runs on the host: it
-builds the same way with the host compiler (``c++ -O3 -shared -fPIC``), by
-itself on first use (the CPU tests need no ``nvcc``) or beside the CUDA
-sources in ``build_all``.
+The band decoder's record scanner (``tile_scan.cpp``) and the Huffman
+lengths-only scan (``huffman_scan.cpp``) run on the host: they build the
+same way with the host compiler (``c++ -O3 -shared -fPIC``), each by itself
+on first use (the CPU tests need no ``nvcc``) or beside the CUDA sources in
+``build_all``.
 
 A failed build raises with the compiler's output; nothing falls back.
 """
@@ -31,8 +32,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
-SOURCES = ("encode", "fletcher32", "decode", "scan")
-HOST_SOURCES = ("tile_scan",)
+SOURCES = ("encode", "fletcher32", "decode", "scan", "huffman")
+HOST_SOURCES = ("tile_scan", "huffman_scan")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,6 +63,12 @@ LAUNCHES.update({f"{k}{m}{t}": 0 for k in ("encode_blocks", "write_records")
 LAUNCHES.update({f"decode_scanned{mb}{m}{sfx}": 0 for mb in ("", "16")
                  for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES if mb or m})
 LAUNCHES["tile_scan"] = 0
+# the 8-bit Huffman path: H1 (all-valid, masked), H2 (group bits, pack), H3,
+# H4 (direct, column 0 + rows, masked direct, masked delta), the host scan
+LAUNCHES.update({k: 0 for k in (
+    "huffman_symbols", "huffman_symbols_masked", "huffman_group_bits", "huffman_pack",
+    "huffman_decode", "huffman_restore", "huffman_restore_col0", "huffman_restore_delta",
+    "huffman_restore_masked", "huffman_restore_delta_masked", "huffman_scan")})
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -7,8 +7,9 @@ index-free ResidentCodec decode, and what the slice refuses.
 Criteria (exact): blobs byte-equal to JAX ``encode_band_device``; decodes
 bit-equal to the host decoder ``lerc2_decode.decode_band`` and to JAX's
 device decode where JAX decodes on its device; the configurations of ROADMAP
-queue 1 items 7 (8-bit Huffman), 8 (fpl) and 9 (float64) raise
-NotImplementedError naming their item, before any work.
+queue 1 items 8 (fpl) and 9 (float64) raise NotImplementedError naming their
+item, before any work; those of item 7 (8-bit Huffman), refused until it was
+ported, now encode as JAX does and decode like the host decoder.
 """
 import struct
 
@@ -25,6 +26,7 @@ from lerc_tpu.codec.resident import ResidentBlob as JaxBlob
 from lerc_tpu.codec.resident import ResidentCodec as JaxResident
 from lerc_tpu_torch import ResidentCodec, decode_band_device, encode_band_device
 from lerc_tpu_torch.codec import fletcher32, header as hdr
+from lerc_tpu_torch.codec.device_codec import band_sections
 from lerc_tpu_torch.interop import codec_kwargs
 from lerc_tpu_torch.ops import tile_scan as ts
 
@@ -105,9 +107,7 @@ def test_one_sweep_noise_band():
     # raw blocks: more than the values alone. JAX sends one-sweep blobs to
     # the host; the port scatters the values on the device
     blob, port = _parity(noisy, MASK, 1e-8, jax_too=False)
-    head, pos = hdr.read_header(blob)
-    pos += 4 + struct.unpack_from("<i", blob, pos)[0] + 8
-    assert blob[pos] == 1, "not a one-sweep blob"
+    assert band_sections(blob).kind == "one_sweep"
     assert jax_codec.decode_band_device(blob) is None
     np.testing.assert_array_equal(port.data.numpy()[MASK], noisy[MASK])
 
@@ -217,8 +217,8 @@ def test_masked_resident_decode_without_the_index(npdt, d, mze):
     assert has_diff == (npdt == np.int16)
 
 
-UNPORTED_ENCODE = [  # (dtype, maxZError, version, item)
-    (np.uint8, 0.5, 6, "item 7"), (np.int8, 0.0, 3, "item 7"), (np.float32, 0.0, 6, "item 8"),
+UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: item 7, ported since
+    (np.uint8, 0.5, 6, None), (np.int8, 0.0, 3, None), (np.float32, 0.0, 6, "item 8"),
     (np.float64, 0.1, 6, "item 9"), (np.float32, 0.1, 2, "item 12"),
 ]
 
@@ -227,6 +227,14 @@ UNPORTED_ENCODE = [  # (dtype, maxZError, version, item)
                          ids=[f"{np.dtype(c[0]).name}-{c[1]}-v{c[2]}" for c in UNPORTED_ENCODE])
 def test_unported_encodes_name_their_roadmap_item(npdt, mze, version, item, monkeypatch):
     from lerc_tpu_torch.ops import device_encode
+
+    if item is None:  # 8-bit Huffman: the blob JAX writes, Huffman-coded
+        data = make(npdt)
+        blob = encode_band_device(data, None, mze, version=version, device="cpu")
+        assert blob == jax_codec.encode_band_device(data, None, mze, version=version)
+        assert band_sections(blob).mode in (1, 2)
+        assert_decodes_like_the_host(blob, jax_too=False)
+        return
 
     monkeypatch.setattr(device_encode, "encode_tiles",
                         lambda *a, **k: pytest.fail("encode work before the refusal"))
@@ -240,8 +248,8 @@ def _huffman_blob():
     return BandEncoder(data[:, :, None], None, 0.0).encode()
 
 
-UNPORTED_DECODE = {
-    "huffman": (_huffman_blob, "item 7"),
+UNPORTED_DECODE = {  # None: item 7, ported since
+    "huffman": (_huffman_blob, None),
     "fpl": (lambda: BandEncoder(make(np.float32), None, 0.0).encode(), "item 8"),
     "f64": (lambda: BandEncoder(make(np.float64), None, 0.01).encode(), "item 9"),
 }
@@ -251,15 +259,13 @@ UNPORTED_DECODE = {
 def test_unported_decodes_name_their_roadmap_item(name):
     make_blob, item = UNPORTED_DECODE[name]
     blob = make_blob()
-    head, pos = hdr.read_header(blob)
     if name != "f64":  # the blob really is a Huffman / fpl one
-        pos += 4 + 2 * DT_SIZE_OF[name] + 1
-        assert blob[pos] in ((1, 2) if name == "huffman" else (3,))
+        assert band_sections(blob).mode in ((1, 2) if name == "huffman" else (3,))
+    if item is None:  # 8-bit Huffman: decodes like the host decoder
+        assert_decodes_like_the_host(blob, jax_too=False)
+        return
     with pytest.raises(NotImplementedError, match=item):
         decode_band_device(blob, device="cpu")
-
-
-DT_SIZE_OF = {"huffman": 1, "fpl": 4}
 
 
 def test_corrupt_blobs_raise():
@@ -292,7 +298,7 @@ def test_supports_encode_and_round_cap_match_the_slice():
     assert supports_encode(DataType.FLOAT, 0.001, 1) and supports_encode(DataType.SHORT, 0.5, 3)
     assert supports_encode(DataType.BYTE, 1.0, 1) and supports_encode(DataType.FLOAT, 0.0, 1,
                                                                      version=5)
-    assert not supports_encode(DataType.BYTE, 0.5, 1)  # 8-bit Huffman: item 7
+    assert supports_encode(DataType.BYTE, 0.5, 1)  # 8-bit Huffman: item 7, ported since
     assert not supports_encode(DataType.FLOAT, 0.0, 1)  # fpl: item 8
     assert not supports_encode(DataType.DOUBLE, 0.1, 1)  # float64: item 9
     assert not supports_encode(DataType.FLOAT, 0.1, 1, version=2)  # legacy bit order: item 12
