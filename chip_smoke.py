@@ -81,7 +81,23 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      to the input;
   16. their MB/s, ratios and host-scan ms, and H1-H4's device ms per
      launch at 2048^2 x 3 beside their plain ms, bounds and, for H1 and the
-     row scan, torch.bincount / torch.cumsum.
+     row scan, torch.bincount / torch.cumsum;
+  17. lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
+     sizes and F3 restore against their plain versions, bit for bit, on
+     48x41 and 61x47 crops of the DEM (depth 1 and 3, every predictor, every
+     level 0..5) and at 2048^2 (phase 7 also holds 30- and 31-bit blocks
+     through the LUT K1/K2 against their plain versions);
+  18. three fpl band cells, lossless v6, through
+     encode_band_device(return_index=True) -> decode_band_device with the
+     index and without it (the host scan), counted: the four 2048^2 DEM
+     tiles (fpl asserted taken; tile 0's blob equal to the plain path's),
+     the same with the bench mask (every pixel rides the wire and decodes
+     equal; the mask round-trips), and one 4096^2 x 3 band of the tiles,
+     more values than 2^25;
+  19. their MB/s and ratios, F1-F3's device ms per launch at 2048^2 beside
+     their plain ms, bounds and, for F3, the level undo's torch.cumsum; H2
+     and H3 on a Huffman plane; host PackBits and host-scan ms per plane;
+     the device's busy share over an fpl round.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -150,6 +166,10 @@ SOURCES.update({name: ("lerc_tpu_torch/kernels/huffman.cu", f"lerc_tpu/ops/devic
                                    ("huffman_restore_delta_masked", 432))})
 SOURCES["huffman_scan"] = ("lerc_tpu_torch/kernels/huffman_scan.cpp",
                            "lerc_tpu/native/lerc_native.cpp:604")
+# lossless float32 (fpl): F1-F3 (kernels/fpl.cu)
+SOURCES.update({name: ("lerc_tpu_torch/kernels/fpl.cu", f"lerc_tpu/ops/device_fpl.py:{line}")
+                for name, line in (("fpl_sample_histograms", 123), ("fpl_finalize", 168),
+                                   ("fpl_packbits_size", 88), ("fpl_restore", 235))})
 
 
 def fail(msg):
@@ -1425,6 +1445,22 @@ def band_phases(tiles, mask, card, launches, add_row, rows_done):
         print(f"check: K1/K2 LUT instances (8x8, 16x16) and K6 equal to their plain versions on "
               f"the {name} crops (float32, uint16 classes, int16 x 3; all-valid and masked)",
               flush=True)
+    # blocks of 30 and 31 bits: a non-LUT record's LUT fields lie past its
+    # payload there (the plain K2 once wrote them out of bounds)
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    rng = np.random.default_rng(2)
+    for data, mze, kind in (
+            (rng.normal(0, 40, (24, 24, 1)).astype(np.float32), 1e-7, "float32"),
+            (rng.integers(0, 2**30, (24, 19, 1)).astype(np.int32), 0.5, "int32")):
+        data = torch.from_numpy(data).to(dev)
+        x, p, valid, _ = band_inputs(data, None, mze, 8)
+        nb_max = int(((enc.encode_blocks(x, p, valid, 8, True)[0][:, 1] >> 16) & 0xFF).max())
+        require(nb_max >= 30, f"the {kind} wide-block band has no block of 30 bits or more")
+        e, _, _ = check_lut_kernels(data, None, mze, 8, f"{kind} {nb_max}-bit blocks")
+        merge(e)
+        print(f"check: {', '.join(sorted(e))} equal to their plain versions on a "
+              f"{data.shape[0]}x{data.shape[1]} {kind} band of {nb_max}-bit blocks", flush=True)
     diff_blob = float_diff_blob(tiles[0][:64, :64].contiguous(), mask_full[:64, :64], 0.01)
     e, modes = check_scanned_band(diff_blob, "hand-built float depth-diff")
     merge(e)
@@ -1974,6 +2010,280 @@ def huffman_phases(tiles, mask, card, launches, add_row):
                         round_fn=cell_round)
 
 
+# ---------------------------------------------------------------------------
+# lossless float32 (fpl) through the band codec: F1 sampled histograms, F2
+# planes, F2b PackBits sizes, F3 restore, the Huffman planes through H2/H3
+# ---------------------------------------------------------------------------
+
+FPL = ("fpl_sample_histograms", "fpl_finalize", "fpl_packbits_size", "fpl_restore")
+FPL_LEVELS = ((0, 1, 2, 3), (4, 5, 5, 0))  # every level 0..5 over the two
+
+
+def fpl_check(data, tag, level_sets=FPL_LEVELS):
+    """F1-F3 against their plain versions on one float32 band (a CUDA
+    tensor): F1's histograms; for each predictor and level set, F2's planes
+    and histograms, F2b's sizes and F3's image, which also equals the
+    input. Returns {kernel: max_abs_err}."""
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    h, w, d = data.shape
+    n = h * w * d
+    require(torch.equal(F.fpl_sample_histograms(data), F.fpl_sample_histograms_ref(data)),
+            f"F1 != plain ({tag})")
+    for pred in (0, 1, 2):
+        for levels in level_sets:
+            how = f"{tag}, predictor {pred}, levels {levels}"
+            pk, hk = F.fpl_finalize(data, pred, levels)
+            pr, hr = F.fpl_finalize_ref(data, pred, levels)
+            require(torch.equal(pk, pr) and torch.equal(hk, hr), f"F2 != plain ({how})")
+            require(torch.equal(F.fpl_packbits_size(pk, n), F.fpl_packbits_size_ref(pk, n)),
+                    f"F2b != plain ({how})")
+            rk = F.fpl_restore(pk, h, w, d, pred, levels).view(torch.int32)
+            rr = F.fpl_restore_ref(pk, h, w, d, pred, levels).view(torch.int32)
+            require(torch.equal(rk, rr) and torch.equal(rk, data.view(torch.int32)),
+                    f"F3 != plain or input ({how})")
+    return dict.fromkeys(FPL, 0.0)  # every comparison above is exact
+
+
+def fpl_section(blob):
+    """(predictor, levels, plane methods) of an fpl blob."""
+    import struct
+
+    from lerc_tpu_torch.codec.device_codec import band_sections
+
+    sec = band_sections(blob)
+    require(sec.kind == "fpl", f"the blob's data section is {sec.kind}, not fpl")
+    src, pos = memoryview(blob), sec.pos
+    pred, pos, levels, methods = src[pos], pos + 1, [0] * 4, [None] * 4
+    for _ in range(4):
+        b, csize = src[pos], struct.unpack_from("<I", src, pos + 2)[0]
+        levels[b], methods[b] = src[pos + 1], src[pos + 6]
+        pos += 6 + csize
+    return pred, tuple(levels), tuple(methods)
+
+
+FPL_METHODS = {0: "Huffman", 1: "RLE-const", 2: "raw", 3: "PackBits"}
+
+
+def numpy_tile0():
+    """Tile 0 of bench.py:91-117 rendered in numpy in float32, as the jnp
+    code computes it: [TILE, TILE, 1] float32."""
+    f32 = np.float32
+    x = np.linspace(0, 20, TILE, dtype=f32)[None, :]
+    y = np.linspace(0, 15, TILE, dtype=f32)[:, None]
+    m32 = np.uint64(0xFFFFFFFF)
+    i = np.arange(TILE * TILE, dtype=np.uint64).reshape(TILE, TILE)
+    for _ in range(2):
+        i = ((i ^ (i >> np.uint64(16))) * np.uint64(0x45D9F3B)) & m32
+    i = i ^ (i >> np.uint64(16))
+    noise = i.astype(f32) * f32(2.0**-32) - f32(0.5)
+    dem = f32(1500) * np.exp(-((x - 10) ** 2 + (y - 7) ** 2) / f32(20)) \
+        + f32(50) * np.sin(x) * np.cos(y) + noise
+    return dem.astype(f32)[:, :, None]
+
+
+def fpl_cell(label, tiles, mask, card, plain_tile0=True, rounds=3):
+    """One fpl band cell, lossless v6: encode_band_device(...,
+    return_index=True) -> decode_band_device with the index and without it,
+    counted; fpl asserted taken on every tile; every pixel (fpl codes them
+    all, valid or not) decoded bit-equal to the input, the mask
+    round-tripped; tile 0's blob byte-equal to the plain path's
+    (device="cpu") with plain_tile0. Returns (counts, blobs, indexes,
+    (encode, decode, no-index decode ms, raw MB), tile 0's section)."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+
+    required = ("encode_blocks_lut", "write_records_lut", "fletcher32_parts", *FPL)
+    huffman = ("huffman_group_bits", "huffman_pack", "huffman_decode", "huffman_scan")
+
+    def path():
+        enc = [encode_band_device(t, mask, 0.0, return_index=True) for t in tiles]
+        return enc, [decode_band_device(b, index=i) for b, i in enc], \
+            [decode_band_device(b) for b, _ in enc]
+
+    counts, (enc, decs, frees) = run_counted_band(required, huffman, label, path)
+    if any(i["fpl_sbits"] for _, i in enc):  # a Huffman plane: H2, H3 and the host scan ran
+        for name in huffman:
+            require(counts.get(name, 0) > 0, f"kernel {name} was not launched on the {label}")
+    for i, (t, (b, idx), a, f) in enumerate(zip(tiles, enc, decs, frees)):
+        fpl_section(b)
+        require(idx is not None and set(idx) == {"fpl_sbits"}, f"{label}: tile {i} has no fpl index")
+        for what, dband in (("with the index", a), ("without the index", f)):
+            require(torch.equal(dband.data.view(torch.int32), t.view(torch.int32)),
+                    f"{label}: tile {i} decoded {what} != input")
+            require(np.array_equal(dband.mask, np.ones(t.shape[:2], bool) if mask is None
+                                   else mask), f"{label}: mask of tile {i} differs")
+    if plain_tile0:
+        require(encode_band_device(tiles[0].cpu(), mask, 0.0, device="cpu") == enc[0][0],
+                f"{label}: blob of tile 0 differs from the plain path's")
+    raw_mb = len(tiles) * tiles[0].numel() * 4 / 1e6
+    blobs, indexes = [b for b, _ in enc], [i for _, i in enc]
+
+    def timed(fn):
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    enc_ms = timed(lambda: [encode_band_device(t, mask, 0.0, return_index=True) for t in tiles])
+    dec_ms = timed(lambda: [decode_band_device(b, index=i) for b, i in enc])
+    free_ms = timed(lambda: [decode_band_device(b) for b in blobs])
+    ratio = raw_mb * 1e6 / sum(len(b) for b in blobs)
+    sec0 = fpl_section(blobs[0])
+    print(f"fpl cell {label}: {len(tiles)} tiles ok, fpl taken on every tile"
+          f"{', blob 0 equal to the plain path' if plain_tile0 else ''}, launches {counts}; "
+          f"encode {raw_mb / (enc_ms / 1e3):.1f} MB/s ({enc_ms:.3f} ms), decode "
+          f"{raw_mb / (dec_ms / 1e3):.1f} MB/s with the index ({dec_ms:.3f} ms), "
+          f"{raw_mb / (free_ms / 1e3):.1f} MB/s without ({free_ms:.3f} ms), compression ratio "
+          f"{ratio:.4f}; tile 0: predictor {sec0[0]}, levels {sec0[1]}, methods "
+          f"{tuple(FPL_METHODS[m] for m in sec0[2])}, blob {len(blobs[0])} B [{card}]", flush=True)
+    return counts, blobs, indexes, (enc_ms, dec_ms, free_ms, raw_mb), sec0
+
+
+def fpl_kernel_times(tile, blob, index, card):
+    """Device ms per launch of F1-F3 (torch.profiler) on one 2048^2 tile
+    with its blob's predictor and levels, their plain ms (CUDA events),
+    bounds (bytes: each input read once, each output written once, over the
+    HBM rate) and, beside F3, torch.cumsum(dtype=uint8) of the four planes
+    (one level of the undo); H2 and H3 on one of its Huffman planes; the
+    host PackBits and scan. Returns {kernel: (ms, plain ms, bound ms,
+    library ms or None)}."""
+    from lerc_tpu_torch.codec import fpl_impl, huffman
+    from lerc_tpu_torch.ops import device_fpl as F
+    from lerc_tpu_torch.ops import device_huffman as dh
+    from lerc_tpu_torch.ops import huffman_scan as hs
+
+    h, w, d = tile.shape
+    n = h * w * d
+    pred, levels, methods = fpl_section(blob)
+    rows, cols = fpl_impl.slice_shape(h, w, d)
+    m = -(-rows // F.sample_stride(n)) * cols  # F1's sampled words
+    planes, histos = F.fpl_finalize(tile, pred, levels)
+    mb = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    out = {
+        "fpl_sample_histograms": (
+            device_ms([lambda: F.fpl_sample_histograms(tile)], "fpl_sample_histograms_kernel"),
+            cuda_ms([lambda: F.fpl_sample_histograms_ref(tile)], reps=1),
+            (4 * m + 4 * 3 * 4 * 6 * 256) / mb, None),
+        "fpl_finalize": (
+            device_ms([lambda: F.fpl_finalize(tile, pred, levels)], "fpl_finalize_kernel"),
+            cuda_ms([lambda: F.fpl_finalize_ref(tile, pred, levels)], reps=1),
+            (8 * n + 4 * 4 * 256) / mb, None),
+        "fpl_packbits_size": (
+            device_ms([lambda: F.fpl_packbits_size(planes, n)], "fpl_pb_"),
+            cuda_ms([lambda: F.fpl_packbits_size_ref(planes, n)], reps=1), (4 * n + 16) / mb, None),
+        "fpl_restore": (
+            device_ms([lambda: F.fpl_restore(planes, h, w, d, pred, levels)], "fpl_restore_"),
+            cuda_ms([lambda: F.fpl_restore_ref(planes, h, w, d, pred, levels)], reps=1),
+            8 * n / mb,
+            device_ms([lambda: torch.cumsum(planes[:, :n], 1, dtype=torch.uint8)])),
+    }
+    print(f"fpl kernels at {h}x{w}x{d} (predictor {pred}, levels {levels}): F3 "
+          f"{out['fpl_restore'][0]:.4f} ms a call, one level of its undo as "
+          f"torch.cumsum(dtype=uint8) of the four planes {out['fpl_restore'][3]:.4f} ms [{card}]",
+          flush=True)
+    planes_h = planes[:, :n].cpu().numpy()
+    for b, meth in enumerate(methods):
+        if meth == 3:  # PackBits, on the host
+            t0 = time.perf_counter()
+            packed = fpl_impl.encode_packbits(planes_h[b])
+            t1 = time.perf_counter()
+            fpl_impl.decode_packbits(memoryview(packed), n)
+            t2 = time.perf_counter()
+            print(f"host PackBits, plane {b} ({len(packed)} B of {n}): encode "
+                  f"{(t1 - t0) * 1e3:.3f} ms, decode {(t2 - t1) * 1e3:.3f} ms [{card}]", flush=True)
+    for b in sorted(index["fpl_sbits"]):
+        hst = histos[b].cpu().numpy().astype(np.int64)
+        lengths = huffman.compute_code_lengths(hst)
+        codes = huffman.canonical_codes(lengths)
+        table = dh.code_table(lengths, codes, tile.device)
+        total = int((hst * lengths).sum())
+        n_words = -(-total // 32) + 1
+        layout = (n, n, n)
+        words, _tb, sbits = dh.encode_stream_device(planes[b], table, layout, n_words)
+        consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+        args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
+                torch.from_numpy(consts).cuda(), torch.from_numpy(sorted_syms).cuda(), layout)
+        gb = device_ms([lambda: dh.encode_stream_device(planes[b], table, layout, n_words)],
+                       "huffman_group_bits_kernel")
+        pk = device_ms([lambda: dh.encode_stream_device(planes[b], table, layout, n_words)],
+                       "huffman_pack_kernel")
+        dc = device_ms([lambda: dh.decode_stream_device(*args)], "huffman_decode_kernel")
+        stream = words.cpu().numpy().view(np.uint8)
+        counts = dh.live_counts(sbits.numel(), layout)
+        t0 = time.perf_counter()
+        offs = hs.huffman_group_offsets(stream, lengths, codes, counts)
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(offs, sbits.cpu().numpy()), f"host scan != H2's sidecar, plane {b}")
+        g4 = 4 * sbits.numel()
+        print(f"fpl Huffman plane {b} ({n} symbols, {total} bits): H2 group bits {gb:.4f} + pack "
+              f"{pk:.4f} ms, H3 {dc:.4f} ms per launch (bounds {(n + g4) / mb:.4f}, "
+              f"{(n + g4 + total / 8) / mb:.4f}, {(total / 8 + 2 * g4 + n) / mb:.4f} ms); host "
+              f"scan {scan_ms:.3f} ms [{card}]", flush=True)
+        break  # one plane is enough for the times
+    return out
+
+
+def fpl_phases(tiles, mask, card, launches, add_row):
+    """Phases 17-19: F1-F3 against their plain versions (crops, then 2048^2),
+    the three fpl band cells, and their times."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+
+    err = {}
+    # ---- 17. each kernel against its plain version
+    for (ch, cw), (r0, c0) in (((48, 41), (300, 470)), ((61, 47), (1000, 1010))):
+        crop = tiles[0][r0:r0 + ch, c0:c0 + cw]
+        for d, data in ((1, crop.contiguous()),
+                        (3, torch.cat([crop, crop + 0.25, crop * 0.5], 2).contiguous())):
+            err.update(fpl_check(data, f"{ch}x{cw}x{d} DEM crop"))
+        print(f"check: F1-F3 equal to their plain versions on the {ch}x{cw} DEM crops (depth 1 "
+              f"and 3, predictors 0-2, levels 0-5)", flush=True)
+    err.update(fpl_check(tiles[0], f"{TILE}^2 DEM tile", level_sets=((0, 0, 0, 0), (4, 1, 0, 0),
+                                                                     (5, 5, 5, 5))))
+    print(f"check: F1-F3 equal to their plain versions on the {TILE}^2 DEM tile (predictors 0-2, "
+          f"levels 0, (4, 1, 0, 0) and 5)", flush=True)
+
+    # ---- 18. the fpl band cells, counted then timed
+    cells = [fpl_cell(f"float32 DEM {N_TILES} x {TILE}^2, lossless v6", tiles, None, card),
+             fpl_cell(f"float32 DEM {N_TILES} x {TILE}^2 with the bench mask, lossless v6",
+                      tiles, mask, card)]
+    big = torch.cat([torch.cat([tiles[0], tiles[1]], 1), torch.cat([tiles[2], tiles[3]], 1)], 0)
+    big = torch.cat([big, big + 0.25, big * 0.5], 2).contiguous()
+    require(big.numel() > 1 << 25, "the 4096^2 x 3 band holds no more than 2^25 values")
+    cells.append(fpl_cell(f"float32 {2 * TILE}^2 x 3 band ({big.numel()} values), lossless v6",
+                          [big], None, card, plain_tile0=False, rounds=1))
+    for c in cells:
+        for k, v in c[0].items():
+            launches[k] = launches.get(k, 0) + v
+    # tile 0 as numpy renders it (the card's exp/sin differ by ulps), through the card
+    t0_np = torch.from_numpy(numpy_tile0()).cuda()
+    blob = encode_band_device(t0_np, None, 0.0)
+    require(torch.equal(decode_band_device(blob).data.view(torch.int32), t0_np.view(torch.int32)),
+            "numpy's tile 0: decode != input")
+    sec = fpl_section(blob)
+    same = (sec[0], sec[1], len(blob)) == (1, (4, 1, 0, 0), 10510117)
+    print(f"fpl numpy-rendered tile 0 through the card: predictor {sec[0]}, levels {sec[1]}, "
+          f"methods {tuple(FPL_METHODS[m] for m in sec[2])}, blob {len(blob)} B, ratio "
+          f"{t0_np.numel() * 4 / len(blob):.4f}; equal to JAX's on the CPU (predictor 1, levels "
+          f"(4, 1, 0, 0), 10,510,117 B): {same} [{card}]", flush=True)
+
+    # ---- 19. times
+    rows = fpl_kernel_times(tiles[0], cells[0][1][0], cells[0][2][0], card)
+    for name, (ms, plain_ms, bound_ms, lib_ms) in rows.items():
+        add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes", lib_ms)
+
+    def cell_round():
+        enc = [encode_band_device(t, None, 0.0, return_index=True) for t in tiles]
+        return [decode_band_device(b, index=i) for b, i in enc]
+
+    where_the_time_goes(None, tiles, cells[0][3][0] + cells[0][3][1], card,
+                        "float32 DEM fpl cell, encode_band_device + decode_band_device",
+                        round_fn=cell_round)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2141,6 +2451,8 @@ def main():
     band_phases(tiles, mask, card, launches, add_row, {k["name"] for k in kernels})
     # ---- 14-16. 8-bit whole-image Huffman through the band codec
     huffman_phases(tiles, mask, card, launches, add_row)
+    # ---- 17-19. lossless float32 (fpl) through the band codec
+    fpl_phases(tiles, mask, card, launches, add_row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..constants import (DT_SIZE, DT_TO_NUMPY, DT_TO_TORCH, FILE_KEY_LERC2, NUMPY_TO_DT,
-                         DataType, dt_is_int, dt_is_signed)
+                         DataType, as_signed, dt_is_int, dt_is_signed)
 from ..ops import device_decode, device_encode, device_scan, tile_scan
 from . import header as hdr
 from . import rle
@@ -211,9 +211,13 @@ class ResidentCodec:
         d = head.n_depth
         dev = blob.stream.device
         shape = (head.n_rows, head.n_cols, d)
-        if head.z_min == head.z_max:
-            return torch.full(shape, np_dt(head.z_min).item(), dtype=DT_TO_TORCH[head.dt],
-                              device=dev)
+        if head.z_min == head.z_max:  # the constant at the valid pixels, 0 elsewhere
+            img = torch.zeros(shape, dtype=DT_TO_TORCH[head.dt], device=dev)
+            sel = (torch.ones(shape[:2], dtype=torch.bool, device=dev) if self._mask_np is None
+                   else torch.from_numpy(self._mask_np).to(dev))
+            const = torch.from_numpy(np.full(d, head.z_min).astype(np_dt)).to(dev)
+            as_signed(img)[sel] = as_signed(const)
+            return img
         z_max_vec = np.full(d, head.z_max)
         if head.version >= 4:
             nb = d * DT_SIZE[head.dt]

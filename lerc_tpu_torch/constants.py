@@ -95,6 +95,16 @@ ENC_MAX_NB = {1: 8, 2: 16, 4: MAX_BITS}
 DEC_MAX_NB = {1: 8, 2: 16, 4: 32}
 
 
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def as_signed(t: torch.Tensor) -> torch.Tensor:
+    """A uint16/uint32 tensor viewed as its signed twin of the same width
+    (other dtypes as they are): torch's CPU uint16/uint32 lack index_put and
+    masked_fill, so masked writes go through the view."""
+    return t.view(_SIGNED_TWIN.get(t.dtype, t.dtype))
+
+
 def dt_is_int(dt: DataType) -> bool:
     return dt < DataType.FLOAT
 

@@ -11,9 +11,10 @@ bytes, the stream, total, checksum and the optional index. A band codec's
 ``decoded_band_to_numpy`` gives its fields as JAX's ``DecodedBand`` holds
 them. The band codec's acceleration index needs no conversion: in both
 packages ``encode_band_device(..., return_index=True)`` returns the same
-plain dict, ``{"huffman_sbits": int32 numpy array}`` for a Huffman blob
-(None otherwise), and either package's ``decode_band_device(blob,
-index=...)`` takes the other's.
+plain dict, ``{"huffman_sbits": int32 numpy array}`` for a Huffman blob,
+``{"fpl_sbits": {plane: int32 numpy array}}`` for an fpl blob (one entry
+per Huffman-coded byte plane, possibly none), None otherwise; either
+package's ``decode_band_device(blob, index=...)`` takes the other's.
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
-SOURCES = ("encode", "fletcher32", "decode", "scan", "huffman")
+SOURCES = ("encode", "fletcher32", "decode", "scan", "huffman", "fpl")
 HOST_SOURCES = ("tile_scan", "huffman_scan")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (
@@ -69,6 +69,11 @@ LAUNCHES.update({k: 0 for k in (
     "huffman_symbols", "huffman_symbols_masked", "huffman_group_bits", "huffman_pack",
     "huffman_decode", "huffman_restore", "huffman_restore_col0", "huffman_restore_delta",
     "huffman_restore_masked", "huffman_restore_delta_masked", "huffman_scan")})
+# lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
+# sizes, F3 restore; F2b and F3 are one entry point each, of several
+# kernel launches, counted once per call
+LAUNCHES.update({k: 0 for k in (
+    "fpl_sample_histograms", "fpl_finalize", "fpl_packbits_size", "fpl_restore")})
 
 _libs: dict[str, ctypes.CDLL] = {}
 

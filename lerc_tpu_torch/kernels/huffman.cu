@@ -51,6 +51,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"  // Seg, seg_combine, block_seg_excl (sums here)
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -71,53 +73,6 @@ unsigned grid_of(long long n, int per) {
 __device__ __forceinline__ bool is_live(long long i, long long n_total, long long plane,
                                         long long n_live) {
     return i < n_total && i % plane < n_live;
-}
-
-// ---------------------------------------------------------------------------
-// block scans of (segment flag, u32 sum): B after A = (fa | fb, fb ? vb : va + vb).
-// A plain sum is the case of no flags.
-// ---------------------------------------------------------------------------
-
-struct Seg {
-    unsigned f, v;
-};
-
-__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {
-    return {a.f | b.f, b.f ? b.v : a.v + b.v};
-}
-
-__device__ __forceinline__ Seg warp_seg_incl(Seg x, int lane) {
-    for (int o = 1; o < 32; o <<= 1) {
-        const unsigned f = __shfl_up_sync(FULL, x.f, o), v = __shfl_up_sync(FULL, x.v, o);
-        if (lane >= o) x = seg_combine({f, v}, x);
-    }
-    return x;
-}
-
-// exclusive prefix of x over the block's threads, and the block's total;
-// every thread of the block calls it; sm holds 2 * (warps + 1) words
-template <int THREADS>
-__device__ __forceinline__ Seg block_seg_excl(Seg x, Seg& total, unsigned* sm) {
-    constexpr int WARPS = THREADS / 32;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const Seg incl = warp_seg_incl(x, lane);
-    Seg excl = {__shfl_up_sync(FULL, incl.f, 1), __shfl_up_sync(FULL, incl.v, 1)};
-    if (lane == 0) excl = {0, 0};
-    if (lane == 31) { sm[2 * warp] = incl.f; sm[2 * warp + 1] = incl.v; }
-    __syncthreads();
-    if (warp == 0) {
-        Seg t = lane < WARPS ? Seg{sm[2 * lane], sm[2 * lane + 1]} : Seg{0, 0};
-        const Seg ti = warp_seg_incl(t, lane);
-        Seg te = {__shfl_up_sync(FULL, ti.f, 1), __shfl_up_sync(FULL, ti.v, 1)};
-        if (lane == 0) te = {0, 0};
-        if (lane < WARPS) { sm[2 * lane] = te.f; sm[2 * lane + 1] = te.v; }
-        if (lane == WARPS - 1) { sm[2 * WARPS] = ti.f; sm[2 * WARPS + 1] = ti.v; }
-    }
-    __syncthreads();
-    const Seg wp = {sm[2 * warp], sm[2 * warp + 1]};
-    total = {sm[2 * WARPS], sm[2 * WARPS + 1]};
-    __syncthreads();  // sm is free again for the next scan
-    return seg_combine(wp, excl);
 }
 
 // ---------------------------------------------------------------------------
@@ -456,16 +411,16 @@ __global__ void __launch_bounds__(SEG_THREADS) huffman_restore_delta_masked_kern
                     else
                         item[j] = {0u, e};
                 }
-                run = seg_combine(run, item[j]);
+                run = seg_combine<Sum>(run, item[j]);
             }
             Seg tot;
-            Seg acc = seg_combine({0, carry}, block_seg_excl<SEG_THREADS>(run, tot, sm));
+            Seg acc = seg_combine<Sum>({0, carry}, block_seg_excl<SEG_THREADS>(run, tot, sm));
             for (int j = 0; j < SEG_ITEMS; ++j) {
                 const int c = cb + j;
-                acc = seg_combine(acc, item[j]);
+                acc = seg_combine<Sum>(acc, item[j]);
                 if (c < w) img[(r * w + c) * d + k] = valid[j] ? (uint8_t)acc.v : 0;
             }
-            carry = seg_combine({0, carry}, tot).v;
+            carry = seg_combine<Sum>({0, carry}, tot).v;
             rank0 += ctot.v;
             __syncthreads();  // this row's values before the next row reads them
         }

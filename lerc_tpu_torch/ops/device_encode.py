@@ -762,11 +762,16 @@ def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.
         idx = first.cumsum(1).gather(1, at)
         idx_base = 8 * (1 + (n_lut * nb + 7) // 8)[:, None]
         lm = is_lut[:, None]
+        # the entries and indices of LUT records only: the other lanes hold
+        # 0 at bit 0, as a non-LUT record's n_lut * nb may reach past the
+        # payload's bs + 2 words
+        ent_at = torch.where(lm & (seq < n_lut[:, None]), 8 + seq * nb[:, None], 0)
+        idx_at = torch.where(lm & (seq < cnt[:, None]), idx_base + seq * nbits_lut, 0)
         fields += [
             (torch.zeros(n, 1, dtype=torch.int64, device=dev),
              torch.where(lm, n_lut[:, None] + 1, 0), 8),
-            (8 + seq * nb[:, None], torch.where(lm, compact_ref(srt, first), 0), nb[:, None]),
-            (idx_base + seq * nbits_lut, torch.where(lm, compact_ref(idx, vb), 0), nbits_lut),
+            (ent_at, torch.where(lm, compact_ref(srt, first), 0), nb[:, None]),
+            (idx_at, torch.where(lm, compact_ref(idx, vb), 0), nbits_lut),
         ]
     payload = _pack_fields(n, bs + 2, fields)
 

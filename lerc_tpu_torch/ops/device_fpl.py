@@ -1,0 +1,448 @@
+"""Lossless float32 (fpl, Lerc2 v6 "delta-delta Huffman") on the device:
+kernels F1, F2, F2b and F3, their plain PyTorch versions, and the host
+choice and plane packing between them.
+
+Port of the float32 half of ``lerc_tpu/ops/device_fpl.py``. The section codes
+the float transform of each value's bits (exponent above sign above
+mantissa, ``float_transform_dev`` :43) under a predictor (0 none, 1 the left
+neighbour, 2 the left then the upper neighbour, in split-field arithmetic:
+mantissa mod 2^23 and exponent+sign mod 2^9, :50, :58), as four byte planes,
+each with 0..5 extra byte-delta levels (:70); every plane is then coded by
+Huffman, RLE-const, raw bytes or PackBits, whichever is smallest. The image
+is [H, W] at depth 1 and [H * W, D] deeper (``codec/fpl_impl.slice_shape``).
+
+  F1 ``fpl_sample_histograms`` (``fpl_choose_device`` :123): every stride-th
+     row of the word image (stride the largest listed prime <= pixels /
+     2^19), each predictor on that sample (predictor 2's "up" is the previous
+     sampled row), byte levels 0..5 along the flattened sample, and the
+     256-bin histograms of every 7th position: int32 [3, 4, 6, 256].
+  ``fpl_choose`` (host): JAX's entropy estimate (:79) of those counts in
+     float32, in JAX's order: the level of least estimate per plane (the
+     first on ties, levels above 5 - {0, 1, 2}[pred] left out), the
+     estimates summed over the planes, the predictor of least sum.
+  F2 ``fpl_finalize`` (``fpl_finalize_device`` :168): the chosen level's
+     planes (u8 [4, n_pad], zero past n) and their histograms (int32 [4, 256])
+     in one pass: an output byte needs its pixel, its left, upper and
+     upper-left neighbours and at most 5 earlier bytes of its plane.
+  F2b ``fpl_packbits_size`` (``packbits_size_device`` :88): each plane's
+     PackBits size from its runs, JAX's formula exactly, with its
+     ``lit_total // 128`` stand-in for the literal headers: it decides
+     PackBits against Huffman.
+  ``fpl_pack_planes`` (``fpl_pack_planes_device`` :434): the Huffman planes
+     through H2 (``device_huffman.encode_stream_device``), whole 64-symbol
+     groups, every position live.
+  F3 ``fpl_restore`` (``fpl_restore_device`` :235): the level undo (nested
+     prefix sums mod 256 from index level - 1), the words, the split-field
+     prefix sums down the columns (predictor 2) and along the rows
+     (predictors 1, 2), the transform undone: float32 [H, W, D]. In u32 the
+     split-field add is associative, so each is a chunked parallel scan;
+     there is no 2^25-element limit.
+
+On CPU tensors each wrapper runs its plain version (``*_ref``, u32
+arithmetic in int64: CPU uint32 is a shell dtype); on CUDA tensors it
+launches its kernel (``kernels/fpl.cu``) or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..codec.fpl_impl import MAX_DELTA, PRIME_MULT, slice_shape
+from ..kernels import build
+from . import device_huffman
+
+MANT = 0x7FFFFF
+SAMPLE_PRIMES = (1, 3, 7, 13, 31, 61, 127, 251)
+N_PREDICTORS, N_PLANES, N_LEVELS = 3, 4, MAX_DELTA + 1
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _ctypes_fn(name: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(build.library("fpl"), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def sample_stride(n: int) -> int:
+    """Row stride of F1's sample of an image of n values (:130-135)."""
+    target = max(1, n // (1 << 19))
+    return max(p for p in SAMPLE_PRIMES if p <= target)
+
+
+def _check_data(data: torch.Tensor):
+    if data.dtype != torch.float32 or data.dim() != 3 or not data.is_contiguous():
+        raise TypeError("data must be a contiguous [H, W, D] float32 tensor")
+
+
+def padded(n: int) -> int:
+    """n rounded up to whole 64-symbol groups (the planes' row length)."""
+    return -(-n // device_huffman.GROUP) * device_huffman.GROUP
+
+
+# ---------------------------------------------------------------------------
+# u32 word arithmetic of the plain versions (int64 holding [0, 2^32))
+# ---------------------------------------------------------------------------
+
+
+def _words(data: torch.Tensor) -> torch.Tensor:
+    return data.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def float_transform(u: torch.Tensor) -> torch.Tensor:
+    """(:43) mantissa | exponent << 24 | sign << 23."""
+    return (u & MANT) | (((u >> 23) & 0xFF) << 24) | ((u >> 31) << 23)
+
+
+def undo_float_transform(u: torch.Tensor) -> torch.Tensor:
+    """(:227) the inverse of float_transform."""
+    return (u & MANT) | (((u >> 24) & 0xFF) << 23) | (((u >> 23) & 1) << 31)
+
+
+def split_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(:50) mantissa and exponent+sign subtracted apart, each wrapping."""
+    return ((a - b) & MANT) | ((((a >> 23) - (b >> 23)) & 0x1FF) << 23)
+
+
+def apply_predictor(img: torch.Tensor, pred: int) -> torch.Tensor:
+    """(:58) the predictor on a [rows, cols] word image."""
+    if pred == 0:
+        return img
+    d1 = img.clone()
+    d1[:, 1:] = split_sub(img[:, 1:], img[:, :-1])
+    if pred == 1:
+        return d1
+    out = d1.clone()
+    out[1:] = split_sub(d1[1:], d1[:-1])
+    return out
+
+
+def byte_levels(plane: torch.Tensor, top: int = MAX_DELTA) -> list[torch.Tensor]:
+    """Byte-delta levels 0..top of a flat byte plane (int64): level k
+    subtracts each position's predecessor from positions >= k of level
+    k - 1 (:70, setDerivative); a level above the length changes nothing
+    (JAX's concatenation fails there, ROADMAP queue 3)."""
+    out = [plane]
+    for k in range(1, top + 1):
+        nxt = out[-1].clone()
+        if k < plane.numel():
+            nxt[k:] = (out[-1][k:] - out[-1][k - 1:-1]) & 0xFF
+        out.append(nxt)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# F1 sampled histograms, and the choice on the host
+# ---------------------------------------------------------------------------
+
+
+def fpl_sample_histograms(data: torch.Tensor) -> torch.Tensor:
+    """F1: int32 [3 predictors, 4 planes, 6 levels, 256] histograms of every
+    7th position of the sampled rows' byte levels (module docstring)."""
+    _check_data(data)
+    if not build.on_cuda(data):
+        return fpl_sample_histograms_ref(data)
+    h, w, d = data.shape
+    rows, cols = slice_shape(h, w, d)
+    stride = sample_stride(rows * cols)
+    m = -(-rows // stride) * cols
+    fn = _ctypes_fn("fpl_sample_histograms", [_P, _L, _I, _I, _L, _P, _P])
+    with torch.cuda.device(data.device):
+        hist = torch.zeros(N_PREDICTORS, N_PLANES, N_LEVELS, 256, dtype=torch.int32,
+                           device=data.device)
+        err = fn(data.data_ptr(), rows, cols, stride, m, hist.data_ptr(),
+                 build.launch_stream(data))
+        build.check(err, "fpl_sample_histograms")
+    build.LAUNCHES["fpl_sample_histograms"] += 1
+    return hist
+
+
+def fpl_sample_histograms_ref(data: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of F1, JAX's steps one by one."""
+    h, w, d = data.shape
+    rows, cols = slice_shape(h, w, d)
+    img = float_transform(_words(data)).view(rows, cols)[::sample_stride(rows * cols)]
+    hist = torch.zeros(N_PREDICTORS, N_PLANES, N_LEVELS * 256, dtype=torch.int64,
+                       device=data.device)
+    lev = torch.arange(N_LEVELS, device=data.device)[:, None] * 256
+    for p in range(N_PREDICTORS):
+        t = apply_predictor(img, p).reshape(-1)
+        for b in range(N_PLANES):
+            lv = torch.stack(byte_levels((t >> (8 * b)) & 0xFF))[:, ::PRIME_MULT]
+            hist[p, b] = torch.bincount((lv + lev).reshape(-1), minlength=N_LEVELS * 256)
+    return hist.view(N_PREDICTORS, N_PLANES, N_LEVELS, 256).to(torch.int32)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """Correctly rounded float32 a * b + c: the float64 product is exact, the
+    float64 sum made round-to-odd, then one rounding to float32."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    prod = a.astype(np.float64) * b.astype(np.float64)
+    cd = c.astype(np.float64)
+    s = prod + cd
+    bv = s - prod
+    err = (prod - (s - bv)) + (cd - bv)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+# the float32 log of XLA on the CPU (Cephes' logf polynomial, as Eigen's
+# plog, with the multiply-adds that LLVM contracts fused), for x >= 1
+_LOG_P = tuple(np.float32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
+_INV_LN2 = np.float32(1.44269502)  # XLA folds x / log(2) into x * (1 / log(2))
+
+
+def _log32(v) -> np.ndarray:
+    v = np.asarray(v, np.float32)
+    bits = v.view(np.uint32)
+    e = ((bits >> 23).astype(np.int32) - 126).astype(np.float32)
+    x = ((bits & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(np.float32)
+    low = x < np.float32(0.707106781186547524)
+    x = (x - np.float32(1)) + np.where(low, x, np.float32(0))
+    e = e - low.astype(np.float32)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = _fma32(_fma32(p[0], x, p[1]), x, p[2])
+    y1 = _fma32(_fma32(p[3], x, p[4]), x, p[5])
+    y2 = _fma32(_fma32(p[6], x, p[7]), x, p[8])
+    y = _fma32(_fma32(_fma32(y, x3, y1), x3, y2), x3, e * _LOG_Q1)
+    x = _fma32(-x2, np.float32(0.5), x) + y
+    return _fma32(e, _LOG_Q2, x)
+
+
+def entropy_estimates(hist: np.ndarray) -> np.ndarray:
+    """JAX's ``_entropy_bits`` (:79) of each 256-bin histogram of `hist`
+    ([..., 256] counts) in float32, bit-equal to XLA on the CPU: sum over the
+    bins of h * (log2(total) - log2(h)), with XLA's log, its fused
+    multiply-add and its reduction order (eight windows of 32 bins summed in
+    order, then the eight in order). Equal estimates of differently placed
+    bins then tie, or not, as they do in JAX."""
+    h = np.asarray(hist).astype(np.float32)
+    total = h.sum(-1, keepdims=True, dtype=np.float32)  # exact: counts < 2^24
+    p = np.where(h > 0, h, np.float32(1))
+    t = h * _fma32(-_log32(p), _INV_LN2, _log32(total) * _INV_LN2)
+    t = np.where(h > 0, t, np.float32(0)).reshape(*h.shape[:-1], 8, 32)
+    win = np.zeros(t.shape[:-1], np.float32)
+    for i in range(32):
+        win = win + t[..., i]
+    out = np.zeros(t.shape[:-2], np.float32)
+    for i in range(8):
+        out = out + win[..., i]
+    return out
+
+
+def fpl_choose(hist: np.ndarray) -> tuple[int, tuple[int, int, int, int], np.ndarray]:
+    """(predictor, the four planes' levels, the three predictors' float32
+    estimates) from F1's counts, in ``fpl_choose_device``'s order."""
+    es = entropy_estimates(hist)  # [3, 4, 6]
+    ests = np.zeros(N_PREDICTORS, np.float32)
+    levels = np.zeros((N_PREDICTORS, N_PLANES), np.int64)
+    for p in range(N_PREDICTORS):
+        e = es[p].copy()
+        e[:, MAX_DELTA - p + 1:] = np.inf  # max_delta_eff = 5 - {0, 1, 2}[p]
+        levels[p] = np.argmin(e, axis=1)
+        est = np.float32(0)
+        for b in range(N_PLANES):
+            est = np.float32(est + e[b].min())
+        ests[p] = est
+    pred = int(np.argmin(ests))
+    return pred, tuple(int(v) for v in levels[pred]), ests
+
+
+# ---------------------------------------------------------------------------
+# F2 finalize
+# ---------------------------------------------------------------------------
+
+
+def _check_choice(pred: int, levels):
+    if pred not in (0, 1, 2) or len(levels) != N_PLANES \
+            or not all(0 <= int(v) <= MAX_DELTA for v in levels):
+        raise ValueError(f"bad predictor {pred} or levels {levels}")
+
+
+def fpl_finalize(data: torch.Tensor, pred: int, levels):
+    """F2: (planes u8 [4, n_pad]: each plane at its level, zero past n;
+    histos int32 [4, 256] of the planes' n bytes)."""
+    _check_data(data)
+    _check_choice(pred, levels)
+    if not build.on_cuda(data):
+        return fpl_finalize_ref(data, pred, levels)
+    h, w, d = data.shape
+    rows, cols = slice_shape(h, w, d)
+    n = rows * cols
+    fn = _ctypes_fn("fpl_finalize", [_P, _L, _I, _I, _I, _I, _I, _I, _P, _L, _P, _P])
+    with torch.cuda.device(data.device):
+        planes = torch.zeros(N_PLANES, padded(n), dtype=torch.uint8, device=data.device)
+        histos = torch.zeros(N_PLANES, 256, dtype=torch.int32, device=data.device)
+        err = fn(data.data_ptr(), n, cols, pred, *(int(v) for v in levels), planes.data_ptr(),
+                 planes.shape[1], histos.data_ptr(), build.launch_stream(data))
+        build.check(err, "fpl_finalize")
+    build.LAUNCHES["fpl_finalize"] += 1
+    return planes, histos
+
+
+def fpl_finalize_ref(data: torch.Tensor, pred: int, levels):
+    """Plain PyTorch version of F2."""
+    h, w, d = data.shape
+    rows, cols = slice_shape(h, w, d)
+    n = rows * cols
+    t = apply_predictor(float_transform(_words(data)).view(rows, cols), pred).reshape(-1)
+    planes = torch.zeros(N_PLANES, padded(n), dtype=torch.uint8, device=data.device)
+    histos = torch.zeros(N_PLANES, 256, dtype=torch.int32, device=data.device)
+    for b in range(N_PLANES):
+        final = byte_levels((t >> (8 * b)) & 0xFF, int(levels[b]))[-1]
+        planes[b, :n] = final.to(torch.uint8)
+        histos[b] = torch.bincount(final, minlength=256).to(torch.int32)
+    return planes, histos
+
+
+# ---------------------------------------------------------------------------
+# F2b PackBits sizes
+# ---------------------------------------------------------------------------
+
+
+def _check_planes(planes: torch.Tensor, n: int):
+    if planes.dtype != torch.uint8 or planes.dim() != 2 or planes.shape[0] != N_PLANES \
+            or not planes.is_contiguous() or not 0 < n <= planes.shape[1]:
+        raise TypeError(f"planes must be a contiguous [4, >= {n}] uint8 tensor")
+
+
+def fpl_packbits_size(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """F2b: int32 [4], the PackBits size of each plane's first n bytes by
+    JAX's formula (``packbits_size_device``). Per run of equal bytes of
+    length L after a run of length Lp: 2 * (L // 129 + (L % 129 >= 2))
+    bytes of repeats, a literal when L % 129 == 1, which opens a literal
+    stretch when L >= 130 or the run before left none; plus
+    literals // 128. The kernel compacts the run starts (per-chunk counts,
+    a scan of them, ranks inside each chunk), then each run reads its own
+    start and its neighbours'."""
+    _check_planes(planes, n)
+    if not build.on_cuda(planes):
+        return fpl_packbits_size_ref(planes, n)
+    nc = _ctypes_fn("fpl_packbits_chunks", [_L], ctypes.c_longlong)(n)
+    fn = _ctypes_fn("fpl_packbits_size", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
+    dev = planes.device
+    with torch.cuda.device(dev):
+        counts = torch.empty(N_PLANES, nc, dtype=torch.int32, device=dev)
+        starts = torch.empty(N_PLANES, n + 1, dtype=torch.int32, device=dev)
+        n_runs = torch.empty(N_PLANES, dtype=torch.int32, device=dev)
+        sums = torch.zeros(N_PLANES, 3, dtype=torch.int64, device=dev)
+        sizes = torch.empty(N_PLANES, dtype=torch.int32, device=dev)
+        err = fn(planes.data_ptr(), planes.shape[1], n, counts.data_ptr(), starts.data_ptr(),
+                 n_runs.data_ptr(), sums.data_ptr(), sizes.data_ptr(), build.launch_stream(planes))
+        build.check(err, "fpl_packbits_size")
+    build.LAUNCHES["fpl_packbits_size"] += 1
+    return sizes
+
+
+def fpl_packbits_size_ref(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of F2b: JAX's per-position formula (cummax /
+    cummin of the change positions), not the run compaction."""
+    x = planes[:, :n].to(torch.int64)
+    dev = x.device
+    idx = torch.arange(n, device=dev).expand(N_PLANES, n)
+    change = torch.ones(N_PLANES, n, dtype=torch.bool, device=dev)
+    change[:, 1:] = x[:, 1:] != x[:, :-1]
+    run_start = torch.cummax(torch.where(change, idx, 0), 1).values
+    ncv = torch.where(change, idx, n)
+    rc = torch.flip(torch.cummin(torch.flip(ncv, [1]), 1).values, [1])
+    next_change = torch.cat([rc[:, 1:], torch.full((N_PLANES, 1), n, device=dev)], 1)
+    length = next_change - run_start
+    segs = torch.where(change, length // 129 + ((length % 129) >= 2).to(torch.int64), 0)
+    lit_pos = (length % 129) == 1
+    lit = change & lit_pos
+    prev_run_lit = torch.zeros_like(lit_pos)
+    prev_run_lit[:, 1:] = lit_pos[:, :-1]
+    stretch = lit & ((change & (length >= 130)) | ~prev_run_lit)
+    lit_total = lit.sum(1)
+    return (2 * segs.sum(1) + lit_total + stretch.sum(1) + lit_total // 128).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the Huffman planes through H2
+# ---------------------------------------------------------------------------
+
+
+def fpl_pack_planes(planes: torch.Tensor, n: int, tables: dict) -> dict:
+    """The Huffman planes' streams through H2: tables maps plane -> (code
+    lengths, codes, total bits). Every one of a plane's n positions is
+    live; its zero padding to whole groups adds no code. Returns plane ->
+    (words int32 [ceil(bits / 32) + 1], the stream and its read-ahead pad
+    word; sbits int32 [n_groups], each group's first bit)."""
+    _check_planes(planes, n)
+    if planes.shape[1] % device_huffman.GROUP:
+        raise TypeError("planes must hold whole 64-symbol groups")
+    out = {}
+    for b, (lengths, codes, total_bits) in sorted(tables.items()):
+        n_words = -(-total_bits // 32) + 1  # + the read-ahead pad word
+        words, tb, sbits = device_huffman.encode_stream_device(
+            planes[b], device_huffman.code_table(lengths, codes, planes.device), (n, n, n),
+            n_words)
+        if int(tb) != total_bits:
+            raise RuntimeError("fpl pack: stream length differs from the histogram's")
+        out[b] = (words, sbits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# F3 restore
+# ---------------------------------------------------------------------------
+
+
+def fpl_restore(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels) -> torch.Tensor:
+    """F3: float32 [H, W, D] from the four planes' first H * W * D bytes
+    (uint8 [4, >= n], unchanged) at their levels under the predictor."""
+    n = h * w * d
+    _check_planes(planes, n)
+    _check_choice(pred, levels)
+    if not build.on_cuda(planes):
+        return fpl_restore_ref(planes, h, w, d, pred, levels)
+    rows, cols = slice_shape(h, w, d)
+    scratch = _ctypes_fn("fpl_restore_scratch", [_L, _L, _I], ctypes.c_longlong)(n, rows, cols)
+    fn = _ctypes_fn("fpl_restore", [_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    dev = planes.device
+    with torch.cuda.device(dev):
+        work = planes.clone()  # the level undo runs in place
+        part = torch.empty(scratch, dtype=torch.int32, device=dev)
+        words = torch.empty(n, dtype=torch.int32, device=dev)
+        out = torch.empty(h, w, d, dtype=torch.float32, device=dev)
+        err = fn(work.data_ptr(), work.shape[1], n, rows, cols, pred, *(int(v) for v in levels),
+                 part.data_ptr(), words.data_ptr(), out.data_ptr(), build.launch_stream(planes))
+        build.check(err, "fpl_restore")
+    build.LAUNCHES["fpl_restore"] += 1
+    return out
+
+
+def _split_cumsum(img: torch.Tensor, axis: int) -> torch.Tensor:
+    """(:218) mantissa and exponent+sign prefix sums apart, each wrapping."""
+    mant = torch.cumsum(img & MANT, axis) & MANT
+    hi = torch.cumsum(img >> 23, axis) & 0x1FF
+    return mant | (hi << 23)
+
+
+def fpl_restore_ref(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels):
+    """Plain PyTorch version of F3, JAX's steps one by one."""
+    rows, cols = slice_shape(h, w, d)
+    n = rows * cols
+    word = torch.zeros(n, dtype=torch.int64, device=planes.device)
+    for b in range(N_PLANES):
+        p = planes[b, :n].to(torch.int64)
+        for lev in range(int(levels[b]), 0, -1):  # restoreSequence
+            p = p.clone()
+            p[lev - 1:] = torch.cumsum(p[lev - 1:], 0) & 0xFF
+        word |= p << (8 * b)
+    img = word.view(rows, cols)
+    if pred == 2:
+        img = _split_cumsum(img, 0)
+    if pred >= 1:
+        img = _split_cumsum(img, 1)
+    bits = undo_float_transform(img.reshape(-1))
+    return ((bits + 2**31) % 2**32 - 2**31).to(torch.int32).view(torch.float32).view(h, w, d)

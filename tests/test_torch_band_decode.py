@@ -7,9 +7,10 @@ index-free ResidentCodec decode, and what the slice refuses.
 Criteria (exact): blobs byte-equal to JAX ``encode_band_device``; decodes
 bit-equal to the host decoder ``lerc2_decode.decode_band`` and to JAX's
 device decode where JAX decodes on its device; the configurations of ROADMAP
-queue 1 items 8 (fpl) and 9 (float64) raise NotImplementedError naming their
-item, before any work; those of item 7 (8-bit Huffman), refused until it was
-ported, now encode as JAX does and decode like the host decoder.
+queue 1 item 9 (float64) raise NotImplementedError naming their item, before
+any work; those of items 7 (8-bit Huffman) and 8 (fpl lossless float32),
+refused until they were ported, now encode as JAX does and decode like the
+host decoder.
 """
 import struct
 
@@ -217,8 +218,8 @@ def test_masked_resident_decode_without_the_index(npdt, d, mze):
     assert has_diff == (npdt == np.int16)
 
 
-UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: item 7, ported since
-    (np.uint8, 0.5, 6, None), (np.int8, 0.0, 3, None), (np.float32, 0.0, 6, "item 8"),
+UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: items 7 and 8, ported since
+    (np.uint8, 0.5, 6, None), (np.int8, 0.0, 3, None), (np.float32, 0.0, 6, None),
     (np.float64, 0.1, 6, "item 9"), (np.float32, 0.1, 2, "item 12"),
 ]
 
@@ -228,11 +229,11 @@ UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: item 7, ported s
 def test_unported_encodes_name_their_roadmap_item(npdt, mze, version, item, monkeypatch):
     from lerc_tpu_torch.ops import device_encode
 
-    if item is None:  # 8-bit Huffman: the blob JAX writes, Huffman-coded
+    if item is None:  # 8-bit Huffman or fpl: the blob JAX writes, Huffman- or fpl-coded
         data = make(npdt)
         blob = encode_band_device(data, None, mze, version=version, device="cpu")
         assert blob == jax_codec.encode_band_device(data, None, mze, version=version)
-        assert band_sections(blob).mode in (1, 2)
+        assert band_sections(blob).mode in ((3,) if npdt == np.float32 else (1, 2))
         assert_decodes_like_the_host(blob, jax_too=False)
         return
 
@@ -248,9 +249,9 @@ def _huffman_blob():
     return BandEncoder(data[:, :, None], None, 0.0).encode()
 
 
-UNPORTED_DECODE = {  # None: item 7, ported since
+UNPORTED_DECODE = {  # None: items 7 and 8, ported since
     "huffman": (_huffman_blob, None),
-    "fpl": (lambda: BandEncoder(make(np.float32), None, 0.0).encode(), "item 8"),
+    "fpl": (lambda: BandEncoder(make(np.float32), None, 0.0).encode(), None),
     "f64": (lambda: BandEncoder(make(np.float64), None, 0.01).encode(), "item 9"),
 }
 
@@ -261,7 +262,7 @@ def test_unported_decodes_name_their_roadmap_item(name):
     blob = make_blob()
     if name != "f64":  # the blob really is a Huffman / fpl one
         assert band_sections(blob).mode in ((1, 2) if name == "huffman" else (3,))
-    if item is None:  # 8-bit Huffman: decodes like the host decoder
+    if item is None:  # 8-bit Huffman, fpl: decodes like the host decoder
         assert_decodes_like_the_host(blob, jax_too=False)
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -299,7 +300,7 @@ def test_supports_encode_and_round_cap_match_the_slice():
     assert supports_encode(DataType.BYTE, 1.0, 1) and supports_encode(DataType.FLOAT, 0.0, 1,
                                                                      version=5)
     assert supports_encode(DataType.BYTE, 0.5, 1)  # 8-bit Huffman: item 7, ported since
-    assert not supports_encode(DataType.FLOAT, 0.0, 1)  # fpl: item 8
+    assert supports_encode(DataType.FLOAT, 0.0, 1)  # fpl: item 8, ported since
     assert not supports_encode(DataType.DOUBLE, 0.1, 1)  # float64: item 9
     assert not supports_encode(DataType.FLOAT, 0.1, 1, version=2)  # legacy bit order: item 12
     for n in (1, 4096, 4097, 100_000):
