@@ -97,7 +97,26 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   19. their MB/s and ratios, F1-F3's device ms per launch at 2048^2 beside
      their plain ms, bounds and, for F3, the level undo's torch.cumsum; H2
      and H3 on a Huffman plane; host PackBits and host-scan ms per plane;
-     the device's busy share over an fpl round.
+     the device's busy share over an fpl round;
+  20. float64: K1/K2 f64 (all-valid, masked, edge blocks, a tile of every
+     record mode), K6 f64 (the port's blobs, their records edited on the
+     card into depth-diff and LUT records, and for its 16x16 instances a
+     float32 class grid's 16x16 blob read as float64) and F1-F3 over u64 words (every
+     predictor and level, eight planes) against their plain versions, bit
+     for bit, on 48x41, 61x47 and 64x64 crops of the DEM rendered in
+     float64 (depth 1 and 3, all-valid and with the bench mask's crop), on
+     the 2047x1999 edge crop and at 2048^2;
+  21. three lossy float64 band cells through encode_band_device(
+     return_index=True) -> decode_band_device, counted: the four 2048^2
+     float64 DEM tiles at maxZError 0.001 all-valid and with the bench mask,
+     and at maxZError 1e-6; every valid pixel within maxZError (invalid
+     pixels 0), tile 0's blob equal to the plain path's;
+  22. two lossless float64 cells (v6 fpl over eight planes): the same four
+     tiles all-valid and with the bench mask, decoded with and without the
+     index, bit-equal to the input; tile 0's predictor, levels, methods and
+     size; then the float64 kernels' device ms per launch beside their
+     plain ms and bounds, the cells' MB/s (best of 3) and the device's busy
+     share over a lossy and a lossless round.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -170,6 +189,16 @@ SOURCES["huffman_scan"] = ("lerc_tpu_torch/kernels/huffman_scan.cpp",
 SOURCES.update({name: ("lerc_tpu_torch/kernels/fpl.cu", f"lerc_tpu/ops/device_fpl.py:{line}")
                 for name, line in (("fpl_sample_histograms", 123), ("fpl_finalize", 168),
                                    ("fpl_packbits_size", 88), ("fpl_restore", 235))})
+# float64: K1/K2 f64 (kernels/encode.cu), K6 f64 (kernels/decode.cu), F1-F3
+# over u64 words (kernels/fpl.cu)
+SOURCES.update({f"{k}{m}_f64": ("lerc_tpu_torch/kernels/encode.cu", "lerc_tpu/ops/device_f64.py:95")
+                for k in ("encode_blocks", "write_records") for m in ("", "_masked")})
+SOURCES.update({f"decode_scanned{m}_f64": ("lerc_tpu_torch/kernels/decode.cu",
+                                           "lerc_tpu/ops/device_decode.py:716")
+                for m in ("", "_masked")})
+SOURCES.update({name: ("lerc_tpu_torch/kernels/fpl.cu", f"lerc_tpu/ops/device_fpl.py:{line}")
+                for name, line in (("fpl_sample_histograms_f64", 300), ("fpl_finalize_f64", 344),
+                                   ("fpl_restore_f64", 407))})
 
 
 def fail(msg):
@@ -2016,13 +2045,20 @@ def huffman_phases(tiles, mask, card, launches, add_row):
 # ---------------------------------------------------------------------------
 
 FPL = ("fpl_sample_histograms", "fpl_finalize", "fpl_packbits_size", "fpl_restore")
+FPL64 = ("fpl_sample_histograms_f64", "fpl_finalize_f64", "fpl_packbits_size", "fpl_restore_f64")
 FPL_LEVELS = ((0, 1, 2, 3), (4, 5, 5, 0))  # every level 0..5 over the two
+FPL_LEVELS64 = ((0, 1, 2, 3, 4, 5, 0, 1), (5, 4, 3, 2, 1, 0, 5, 5))  # every level on every plane
+
+
+def bits_of(t):
+    """A float tensor's bits as integers of its width (exact comparisons)."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
 def fpl_check(data, tag, level_sets=FPL_LEVELS):
-    """F1-F3 against their plain versions on one float32 band (a CUDA
-    tensor): F1's histograms; for each predictor and level set, F2's planes
-    and histograms, F2b's sizes and F3's image, which also equals the
+    """F1-F3 against their plain versions on one float32 or float64 band (a
+    CUDA tensor): F1's histograms; for each predictor and level set, F2's
+    planes and histograms, F2b's sizes and F3's image, which also equals the
     input. Returns {kernel: max_abs_err}."""
     from lerc_tpu_torch.ops import device_fpl as F
 
@@ -2038,24 +2074,27 @@ def fpl_check(data, tag, level_sets=FPL_LEVELS):
             require(torch.equal(pk, pr) and torch.equal(hk, hr), f"F2 != plain ({how})")
             require(torch.equal(F.fpl_packbits_size(pk, n), F.fpl_packbits_size_ref(pk, n)),
                     f"F2b != plain ({how})")
-            rk = F.fpl_restore(pk, h, w, d, pred, levels).view(torch.int32)
-            rr = F.fpl_restore_ref(pk, h, w, d, pred, levels).view(torch.int32)
-            require(torch.equal(rk, rr) and torch.equal(rk, data.view(torch.int32)),
+            rk = bits_of(F.fpl_restore(pk, h, w, d, pred, levels))
+            rr = bits_of(F.fpl_restore_ref(pk, h, w, d, pred, levels))
+            require(torch.equal(rk, rr) and torch.equal(rk, bits_of(data)),
                     f"F3 != plain or input ({how})")
-    return dict.fromkeys(FPL, 0.0)  # every comparison above is exact
+    # every comparison above is exact
+    return dict.fromkeys(FPL64 if data.dtype == torch.float64 else FPL, 0.0)
 
 
 def fpl_section(blob):
-    """(predictor, levels, plane methods) of an fpl blob."""
+    """(predictor, levels, plane methods) of an fpl blob (4 planes, or 8 for
+    float64)."""
     import struct
 
     from lerc_tpu_torch.codec.device_codec import band_sections
 
     sec = band_sections(blob)
     require(sec.kind == "fpl", f"the blob's data section is {sec.kind}, not fpl")
+    n_pl = 8 if sec.head.dt == 7 else 4
     src, pos = memoryview(blob), sec.pos
-    pred, pos, levels, methods = src[pos], pos + 1, [0] * 4, [None] * 4
-    for _ in range(4):
+    pred, pos, levels, methods = src[pos], pos + 1, [0] * n_pl, [None] * n_pl
+    for _ in range(n_pl):
         b, csize = src[pos], struct.unpack_from("<I", src, pos + 2)[0]
         levels[b], methods[b] = src[pos + 1], src[pos + 6]
         pos += 6 + csize
@@ -2284,6 +2323,395 @@ def fpl_phases(tiles, mask, card, launches, add_row):
                         round_fn=cell_round)
 
 
+# ---------------------------------------------------------------------------
+# float64 through the band codec: K1/K2 f64 (lossy tiling), K6 f64 (its
+# decode), F1-F3 over u64 words (lossless fpl, eight planes)
+# ---------------------------------------------------------------------------
+
+F64_LOSSY = ("fletcher32_parts", "tile_scan")  # with K1/K2/K6 f64, all-valid or masked
+
+
+def make_tiles64(n, tile, device):
+    """make_tiles' DEM rendered in float64 (the hash noise at full
+    precision): [tile, tile, 1] float64 tiles."""
+    x = torch.linspace(0, 20, tile, dtype=torch.float64, device=device)[None, :]
+    y = torch.linspace(0, 15, tile, dtype=torch.float64, device=device)[:, None]
+    m32 = 0xFFFFFFFF
+    tiles = []
+    for seed in range(n):
+        i = (torch.arange(tile * tile, dtype=torch.int64, device=device).reshape(tile, tile)
+             + ((seed * 0x9E3779B9) & m32)) & m32
+        i = ((i ^ (i >> 16)) * 0x45D9F3B) & m32
+        i = ((i ^ (i >> 16)) * 0x45D9F3B) & m32
+        i = i ^ (i >> 16)
+        noise = i.to(torch.float64) * 2.0**-32 - 0.5
+        dem = (1500 * torch.exp(-((x - 10) ** 2 + (y - 7) ** 2) / 20)
+               + 50 * torch.sin(x + seed) * torch.cos(y) + noise)
+        tiles.append(dem[:, :, None].contiguous())
+    return tiles
+
+
+def f64_modes_tile(device):
+    """A 64x61x1 float64 tile whose records take every mode: const-0,
+    const-offset, raw (a block past 2^30 - 1 quanta at maxZError 1e-4) and
+    stuffed, with edge blocks."""
+    rng = np.random.default_rng(7)
+    t = 1000 + np.cumsum(rng.standard_normal((64, 61)), 1)[:, :, None]
+    t[0:8, 0:8] = 0.0
+    t[8:16, 8:16] = 7.25
+    t[16:24, 0:8] = np.linspace(-1e6, 1e6, 64).reshape(8, 8, 1)
+    return torch.from_numpy(t).to(device)
+
+
+def f64_encode_check(data, mask, mze, tag):
+    """K1/K2 f64 against their plain versions on one float64 band (a CUDA
+    tensor; masks and edge blocks through validity words). Returns
+    ({kernel: max_abs_err}, mode counts [4])."""
+    from lerc_tpu_torch.ops import device_encode as E
+
+    h, w, d = data.shape
+    valid = None
+    if mask is not None or h % 8 or w % 8:
+        m = np.ones((h, w), bool) if mask is None else mask
+        valid = E.block_valid_words(torch.from_numpy(m).to(data.device))
+    sfx = "" if valid is None else "_masked"
+    p = E.encode_params_f64(mze, 6)
+    rk, zk = E.encode_blocks_f64(data, p, valid)
+    rr, zr = E.encode_blocks_f64_ref(data, p, valid)
+    require(torch.equal(rk, rr) and torch.equal(bits_of(zk), bits_of(zr)),
+            f"K1 encode_blocks{sfx}_f64 != plain ({tag})")
+    length = rk[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    cap_w = (int(length.sum()) + 4096) // 4
+    sk = E.write_records_f64(data, rk, starts, cap_w, p, valid)
+    sr = E.write_records_f64_ref(data, rk, starts, cap_w, p, valid)
+    require(torch.equal(sk, sr), f"K2 write_records{sfx}_f64 != plain ({tag})")
+    modes = torch.bincount((rk[:, 1] >> 8) & 3, minlength=4).cpu().numpy()
+    return {f"encode_blocks{sfx}_f64": max_abs(rk, rr), f"write_records{sfx}_f64": max_abs(sk, sr)}, modes
+
+
+def k6_edited(a, head, depth_diff):
+    """K6's arguments `a` with records edited on the card: depth_diff turns
+    every stuffed, const-0 and const-offset record of slices >= 1 into a
+    depth-diff record; else every stuffed record is read as a LUT record
+    (its own payload as LUT and indices, numBits-wide, a LUT as long as
+    the widest index), as tests/test_torch_scan.py edits K6's records."""
+    a = list(a)
+    mode, d = a[1].clone(), head.n_depth
+    m8 = mode % 8
+    if depth_diff:
+        r = torch.arange(mode.numel(), device=mode.device)
+        mode = torch.where((r % d > 0) & ((m8 == 1) | (m8 == 2) | (m8 == 3)), mode + 8, mode)
+    else:
+        stuffed = m8 == 1
+        nb = a[4]
+        mode = torch.where(stuffed, 4, mode)
+        a[6] = torch.where(stuffed, a[2], a[6])                        # lut_pos
+        a[7] = torch.where(stuffed, ((1 << nb.clamp(max=30)) - 1).to(torch.int32), a[7])
+        a[8] = torch.where(stuffed, nb, a[8])                          # nbits_lut
+        a[17] = True
+    a[1] = mode
+    return tuple(a)
+
+
+def check_k6_f64(blob, tag, edits=True):
+    """The host scanner and K6 f64 against their plain versions on one
+    float64 tiling blob, then on its records edited into depth-diff (depth
+    > 1) and LUT records. Returns {kernel: max_abs_err}."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    err, _modes = check_scanned_band(blob, tag)
+    if not edits:
+        return err
+    _scan, _recs, _used, a, head = scanned_band(blob)
+    for depth_diff in ((True, False) if head.n_depth > 1 else (False,)):
+        e = k6_edited(a, head, depth_diff)
+        img_k, ok_k = dec.decode_scanned(*e)
+        img_r, ok_r = k6_plain(e, head)
+        what = "depth-diff" if depth_diff else "LUT"
+        require(torch.equal(bits_of(img_k), bits_of(img_r)) and bool(ok_k) == bool(ok_r)
+                and bool(ok_k), f"K6 f64 != plain on {what} records ({tag})")
+    return err
+
+
+def check_k6_f64_16(tile, mask):
+    """K6's 16x16 float64 instances against their plain versions. float64
+    takes no 16x16 retrial, so no band path writes such a blob: the 16x16
+    blob of a float32 class grid (12 zones of whole numbers, LUT records),
+    all-valid and with the bench mask, is read as float64 -- its f32 offsets
+    and zMax widened, exactly -- and must also decode to the float32 decode's
+    values. Returns {kernel: max_abs_err}."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    cls = class_grid(tile).to(torch.float32).contiguous()
+    err = {}
+    for m in (None, mask):
+        blob = encode_band_device(cls, m, 0.5)
+        _scan, recs, _used, a, head = scanned_band(blob)
+        require(head.micro_block_size == 16 and (recs["mode"] % 8 == 4).any()
+                and not (recs["mode"] % 8 == 0).any(), "class grid: not a 16x16 LUT blob")
+        a = list(a)
+        a[3], a[11], a[15] = a[3].double(), a[11].double(), DataType.DOUBLE
+        img_k, ok_k = dec.decode_scanned(*a)
+        img_r, ok_r = k6_plain(a, head)
+        want = decode_band_device(blob).data.double()
+        require(bool(ok_k) and bool(ok_r) and torch.equal(bits_of(img_k), bits_of(img_r))
+                and torch.equal(img_k, want), "K6 16x16 f64 != plain or the float32 decode")
+        err[k6_name(16, m is not None, DataType.DOUBLE)] = max_abs(img_k, img_r)
+    print("check: K6's 16x16 float64 instances equal to their plain versions and to the float32 "
+          "decode on a 16x16 class-grid blob read as float64 (all-valid and masked)", flush=True)
+    return err
+
+
+def f64_cell(label, tiles, mask, mze, card, plain_tile0=True, rounds=3):
+    """One float64 band cell: encode_band_device(..., return_index=True) ->
+    decode_band_device with the index and without it, counted; lossy
+    decodes within maxZError at every valid pixel (invalid pixels 0, the
+    mask round-tripped), lossless ones bit-equal to the input at every
+    pixel; tile 0's blob byte-equal to the plain path's (device="cpu").
+    Returns (counts, blobs, indexes, (encode ms, decode ms, raw MB), record
+    mode counts of tile 0 or its fpl section)."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+
+    masked = mask is not None
+    if mze > 0:
+        sfx = "_masked" if masked else ""
+        required = (f"encode_blocks{sfx}_f64", f"write_records{sfx}_f64", f"decode_scanned{sfx}_f64",
+                    *F64_LOSSY)
+        optional = ()
+    else:  # F3 and the Huffman planes' H2/H3 where a tile takes fpl (checked below)
+        required = ("fletcher32_parts", *FPL64[:3])
+        optional = ("huffman_group_bits", "huffman_pack", "huffman_decode", "huffman_scan",
+                    "fpl_restore_f64")
+
+    def path():
+        enc = [encode_band_device(t, mask, mze, return_index=True) for t in tiles]
+        return enc, [decode_band_device(b, index=i) for b, i in enc], \
+            [decode_band_device(b) for b, _ in enc]
+
+    counts, (enc, decs, frees) = run_counted_band(required, optional, label, path)
+    if any(i for _, i in enc):  # an fpl tile: F3 ran
+        require(counts.get("fpl_restore_f64", 0) > 0, f"kernel fpl_restore_f64 was not launched "
+                f"on the {label}")
+    if any(i and i["fpl_sbits"] for _, i in enc):  # a Huffman plane: H2, H3 and the host scan ran
+        for name in optional:
+            require(counts.get(name, 0) > 0, f"kernel {name} was not launched on the {label}")
+    from lerc_tpu_torch.codec.device_codec import band_sections
+
+    sel = None if mask is None else torch.from_numpy(mask).cuda()
+    for i, (t, (b, idx), a, f) in enumerate(zip(tiles, enc, decs, frees)):
+        kind = band_sections(b).kind  # lossless and masked: fpl codes every pixel, one-sweep the valid
+        require(kind == ("fpl" if mze == 0 and mask is None else kind) and kind != "empty",
+                f"{label}: tile {i} is a {kind} blob")
+        require((idx is None) == (kind != "fpl"), f"{label}: tile {i}'s index {idx}")
+        for what, dband in (("with the index", a), ("without the index", f)):
+            require(dband.data.dtype == torch.float64, f"{label}: tile {i} decoded as {dband.data.dtype}")
+            require(np.array_equal(dband.mask, np.ones(t.shape[:2], bool) if mask is None
+                                   else mask), f"{label}: mask of tile {i} differs")
+            if kind == "fpl":
+                require(torch.equal(bits_of(dband.data), bits_of(t)),
+                        f"{label}: tile {i} decoded {what} != input")
+                continue
+            err = (dband.data - t).abs()
+            if sel is not None:
+                require(not bits_of(dband.data)[~sel].any(), f"{label}: invalid pixels of tile {i} != 0")
+                err = err[sel]
+            require(float(err.max()) <= dband.hd.max_z_error,
+                    f"{label}: tile {i} decoded {what}: error {float(err.max())} > maxZError")
+    if plain_tile0:
+        require(encode_band_device(tiles[0].cpu(), mask, mze, device="cpu") == enc[0][0],
+                f"{label}: blob of tile 0 differs from the plain path's")
+    raw_mb = len(tiles) * tiles[0].numel() * 8 / 1e6
+    blobs, indexes = [b for b, _ in enc], [i for _, i in enc]
+
+    def timed(fn):
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    enc_ms = timed(lambda: [encode_band_device(t, mask, mze, return_index=True) for t in tiles])
+    dec_ms = timed(lambda: [decode_band_device(b, index=i) for b, i in enc])
+    ratio = raw_mb * 1e6 / sum(len(b) for b in blobs)
+    if mze > 0:
+        recs = scanned_band(blobs[0])[1]
+        shape = torch.bincount(torch.from_numpy(recs["mode"] % 8).long(), minlength=4).tolist()
+        nbs = recs["num_bits"][recs["mode"] % 8 == 1]
+        what = (f"tile 0 records by mode (raw, stuffed, const-0, const-offset) {shape[:4]}, "
+                f"numBits {int(nbs.min())}-{int(nbs.max())}")
+    elif band_sections(blobs[0]).kind == "fpl":
+        shape = fpl_section(blobs[0])
+        what = (f"tile 0: predictor {shape[0]}, levels {shape[1]}, methods "
+                f"{tuple(FPL_METHODS[m] for m in shape[2])}")
+    else:
+        shape, what = None, f"tile 0: {band_sections(blobs[0]).kind}"
+    print(f"float64 cell {label}: {len(tiles)} tiles ok"
+          f"{', blob 0 equal to the plain path' if plain_tile0 else ''}, launches {counts}; "
+          f"encode {raw_mb / (enc_ms / 1e3):.1f} MB/s ({enc_ms:.3f} ms), decode "
+          f"{raw_mb / (dec_ms / 1e3):.1f} MB/s ({dec_ms:.3f} ms) best of {rounds}, compression "
+          f"ratio {ratio:.4f}, blob 0 {len(blobs[0])} B; {what} [{card}]", flush=True)
+    return counts, blobs, indexes, (enc_ms, dec_ms, raw_mb), shape
+
+
+def f64_kernel_times(tiles, mask, lossy_blobs, lossless_blob, card):
+    """Device ms per launch (torch.profiler) of the float64 kernels over the
+    2048^2 tiles round-robin (four tiles, 134 MB: past the 50 MB L2, as a
+    stream of tiles finds them), their plain ms on tile 0 (CUDA events) and
+    bytes bounds per tile (each input read once, each output written once,
+    over the HBM rate). lossy_blobs: the all-valid and the masked cell's
+    blobs of the tiles. Returns {kernel: (ms, plain ms, bound ms)}."""
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as E
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    h, w, d = tiles[0].shape
+    n = h * w * d
+    n_rec = (h // 8) * (w // 8) * d
+    mb = HBM_BYTES_PER_S / 1e3  # bytes per ms
+    p = E.encode_params_f64(MAX_Z_ERROR, 6)
+    out = {}
+    for m, blobs in zip((None, mask), lossy_blobs):
+        valid = None if m is None else E.block_valid_words(torch.from_numpy(m).cuda())
+        sfx = "" if m is None else "_masked"
+        vbytes = 0 if valid is None else valid.numel() * 4
+        recs = [E.encode_blocks_f64(t, p, valid)[0] for t in tiles]
+        starts = [torch.cumsum(r[:, 0], 0, dtype=torch.int32) - r[:, 0] for r in recs]
+        totals = [int(r[:, 0].sum()) for r in recs]
+        caps = [(t + 4096) // 4 for t in totals]
+        out[f"encode_blocks{sfx}_f64"] = (
+            device_ms([lambda t=t: E.encode_blocks_f64(t, p, valid) for t in tiles],
+                      "encode_blocks_f64_kernel"),
+            cuda_ms([lambda: E.encode_blocks_f64_ref(tiles[0], p, valid)], reps=1),
+            (8 * n + vbytes + 16 * n_rec + 16 * d) / mb)
+        out[f"write_records{sfx}_f64"] = (
+            device_ms([lambda a=a: E.write_records_f64(*a, p, valid)
+                       for a in zip(tiles, recs, starts, caps)], "write_records_f64_kernel"),
+            cuda_ms([lambda: E.write_records_f64_ref(tiles[0], recs[0], starts[0], caps[0], p,
+                                                     valid)], reps=1),
+            (8 * n + vbytes + 20 * n_rec + sum(totals) / len(totals)) / mb)
+        args = [scanned_band(b)[3] for b in blobs]
+        head = scanned_band(blobs[0])[4]
+        total = sum(len(b) for b in blobs) / len(blobs)  # the tile streams, within a few hundred B
+        out[f"decode_scanned{sfx}_f64"] = (
+            device_ms([lambda a=a: dec.decode_scanned(*a) for a in args], "decode_scanned_kernel"),
+            cuda_ms([lambda: k6_plain(args[0], head)], reps=1),
+            (total + 36 * n_rec + vbytes + 8 * d + 8 * n) / mb)
+        (_k6, _plain, _bound), scan, _n = k6_times(blobs[0])
+        print(f"host record scanner on the {'masked ' if m is not None else ''}float64 tile: "
+              f"{scan[0]:.3f} ms (plain {scan[1]:.3f} ms, bound {scan[2]:.4f} ms) [{card}]",
+              flush=True)
+    pred, levels, _methods = fpl_section(lossless_blob)
+    planes = [F.fpl_finalize(t, pred, levels)[0] for t in tiles]
+    m = -(-h // F.sample_stride(n)) * w  # F1's sampled words
+    out["fpl_sample_histograms_f64"] = (
+        device_ms([lambda t=t: F.fpl_sample_histograms(t) for t in tiles],
+                  "fpl_sample_histograms_kernel"),
+        cuda_ms([lambda: F.fpl_sample_histograms_ref(tiles[0])], reps=1),
+        (8 * m + 4 * 3 * 8 * 6 * 256) / mb)
+    out["fpl_finalize_f64"] = (
+        device_ms([lambda t=t: F.fpl_finalize(t, pred, levels) for t in tiles],
+                  "fpl_finalize_kernel"),
+        cuda_ms([lambda: F.fpl_finalize_ref(tiles[0], pred, levels)], reps=1),
+        (16 * n + 8 * 4 * 256) / mb)
+    out["fpl_restore_f64"] = (
+        device_ms([lambda q=q: F.fpl_restore(q, h, w, d, pred, levels) for q in planes],
+                  "fpl_restore_"),
+        cuda_ms([lambda: F.fpl_restore_ref(planes[0], h, w, d, pred, levels)], reps=1),
+        16 * n / mb)
+    pb = device_ms([lambda q=q: F.fpl_packbits_size(q, n) for q in planes], "fpl_pb_")
+    pb_plain = cuda_ms([lambda: F.fpl_packbits_size_ref(planes[0], n)], reps=1)
+    print(f"fpl F2b over the eight planes of a float64 tile: {pb:.4f} ms a call (plain "
+          f"{pb_plain:.3f} ms, bound {(8 * n + 32) / mb:.4f} ms) [{card}]", flush=True)
+    return out
+
+
+def f64_phases(dev, mask, card, launches, add_row):
+    """Phases 20-22 on device `dev`: K1/K2 f64, K6 f64 and F1-F3 over u64
+    words against their plain versions, the lossy and lossless float64 band
+    cells, and their times."""
+    tiles = make_tiles64(N_TILES, TILE, dev)
+    err = {}
+
+    def merge(e):
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+
+    # ---- 20. each kernel against its plain version
+    from lerc_tpu_torch import encode_band_device
+
+    crops = [((48, 41), (300, 470)), ((61, 47), (1000, 1010)), ((64, 64), (256, 512))]
+    for (ch, cw), (r0, c0) in crops:
+        crop = tiles[0][r0:r0 + ch, c0:c0 + cw]
+        mcrop = mask[r0:r0 + ch, c0:c0 + cw]
+        for d, data in ((1, crop.contiguous()),
+                        (3, torch.cat([crop, crop + 0.25, crop * 0.5], 2).contiguous())):
+            for m in (None, mcrop):
+                e, _modes = f64_encode_check(data, m, MAX_Z_ERROR, f"{ch}x{cw}x{d} crop")
+                merge(e)
+                merge(check_k6_f64(encode_band_device(data, m, MAX_Z_ERROR), f"{ch}x{cw}x{d}"))
+            merge(fpl_check(data, f"{ch}x{cw}x{d} float64 DEM crop", FPL_LEVELS64))
+        print(f"check: K1/K2 f64, K6 f64 (with depth-diff and LUT record edits) and F1-F3 over "
+              f"u64 words equal to their plain versions on the {ch}x{cw} float64 crops (depth 1 "
+              f"and 3, all-valid and masked; predictors 0-2, levels 0-5)", flush=True)
+    merge(check_k6_f64_16(tiles[0], mask))
+    e, modes = f64_encode_check(f64_modes_tile(dev), None, 1e-4, "modes tile")
+    merge(e)
+    require(all(modes > 0), f"the modes tile lacks a record mode: {modes}")
+    print(f"check: K1/K2 f64 equal to their plain versions on the 64x61 modes tile (records by "
+          f"mode raw/stuffed/const-0/const-offset {modes.tolist()})", flush=True)
+    edge = tiles[1][:2047, :1999].contiguous()
+    for m in (None, mask[:2047, :1999]):
+        e, _modes = f64_encode_check(edge, m, MAX_Z_ERROR, "2047x1999 edge crop")
+        merge(e)
+    for m in (None, mask):
+        e, modes = f64_encode_check(tiles[0], m, MAX_Z_ERROR, f"{TILE}^2 tile")
+        merge(e)
+        merge(check_k6_f64(encode_band_device(tiles[0], m, MAX_Z_ERROR), f"{TILE}^2 tile"))
+    band3 = torch.cat([tiles[0], tiles[1], tiles[0] + 0.25], 2).contiguous()
+    merge(check_k6_f64(encode_band_device(band3, None, MAX_Z_ERROR), f"{TILE}^2 x 3 band"))
+    merge(fpl_check(tiles[0], f"{TILE}^2 float64 DEM tile",
+                    ((0,) * 8, (4, 1, 0, 0, 2, 3, 5, 0), (5,) * 8)))
+    print(f"check: K1/K2 f64 on the 2047x1999 edge crop and the {TILE}^2 tile (all-valid and "
+          f"with the bench mask; records by mode {modes.tolist()}), K6 f64 on their blobs and on "
+          f"a {TILE}^2 x 3 band with depth-diff and LUT record edits, F1-F3 over u64 words on "
+          f"the {TILE}^2 tile: equal to their plain versions", flush=True)
+
+    # ---- 21. the lossy float64 cells; 22. the lossless ones
+    lossy = [f64_cell(f"float64 DEM {N_TILES} x {TILE}^2, maxZError {MAX_Z_ERROR}", tiles, None,
+                      MAX_Z_ERROR, card),
+             f64_cell(f"float64 DEM {N_TILES} x {TILE}^2 with the bench mask, maxZError "
+                      f"{MAX_Z_ERROR}", tiles, mask, MAX_Z_ERROR, card),
+             f64_cell(f"float64 DEM {N_TILES} x {TILE}^2, maxZError 1e-06", tiles, None, 1e-6, card)]
+    lossless = [f64_cell(f"float64 DEM {N_TILES} x {TILE}^2, lossless v6", tiles, None, 0.0, card),
+                f64_cell(f"float64 DEM {N_TILES} x {TILE}^2 with the bench mask, lossless v6",
+                         tiles, mask, 0.0, card)]
+    for c in lossy + lossless:
+        for k, v in c[0].items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---- times
+    rows = f64_kernel_times(tiles, mask, (lossy[0][1], lossy[1][1]), lossless[0][1][0], card)
+    for name, (ms, plain_ms, bound_ms) in rows.items():
+        add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes", None)
+    from lerc_tpu_torch import decode_band_device
+
+    for label, mze, cell in (("lossy float64 cell (maxZError 0.001)", MAX_Z_ERROR, lossy[0]),
+                             ("lossless float64 cell", 0.0, lossless[0])):
+        def one_round(mze=mze):
+            enc = [encode_band_device(t, None, mze, return_index=True) for t in tiles]
+            return [decode_band_device(b, index=i) for b, i in enc]
+
+        where_the_time_goes(None, tiles, cell[3][0] + cell[3][1], card,
+                            f"{label}, encode_band_device + decode_band_device",
+                            round_fn=one_round)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2453,6 +2881,8 @@ def main():
     huffman_phases(tiles, mask, card, launches, add_row)
     # ---- 17-19. lossless float32 (fpl) through the band codec
     fpl_phases(tiles, mask, card, launches, add_row)
+    # ---- 20-22. float64 through the band codec
+    f64_phases(dev, mask, card, launches, add_row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -95,7 +95,9 @@ class ResidentCodec:
         self.device = resolve_device(device)
         self.dt = NUMPY_TO_DT[np.dtype(dtype)]
         if self.dt == DataType.DOUBLE:
-            raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+            raise NotImplementedError(
+                "float64 has no resident codec (JAX's ResidentCodec has none either): use "
+                "encode_band_device / decode_band_device")
         if h % 8 or w % 8:
             raise ValueError("resident codec requires H, W multiples of 8")
         self.h, self.w, self.d = h, w, d

@@ -87,6 +87,7 @@ DT_SUFFIX = {
     DataType.INT: "_i32",
     DataType.UINT: "_u32",
     DataType.FLOAT: "",
+    DataType.DOUBLE: "_f64",
 }
 
 # widest numBits of an encoded bit-stuffed block per value size

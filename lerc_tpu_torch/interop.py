@@ -9,12 +9,13 @@ held in an int32 tensor. A ``ResidentBlob`` carries its header as host
 bytes, the stream, total, checksum and the optional index. A band codec's
 ``DecodedBand`` holds its data as a tensor on the decode device;
 ``decoded_band_to_numpy`` gives its fields as JAX's ``DecodedBand`` holds
-them. The band codec's acceleration index needs no conversion: in both
-packages ``encode_band_device(..., return_index=True)`` returns the same
-plain dict, ``{"huffman_sbits": int32 numpy array}`` for a Huffman blob,
-``{"fpl_sbits": {plane: int32 numpy array}}`` for an fpl blob (one entry
-per Huffman-coded byte plane, possibly none), None otherwise; either
-package's ``decode_band_device(blob, index=...)`` takes the other's.
+them, float64 bands included. The band codec's acceleration index needs no
+conversion: in both packages ``encode_band_device(..., return_index=True)``
+returns the same plain dict, ``{"huffman_sbits": int32 numpy array}`` for a
+Huffman blob, ``{"fpl_sbits": {plane: int32 numpy array}}`` for an fpl blob
+(one entry per Huffman-coded byte plane, possibly none: planes 0-3 of a
+float32 band, 0-7 of a float64 one), None otherwise; either package's
+``decode_band_device(blob, index=...)`` takes the other's.
 """
 from __future__ import annotations
 
@@ -87,7 +88,8 @@ def codec_kwargs(h: int, w: int, d: int, dtype, max_z_error: float, version: int
 
 def decoded_band_to_numpy(band) -> dict:
     """The port's ``DecodedBand`` -> plain fields (the header's fields as a
-    dict, mask bool array, data array in the native dtype, z_min_vec,
+    dict, mask bool array, data array in the native dtype -- float64 for a
+    float64 band --, z_min_vec,
     z_max_vec, consumed), to compare field by field with JAX's
     ``DecodedBand`` (whose ``hd`` is the JAX HeaderInfo)."""
     return dict(hd=dataclasses.asdict(band.hd), mask=np.asarray(band.mask, dtype=bool),

@@ -74,6 +74,13 @@ LAUNCHES.update({k: 0 for k in (
 # kernel launches, counted once per call
 LAUNCHES.update({k: 0 for k in (
     "fpl_sample_histograms", "fpl_finalize", "fpl_packbits_size", "fpl_restore")})
+# float64: K1/K2 f64 (8x8, all-valid and masked), K6 f64 (8x8 and 16x16,
+# all-valid and masked), and F1, F2 and F3 over u64 words (F2b is one kernel
+# for 4 and 8 planes)
+LAUNCHES.update({f"{k}{m}_f64": 0 for k in ("encode_blocks", "write_records")
+                 for m in ("", "_masked")})
+LAUNCHES.update({f"decode_scanned{mb}{m}_f64": 0 for mb in ("", "16") for m in ("", "_masked")})
+LAUNCHES.update({f"{k}_f64": 0 for k in ("fpl_sample_histograms", "fpl_finalize", "fpl_restore")})
 
 _libs: dict[str, ctypes.CDLL] = {}
 

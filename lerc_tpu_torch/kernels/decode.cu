@@ -273,8 +273,18 @@ int launch_decode_int(const uint8_t* words, long long n_bytes, const int* starts
 // _unpack_records (:464): 8x8 and 16x16 blocks, all-valid, masked or with
 // edge blocks, modes raw, stuff, const-0, const-offset and LUT (mode 4:
 // index i -> [0] + entries at lut_pos), float32 (the exact f64 ScaleBack,
-// as K4) and every integer dtype, and the depth-diff chains. Each stream read
-// clamps its index into the stream, as JAX's gathers do.
+// as K4), float64 and every integer dtype, and the depth-diff chains. Each
+// stream read clamps its index into the stream, as JAX's gathers do.
+//
+// float64 (Tout = double) replaces decode_tiles_f64 (device_decode.py
+// :716-879), whose ScaleBack and diff chain are softfloat u32 limb
+// arithmetic (device_softf64.py) that JAX's band decoder leaves to the host
+// for subnormal or non-finite offsets, an extreme invScale or a sum that
+// underflows. Here they are native: z = off + q * invScale (__dmul_rn, then
+// __dadd_rn), then (zMax < z) ? zMax : z (std::min's pick, NaN included);
+// a diff record adds the pre-clamp sum (or the const offset) to the previous
+// slice with __dadd_rn and clamps the same way. Offsets of any reduced type
+// arrive from the scanner as f64; raw values are 8 bytes.
 //
 // One warp owns one block and walks its D records in order; lane `lane`
 // holds positions j = 32k + lane (k < VPL = MB*MB/32) and keeps the previous
@@ -286,8 +296,8 @@ int launch_decode_int(const uint8_t* words, long long n_bytes, const int* starts
 // positions only (:593). A diff record (mode >= 8) adds its offset (+ q *
 // invScale) to the previous slice: integers in int32, float32 as
 // (float)min(a + (double)prev, zMax) with a the pre-clamp f64 sum
-// offset + q * invScale (:650-698); a diff const-0 record copies the
-// previous slice.
+// offset + q * invScale (:650-698), float64 as min(a + prev, zMax); a diff
+// const-0 record copies the previous slice.
 //
 // ok drops where the host decoder (lerc2_decode.py:233-306, bitstuffer.py
 // :191-222) refuses the block: a stuffed count over the block's in-image
@@ -296,8 +306,8 @@ int launch_decode_int(const uint8_t* words, long long n_bytes, const int* starts
 // slice 0.
 //
 // Bound: bytes (the stream's `total` bytes and 32 B of descriptors per
-// record read once, 4*VPL B of validity words per masked block, the image
-// written once).
+// record read once (36 B with an f64 offset), 4*VPL B of validity words per
+// masked block, the image written once).
 // ---------------------------------------------------------------------------
 
 using lerc2::byte_clamped;
@@ -325,7 +335,8 @@ __global__ void decode_scanned_kernel(
         const int* __restrict__ zmax, double inv, int inv_i, int h, int w, int d, int nbh,
         int n_blocks, int size_t_, int is_signed, Tout* __restrict__ img, int* __restrict__ ok) {
     constexpr int VPL = MB * MB / 32;
-    using V = typename std::conditional<IS_INT, int, float>::type;
+    constexpr bool F64 = std::is_same<Tout, double>::value;
+    using V = typename std::conditional<IS_INT, int, Tout>::type;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int b = blockIdx.x * WARPS + warp;
     if (b >= n_blocks) return;  // warp-uniform
@@ -350,7 +361,8 @@ __global__ void decode_scanned_kernel(
         const int m = mode[r], m8 = m & 7, nb = num_bits[r], ne = num_elements[r];
         const bool dif = m >= 8, stuffed = m8 == 1 || m8 == 4;
         const long long pp = payload_pos[r];
-        const int off = offset[r];
+        const int off = F64 ? 0 : offset[r];
+        const double off64 = F64 ? reinterpret_cast<const double*>(offset)[r] : 0.0;
         const bool use_all = stuffed && ne == area;
         bad |= (stuffed && (ne > area || (ne != area && ne < cnt))) || (dif && (m8 == 0 || di == 0));
         if (m8 == 4) {  // every stuffed index must lie in the LUT (bitstuffer.py:220)
@@ -365,7 +377,8 @@ __global__ void decode_scanned_kernel(
             const bool e = (ew >> lane) & 1u, v = (vw[k] >> lane) & 1u;
             const int rank = base + __popc(ew & lt);
             base += __popc(ew);
-            uint32_t q = 0, word = 0;
+            uint32_t q = 0;
+            unsigned long long word = 0;
             if (e && stuffed) {
                 if (m8 == 4) {
                     const uint32_t idx = extract(s, n_bytes, pp, rank, nbits_lut[r]);
@@ -376,25 +389,36 @@ __global__ void decode_scanned_kernel(
             }
             if (m8 == 0 && v) {
                 const long long rb = pp + (long long)rank * size_t_;
-                for (int t = 0; t < size_t_; ++t) word |= byte_clamped(s, rb + t, n_bytes) << (8 * t);
+                for (int t = 0; t < size_t_; ++t)
+                    word |= (unsigned long long)byte_clamped(s, rb + t, n_bytes) << (8 * t);
             }
             const bool write = (m8 == 3 || m8 == 0) ? v : e;
             V z;
             if constexpr (IS_INT) {
                 const int zm = zmax[di];
                 const int a = (int)((uint32_t)off + q * (uint32_t)inv_i);
-                z = m8 == 0 ? lerc2::raw_int(word, size_t_, is_signed)
+                z = m8 == 0 ? lerc2::raw_int((uint32_t)word, size_t_, is_signed)
                   : m8 == 2 ? 0 : m8 == 3 ? off : min(a, zm);
                 if (dif) {  // :621-622, :643-644
                     const int ad = m8 == 3 ? off : a;
                     z = m8 == 2 ? prev[k] : min((int)((uint32_t)ad + (uint32_t)prev[k]), zm);
+                }
+            } else if constexpr (F64) {  // native f64: no narrowing
+                const double zm = reinterpret_cast<const double*>(zmax)[di];
+                const double a = __dadd_rn(off64, __dmul_rn((double)q, inv));
+                z = m8 == 0 ? __longlong_as_double((long long)word)
+                  : m8 == 2 ? 0.0 : m8 == 3 ? off64 : (zm < a ? zm : a);
+                if (dif) {
+                    const double ad = m8 == 3 ? off64 : a;
+                    const double t = __dadd_rn(ad, prev[k]);
+                    z = m8 == 2 ? prev[k] : (zm < t ? zm : t);
                 }
             } else {
                 const float offf = __int_as_float(off), zmf = __int_as_float(zmax[di]);
                 const double a = __dadd_rn((double)offf, __dmul_rn((double)q, inv));
                 float zs = __double2float_rn(a);
                 zs = zmf < zs ? zmf : zs;
-                z = m8 == 0 ? __uint_as_float(word) : m8 == 2 ? 0.f : m8 == 3 ? offf : zs;
+                z = m8 == 0 ? __uint_as_float((uint32_t)word) : m8 == 2 ? 0.f : m8 == 3 ? offf : zs;
                 if (dif) {  // :650-698
                     const double ad = m8 == 3 ? (double)offf : a;
                     float t = __double2float_rn(__dadd_rn(ad, (double)prev[k]));
@@ -481,7 +505,8 @@ extern "C" int decode_records_int(const uint8_t* words, long long n_bytes, const
     }
 }
 
-// K6: dt 0..5 or 6 (float32: offset and zmax hold f32 bits); mb 8 or 16;
+// K6: dt 0..5, 6 (float32: offset and zmax hold f32 bits) or 7 (float64:
+// offset [nRec] and zmax [D] are f64 arrays); mb 8 or 16;
 // valid: [nBlocks, mb*mb/32] u32 validity words, or null for an all-valid
 // image; ok: 1 int32 set to 1 by the caller
 extern "C" int decode_scanned(const uint8_t* words, long long n_bytes, const int* mode,
@@ -501,6 +526,7 @@ extern "C" int decode_scanned(const uint8_t* words, long long n_bytes, const int
         case 4: return launch_scanned_of<int32_t, true>(K6_ARGS);
         case 5: return launch_scanned_of<uint32_t, true>(K6_ARGS);
         case 6: return launch_scanned_of<float, false>(K6_ARGS);
+        case 7: return launch_scanned_of<double, false>(K6_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef K6_ARGS

@@ -50,8 +50,24 @@
 // bits (float) or what K2 subtracts (integers: the block min, or the diff
 // min).
 //
+// float64 (encode_blocks_f64 / write_records_f64, all-valid and masked, 8x8
+// blocks) replaces lerc_tpu/ops/device_f64.py::encode_tiles_f64 (:95), which
+// quantizes in double-single f32 pairs with a residual refinement, picks the
+// block offset's bits by a compound (hi, lo) key and routes records through
+// roll chains. Here the arithmetic is native f64, two values a lane: the
+// block min and max by shuffles, the offset the exact bits of the first valid
+// position holding the min; q = rint((x - zMin) * scale) in f64, clamped to
+// [0, 2^30], with the sign-directed +-1 fixup judged under the decoder's own
+// reconstruction zMin + q * (2 * maxZError), a candidate kept only when
+// strictly closer, so every decoded value lies within maxZError. JAX's wire
+// choices stay: the full 8-byte offset (flag bits 6-7 zero), no LUT, modes
+// const-0, stuffed (payload at byte 11), const-offset and raw (8 B a valid
+// value; forced when (zMax - zMin) * scale passes 2^30 - 1, :209-213), the
+// integrity bits. A raw record is 513 B; K2's buffer holds it.
+//
 // Build with --fmad=false: the float quantize fixup contracts exactly the
-// one multiply-add the reference contracts (written as __fmaf_rn).
+// one multiply-add the reference contracts (written as __fmaf_rn); the f64
+// quantization rounds each multiply and add apart (__dmul_rn, __dadd_rn).
 
 #include <climits>
 #include <cstdint>
@@ -114,6 +130,16 @@ __device__ __forceinline__ void atomic_min_z(float* a, float v) {
 __device__ __forceinline__ void atomic_max_z(float* a, float v) {
     if (__float_as_int(v) >= 0) atomicMax((int*)a, __float_as_int(v));
     else atomicMin((unsigned*)a, __float_as_uint(v));
+}
+__device__ __forceinline__ void atomic_min_z(double* a, double v) {
+    const long long b = __double_as_longlong(v);
+    if (b >= 0) atomicMin((long long*)a, b);
+    else atomicMax((unsigned long long*)a, (unsigned long long)b);
+}
+__device__ __forceinline__ void atomic_max_z(double* a, double v) {
+    const long long b = __double_as_longlong(v);
+    if (b >= 0) atomicMax((long long*)a, b);
+    else atomicMin((unsigned long long*)a, (unsigned long long)b);
 }
 __device__ __forceinline__ void atomic_min_z(int* a, int v) { atomicMin(a, v); }
 __device__ __forceinline__ void atomic_max_z(int* a, int v) { atomicMax(a, v); }
@@ -322,6 +348,9 @@ __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS]
                     if constexpr (std::is_same<Z, float>::value) {
                         l = fminf(l, s_min[k]);
                         h = fmaxf(h, s_max[k]);
+                    } else if constexpr (std::is_same<Z, double>::value) {
+                        l = fmin(l, s_min[k]);
+                        h = fmax(h, s_max[k]);
                     } else {
                         l = min(l, s_min[k]);
                         h = max(h, s_max[k]);
@@ -967,6 +996,171 @@ __global__ void write_records_lut_kernel(const T* __restrict__ data,
     flush_record(buf, s, length, lane, stream, cap_w);
 }
 
+// ---------------------------------------------------------------------------
+// float64: K1/K2 on 8x8 blocks, two values a lane (module comment)
+// ---------------------------------------------------------------------------
+
+struct EncP64 {
+    double scale, inv;  // 1 / (2 * maxZError), 2 * maxZError
+    int integ_mask;
+};
+
+// one quantized f64 value: q0 = rint((x - zmin) * scale) in [0, 2^30], and
+// q0 + sign(resid) when the decoder's reconstruction of it is strictly closer
+__device__ __forceinline__ uint32_t quantize_f64(double x, double zmin, double scale,
+                                                 double inv) {
+    const double q0 = fmin(fmax(rint(__dmul_rn(__dsub_rn(x, zmin), scale)), 0.0), 1073741824.0);
+    const double resid = __dsub_rn(x, __dadd_rn(zmin, __dmul_rn(q0, inv)));
+    const double sgn = resid > 0.0 ? 1.0 : (resid < 0.0 ? -1.0 : 0.0);
+    const double qc = fmin(fmax(__dadd_rn(q0, sgn), 0.0), 1073741824.0);
+    const double errc = fabs(__dsub_rn(x, __dadd_rn(zmin, __dmul_rn(qc, inv))));
+    return (uint32_t)(errc < fabs(resid) ? qc : q0);
+}
+
+// the block offset: the bits of the first valid position (32k + lane order)
+// whose value equals the block minimum; 0 without one
+__device__ __forceinline__ unsigned long long first_min_bits(double x0, double x1, bool ok0,
+                                                             bool ok1, double zmin) {
+    const uint32_t m0 = __ballot_sync(FULL, ok0 && x0 == zmin);
+    const uint32_t m1 = __ballot_sync(FULL, ok1 && x1 == zmin);
+    const int src = m0 ? __ffs(m0) - 1 : (m1 ? __ffs(m1) - 1 : 0);
+    const unsigned long long mine = (unsigned long long)__double_as_longlong(m0 ? x0 : x1);
+    const unsigned long long bits = __shfl_sync(FULL, mine, src);
+    return (m0 | m1) ? bits : 0ull;
+}
+
+template <bool MASKED>
+__global__ void encode_blocks_f64_kernel(const double* __restrict__ data,
+                                         const int2* __restrict__ valid, int w, int d, int nbh,
+                                         int n_rec, EncP64 P, int* __restrict__ rec_info,
+                                         double* __restrict__ zrange) {
+    __shared__ double s_min[WARPS], s_max[WARPS];
+    __shared__ int s_di[WARPS];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.x * WARPS + warp;
+    const bool live = r < n_rec;  // warp-uniform
+    double lo = 0.0, hi = 0.0;
+    int cnt = 0;
+    if (live) {
+        const int b = r / d, di = r % d;
+        uint32_t vw0 = FULL, vw1 = FULL;
+        cnt = 64;
+        if constexpr (MASKED) {
+            const int2 v = valid[b];
+            vw0 = (uint32_t)v.x;
+            vw1 = (uint32_t)v.y;
+            cnt = __popc(vw0) + __popc(vw1);
+        }
+        const bool ok0 = !MASKED || ((vw0 >> lane) & 1u);
+        const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
+        double x0, x1;
+        load_pair<double, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
+        double zmin = fmin(ok0 ? x0 : CUDART_INF, ok1 ? x1 : CUDART_INF);
+        double zmax = fmax(ok0 ? x0 : -CUDART_INF, ok1 ? x1 : -CUDART_INF);
+        for (int o = 16; o > 0; o >>= 1) {
+            zmin = fmin(zmin, __shfl_xor_sync(FULL, zmin, o));
+            zmax = fmax(zmax, __shfl_xor_sync(FULL, zmax, o));
+        }
+        if (MASKED && cnt == 0) zmin = zmax = 0.0;  // const-0 record
+        lo = zmin;
+        hi = zmax;
+        const unsigned long long off_bits = first_min_bits(x0, x1, ok0, ok1, zmin);
+        const double off = __longlong_as_double((long long)off_bits);
+        const uint32_t max_q = __reduce_max_sync(
+            FULL, max(ok0 ? quantize_f64(x0, off, P.scale, P.inv) : 0u,
+                      ok1 ? quantize_f64(x1, off, P.scale, P.inv) : 0u));
+        if (lane == 0) {
+            const int nb = bit_len(max_q);
+            const bool const0 = (MASKED && cnt == 0) || (zmin == 0.0 && zmax == 0.0);
+            const bool force_raw = __dmul_rn(__dsub_rn(zmax, zmin), P.scale) > 1073741823.0;
+            // [flag][offset 8 B][numBits | 0x80][count][payload]: count byte width 1
+            const int stuff_len = 9 + (max_q ? 2 + ((cnt * nb + 7) >> 3) : 0);
+            const int raw_len = 1 + 8 * cnt;
+            const bool use_stuff = !force_raw && stuff_len < raw_len;
+            const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+            const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+            const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
+            int* info = rec_info + 4 * (size_t)r;
+            info[0] = length;
+            info[1] = (integ | mode) | (mode << 8) | (nb << 16) | (8 << 24);
+            info[2] = (int)(uint32_t)off_bits;
+            info[3] = (int)(uint32_t)(off_bits >> 32);
+        }
+    }
+    merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
+                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange);
+}
+
+template <bool MASKED>
+__global__ void write_records_f64_kernel(const double* __restrict__ data,
+                                         const int2* __restrict__ valid, int w, int d, int nbh,
+                                         int n_rec, EncP64 P, const int* __restrict__ rec_info,
+                                         const int* __restrict__ starts,
+                                         uint32_t* __restrict__ stream, long long cap_w) {
+    constexpr int BUF_W = 132;  // record words: phase + 513 bytes (a raw record) + spill
+    __shared__ uint32_t buf_all[WARPS][BUF_W];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.x * WARPS + warp;
+    if (r >= n_rec) return;  // warp-uniform
+    uint32_t* buf = buf_all[warp];
+    for (int i = lane; i < BUF_W; i += 32) buf[i] = 0;
+    __syncwarp();
+
+    const int* info = rec_info + 4 * (size_t)r;
+    const int length = info[0], desc = info[1];
+    const int flag = desc & 0xFF, mode = (desc >> 8) & 3, nb = (desc >> 16) & 0xFF;
+    const unsigned long long off_bits =
+        (unsigned long long)(uint32_t)info[2] | ((unsigned long long)(uint32_t)info[3] << 32);
+    const long long s = starts[r];
+    const int sh = (int)(s & 3);
+    const int b = r / d, di = r % d;
+    uint32_t vw0 = FULL, vw1 = FULL;
+    int cnt = 64;
+    if constexpr (MASKED) {
+        const int2 v = valid[b];
+        vw0 = (uint32_t)v.x;
+        vw1 = (uint32_t)v.y;
+        cnt = __popc(vw0) + __popc(vw1);
+    }
+
+    if (lane == 0) {  // header: flag, offset (modes 1, 3), numBits byte and count (mode 1)
+        unsigned char* bytes = reinterpret_cast<unsigned char*>(buf) + sh;
+        bytes[0] = (unsigned char)flag;
+        if (mode == 1 || mode == 3)
+            for (int k = 0; k < 8; ++k) bytes[1 + k] = (unsigned char)(off_bits >> (8 * k));
+        if (mode == 1) {
+            bytes[9] = (unsigned char)(nb | 0x80);
+            bytes[10] = (unsigned char)cnt;
+        }
+    }
+    __syncwarp();
+
+    if (mode == 0 || mode == 1) {  // the valid values raw, or bit-stuffed quanta at byte 11
+        const bool ok0 = !MASKED || ((vw0 >> lane) & 1u);
+        const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
+        double x[2];
+        load_pair<double, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x[0], x[1]);
+        const double off = __longlong_as_double((long long)off_bits);
+        const uint32_t lt = (1u << lane) - 1u;
+        for (int k = 0; k < 2; ++k) {
+            if (!(k ? ok1 : ok0)) continue;
+            const int rank = !MASKED ? lane + 32 * k
+                           : (k == 0 ? __popc(vw0 & lt) : __popc(vw0) + __popc(vw1 & lt));
+            if (mode == 0) {
+                const unsigned long long v = (unsigned long long)__double_as_longlong(x[k]);
+                const int at = 8 * (sh + 1) + 64 * rank;
+                put_bits(buf, at, (uint32_t)v, 32);
+                put_bits(buf, at + 32, (uint32_t)(v >> 32), 32);
+            } else {
+                put_bits(buf, 8 * (sh + 11) + rank * nb, quantize_f64(x[k], off, P.scale, P.inv),
+                         nb);
+            }
+        }
+    }
+    __syncwarp();
+    flush_record(buf, s, length, lane, stream, cap_w);
+}
+
 // ---- launches
 
 // the LUT-free K1, 8x8 blocks; valid null for an aligned all-valid image
@@ -1149,4 +1343,42 @@ extern "C" int write_records_lut(const void* data, int is_int, const int* valid,
                                              cap_w, st)
                    : launch_k2_lut<float, 16>(data, valid, h, w, d, P, rec_info, starts, out,
                                               cap_w, st);
+}
+
+// float64, 8x8 blocks: valid [nBlocks, 2] u32 validity words (masks, edge
+// blocks) or null for an aligned all-valid image; scale = 1 / (2 * maxZError)
+// and inv = 2 * maxZError in f64; rec_info [nRec, 4] int32 = {length, desc,
+// offset bits low, high}; zrange [2D] f64 set to (+inf, -inf)
+extern "C" int encode_blocks_f64(const double* data, const int* valid, int h, int w, int d,
+                                 double scale, double inv, int integ_mask, int* rec_info,
+                                 double* zrange, void* stream) {
+    const int nbh = (w + 7) / 8;
+    const int n_rec = ((h + 7) / 8) * nbh * d;
+    const int grid = (n_rec + WARPS - 1) / WARPS;
+    const EncP64 P{scale, inv, integ_mask};
+    const int2* v = reinterpret_cast<const int2*>(valid);
+    if (valid)
+        encode_blocks_f64_kernel<true><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+            data, v, w, d, nbh, n_rec, P, rec_info, zrange);
+    else
+        encode_blocks_f64_kernel<false><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+            data, nullptr, w, d, nbh, n_rec, P, rec_info, zrange);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int write_records_f64(const double* data, const int* valid, int h, int w, int d,
+                                 double scale, double inv, const int* rec_info, const int* starts,
+                                 uint32_t* out, long long cap_w, void* stream) {
+    const int nbh = (w + 7) / 8;
+    const int n_rec = ((h + 7) / 8) * nbh * d;
+    const int grid = (n_rec + WARPS - 1) / WARPS;
+    const EncP64 P{scale, inv, 0};
+    const int2* v = reinterpret_cast<const int2*>(valid);
+    if (valid)
+        write_records_f64_kernel<true><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+            data, v, w, d, nbh, n_rec, P, rec_info, starts, out, cap_w);
+    else
+        write_records_f64_kernel<false><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+            data, nullptr, w, d, nbh, n_rec, P, rec_info, starts, out, cap_w);
+    return (int)cudaGetLastError();
 }

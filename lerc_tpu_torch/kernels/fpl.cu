@@ -1,36 +1,47 @@
-// F1-F3: lossless float32 (fpl, Lerc2 v6 "delta-delta Huffman",
+// F1-F3: lossless float32 and float64 (fpl, Lerc2 v6 "delta-delta Huffman",
 // fpl_Lerc2Ext.cpp:405-866).
 //
-// Replaces the float32 half of lerc_tpu/ops/device_fpl.py. The TPU version
-// builds each byte level as a whole shifted array, counts bins with nibble
-// matmuls, derives run lengths from cummax/cummin scans and splits each
-// prefix sum into 6-bit int32 limbs (exact only up to 2^25 elements); here a
-// byte level is one binomial sum per position, histograms are shared-memory
-// atomics, runs are compacted by per-chunk ranks, and the prefix sums are
-// chunked block scans in native u32, where the split-field add is
-// associative.
+// Replaces lerc_tpu/ops/device_fpl.py: its float32 half, and its float64
+// half (fpl_choose_device_f64 :300, fpl_finalize_device_f64 :344,
+// fpl_restore_device_f64 :407), which carries each double as two u32 limbs,
+// subtracts with a borrow across them and splits its prefix sums into 6-bit
+// limbs. The TPU version builds each byte level as a whole shifted array,
+// counts bins with nibble matmuls, derives run lengths from cummax/cummin
+// scans and splits each prefix sum into 6-bit int32 limbs (exact only up to
+// 2^25 elements); here a byte level is one binomial sum per position,
+// histograms are shared-memory atomics, runs are compacted by per-chunk
+// ranks, and the prefix sums are chunked block scans in native u32 or u64
+// words, where the split-field add is associative.
 //
-//   F1 fpl_sample_histograms   fpl_choose_device :123 (float_transform_dev :43,
-//                              apply_predictor_dev :58, _byte_deriv1 :70,
-//                              histogram256): one thread per counted position q
-//                              (every 7th of the flattened sample of every
-//                              stride-th row) and per predictor (grid y): the
-//                              predicted words at q-5..q, then for each plane and
-//                              level k the byte Delta^min(q,k) x[q], counted in
-//                              shared bins (24 KB a CTA), one global add per bin.
-//   F2 fpl_finalize            fpl_finalize_device :168: a CTA stages the
+// One template per kernel serves both word types (Word32, Word64 below):
+// float32 words are float-transformed (exponent above sign above the 23-bit
+// mantissa; split fields 23 + 9 bits) and make 4 byte planes; float64 words
+// are the raw bits (no transform; split fields 52 + 12 bits) and make 8.
+//
+//   F1 fpl_sample_histograms   fpl_choose_device :123 / _f64 :300 (float_transform_dev
+//                              :43, apply_predictor_dev :58 / apply_predictor64_dev
+//                              :285, _byte_deriv1 :70, histogram256): one thread per
+//                              counted position q (every 7th of the flattened sample
+//                              of every stride-th row) and per predictor and group
+//                              of 4 planes (grid y): the predicted words at q-5..q,
+//                              then for each plane and level k the byte
+//                              Delta^min(q,k) x[q], counted in shared bins (24 KB a
+//                              CTA), one global add per bin.
+//   F2 fpl_finalize            fpl_finalize_device :168 / _f64 :344: a CTA stages the
 //                              predicted words of 1024 positions and the 5 before
 //                              them in shared memory; each position writes its
-//                              four plane bytes at their levels and counts them.
-//   F2b fpl_packbits_size      packbits_size_device :88: per plane, run starts
-//                              counted per 2048-byte chunk, the counts scanned
-//                              by one CTA, the starts scattered at their ranks;
-//                              each run then reads its start, its successor's and
-//                              its predecessor's, and adds its repeat segments,
-//                              literal and literal-stretch opening to three
-//                              sums; one thread per plane applies JAX's formula.
-//   F3 fpl_restore             fpl_restore_device :235 (_cumsum_mod_dev :202,
-//                              split_cumsum_dev :218, undo_float_transform_dev
+//                              plane bytes at their levels and counts them.
+//   F2b fpl_packbits_size      packbits_size_device :88, over 4 or 8 planes: per
+//                              plane, run starts counted per 2048-byte chunk, the
+//                              counts scanned by one CTA, the starts scattered at
+//                              their ranks; each run then reads its start, its
+//                              successor's and its predecessor's, and adds its
+//                              repeat segments, literal and literal-stretch opening
+//                              to three sums; one thread per plane applies JAX's
+//                              formula.
+//   F3 fpl_restore             fpl_restore_device :235 / _f64 :407 (_cumsum_mod_dev
+//                              :202, split_cumsum_dev :218 / split_cumsum64_dev
+//                              :398, _cumsum_mod52_pair :366, undo_float_transform_dev
 //                              :227): for each level from the highest down, a
 //                              chunked scan mod 256 of each plane from index
 //                              level - 1 (chunk sums, one CTA scans them per
@@ -42,25 +53,26 @@
 //                              the rows; the transform undone on the way out.
 //
 // Bounds: bytes. F1 reads a sample of about 2^19 words; F2 reads each word
-// once (its neighbours from cache) and writes four bytes; F2b and F3 read and
-// write each plane byte a few times. The scans' carry passes are serial over
-// chunk counts (n / 4096 per plane, rows / 256 per column), not over values.
+// once (its neighbours from cache) and writes one byte a plane; F2b and F3
+// read and write each plane byte a few times. The scans' carry passes are
+// serial over chunk counts (n / 4096 per plane, rows / 256 per column), not
+// over values.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"  // Seg, Sum, block_excl, block_seg_excl
+#include "block_scan.cuh"  // SegT, Sum, block_excl, block_seg_excl
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned MANT = 0x7FFFFFu;
 constexpr int MAX_DELTA = 5;
 constexpr int PRIME_MULT = 7;
+constexpr int MAX_PLANES = 8;
 constexpr int NB = 256;                   // threads per CTA
 constexpr int WARPS = NB / 32;
 constexpr int MAX_GRID = 1056;            // 8 CTAs on each of 132 SMs (grid-stride beyond)
-constexpr int HIST = 4 * (MAX_DELTA + 1) * 256;
+constexpr int HIST = 4 * (MAX_DELTA + 1) * 256;  // one CTA's bins: 4 planes x 6 levels
 constexpr int FIN_ITEMS = 4, FIN_TILE = NB * FIN_ITEMS;
 constexpr int PB_ITEMS = 8, PB_CHUNK = NB * PB_ITEMS;
 constexpr int SC_ITEMS = 16, SC_CHUNK = NB * SC_ITEMS;
@@ -77,7 +89,7 @@ __constant__ unsigned COEF[MAX_DELTA + 1][MAX_DELTA + 1] = {
 };
 
 struct Levels {
-    int v[4];
+    int v[MAX_PLANES];
 };
 
 unsigned grid_of(long long n, int per) {
@@ -85,43 +97,66 @@ unsigned grid_of(long long n, int per) {
     return (unsigned)(g < 1 ? 1 : g < MAX_GRID ? g : MAX_GRID);
 }
 
-__device__ __forceinline__ unsigned ftransform(unsigned u) {
-    return (u & MANT) | (((u >> 23) & 0xFFu) << 24) | ((u >> 31) << 23);
+// float32: the float transform (fpl_UnitTypes.cpp:39-81), mantissa 23 bits,
+// exponent+sign 9 bits, 4 planes
+struct Word32 {
+    using W = unsigned;
+    static constexpr int PLANES = 4, MBITS = 23;
+    static constexpr W MANT = 0x7FFFFFu, HI = 0x1FFu;
+    __device__ static W load(const W* data, long long i) {
+        const W u = data[i];
+        return (u & MANT) | (((u >> 23) & 0xFFu) << 24) | ((u >> 31) << 23);
+    }
+    __device__ static W store(W u) {
+        return (u & MANT) | (((u >> 24) & 0xFFu) << 23) | (((u >> 23) & 1u) << 31);
+    }
+};
+
+// float64: the raw bits (no transform), mantissa 52 bits, exponent+sign 12
+// bits, 8 planes
+struct Word64 {
+    using W = unsigned long long;
+    static constexpr int PLANES = 8, MBITS = 52;
+    static constexpr W MANT = (1ull << 52) - 1ull, HI = 0xFFFull;
+    __device__ static W load(const W* data, long long i) { return data[i]; }
+    __device__ static W store(W u) { return u; }
+};
+
+// split-field arithmetic: mantissa and exponent+sign wrap apart
+template <class P>
+__device__ __forceinline__ typename P::W ssub(typename P::W a, typename P::W b) {
+    return ((a - b) & P::MANT) | ((((a >> P::MBITS) - (b >> P::MBITS)) & P::HI) << P::MBITS);
 }
 
-__device__ __forceinline__ unsigned untransform(unsigned u) {
-    return (u & MANT) | (((u >> 24) & 0xFFu) << 23) | (((u >> 23) & 1u) << 31);
-}
-
-// split-field arithmetic: mantissa mod 2^23 and exponent+sign mod 2^9 apart
-__device__ __forceinline__ unsigned ssub(unsigned a, unsigned b) {
-    return ((a - b) & MANT) | ((((a >> 23) - (b >> 23)) & 0x1FFu) << 23);
-}
-
-__device__ __forceinline__ unsigned sadd(unsigned a, unsigned b) {
-    return ((a + b) & MANT) | ((((a >> 23) + (b >> 23)) & 0x1FFu) << 23);
+template <class P>
+__device__ __forceinline__ typename P::W sadd(typename P::W a, typename P::W b) {
+    return ((a + b) & P::MANT) | ((((a >> P::MBITS) + (b >> P::MBITS)) & P::HI) << P::MBITS);
 }
 
 // the predicted word at (row r, column c) of the [rows, cols] word image;
 // rup is the row predictor 2 subtracts (-1: none)
-__device__ __forceinline__ unsigned predicted(const unsigned* __restrict__ data, int cols,
-                                              long long r, long long rup, int c, int pred) {
+template <class P>
+__device__ __forceinline__ typename P::W predicted(const typename P::W* __restrict__ data,
+                                                   int cols, long long r, long long rup, int c,
+                                                   int pred) {
+    using W = typename P::W;
     const long long i = r * cols + c;
-    const unsigned x = ftransform(data[i]);
+    const W x = P::load(data, i);
     if (pred == 0) return x;
-    const unsigned d1 = c > 0 ? ssub(x, ftransform(data[i - 1])) : x;
+    const W d1 = c > 0 ? ssub<P>(x, P::load(data, i - 1)) : x;
     if (pred == 1 || rup < 0) return d1;
     const long long j = rup * cols + c;
-    const unsigned u = ftransform(data[j]);
-    return ssub(d1, c > 0 ? ssub(u, ftransform(data[j - 1])) : u);
+    const W u = P::load(data, j);
+    return ssub<P>(d1, c > 0 ? ssub<P>(u, P::load(data, j - 1)) : u);
 }
 
 // byte b of level k from the words w[0] = x[q], w[j] = x[q - j] (j <= kk)
-__device__ __forceinline__ unsigned level_byte(const unsigned* w, int b, int kk) {
+template <class W>
+__device__ __forceinline__ unsigned level_byte(const W* w, int b, int kk) {
     unsigned v = 0;
 #pragma unroll
     for (int j = 0; j <= MAX_DELTA; ++j)
-        if (j <= kk) v += COEF[kk][j] * ((w[j] >> (8 * b)) & 0xFFu);
+        if (j <= kk) v += COEF[kk][j] * (unsigned)((w[j] >> (8 * b)) & 0xFFu);
     return v & 0xFFu;
 }
 
@@ -129,20 +164,24 @@ __device__ __forceinline__ unsigned level_byte(const unsigned* w, int b, int kk)
 // block scans (block_scan.cuh) under the split-field add
 // ---------------------------------------------------------------------------
 
+template <class P>
 struct SplitAdd {
-    __device__ static unsigned f(unsigned a, unsigned b) { return sadd(a, b); }
+    using T = typename P::W;
+    __device__ static T f(T a, T b) { return sadd<P>(a, b); }
 };
 
 // in place: x[k * step] (k < count) becomes the exclusive prefix of the
-// sequence under Op; one CTA walks it in tiles of NB; sm holds 2 * (WARPS + 1) words
+// sequence under Op; one CTA walks it in tiles of NB; sm holds 2 * (WARPS + 1) values
 template <class Op>
-__device__ void block_scan_in_place(unsigned* x, long long count, long long step, unsigned* sm) {
-    unsigned carry = 0;
+__device__ void block_scan_in_place(typename Op::T* x, long long count, long long step,
+                                    typename Op::T* sm) {
+    using T = typename Op::T;
+    T carry = 0;
     for (long long k0 = 0; k0 < count; k0 += NB) {
         const long long k = k0 + threadIdx.x;
-        const unsigned v = k < count ? x[k * step] : 0u;
-        unsigned tot;
-        const unsigned ex = block_excl<NB, Op>(v, tot, sm);
+        const T v = k < count ? x[k * step] : T(0);
+        T tot;
+        const T ex = block_excl<NB, Op>(v, tot, sm);
         if (k < count) x[k * step] = Op::f(carry, ex);
         carry = Op::f(carry, tot);
     }
@@ -152,11 +191,15 @@ __device__ void block_scan_in_place(unsigned* x, long long count, long long step
 // F1
 // ---------------------------------------------------------------------------
 
+// grid y: predictor * (planes / 4) + plane group; the CTA counts 4 planes
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_sample_histograms_kernel(
-        const unsigned* __restrict__ data, int cols, int stride, long long m,
+        const typename P::W* __restrict__ data, int cols, int stride, long long m,
         int* __restrict__ hist) {
+    using W = typename P::W;
+    constexpr int GROUPS = P::PLANES / 4;
     __shared__ unsigned bins[HIST];
-    const int pred = blockIdx.y;
+    const int pred = blockIdx.y / GROUPS, b0 = 4 * (blockIdx.y % GROUPS);
     for (int i = threadIdx.x; i < HIST; i += NB) bins[i] = 0;
     __syncthreads();
     const long long n_cnt = (m + PRIME_MULT - 1) / PRIME_MULT;
@@ -164,38 +207,41 @@ __global__ void __launch_bounds__(NB) fpl_sample_histograms_kernel(
          t += (long long)gridDim.x * NB) {
         const long long q = t * PRIME_MULT;
         const int kmax = q < MAX_DELTA ? (int)q : MAX_DELTA;
-        unsigned w[MAX_DELTA + 1];
+        W w[MAX_DELTA + 1];
 #pragma unroll
         for (int j = 0; j <= MAX_DELTA; ++j) {
             w[j] = 0;
             if (j <= kmax) {
                 const long long s = q - j, sr = s / cols;
-                w[j] = predicted(data, cols, sr * stride, sr > 0 ? (sr - 1) * stride : -1,
-                                 (int)(s - sr * cols), pred);
+                w[j] = predicted<P>(data, cols, sr * stride, sr > 0 ? (sr - 1) * stride : -1,
+                                    (int)(s - sr * cols), pred);
             }
         }
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
+        for (int bb = 0; bb < 4; ++bb)
 #pragma unroll
             for (int k = 0; k <= MAX_DELTA; ++k)
-                atomicAdd(&bins[(b * (MAX_DELTA + 1) + k) * 256
-                                + level_byte(w, b, k < kmax ? k : kmax)], 1u);
+                atomicAdd(&bins[(bb * (MAX_DELTA + 1) + k) * 256
+                                + level_byte(w, b0 + bb, k < kmax ? k : kmax)], 1u);
     }
     __syncthreads();
+    int* out = hist + ((long long)pred * P::PLANES + b0) * (MAX_DELTA + 1) * 256;
     for (int i = threadIdx.x; i < HIST; i += NB)
-        if (bins[i]) atomicAdd(&hist[pred * HIST + i], (int)bins[i]);
+        if (bins[i]) atomicAdd(&out[i], (int)bins[i]);
 }
 
 // ---------------------------------------------------------------------------
 // F2
 // ---------------------------------------------------------------------------
 
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_finalize_kernel(
-        const unsigned* __restrict__ data, long long n, int cols, int pred, Levels lv,
+        const typename P::W* __restrict__ data, long long n, int cols, int pred, Levels lv,
         uint8_t* __restrict__ planes, long long pstride, int* __restrict__ histos) {
-    __shared__ unsigned pw[FIN_TILE + MAX_DELTA];
-    __shared__ unsigned bins[4 * 256];
-    for (int i = threadIdx.x; i < 4 * 256; i += NB) bins[i] = 0;
+    using W = typename P::W;
+    __shared__ W pw[FIN_TILE + MAX_DELTA];
+    __shared__ unsigned bins[P::PLANES * 256];
+    for (int i = threadIdx.x; i < P::PLANES * 256; i += NB) bins[i] = 0;
     for (long long base = (long long)blockIdx.x * FIN_TILE; base < n;
          base += (long long)gridDim.x * FIN_TILE) {
         __syncthreads();  // the last tile's words are read
@@ -203,7 +249,7 @@ __global__ void __launch_bounds__(NB) fpl_finalize_kernel(
             const long long i = base - MAX_DELTA + k;
             if (i >= 0 && i < n) {
                 const long long r = i / cols;
-                pw[k] = predicted(data, cols, r, r - 1, (int)(i - r * cols), pred);
+                pw[k] = predicted<P>(data, cols, r, r - 1, (int)(i - r * cols), pred);
             }
         }
         __syncthreads();
@@ -211,11 +257,11 @@ __global__ void __launch_bounds__(NB) fpl_finalize_kernel(
             const int k = it * NB + threadIdx.x;
             const long long i = base + k;
             if (i >= n) break;
-            unsigned w[MAX_DELTA + 1];
+            W w[MAX_DELTA + 1];
 #pragma unroll
-            for (int j = 0; j <= MAX_DELTA; ++j) w[j] = j <= i ? pw[k + MAX_DELTA - j] : 0u;
+            for (int j = 0; j <= MAX_DELTA; ++j) w[j] = j <= i ? pw[k + MAX_DELTA - j] : W(0);
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
+            for (int b = 0; b < P::PLANES; ++b) {
                 const int kk = (long long)lv.v[b] < i ? lv.v[b] : (int)i;
                 const unsigned v = level_byte(w, b, kk);
                 planes[b * pstride + i] = (uint8_t)v;
@@ -224,12 +270,12 @@ __global__ void __launch_bounds__(NB) fpl_finalize_kernel(
         }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < 4 * 256; i += NB)
+    for (int i = threadIdx.x; i < P::PLANES * 256; i += NB)
         if (bins[i]) atomicAdd(&histos[i], (int)bins[i]);
 }
 
 // ---------------------------------------------------------------------------
-// F2b
+// F2b (grid y or x: one plane each)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool run_start(const uint8_t* p, long long i, long long n) {
@@ -318,10 +364,10 @@ __global__ void __launch_bounds__(NB) fpl_pb_sum_kernel(
     }
 }
 
-__global__ void fpl_pb_finish_kernel(const unsigned long long* __restrict__ sums,
+__global__ void fpl_pb_finish_kernel(const unsigned long long* __restrict__ sums, int n_planes,
                                      int* __restrict__ sizes) {
     const int b = threadIdx.x;
-    if (b < 4) {
+    if (b < n_planes) {
         const unsigned long long segs = sums[3 * b], lit = sums[3 * b + 1],
                                  stretch = sums[3 * b + 2];
         sizes[b] = (int)(2 * segs + lit + stretch + lit / 128);
@@ -384,39 +430,48 @@ __global__ void __launch_bounds__(NB) fpl_restore_level_apply_kernel(
     }
 }
 
+template <class P>
 __global__ void fpl_restore_words_kernel(const uint8_t* __restrict__ work, long long pstride,
-                                         long long n, unsigned* __restrict__ words) {
+                                         long long n, typename P::W* __restrict__ words) {
+    using W = typename P::W;
     for (long long i = (long long)blockIdx.x * NB + threadIdx.x; i < n;
-         i += (long long)gridDim.x * NB)
-        words[i] = (unsigned)work[i] | (unsigned)work[pstride + i] << 8
-                 | (unsigned)work[2 * pstride + i] << 16 | (unsigned)work[3 * pstride + i] << 24;
+         i += (long long)gridDim.x * NB) {
+        W v = 0;
+#pragma unroll
+        for (int b = 0; b < P::PLANES; ++b) v |= (W)work[b * pstride + i] << (8 * b);
+        words[i] = v;
+    }
 }
 
-__global__ void fpl_restore_untransform_kernel(const unsigned* __restrict__ words, long long n,
-                                               unsigned* __restrict__ out) {
+template <class P>
+__global__ void fpl_restore_untransform_kernel(const typename P::W* __restrict__ words,
+                                               long long n, typename P::W* __restrict__ out) {
     for (long long i = (long long)blockIdx.x * NB + threadIdx.x; i < n;
          i += (long long)gridDim.x * NB)
-        out[i] = untransform(words[i]);
+        out[i] = P::store(words[i]);
 }
 
 // predictor 2, down the columns: part[t * cols + c] = the split sum of column
 // c over row tile t (COL_TILE rows; a warp per COL_ROWS-row strip, lanes on columns)
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_col_sums_kernel(
-        const unsigned* __restrict__ words, long long rows, int cols, unsigned* __restrict__ part) {
-    __shared__ unsigned sm[WARPS][32];
+        const typename P::W* __restrict__ words, long long rows, int cols,
+        typename P::W* __restrict__ part) {
+    using W = typename P::W;
+    __shared__ W sm[WARPS][32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const long long r0 = (long long)blockIdx.x * COL_TILE + warp * COL_ROWS;
     for (long long ct = blockIdx.y; ct * 32 < cols; ct += gridDim.y) {
         const long long c = ct * 32 + lane;
-        unsigned s = 0;
+        W s = 0;
         if (c < cols)
             for (long long r = r0; r < r0 + COL_ROWS && r < rows; ++r)
-                s = sadd(s, words[r * cols + c]);
+                s = sadd<P>(s, words[r * cols + c]);
         sm[warp][lane] = s;
         __syncthreads();
         if (warp == 0 && c < cols) {
-            unsigned t = 0;
-            for (int k = 0; k < WARPS; ++k) t = sadd(t, sm[k][lane]);
+            W t = 0;
+            for (int k = 0; k < WARPS; ++k) t = sadd<P>(t, sm[k][lane]);
             part[blockIdx.x * (long long)cols + c] = t;
         }
         __syncthreads();
@@ -424,32 +479,35 @@ __global__ void __launch_bounds__(NB) fpl_restore_col_sums_kernel(
 }
 
 // one CTA per column: its row tiles' sums -> exclusive prefixes in place
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_col_carry_kernel(
-        unsigned* __restrict__ part, long long n_tiles, int cols) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
+        typename P::W* __restrict__ part, long long n_tiles, int cols) {
+    __shared__ typename P::W sm[2 * (WARPS + 1)];
     for (long long c = blockIdx.x; c < cols; c += gridDim.x)
-        block_scan_in_place<SplitAdd>(part + c, n_tiles, cols, sm);
+        block_scan_in_place<SplitAdd<P>>(part + c, n_tiles, cols, sm);
 }
 
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_col_apply_kernel(
-        unsigned* __restrict__ words, long long rows, int cols,
-        const unsigned* __restrict__ carry) {
-    __shared__ unsigned sm[WARPS][32];
+        typename P::W* __restrict__ words, long long rows, int cols,
+        const typename P::W* __restrict__ carry) {
+    using W = typename P::W;
+    __shared__ W sm[WARPS][32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const long long r0 = (long long)blockIdx.x * COL_TILE + warp * COL_ROWS;
     for (long long ct = blockIdx.y; ct * 32 < cols; ct += gridDim.y) {
         const long long c = ct * 32 + lane;
-        unsigned s = 0;
+        W s = 0;
         if (c < cols)
             for (long long r = r0; r < r0 + COL_ROWS && r < rows; ++r)
-                s = sadd(s, words[r * cols + c]);
+                s = sadd<P>(s, words[r * cols + c]);
         sm[warp][lane] = s;
         __syncthreads();
         if (c < cols) {
-            unsigned acc = carry[blockIdx.x * (long long)cols + c];
-            for (int k = 0; k < warp; ++k) acc = sadd(acc, sm[k][lane]);
+            W acc = carry[blockIdx.x * (long long)cols + c];
+            for (int k = 0; k < warp; ++k) acc = sadd<P>(acc, sm[k][lane]);
             for (long long r = r0; r < r0 + COL_ROWS && r < rows; ++r) {
-                acc = sadd(acc, words[r * cols + c]);
+                acc = sadd<P>(acc, words[r * cols + c]);
                 words[r * cols + c] = acc;
             }
         }
@@ -458,23 +516,28 @@ __global__ void __launch_bounds__(NB) fpl_restore_col_apply_kernel(
 }
 
 // predictors 1 and 2, along the rows: a flat scan of (row start, word) pairs
-__device__ __forceinline__ Seg thread_row_seg(const unsigned* __restrict__ words, long long i0,
-                                              long long n, int cols) {
-    Seg s = {0, 0};
+template <class P>
+__device__ __forceinline__ SegT<typename P::W> thread_row_seg(
+        const typename P::W* __restrict__ words, long long i0, long long n, int cols) {
+    using S = SegT<typename P::W>;
+    S s = {0u, 0};
     long long c = i0 % cols;
     for (int j = 0; j < SC_ITEMS && i0 + j < n; ++j) {
-        s = seg_combine<SplitAdd>(s, {c == 0, words[i0 + j]});
+        s = seg_combine<SplitAdd<P>>(s, S{c == 0, words[i0 + j]});
         if (++c == cols) c = 0;
     }
     return s;
 }
 
+// part[2k], part[2k + 1]: chunk k's (flag, value)
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_row_sums_kernel(
-        const unsigned* __restrict__ words, long long n, int cols, unsigned* __restrict__ part) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
+        const typename P::W* __restrict__ words, long long n, int cols,
+        typename P::W* __restrict__ part) {
+    __shared__ typename P::W sm[2 * (WARPS + 1)];
     const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    Seg tot;
-    block_seg_excl<NB, SplitAdd>(thread_row_seg(words, i0, n, cols), tot, sm);
+    SegT<typename P::W> tot;
+    block_seg_excl<NB, SplitAdd<P>>(thread_row_seg<P>(words, i0, n, cols), tot, sm);
     if (threadIdx.x == 0) {
         part[2 * (long long)blockIdx.x] = tot.f;
         part[2 * (long long)blockIdx.x + 1] = tot.v;
@@ -482,127 +545,194 @@ __global__ void __launch_bounds__(NB) fpl_restore_row_sums_kernel(
 }
 
 // one CTA: the chunks' pairs -> exclusive prefixes in place
-__global__ void __launch_bounds__(NB) fpl_restore_row_carry_kernel(unsigned* __restrict__ part,
-                                                                  long long n_chunks) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    Seg carry = {0, 0};
+template <class P>
+__global__ void __launch_bounds__(NB) fpl_restore_row_carry_kernel(
+        typename P::W* __restrict__ part, long long n_chunks) {
+    using W = typename P::W;
+    using S = SegT<W>;
+    __shared__ W sm[2 * (WARPS + 1)];
+    S carry = {0u, 0};
     for (long long k0 = 0; k0 < n_chunks; k0 += NB) {
         const long long k = k0 + threadIdx.x;
-        const Seg v = k < n_chunks ? Seg{part[2 * k], part[2 * k + 1]} : Seg{0, 0};
-        Seg tot;
-        const Seg ex = seg_combine<SplitAdd>(carry, block_seg_excl<NB, SplitAdd>(v, tot, sm));
+        const S v = k < n_chunks ? S{(unsigned)part[2 * k], part[2 * k + 1]} : S{0u, 0};
+        S tot;
+        const S ex = seg_combine<SplitAdd<P>>(carry, block_seg_excl<NB, SplitAdd<P>>(v, tot, sm));
         if (k < n_chunks) {
             part[2 * k] = ex.f;
             part[2 * k + 1] = ex.v;
         }
-        carry = seg_combine<SplitAdd>(carry, tot);
+        carry = seg_combine<SplitAdd<P>>(carry, tot);
     }
 }
 
+template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_row_apply_kernel(
-        const unsigned* __restrict__ words, long long n, int cols,
-        const unsigned* __restrict__ carry,
-        unsigned* __restrict__ out) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
+        const typename P::W* __restrict__ words, long long n, int cols,
+        const typename P::W* __restrict__ carry, typename P::W* __restrict__ out) {
+    using W = typename P::W;
+    using S = SegT<W>;
+    __shared__ W sm[2 * (WARPS + 1)];
     const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    Seg tot;
-    const Seg ex = block_seg_excl<NB, SplitAdd>(thread_row_seg(words, i0, n, cols), tot, sm);
+    S tot;
+    const S ex = block_seg_excl<NB, SplitAdd<P>>(thread_row_seg<P>(words, i0, n, cols), tot, sm);
     const long long k = blockIdx.x;
-    Seg acc = seg_combine<SplitAdd>({carry[2 * k], carry[2 * k + 1]}, ex);
+    S acc = seg_combine<SplitAdd<P>>(S{(unsigned)carry[2 * k], carry[2 * k + 1]}, ex);
     long long c = i0 % cols;
     for (int j = 0; j < SC_ITEMS && i0 + j < n; ++j) {
-        acc = seg_combine<SplitAdd>(acc, {c == 0, words[i0 + j]});
-        out[i0 + j] = untransform(acc.v);
+        acc = seg_combine<SplitAdd<P>>(acc, S{c == 0, words[i0 + j]});
+        out[i0 + j] = P::store(acc.v);
         if (++c == cols) c = 0;
     }
 }
 
 long long chunks(long long n, int per) { return (n + per - 1) / per; }
 
+Levels levels_of(const int* lv, int n_planes) {
+    Levels out = {};
+    for (int b = 0; b < n_planes; ++b) out.v[b] = lv[b];
+    return out;
+}
+
+template <class P>
+int launch_sample_histograms(const typename P::W* data, long long rows, int cols, int stride,
+                             long long m, int* hist, cudaStream_t st) {
+    if (rows * cols == 0) return 0;
+    const long long n_cnt = (m + PRIME_MULT - 1) / PRIME_MULT;
+    fpl_sample_histograms_kernel<P><<<dim3(grid_of(n_cnt, NB), 3 * (P::PLANES / 4)), NB, 0, st>>>(
+        data, cols, stride, m, hist);
+    return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_finalize(const typename P::W* data, long long n, int cols, int pred, const Levels& lv,
+                    uint8_t* planes, long long pstride, int* histos, cudaStream_t st) {
+    if (n == 0) return 0;
+    fpl_finalize_kernel<P><<<grid_of(n, FIN_TILE), NB, 0, st>>>(data, n, cols, pred, lv, planes,
+                                                                  pstride, histos);
+    return (int)cudaGetLastError();
+}
+
+// u32 words (float32) or u64 words (float64) of scratch the restore needs
+long long restore_scratch(long long n, long long rows, int cols, int n_planes) {
+    const long long nc = chunks(n, SC_CHUNK);
+    long long s = n_planes * nc;  // the level undo's chunk sums (u32, in fewer words)
+    if (2 * nc > s) s = 2 * nc;
+    if (chunks(rows, COL_TILE) * cols > s) s = chunks(rows, COL_TILE) * cols;
+    return s < 1 ? 1 : s;
+}
+
+template <class P>
+int launch_restore(uint8_t* work, long long pstride, long long n, long long rows, int cols,
+                   int pred, const Levels& lv, typename P::W* part, typename P::W* words,
+                   typename P::W* out, cudaStream_t st) {
+    if (n == 0) return 0;
+    int top = 0;
+    for (int b = 0; b < P::PLANES; ++b) top = lv.v[b] > top ? lv.v[b] : top;
+    const long long nc = chunks(n, SC_CHUNK);
+    unsigned* lpart = reinterpret_cast<unsigned*>(part);
+    for (int lev = top; lev >= 1; --lev) {
+        fpl_restore_level_sums_kernel<<<dim3((unsigned)nc, P::PLANES), NB, 0, st>>>(
+            work, pstride, n, nc, lev, lv, lpart);
+        fpl_restore_level_carry_kernel<<<P::PLANES, NB, 0, st>>>(lpart, nc, lev, lv);
+        fpl_restore_level_apply_kernel<<<dim3((unsigned)nc, P::PLANES), NB, 0, st>>>(
+            work, pstride, n, nc, lev, lv, lpart);
+    }
+    fpl_restore_words_kernel<P><<<grid_of(n, NB * 8), NB, 0, st>>>(work, pstride, n, words);
+    if (pred == 2) {
+        const long long nt = chunks(rows, COL_TILE);
+        const long long ct = chunks(cols, 32);
+        const dim3 grid((unsigned)nt, (unsigned)(ct < 65535 ? ct : 65535));
+        fpl_restore_col_sums_kernel<P><<<grid, NB, 0, st>>>(words, rows, cols, part);
+        fpl_restore_col_carry_kernel<P>
+            <<<(unsigned)(cols < MAX_GRID ? cols : MAX_GRID), NB, 0, st>>>(part, nt, cols);
+        fpl_restore_col_apply_kernel<P><<<grid, NB, 0, st>>>(words, rows, cols, part);
+    }
+    if (pred >= 1) {
+        fpl_restore_row_sums_kernel<P><<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part);
+        fpl_restore_row_carry_kernel<P><<<1, NB, 0, st>>>(part, nc);
+        fpl_restore_row_apply_kernel<P><<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part, out);
+    } else {
+        fpl_restore_untransform_kernel<P><<<grid_of(n, NB * 8), NB, 0, st>>>(words, n, out);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // data [rows * cols] float32 bits; hist int32 [3, 4, 6, 256], zeroed
 extern "C" int fpl_sample_histograms(const unsigned* data, long long rows, int cols, int stride,
                                      long long m, int* hist, void* stream) {
-    if (rows * cols == 0) return 0;
-    const long long n_cnt = (m + PRIME_MULT - 1) / PRIME_MULT;
-    fpl_sample_histograms_kernel<<<dim3(grid_of(n_cnt, NB), 3), NB, 0, (cudaStream_t)stream>>>(
-        data, cols, stride, m, hist);
-    return (int)cudaGetLastError();
+    return launch_sample_histograms<Word32>(data, rows, cols, stride, m, hist,
+                                            (cudaStream_t)stream);
 }
 
-// planes u8 [4, pstride], zeroed; histos int32 [4, 256], zeroed
-extern "C" int fpl_finalize(const unsigned* data, long long n, int cols, int pred, int lv0, int lv1,
-                            int lv2, int lv3, uint8_t* planes, long long pstride, int* histos,
+// data [rows * cols] float64 bits; hist int32 [3, 8, 6, 256], zeroed
+extern "C" int fpl_sample_histograms_f64(const unsigned long long* data, long long rows, int cols,
+                                         int stride, long long m, int* hist, void* stream) {
+    return launch_sample_histograms<Word64>(data, rows, cols, stride, m, hist,
+                                            (cudaStream_t)stream);
+}
+
+// levels [4] on the host; planes u8 [4, pstride], zeroed; histos int32 [4, 256], zeroed
+extern "C" int fpl_finalize(const unsigned* data, long long n, int cols, int pred,
+                            const int* levels, uint8_t* planes, long long pstride, int* histos,
                             void* stream) {
-    if (n == 0) return 0;
-    const Levels lv = {{lv0, lv1, lv2, lv3}};
-    fpl_finalize_kernel<<<grid_of(n, FIN_TILE), NB, 0, (cudaStream_t)stream>>>(
-        data, n, cols, pred, lv, planes, pstride, histos);
-    return (int)cudaGetLastError();
+    return launch_finalize<Word32>(data, n, cols, pred, levels_of(levels, 4), planes, pstride,
+                                   histos, (cudaStream_t)stream);
+}
+
+// float64: levels [8] on the host; planes u8 [8, pstride], zeroed; histos
+// int32 [8, 256], zeroed
+extern "C" int fpl_finalize_f64(const unsigned long long* data, long long n, int cols, int pred,
+                                const int* levels, uint8_t* planes, long long pstride,
+                                int* histos, void* stream) {
+    return launch_finalize<Word64>(data, n, cols, pred, levels_of(levels, 8), planes, pstride,
+                                   histos, (cudaStream_t)stream);
 }
 
 extern "C" long long fpl_packbits_chunks(long long n) { return chunks(n, PB_CHUNK); }
 
-// counts int32 [4, fpl_packbits_chunks(n)]; starts int32 [4, n + 1]; n_runs
-// int32 [4]; sums u64 [4, 3], zeroed; sizes int32 [4]
-extern "C" int fpl_packbits_size(const uint8_t* planes, long long pstride, long long n, int* counts,
-                                 int* starts, int* n_runs, unsigned long long* sums, int* sizes,
-                                 void* stream) {
+// planes u8 [n_planes, pstride] (4 or 8); counts int32 [n_planes,
+// fpl_packbits_chunks(n)]; starts int32 [n_planes, n + 1]; n_runs int32
+// [n_planes]; sums u64 [n_planes, 3], zeroed; sizes int32 [n_planes]
+extern "C" int fpl_packbits_size(const uint8_t* planes, int n_planes, long long pstride,
+                                 long long n, int* counts, int* starts, int* n_runs,
+                                 unsigned long long* sums, int* sizes, void* stream) {
     if (n == 0) return 0;
+    if (n_planes < 1 || n_planes > MAX_PLANES) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const long long nc = chunks(n, PB_CHUNK);
-    fpl_pb_count_kernel<<<dim3((unsigned)nc, 4), NB, 0, st>>>(planes, pstride, n, nc, counts);
-    fpl_pb_scan_kernel<<<4, NB, 0, st>>>(counts, nc, n, starts, n + 1, n_runs);
-    fpl_pb_scatter_kernel<<<dim3((unsigned)nc, 4), NB, 0, st>>>(planes, pstride, n, nc, counts,
-                                                                 starts, n + 1);
-    fpl_pb_sum_kernel<<<dim3(grid_of(n, NB), 4), NB, 0, st>>>(starts, n + 1, n_runs, sums);
-    fpl_pb_finish_kernel<<<1, 32, 0, st>>>(sums, sizes);
+    fpl_pb_count_kernel<<<dim3((unsigned)nc, n_planes), NB, 0, st>>>(planes, pstride, n, nc,
+                                                                      counts);
+    fpl_pb_scan_kernel<<<n_planes, NB, 0, st>>>(counts, nc, n, starts, n + 1, n_runs);
+    fpl_pb_scatter_kernel<<<dim3((unsigned)nc, n_planes), NB, 0, st>>>(planes, pstride, n, nc,
+                                                                        counts, starts, n + 1);
+    fpl_pb_sum_kernel<<<dim3(grid_of(n, NB), n_planes), NB, 0, st>>>(starts, n + 1, n_runs,
+                                                                      sums);
+    fpl_pb_finish_kernel<<<1, 32, 0, st>>>(sums, n_planes, sizes);
     return (int)cudaGetLastError();
 }
 
-// u32 words of scratch fpl_restore needs
-extern "C" long long fpl_restore_scratch(long long n, long long rows, int cols) {
-    const long long nc = chunks(n, SC_CHUNK);
-    long long s = 4 * nc;
-    if (chunks(rows, COL_TILE) * cols > s) s = chunks(rows, COL_TILE) * cols;
-    return s < 1 ? 1 : s;
+// words of scratch fpl_restore (u32) and fpl_restore_f64 (u64) need
+extern "C" long long fpl_restore_scratch(long long n, long long rows, int cols, int n_planes) {
+    return restore_scratch(n, rows, cols, n_planes);
 }
 
-// work u8 [4, pstride]: the planes, overwritten by the level undo; part:
-// fpl_restore_scratch(n, rows, cols) u32; words u32 [n]; out float32 bits [n]
+// work u8 [4, pstride]: the planes, overwritten by the level undo; levels [4]
+// on the host; part: fpl_restore_scratch(n, rows, cols, 4) u32; words u32 [n];
+// out float32 bits [n]
 extern "C" int fpl_restore(uint8_t* work, long long pstride, long long n, long long rows, int cols,
-                           int pred, int lv0, int lv1, int lv2, int lv3, unsigned* part,
-                           unsigned* words, unsigned* out, void* stream) {
-    if (n == 0) return 0;
-    const cudaStream_t st = (cudaStream_t)stream;
-    const Levels lv = {{lv0, lv1, lv2, lv3}};
-    int top = 0;
-    for (int b = 0; b < 4; ++b) top = lv.v[b] > top ? lv.v[b] : top;
-    const long long nc = chunks(n, SC_CHUNK);
-    for (int lev = top; lev >= 1; --lev) {
-        fpl_restore_level_sums_kernel<<<dim3((unsigned)nc, 4), NB, 0, st>>>(work, pstride, n, nc,
-                                                                           lev, lv, part);
-        fpl_restore_level_carry_kernel<<<4, NB, 0, st>>>(part, nc, lev, lv);
-        fpl_restore_level_apply_kernel<<<dim3((unsigned)nc, 4), NB, 0, st>>>(work, pstride, n, nc,
-                                                                            lev, lv, part);
-    }
-    fpl_restore_words_kernel<<<grid_of(n, NB * 8), NB, 0, st>>>(work, pstride, n, words);
-    if (pred == 2) {
-        const long long nt = chunks(rows, COL_TILE);
-        const long long ct = chunks(cols, 32);
-        const dim3 grid((unsigned)nt, (unsigned)(ct < 65535 ? ct : 65535));
-        fpl_restore_col_sums_kernel<<<grid, NB, 0, st>>>(words, rows, cols, part);
-        fpl_restore_col_carry_kernel<<<(unsigned)(cols < MAX_GRID ? cols : MAX_GRID), NB, 0, st>>>(
-            part, nt, cols);
-        fpl_restore_col_apply_kernel<<<grid, NB, 0, st>>>(words, rows, cols, part);
-    }
-    if (pred >= 1) {
-        fpl_restore_row_sums_kernel<<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part);
-        fpl_restore_row_carry_kernel<<<1, NB, 0, st>>>(part, nc);
-        fpl_restore_row_apply_kernel<<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part, out);
-    } else {
-        fpl_restore_untransform_kernel<<<grid_of(n, NB * 8), NB, 0, st>>>(words, n, out);
-    }
-    return (int)cudaGetLastError();
+                           int pred, const int* levels, unsigned* part, unsigned* words,
+                           unsigned* out, void* stream) {
+    return launch_restore<Word32>(work, pstride, n, rows, cols, pred, levels_of(levels, 4), part,
+                                  words, out, (cudaStream_t)stream);
+}
+
+// float64: work u8 [8, pstride]; levels [8] on the host; part:
+// fpl_restore_scratch(n, rows, cols, 8) u64; words u64 [n]; out float64 bits [n]
+extern "C" int fpl_restore_f64(uint8_t* work, long long pstride, long long n, long long rows,
+                               int cols, int pred, const int* levels, unsigned long long* part,
+                               unsigned long long* words, unsigned long long* out, void* stream) {
+    return launch_restore<Word64>(work, pstride, n, rows, cols, pred, levels_of(levels, 8), part,
+                                  words, out, (cudaStream_t)stream);
 }

@@ -34,13 +34,19 @@ scanned decode adds.
 Kernel K6 ``decode_scanned`` decodes from record descriptors without any
 index -- those of the device record scan (``device_scan.scan_records``, K5)
 or of the host scanner (``tile_scan``) -- a port of ``decode_tiles``
-(:493-708) with ``_unpack_records`` (:464): 8x8 and 16x16 blocks, float32
-and every integer dtype, all-valid, masked or with edge blocks, every
+(:493-708) with ``_unpack_records`` (:464): 8x8 and 16x16 blocks, float32,
+float64 and every integer dtype, all-valid, masked or with edge blocks, every
 record mode with LUT records (mode 4, ``lut_full = [0] + entries``), and the
 depth-diff chains, integer (:625-648) and the exact f32 one (:650-698,
-``z = (float)min(a_diff_f64 + (double)prev, zMax)``). Its instances are
-counted as ``decode_scanned`` + ``16`` (16x16 blocks) + ``_masked``
-(validity words: masks, edge blocks) + the dtype's suffix.
+``z = (float)min(a_diff_f64 + (double)prev, zMax)``). Its float64 instances
+port ``decode_tiles_f64`` (:716-879, LUT records and the depth-diff chain
+:818-869 included) in native f64: ``z = min(offset + q * invScale, zMax)``
+with each operation rounded, std::min's pick, and ``min(a + prev, zMax)``
+down the chain. Where JAX's softfloat leaves a blob to the host (subnormal
+or non-finite offsets, an extreme invScale, a sum that underflows), K6
+decodes it. Its instances are counted as ``decode_scanned`` + ``16`` (16x16
+blocks) + ``_masked`` (validity words: masks, edge blocks) + the dtype's
+suffix (``_f64`` for float64).
 
 Where it decodes a block the host decoder refuses (lerc2_decode.py
 :233-306, bitstuffer.py:191-222), ``ok`` drops: a stuffed count over the
@@ -82,7 +88,9 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
     if n_tiles != 1:
         raise NotImplementedError("batched tiles: ROADMAP queue 1 item 10 (mosaic)")
     if dt == DataType.DOUBLE:
-        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+        raise NotImplementedError(
+            "float64 has no indexed decode (JAX's decode_tiles_fast has none): decode float64 "
+            "blobs with decode_band_device")
     if version < 4:
         raise NotImplementedError("the indexed decode at versions < 4: ROADMAP queue 1 item 10")
     if h % 8 or w % 8 or d < 1:
@@ -298,25 +306,24 @@ def decode_scanned(stream: torch.Tensor, mode: torch.Tensor, payload_pos: torch.
                    mask, max_z_error: float, z_max_vec: torch.Tensor, h: int, w: int, d: int,
                    dt: DataType, all_valid: bool, has_lut: bool, mb: int = 8):
     """Decode from record descriptors (``decode_tiles``, device_decode.py:493,
-    same arguments, with the block size `mb`). Returns (img [H, W, D] float32
-    or the native dtype, ok 0-d bool) with no host synchronization; ok is
-    False where the host decoder would refuse the stream.
+    same arguments, with the block size `mb`). Returns (img [H, W, D] in the
+    native dtype, ok 0-d bool) with no host synchronization; ok is False
+    where the host decoder would refuse the stream.
 
     stream: [S / 4] int32 u32 words; payload_pos and lut_pos are byte
-    offsets into it. offset: [nRec] float32 (int32 for integer dtypes);
+    offsets into it. offset: [nRec] float32, float64 (``decode_tiles_f64``
+    :716) or int32 (integer dtypes);
     z_max_vec: [D] of the same type; the other descriptors [nRec] int32.
     mask: the [nBlocks, mb*mb/32] validity words of the [H, W] mask
     (``device_encode.block_valid_words(mask, mb)``), ignored when all_valid.
     LUT records decode whether or not has_lut is set (JAX sizes its graph
     by it)."""
-    if dt == DataType.DOUBLE:
-        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
     if mb not in (8, 16):
         raise NotImplementedError("micro blocks other than 8x8 and 16x16: ROADMAP queue 1 item 12")
     if d < 1:
         raise ValueError("depth must be >= 1")
     n_rec = _n_blocks(h, w, mb) * d
-    ztype = torch.int32 if dt_is_int(dt) else torch.float32
+    ztype = torch.int32 if dt_is_int(dt) else DT_TO_TORCH[dt]
     if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
         raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
     descs = (("mode", mode, torch.int32), ("payload_pos", payload_pos, torch.int32),
@@ -371,8 +378,9 @@ def scanned_args(words: torch.Tensor, base: int, recs: np.ndarray, valid: torch.
     if dt_is_int(head.dt):
         offset, zmax = i32("offset"), torch.from_numpy(np.round(z_max).astype(np.int32)).to(dev)
     else:
-        offset = torch.from_numpy(recs["offset"].astype(np.float32)).to(dev)
-        zmax = torch.from_numpy(np.asarray(z_max).astype(np.float32)).to(dev)
+        ft = np.float64 if head.dt == DataType.DOUBLE else np.float32
+        offset = torch.from_numpy(recs["offset"].astype(ft)).to(dev)
+        zmax = torch.from_numpy(np.asarray(z_max).astype(ft)).to(dev)
     return (words, i32("mode"), i32("payload_pos", base), offset, i32("num_bits"),
             i32("num_elements"), i32("lut_pos", base), i32("n_lut"), i32("nbits_lut"), valid,
             head.max_z_error, zmax, head.n_rows, head.n_cols, head.n_depth, head.dt, valid is None,
@@ -459,6 +467,16 @@ def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, num_elements
 
         def chain(prev, ad_d, zm_d, c0):  # :641-644
             return torch.where(c0, prev, torch.minimum(_i32(ad_d + prev), zm_d))
+    elif dt == DataType.DOUBLE:
+        off = offset[:, None]
+        a = off + q.double() * inv  # the pre-clamp sum
+        z = torch.where(m8 == 0, word.view(torch.float64), torch.where(
+            m8 == 2, 0.0, torch.where(m8 == 3, off, torch.where(zm < a, zm, a))))
+        ad = torch.where(m8 == 3, off, a)
+
+        def chain(prev, ad_d, zm_d, c0):  # a + prev, then the clamp
+            t = ad_d + prev
+            return torch.where(c0, prev, torch.where(zm_d < t, zm_d, t))
     else:
         off = offset[:, None]
         a = off.double() + q.double() * inv  # the pre-clamp f64 sum

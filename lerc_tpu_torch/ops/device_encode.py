@@ -4,7 +4,9 @@
 Port of ``lerc_tpu/ops/device_encode.py::encode_tiles`` (:486): float32
 and every integer dtype, all-valid or masked, any H, W and depth, version
 >= 3, 8x8 micro blocks, and for the band codec the LUT block candidate on
-8x8 and 16x16 blocks. It makes the same encoder choices byte for byte:
+8x8 and 16x16 blocks; and of ``lerc_tpu/ops/device_f64.py::encode_tiles_f64``
+(:95) for float64 (``encode_tiles_f64``, the end of this module: native f64
+in place of JAX's double-single pairs, JAX's wire choices). It makes the same encoder choices byte for byte:
 block min/max, f32 quantization with round-half-even and the
 sign-directed +-1 fixup, numBits, the mode
 (const-0, const-offset, raw, bit-stuffed), the reduced offset width, the
@@ -134,9 +136,9 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     data: [H, W, D] float32, or for an integer `dt` that dtype or int32.
     mask: the block validity words of the [H, W] mask
     (``block_valid_words(mask, mb)``), on data's device; ignored when
-    all_valid. enable_lut adds the LUT candidate; mb is 8, or 16 with it."""
-    if dt == DataType.DOUBLE:
-        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+    all_valid. enable_lut adds the LUT candidate; mb is 8, or 16 with it.
+    float64 data goes to ``encode_tiles_f64`` (8x8 blocks; no LUT candidate,
+    as JAX's); its z_min/z_max are float64."""
     if version < 3:
         raise NotImplementedError(
             "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
@@ -148,6 +150,11 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
         raise ValueError("depth must be >= 1")
     if cap % 4:
         raise ValueError("cap must be a multiple of 4")
+    if dt == DataType.DOUBLE:  # 8x8 blocks, no LUT candidate, as JAX's: fits always
+        if mb != 8 or nb_cap:
+            raise ValueError("float64 blocks are 8x8, with no bit cap")
+        out = encode_tiles_f64(data, mask, max_z_error, h, w, d, all_valid, version, cap)
+        return *out, torch.ones((), dtype=torch.bool, device=data.device)
     _check_data(data, h, w, d, dt)
     if not all_valid and mask is None:
         raise ValueError("a masked encode needs the block validity words")
@@ -795,6 +802,199 @@ def write_records_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.
                       payload.gather(1, (kk - hl).clamp(min=0, max=payload.shape[1] - 1)))
     pos = starts.to(torch.int64)[:, None] + kk
     keep = (kk < length[:, None]) & (pos >= 0) & (pos < 4 * cap_w)
+    out = torch.zeros(4 * cap_w, dtype=torch.uint8, device=dev)
+    out[pos[keep]] = rec[keep].to(torch.uint8)
+    return out.view(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# float64: K1 encode_blocks_f64 and K2 write_records_f64
+# ---------------------------------------------------------------------------
+
+F64_RAW_LEN = 1 + 64 * 8  # a raw float64 record: flag + 64 values
+
+
+def encode_params_f64(max_z_error: float, version: int) -> EncodeParams:
+    """The float64 encoder's scalars: maxZError, scale = 1 / (2 maxZError)
+    and inv = 2 maxZError in f64 (the decoder's invScale), the integrity
+    mask; no bit cap."""
+    mze = float(max_z_error)
+    if not mze > 0:
+        raise ValueError(f"the float64 tile encode needs maxZError > 0, got {max_z_error}")
+    return EncodeParams(mze=mze, scale=1.0 / (2.0 * mze), inv=2.0 * mze,
+                        integ_mask=0b111000 if version >= 5 else 0b111100, cap_nb=32,
+                        raw_ok=True, dt=DataType.DOUBLE)
+
+
+def encode_tiles_f64(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d: int,
+                     all_valid: bool, version: int, cap: int):
+    """Lossy float64 tile encode (``device_f64.encode_tiles_f64`` :95) on 8x8
+    blocks: returns (stream [cap/4] int32 u32 words, total 0-d int32, z_min
+    [D] f64, z_max [D] f64, starts [nRec] int32), all on data's device, with
+    no host synchronization. The wire is JAX's (the full 8-byte offset, no
+    LUT, modes const-0, stuffed, const-offset and raw); the quanta are native
+    f64, each within maxZError of its value under the decoder's arithmetic
+    (kernels/encode.cu). mask: the block validity words, ignored when
+    all_valid."""
+    if version < 3:
+        raise NotImplementedError(
+            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+    if cap % 4:
+        raise ValueError("cap must be a multiple of 4")
+    _check_f64(data, h, w, d)
+    if not all_valid and mask is None:
+        raise ValueError("a masked encode needs the block validity words")
+    valid = None if all_valid else mask
+    if valid is None and (h % 8 or w % 8):
+        valid = block_valid_words(torch.ones(h, w, dtype=torch.bool, device=data.device))
+    p = encode_params_f64(max_z_error, version)
+    rec_info, zrange = encode_blocks_f64(data, p, valid)
+    length = rec_info[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    total = starts[-1] + length[-1]
+    stream = write_records_f64(data, rec_info, starts, cap // 4, p, valid)
+    return stream, total, zrange[:d], zrange[d:], starts
+
+
+def _check_f64(data, h, w, d):
+    if data.dtype != torch.float64 or tuple(data.shape) != (h, w, d) or not data.is_contiguous():
+        raise ValueError(f"data must be a contiguous float64 [{h}, {w}, {d}] tensor, got "
+                         f"{data.dtype} {tuple(data.shape)}")
+
+
+def encode_blocks_f64(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+    """K1 f64: (rec_info [nRec, 4] int32 = {length, desc, offset bits low
+    word, high word}, desc = flag | mode << 8 | numBits << 16 | 8 << 24;
+    zrange [2D] f64 = per-depth min then max over the valid values). valid:
+    block validity words, or None when every pixel is valid (H, W multiples
+    of 8)."""
+    h, w, d = data.shape
+    _check_f64(data, h, w, d)
+    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    if not build.on_cuda(data, *vt):
+        return encode_blocks_f64_ref(data, p, valid)
+    fn = build.library("encode").encode_blocks_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    name = "encode_blocks" + sfx + "_f64"
+    dev = data.device
+    with torch.cuda.device(dev):
+        rec_info = torch.empty(_n_rec(data), 4, dtype=torch.int32, device=dev)
+        zrange = torch.cat([torch.full((d,), float("inf"), dtype=torch.float64, device=dev),
+                            torch.full((d,), float("-inf"), dtype=torch.float64, device=dev)])
+        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.scale, p.inv, p.integ_mask,
+                 rec_info.data_ptr(), zrange.data_ptr(), build.launch_stream(data))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return rec_info, zrange
+
+
+def quantize_f64_ref(x: torch.Tensor, zmin: torch.Tensor, p: EncodeParams) -> torch.Tensor:
+    """int64 quanta of f64 x against per-row offsets zmin [n, 1]: q0 =
+    round-half-even((x - zmin) * scale) clamped to [0, 2^30], and q0 +
+    sign(x - recon(q0)) when its reconstruction zmin + q * inv (each
+    operation rounded, as the decoder's) is strictly closer."""
+    cap = float(1 << 30)
+    q0 = torch.round((x - zmin) * p.scale).clamp(0.0, cap)
+    resid = x - (zmin + q0 * p.inv)
+    qc = (q0 + torch.sign(resid)).clamp(0.0, cap)
+    errc = (x - (zmin + qc * p.inv)).abs()
+    return torch.where(errc < resid.abs(), qc, q0).to(torch.int64)
+
+
+def encode_blocks_f64_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+    """Plain PyTorch version of K1 f64."""
+    h, w, d = data.shape
+    x = _blocks(data)
+    n = x.shape[0]
+    dev = x.device
+    vb, cnt = _record_lanes(valid, d, n, dev)
+    has = cnt > 0
+    zmin = torch.where(has, torch.where(vb, x, float("inf")).amin(1), 0.0)
+    zmax = torch.where(has, torch.where(vb, x, float("-inf")).amax(1), 0.0)
+    # the offset: the bits of the first valid position holding the minimum
+    at_min = vb & (x == zmin[:, None])
+    first = at_min.to(torch.int8).argmax(1, keepdim=True)
+    off_bits = torch.where(at_min.any(1), x.view(torch.int64).gather(1, first)[:, 0], 0)
+    off = off_bits.view(torch.float64)
+    q = torch.where(vb, quantize_f64_ref(x, off[:, None], p), 0)
+    max_q = q.amax(1)
+    nb = _bit_len(max_q)
+    const0 = ~has | ((zmin == 0) & (zmax == 0))
+    force_raw = (zmax - zmin) * p.scale > 1073741823.0
+    stuff_len = 9 + torch.where(max_q > 0, 2 + (cnt * nb + 7) // 8, 0)
+    raw_len = 1 + 8 * cnt
+    use_stuff = ~force_raw & (stuff_len < raw_len)
+    mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
+    length = torch.where(mode == 2, 1, torch.where(mode == 0, raw_len, stuff_len))
+    desc = (_integ_bits(n, d, w, 8, p, dev) | mode) | (mode << 8) | (nb << 16) | (8 << 24)
+    rec_info = torch.stack([length, desc, _as_i32(off_bits & 0xFFFFFFFF).to(torch.int64),
+                            _as_i32((off_bits >> 32) & 0xFFFFFFFF).to(torch.int64)],
+                           1).to(torch.int32)
+    zrange = torch.cat([torch.where(has, zmin, float("inf")).view(-1, d).amin(0),
+                        torch.where(has, zmax, float("-inf")).view(-1, d).amax(0)])
+    return rec_info, zrange
+
+
+def write_records_f64(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
+                      cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 f64: the record stream, [cap_w] int32 u32 words, zero past the
+    last record: [flag], [flag][offset 8 B], [flag][offset][numBits | 0x80]
+    [count][quanta at numBits] or [flag][the valid values, 8 B each]."""
+    h, w, d = data.shape
+    _check_f64(data, h, w, d)
+    n = _n_rec(data)
+    if rec_info.shape != (n, 4) or starts.shape != (n,):
+        raise ValueError("rec_info / starts do not match the data's record count")
+    vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    if not build.on_cuda(data, *vt, rec_info, starts):
+        return write_records_f64_ref(data, rec_info, starts, cap_w, p, valid)
+    fn = build.library("encode").write_records_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    name = "write_records" + sfx + "_f64"
+    with torch.cuda.device(data.device):
+        out = torch.zeros(cap_w, dtype=torch.int32, device=data.device)
+        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.scale, p.inv, rec_info.data_ptr(),
+                 starts.data_ptr(), out.data_ptr(), cap_w, build.launch_stream(data))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return out
+
+
+def write_records_f64_ref(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tensor,
+                          cap_w: int, p: EncodeParams,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K2 f64: each record as a byte row, scattered
+    at its start; the values compacted by ``compact_ref``."""
+    x = _blocks(data)
+    n = x.shape[0]
+    dev = x.device
+    vb, cnt = _record_lanes(valid, data.shape[2], n, dev)
+    info = rec_info.to(torch.int64)
+    length, desc = info[:, 0], info[:, 1]
+    flag, mode, nb = desc & 0xFF, (desc >> 8) & 3, (desc >> 16) & 0xFF
+    off_bits = (info[:, 2] & 0xFFFFFFFF) | (info[:, 3] << 32)
+    q = torch.where(vb, quantize_f64_ref(x, off_bits.view(torch.float64)[:, None], p), 0)
+    seq = torch.arange(64, device=dev)[None, :]
+    stuffed = _pack_fields(n, 64, [(seq * nb[:, None], compact_ref(q, vb), nb[:, None])])
+    raw = compact_ref(x.view(torch.int64), vb)
+    raw = ((raw[:, :, None] >> torch.arange(0, 64, 8, device=dev)) & 0xFF).reshape(n, -1)
+    k = torch.arange(F64_RAW_LEN, device=dev)[None, :]
+    offb = (off_bits[:, None] >> (8 * (k - 1)).clamp(0, 56)) & 0xFF
+    # the stuffed record [flag][offset 8 B][numBits | 0x80][count][payload]
+    head = torch.where(k <= 8, offb, torch.where(k == 9, nb[:, None] | 0x80, cnt[:, None]))
+    stuff = torch.where(k <= 10, head, stuffed.gather(1, (k - 11).clamp(0, 255).expand(n, -1)))
+    m2 = mode[:, None]
+    rec = torch.where(m2 == 0, raw.gather(1, (k - 1).clamp(0, 511).expand(n, -1)),
+                      torch.where(m2 == 1, stuff, torch.where(m2 == 3, offb, 0)))
+    rec = torch.where(k == 0, flag[:, None], rec)
+    pos = starts.to(torch.int64)[:, None] + k
+    keep = (k < length[:, None]) & (pos >= 0) & (pos < 4 * cap_w)
     out = torch.zeros(4 * cap_w, dtype=torch.uint8, device=dev)
     out[pos[keep]] = rec[keep].to(torch.uint8)
     return out.view(torch.int32)

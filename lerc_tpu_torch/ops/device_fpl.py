@@ -1,29 +1,36 @@
-"""Lossless float32 (fpl, Lerc2 v6 "delta-delta Huffman") on the device:
-kernels F1, F2, F2b and F3, their plain PyTorch versions, and the host
-choice and plane packing between them.
+"""Lossless float32 and float64 (fpl, Lerc2 v6 "delta-delta Huffman") on
+the device: kernels F1, F2, F2b and F3, their plain PyTorch versions, and
+the host choice and plane packing between them.
 
-Port of the float32 half of ``lerc_tpu/ops/device_fpl.py``. The section codes
-the float transform of each value's bits (exponent above sign above
-mantissa, ``float_transform_dev`` :43) under a predictor (0 none, 1 the left
-neighbour, 2 the left then the upper neighbour, in split-field arithmetic:
-mantissa mod 2^23 and exponent+sign mod 2^9, :50, :58), as four byte planes,
-each with 0..5 extra byte-delta levels (:70); every plane is then coded by
-Huffman, RLE-const, raw bytes or PackBits, whichever is smallest. The image
-is [H, W] at depth 1 and [H * W, D] deeper (``codec/fpl_impl.slice_shape``).
+Port of ``lerc_tpu/ops/device_fpl.py``, both halves. The section codes each
+value's bits under a predictor (0 none, 1 the left neighbour, 2 the left then
+the upper neighbour, in split-field arithmetic), as byte planes, each with
+0..5 extra byte-delta levels (:70); every plane is then coded by Huffman,
+RLE-const, raw bytes or PackBits, whichever is smallest. The image is
+[H, W] at depth 1 and [H * W, D] deeper (``codec/fpl_impl.slice_shape``).
+float32 words are float-transformed (exponent above sign above mantissa,
+``float_transform_dev`` :43) and split as mantissa mod 2^23 and
+exponent+sign mod 2^9 (:50, :58): four planes. float64 words are the raw
+bits (no transform) split as mantissa mod 2^52 and exponent+sign mod 2^12
+(``split_sub64_dev`` :277, ``apply_predictor64_dev`` :285): eight planes.
+The float64 instances are counted with an ``_f64`` suffix; F2b is one
+kernel for both, over 4 or 8 planes.
 
-  F1 ``fpl_sample_histograms`` (``fpl_choose_device`` :123): every stride-th
-     row of the word image (stride the largest listed prime <= pixels /
-     2^19), each predictor on that sample (predictor 2's "up" is the previous
-     sampled row), byte levels 0..5 along the flattened sample, and the
-     256-bin histograms of every 7th position: int32 [3, 4, 6, 256].
+  F1 ``fpl_sample_histograms`` (``fpl_choose_device`` :123, ``_f64`` :300):
+     every stride-th row of the word image (stride the largest listed prime
+     <= pixels / 2^19), each predictor on that sample (predictor 2's "up" is
+     the previous sampled row), byte levels 0..5 along the flattened sample,
+     and the 256-bin histograms of every 7th position: int32
+     [3, planes, 6, 256].
   ``fpl_choose`` (host): JAX's entropy estimate (:79) of those counts in
      float32, in JAX's order: the level of least estimate per plane (the
      first on ties, levels above 5 - {0, 1, 2}[pred] left out), the
-     estimates summed over the planes, the predictor of least sum.
-  F2 ``fpl_finalize`` (``fpl_finalize_device`` :168): the chosen level's
-     planes (u8 [4, n_pad], zero past n) and their histograms (int32 [4, 256])
-     in one pass: an output byte needs its pixel, its left, upper and
-     upper-left neighbours and at most 5 earlier bytes of its plane.
+     estimates summed over the planes in order, the predictor of least sum.
+  F2 ``fpl_finalize`` (``fpl_finalize_device`` :168, ``_f64`` :344): the
+     chosen level's planes (u8 [planes, n_pad], zero past n) and their
+     histograms (int32 [planes, 256]) in one pass: an output byte needs its
+     pixel, its left, upper and upper-left neighbours and at most 5 earlier
+     bytes of its plane.
   F2b ``fpl_packbits_size`` (``packbits_size_device`` :88): each plane's
      PackBits size from its runs, JAX's formula exactly, with its
      ``lit_total // 128`` stand-in for the literal headers: it decides
@@ -31,16 +38,18 @@ is [H, W] at depth 1 and [H * W, D] deeper (``codec/fpl_impl.slice_shape``).
   ``fpl_pack_planes`` (``fpl_pack_planes_device`` :434): the Huffman planes
      through H2 (``device_huffman.encode_stream_device``), whole 64-symbol
      groups, every position live.
-  F3 ``fpl_restore`` (``fpl_restore_device`` :235): the level undo (nested
-     prefix sums mod 256 from index level - 1), the words, the split-field
-     prefix sums down the columns (predictor 2) and along the rows
-     (predictors 1, 2), the transform undone: float32 [H, W, D]. In u32 the
-     split-field add is associative, so each is a chunked parallel scan;
-     there is no 2^25-element limit.
+  F3 ``fpl_restore`` (``fpl_restore_device`` :235, ``_f64`` :407): the level
+     undo (nested prefix sums mod 256 from index level - 1), the words, the
+     split-field prefix sums down the columns (predictor 2) and along the
+     rows (predictors 1, 2), the transform undone (float32): [H, W, D] of
+     the planes' float type. In u32 and u64 words the split-field add is
+     associative, so each is a chunked parallel scan; there is no
+     2^25-element limit (JAX's ``_cumsum_mod52_pair`` :366 has one).
 
-On CPU tensors each wrapper runs its plain version (``*_ref``, u32
-arithmetic in int64: CPU uint32 is a shell dtype); on CUDA tensors it
-launches its kernel (``kernels/fpl.cu``) or raises.
+On CPU tensors each wrapper runs its plain version (``*_ref``: u32 words in
+int64, u64 words as int64 bits with a mask after every right shift -- CPU
+uint32 and uint64 are shell dtypes); on CUDA tensors it launches its kernel
+(``kernels/fpl.cu``) or raises.
 """
 from __future__ import annotations
 
@@ -54,8 +63,10 @@ from ..kernels import build
 from . import device_huffman
 
 MANT = 0x7FFFFF
+MANT52 = (1 << 52) - 1
 SAMPLE_PRIMES = (1, 3, 7, 13, 31, 61, 127, 251)
 N_PREDICTORS, N_PLANES, N_LEVELS = 3, 4, MAX_DELTA + 1
+N_PLANES64 = 8
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -73,9 +84,19 @@ def sample_stride(n: int) -> int:
     return max(p for p in SAMPLE_PRIMES if p <= target)
 
 
+def n_planes(dtype: torch.dtype) -> int:
+    """Byte planes of a float type's words: 4 (float32) or 8 (float64)."""
+    return N_PLANES64 if dtype == torch.float64 else N_PLANES
+
+
+def _sfx(dtype: torch.dtype) -> str:
+    return "_f64" if dtype == torch.float64 else ""
+
+
 def _check_data(data: torch.Tensor):
-    if data.dtype != torch.float32 or data.dim() != 3 or not data.is_contiguous():
-        raise TypeError("data must be a contiguous [H, W, D] float32 tensor")
+    if data.dtype not in (torch.float32, torch.float64) or data.dim() != 3 \
+            or not data.is_contiguous():
+        raise TypeError("data must be a contiguous [H, W, D] float32 or float64 tensor")
 
 
 def padded(n: int) -> int:
@@ -83,8 +104,13 @@ def padded(n: int) -> int:
     return -(-n // device_huffman.GROUP) * device_huffman.GROUP
 
 
+def _levels_arg(levels):
+    return (ctypes.c_int * len(levels))(*(int(v) for v in levels))
+
+
 # ---------------------------------------------------------------------------
-# u32 word arithmetic of the plain versions (int64 holding [0, 2^32))
+# word arithmetic of the plain versions: u32 in int64 holding [0, 2^32); u64
+# as the int64 of the same bits (every right shift masked)
 # ---------------------------------------------------------------------------
 
 
@@ -107,17 +133,36 @@ def split_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a - b) & MANT) | ((((a >> 23) - (b >> 23)) & 0x1FF) << 23)
 
 
-def apply_predictor(img: torch.Tensor, pred: int) -> torch.Tensor:
-    """(:58) the predictor on a [rows, cols] word image."""
+def split_sub64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(:277) the 52-bit mantissas and 12-bit exponents+signs of u64 words
+    (int64 bits) subtracted apart, each wrapping."""
+    return ((a - b) & MANT52) | (((((a >> 52) & 0xFFF) - ((b >> 52) & 0xFFF)) & 0xFFF) << 52)
+
+
+def _pred_words(data: torch.Tensor) -> torch.Tensor:
+    """The flat words the predictor works on: float-transformed float32
+    bits, or float64 bits as they are."""
+    if data.dtype == torch.float64:
+        return data.reshape(-1).view(torch.int64)
+    return float_transform(_words(data))
+
+
+def apply_predictor(img: torch.Tensor, pred: int, sub=split_sub) -> torch.Tensor:
+    """(:58, :285) the predictor on a [rows, cols] word image."""
     if pred == 0:
         return img
     d1 = img.clone()
-    d1[:, 1:] = split_sub(img[:, 1:], img[:, :-1])
+    d1[:, 1:] = sub(img[:, 1:], img[:, :-1])
     if pred == 1:
         return d1
     out = d1.clone()
-    out[1:] = split_sub(d1[1:], d1[:-1])
+    out[1:] = sub(d1[1:], d1[:-1])
     return out
+
+
+def _predicted(data: torch.Tensor, rows: int, cols: int, pred: int, stride: int = 1):
+    sub = split_sub64 if data.dtype == torch.float64 else split_sub
+    return apply_predictor(_pred_words(data).view(rows, cols)[::stride], pred, sub).reshape(-1)
 
 
 def byte_levels(plane: torch.Tensor, top: int = MAX_DELTA) -> list[torch.Tensor]:
@@ -140,7 +185,7 @@ def byte_levels(plane: torch.Tensor, top: int = MAX_DELTA) -> list[torch.Tensor]
 
 
 def fpl_sample_histograms(data: torch.Tensor) -> torch.Tensor:
-    """F1: int32 [3 predictors, 4 planes, 6 levels, 256] histograms of every
+    """F1: int32 [3 predictors, planes, 6 levels, 256] histograms of every
     7th position of the sampled rows' byte levels (module docstring)."""
     _check_data(data)
     if not build.on_cuda(data):
@@ -149,14 +194,15 @@ def fpl_sample_histograms(data: torch.Tensor) -> torch.Tensor:
     rows, cols = slice_shape(h, w, d)
     stride = sample_stride(rows * cols)
     m = -(-rows // stride) * cols
-    fn = _ctypes_fn("fpl_sample_histograms", [_P, _L, _I, _I, _L, _P, _P])
+    name = "fpl_sample_histograms" + _sfx(data.dtype)
+    fn = _ctypes_fn(name, [_P, _L, _I, _I, _L, _P, _P])
     with torch.cuda.device(data.device):
-        hist = torch.zeros(N_PREDICTORS, N_PLANES, N_LEVELS, 256, dtype=torch.int32,
+        hist = torch.zeros(N_PREDICTORS, n_planes(data.dtype), N_LEVELS, 256, dtype=torch.int32,
                            device=data.device)
         err = fn(data.data_ptr(), rows, cols, stride, m, hist.data_ptr(),
                  build.launch_stream(data))
-        build.check(err, "fpl_sample_histograms")
-    build.LAUNCHES["fpl_sample_histograms"] += 1
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return hist
 
 
@@ -164,16 +210,16 @@ def fpl_sample_histograms_ref(data: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of F1, JAX's steps one by one."""
     h, w, d = data.shape
     rows, cols = slice_shape(h, w, d)
-    img = float_transform(_words(data)).view(rows, cols)[::sample_stride(rows * cols)]
-    hist = torch.zeros(N_PREDICTORS, N_PLANES, N_LEVELS * 256, dtype=torch.int64,
-                       device=data.device)
+    stride = sample_stride(rows * cols)
+    n_pl = n_planes(data.dtype)
+    hist = torch.zeros(N_PREDICTORS, n_pl, N_LEVELS * 256, dtype=torch.int64, device=data.device)
     lev = torch.arange(N_LEVELS, device=data.device)[:, None] * 256
     for p in range(N_PREDICTORS):
-        t = apply_predictor(img, p).reshape(-1)
-        for b in range(N_PLANES):
+        t = _predicted(data, rows, cols, p, stride)
+        for b in range(n_pl):
             lv = torch.stack(byte_levels((t >> (8 * b)) & 0xFF))[:, ::PRIME_MULT]
             hist[p, b] = torch.bincount((lv + lev).reshape(-1), minlength=N_LEVELS * 256)
-    return hist.view(N_PREDICTORS, N_PLANES, N_LEVELS, 256).to(torch.int32)
+    return hist.view(N_PREDICTORS, n_pl, N_LEVELS, 256).to(torch.int32)
 
 
 def _fma32(a, b, c) -> np.ndarray:
@@ -239,18 +285,20 @@ def entropy_estimates(hist: np.ndarray) -> np.ndarray:
     return out
 
 
-def fpl_choose(hist: np.ndarray) -> tuple[int, tuple[int, int, int, int], np.ndarray]:
-    """(predictor, the four planes' levels, the three predictors' float32
-    estimates) from F1's counts, in ``fpl_choose_device``'s order."""
-    es = entropy_estimates(hist)  # [3, 4, 6]
+def fpl_choose(hist: np.ndarray) -> tuple[int, tuple[int, ...], np.ndarray]:
+    """(predictor, each plane's level, the three predictors' float32
+    estimates) from F1's counts [3, planes, 6, 256], in
+    ``fpl_choose_device``'s (``_f64``'s) order."""
+    es = entropy_estimates(hist)  # [3, planes, 6]
+    n_pl = es.shape[1]
     ests = np.zeros(N_PREDICTORS, np.float32)
-    levels = np.zeros((N_PREDICTORS, N_PLANES), np.int64)
+    levels = np.zeros((N_PREDICTORS, n_pl), np.int64)
     for p in range(N_PREDICTORS):
         e = es[p].copy()
         e[:, MAX_DELTA - p + 1:] = np.inf  # max_delta_eff = 5 - {0, 1, 2}[p]
         levels[p] = np.argmin(e, axis=1)
         est = np.float32(0)
-        for b in range(N_PLANES):
+        for b in range(n_pl):
             est = np.float32(est + e[b].min())
         ests[p] = est
     pred = int(np.argmin(ests))
@@ -262,30 +310,32 @@ def fpl_choose(hist: np.ndarray) -> tuple[int, tuple[int, int, int, int], np.nda
 # ---------------------------------------------------------------------------
 
 
-def _check_choice(pred: int, levels):
-    if pred not in (0, 1, 2) or len(levels) != N_PLANES \
+def _check_choice(pred: int, levels, n_pl: int = N_PLANES):
+    if pred not in (0, 1, 2) or len(levels) != n_pl \
             or not all(0 <= int(v) <= MAX_DELTA for v in levels):
         raise ValueError(f"bad predictor {pred} or levels {levels}")
 
 
 def fpl_finalize(data: torch.Tensor, pred: int, levels):
-    """F2: (planes u8 [4, n_pad]: each plane at its level, zero past n;
-    histos int32 [4, 256] of the planes' n bytes)."""
+    """F2: (planes u8 [planes, n_pad]: each plane at its level, zero past n;
+    histos int32 [planes, 256] of the planes' n bytes)."""
     _check_data(data)
-    _check_choice(pred, levels)
+    n_pl = n_planes(data.dtype)
+    _check_choice(pred, levels, n_pl)
     if not build.on_cuda(data):
         return fpl_finalize_ref(data, pred, levels)
     h, w, d = data.shape
     rows, cols = slice_shape(h, w, d)
     n = rows * cols
-    fn = _ctypes_fn("fpl_finalize", [_P, _L, _I, _I, _I, _I, _I, _I, _P, _L, _P, _P])
+    name = "fpl_finalize" + _sfx(data.dtype)
+    fn = _ctypes_fn(name, [_P, _L, _I, _I, _P, _P, _L, _P, _P])
     with torch.cuda.device(data.device):
-        planes = torch.zeros(N_PLANES, padded(n), dtype=torch.uint8, device=data.device)
-        histos = torch.zeros(N_PLANES, 256, dtype=torch.int32, device=data.device)
-        err = fn(data.data_ptr(), n, cols, pred, *(int(v) for v in levels), planes.data_ptr(),
+        planes = torch.zeros(n_pl, padded(n), dtype=torch.uint8, device=data.device)
+        histos = torch.zeros(n_pl, 256, dtype=torch.int32, device=data.device)
+        err = fn(data.data_ptr(), n, cols, pred, _levels_arg(levels), planes.data_ptr(),
                  planes.shape[1], histos.data_ptr(), build.launch_stream(data))
-        build.check(err, "fpl_finalize")
-    build.LAUNCHES["fpl_finalize"] += 1
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return planes, histos
 
 
@@ -294,10 +344,11 @@ def fpl_finalize_ref(data: torch.Tensor, pred: int, levels):
     h, w, d = data.shape
     rows, cols = slice_shape(h, w, d)
     n = rows * cols
-    t = apply_predictor(float_transform(_words(data)).view(rows, cols), pred).reshape(-1)
-    planes = torch.zeros(N_PLANES, padded(n), dtype=torch.uint8, device=data.device)
-    histos = torch.zeros(N_PLANES, 256, dtype=torch.int32, device=data.device)
-    for b in range(N_PLANES):
+    n_pl = n_planes(data.dtype)
+    t = _predicted(data, rows, cols, pred)
+    planes = torch.zeros(n_pl, padded(n), dtype=torch.uint8, device=data.device)
+    histos = torch.zeros(n_pl, 256, dtype=torch.int32, device=data.device)
+    for b in range(n_pl):
         final = byte_levels((t >> (8 * b)) & 0xFF, int(levels[b]))[-1]
         planes[b, :n] = final.to(torch.uint8)
         histos[b] = torch.bincount(final, minlength=256).to(torch.int32)
@@ -310,14 +361,15 @@ def fpl_finalize_ref(data: torch.Tensor, pred: int, levels):
 
 
 def _check_planes(planes: torch.Tensor, n: int):
-    if planes.dtype != torch.uint8 or planes.dim() != 2 or planes.shape[0] != N_PLANES \
+    if planes.dtype != torch.uint8 or planes.dim() != 2 \
+            or planes.shape[0] not in (N_PLANES, N_PLANES64) \
             or not planes.is_contiguous() or not 0 < n <= planes.shape[1]:
-        raise TypeError(f"planes must be a contiguous [4, >= {n}] uint8 tensor")
+        raise TypeError(f"planes must be a contiguous [4 or 8, >= {n}] uint8 tensor")
 
 
 def fpl_packbits_size(planes: torch.Tensor, n: int) -> torch.Tensor:
-    """F2b: int32 [4], the PackBits size of each plane's first n bytes by
-    JAX's formula (``packbits_size_device``). Per run of equal bytes of
+    """F2b: int32 [planes], the PackBits size of each plane's first n bytes
+    by JAX's formula (``packbits_size_device``). Per run of equal bytes of
     length L after a run of length Lp: 2 * (L // 129 + (L % 129 >= 2))
     bytes of repeats, a literal when L % 129 == 1, which opens a literal
     stretch when L >= 130 or the run before left none; plus
@@ -327,17 +379,19 @@ def fpl_packbits_size(planes: torch.Tensor, n: int) -> torch.Tensor:
     _check_planes(planes, n)
     if not build.on_cuda(planes):
         return fpl_packbits_size_ref(planes, n)
+    n_pl = planes.shape[0]
     nc = _ctypes_fn("fpl_packbits_chunks", [_L], ctypes.c_longlong)(n)
-    fn = _ctypes_fn("fpl_packbits_size", [_P, _L, _L, _P, _P, _P, _P, _P, _P])
+    fn = _ctypes_fn("fpl_packbits_size", [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P])
     dev = planes.device
     with torch.cuda.device(dev):
-        counts = torch.empty(N_PLANES, nc, dtype=torch.int32, device=dev)
-        starts = torch.empty(N_PLANES, n + 1, dtype=torch.int32, device=dev)
-        n_runs = torch.empty(N_PLANES, dtype=torch.int32, device=dev)
-        sums = torch.zeros(N_PLANES, 3, dtype=torch.int64, device=dev)
-        sizes = torch.empty(N_PLANES, dtype=torch.int32, device=dev)
-        err = fn(planes.data_ptr(), planes.shape[1], n, counts.data_ptr(), starts.data_ptr(),
-                 n_runs.data_ptr(), sums.data_ptr(), sizes.data_ptr(), build.launch_stream(planes))
+        counts = torch.empty(n_pl, nc, dtype=torch.int32, device=dev)
+        starts = torch.empty(n_pl, n + 1, dtype=torch.int32, device=dev)
+        n_runs = torch.empty(n_pl, dtype=torch.int32, device=dev)
+        sums = torch.zeros(n_pl, 3, dtype=torch.int64, device=dev)
+        sizes = torch.empty(n_pl, dtype=torch.int32, device=dev)
+        err = fn(planes.data_ptr(), n_pl, planes.shape[1], n, counts.data_ptr(),
+                 starts.data_ptr(), n_runs.data_ptr(), sums.data_ptr(), sizes.data_ptr(),
+                 build.launch_stream(planes))
         build.check(err, "fpl_packbits_size")
     build.LAUNCHES["fpl_packbits_size"] += 1
     return sizes
@@ -347,14 +401,15 @@ def fpl_packbits_size_ref(planes: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch version of F2b: JAX's per-position formula (cummax /
     cummin of the change positions), not the run compaction."""
     x = planes[:, :n].to(torch.int64)
+    n_pl = x.shape[0]
     dev = x.device
-    idx = torch.arange(n, device=dev).expand(N_PLANES, n)
-    change = torch.ones(N_PLANES, n, dtype=torch.bool, device=dev)
+    idx = torch.arange(n, device=dev).expand(n_pl, n)
+    change = torch.ones(n_pl, n, dtype=torch.bool, device=dev)
     change[:, 1:] = x[:, 1:] != x[:, :-1]
     run_start = torch.cummax(torch.where(change, idx, 0), 1).values
     ncv = torch.where(change, idx, n)
     rc = torch.flip(torch.cummin(torch.flip(ncv, [1]), 1).values, [1])
-    next_change = torch.cat([rc[:, 1:], torch.full((N_PLANES, 1), n, device=dev)], 1)
+    next_change = torch.cat([rc[:, 1:], torch.full((n_pl, 1), n, device=dev)], 1)
     length = next_change - run_start
     segs = torch.where(change, length // 129 + ((length % 129) >= 2).to(torch.int64), 0)
     lit_pos = (length % 129) == 1
@@ -398,26 +453,32 @@ def fpl_pack_planes(planes: torch.Tensor, n: int, tables: dict) -> dict:
 
 
 def fpl_restore(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels) -> torch.Tensor:
-    """F3: float32 [H, W, D] from the four planes' first H * W * D bytes
-    (uint8 [4, >= n], unchanged) at their levels under the predictor."""
+    """F3: [H, W, D] from the planes' first H * W * D bytes (uint8 [planes,
+    >= n], unchanged) at their levels under the predictor: float32 from four
+    planes, float64 from eight."""
     n = h * w * d
     _check_planes(planes, n)
-    _check_choice(pred, levels)
+    n_pl = planes.shape[0]
+    _check_choice(pred, levels, n_pl)
     if not build.on_cuda(planes):
         return fpl_restore_ref(planes, h, w, d, pred, levels)
     rows, cols = slice_shape(h, w, d)
-    scratch = _ctypes_fn("fpl_restore_scratch", [_L, _L, _I], ctypes.c_longlong)(n, rows, cols)
-    fn = _ctypes_fn("fpl_restore", [_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    f64 = n_pl == N_PLANES64
+    scratch = _ctypes_fn("fpl_restore_scratch", [_L, _L, _I, _I], ctypes.c_longlong)(
+        n, rows, cols, n_pl)
+    name = "fpl_restore_f64" if f64 else "fpl_restore"
+    fn = _ctypes_fn(name, [_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P])
+    word = torch.int64 if f64 else torch.int32
     dev = planes.device
     with torch.cuda.device(dev):
         work = planes.clone()  # the level undo runs in place
-        part = torch.empty(scratch, dtype=torch.int32, device=dev)
-        words = torch.empty(n, dtype=torch.int32, device=dev)
-        out = torch.empty(h, w, d, dtype=torch.float32, device=dev)
-        err = fn(work.data_ptr(), work.shape[1], n, rows, cols, pred, *(int(v) for v in levels),
+        part = torch.empty(scratch, dtype=word, device=dev)
+        words = torch.empty(n, dtype=word, device=dev)
+        out = torch.empty(h, w, d, dtype=torch.float64 if f64 else torch.float32, device=dev)
+        err = fn(work.data_ptr(), work.shape[1], n, rows, cols, pred, _levels_arg(levels),
                  part.data_ptr(), words.data_ptr(), out.data_ptr(), build.launch_stream(planes))
-        build.check(err, "fpl_restore")
-    build.LAUNCHES["fpl_restore"] += 1
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -428,21 +489,37 @@ def _split_cumsum(img: torch.Tensor, axis: int) -> torch.Tensor:
     return mant | (hi << 23)
 
 
+def _split_cumsum64(img: torch.Tensor, axis: int) -> torch.Tensor:
+    """(:398) the 52-bit mantissas (as two 26-bit halves, so no int64 sum
+    overflows) and the 12-bit exponents+signs of u64 words (int64 bits)
+    summed apart, each wrapping."""
+    m26 = (1 << 26) - 1
+    lo = torch.cumsum(img & m26, axis)
+    hi = torch.cumsum((img >> 26) & m26, axis)
+    mant = (lo + ((hi & m26) << 26)) & MANT52
+    top = torch.cumsum((img >> 52) & 0xFFF, axis) & 0xFFF
+    return mant | (top << 52)
+
+
 def fpl_restore_ref(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels):
     """Plain PyTorch version of F3, JAX's steps one by one."""
     rows, cols = slice_shape(h, w, d)
     n = rows * cols
+    n_pl = planes.shape[0]
     word = torch.zeros(n, dtype=torch.int64, device=planes.device)
-    for b in range(N_PLANES):
+    for b in range(n_pl):
         p = planes[b, :n].to(torch.int64)
         for lev in range(int(levels[b]), 0, -1):  # restoreSequence
             p = p.clone()
             p[lev - 1:] = torch.cumsum(p[lev - 1:], 0) & 0xFF
         word |= p << (8 * b)
     img = word.view(rows, cols)
+    cumsum = _split_cumsum64 if n_pl == N_PLANES64 else _split_cumsum
     if pred == 2:
-        img = _split_cumsum(img, 0)
+        img = cumsum(img, 0)
     if pred >= 1:
-        img = _split_cumsum(img, 1)
+        img = cumsum(img, 1)
+    if n_pl == N_PLANES64:
+        return img.reshape(-1).view(torch.float64).view(h, w, d)
     bits = undo_float_transform(img.reshape(-1))
     return ((bits + 2**31) % 2**32 - 2**31).to(torch.int32).view(torch.float32).view(h, w, d)

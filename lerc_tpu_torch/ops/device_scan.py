@@ -165,7 +165,9 @@ def _scan_consts(dt: DataType, version: int):
     """(dtype code, diff flag meaningful, raw record length) of a scan. Raw
     records hold a whole 8x8 block: the scan serves all-valid streams."""
     if dt == DataType.DOUBLE:
-        raise NotImplementedError("float64: ROADMAP queue 1 item 9")
+        raise NotImplementedError(
+            "float64 has no device record scan (JAX's scan_records_device has none): the band "
+            "codec scans float64 streams on the host")
     return int(dt), int(version >= 5), _raw_len(dt)
 
 

@@ -7,10 +7,10 @@ index-free ResidentCodec decode, and what the slice refuses.
 Criteria (exact): blobs byte-equal to JAX ``encode_band_device``; decodes
 bit-equal to the host decoder ``lerc2_decode.decode_band`` and to JAX's
 device decode where JAX decodes on its device; the configurations of ROADMAP
-queue 1 item 9 (float64) raise NotImplementedError naming their item, before
-any work; those of items 7 (8-bit Huffman) and 8 (fpl lossless float32),
+queue 1 items 7 (8-bit Huffman), 8 (fpl lossless float32) and 9 (float64),
 refused until they were ported, now encode as JAX does and decode like the
-host decoder.
+host decoder; legacy versions (item 12) raise NotImplementedError naming
+their item, before any work.
 """
 import struct
 
@@ -218,9 +218,9 @@ def test_masked_resident_decode_without_the_index(npdt, d, mze):
     assert has_diff == (npdt == np.int16)
 
 
-UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: items 7 and 8, ported since
+UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: items 7, 8 and 9, ported since
     (np.uint8, 0.5, 6, None), (np.int8, 0.0, 3, None), (np.float32, 0.0, 6, None),
-    (np.float64, 0.1, 6, "item 9"), (np.float32, 0.1, 2, "item 12"),
+    (np.float64, 0.1, 6, None), (np.float32, 0.1, 2, "item 12"),
 ]
 
 
@@ -229,12 +229,14 @@ UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: items 7 and 8, p
 def test_unported_encodes_name_their_roadmap_item(npdt, mze, version, item, monkeypatch):
     from lerc_tpu_torch.ops import device_encode
 
-    if item is None:  # 8-bit Huffman or fpl: the blob JAX writes, Huffman- or fpl-coded
+    if item is None:  # 8-bit Huffman, fpl or float64 tiling: the blob JAX writes
         data = make(npdt)
         blob = encode_band_device(data, None, mze, version=version, device="cpu")
         assert blob == jax_codec.encode_band_device(data, None, mze, version=version)
-        assert band_sections(blob).mode in ((3,) if npdt == np.float32 else (1, 2))
-        assert_decodes_like_the_host(blob, jax_too=False)
+        modes = {np.float32: (3,), np.float64: (None,)}.get(npdt, (1, 2))  # lossy: no mode byte
+        assert band_sections(blob).mode in modes
+        assert band_sections(blob).kind == {np.float64: "tiling"}.get(npdt, band_sections(blob).kind)
+        assert_decodes_like_the_host(blob, jax_too=npdt == np.float64)
         return
 
     monkeypatch.setattr(device_encode, "encode_tiles",
@@ -249,10 +251,10 @@ def _huffman_blob():
     return BandEncoder(data[:, :, None], None, 0.0).encode()
 
 
-UNPORTED_DECODE = {  # None: items 7 and 8, ported since
+UNPORTED_DECODE = {  # None: items 7, 8 and 9, ported since
     "huffman": (_huffman_blob, None),
     "fpl": (lambda: BandEncoder(make(np.float32), None, 0.0).encode(), None),
-    "f64": (lambda: BandEncoder(make(np.float64), None, 0.01).encode(), "item 9"),
+    "f64": (lambda: BandEncoder(make(np.float64), None, 0.01).encode(), None),
 }
 
 
@@ -262,7 +264,9 @@ def test_unported_decodes_name_their_roadmap_item(name):
     blob = make_blob()
     if name != "f64":  # the blob really is a Huffman / fpl one
         assert band_sections(blob).mode in ((1, 2) if name == "huffman" else (3,))
-    if item is None:  # 8-bit Huffman, fpl: decodes like the host decoder
+    else:  # a float64 tiling blob
+        assert band_sections(blob).kind == "tiling" and band_sections(blob).head.dt == 7
+    if item is None:  # 8-bit Huffman, fpl, float64: decodes like the host decoder
         assert_decodes_like_the_host(blob, jax_too=False)
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -301,7 +305,8 @@ def test_supports_encode_and_round_cap_match_the_slice():
                                                                      version=5)
     assert supports_encode(DataType.BYTE, 0.5, 1)  # 8-bit Huffman: item 7, ported since
     assert supports_encode(DataType.FLOAT, 0.0, 1)  # fpl: item 8, ported since
-    assert not supports_encode(DataType.DOUBLE, 0.1, 1)  # float64: item 9
+    assert supports_encode(DataType.DOUBLE, 0.1, 1)  # float64: item 9, ported since
+    assert supports_encode(DataType.DOUBLE, 0.0, 3, version=6)
     assert not supports_encode(DataType.FLOAT, 0.1, 1, version=2)  # legacy bit order: item 12
     for n in (1, 4096, 4097, 100_000):
         assert _round_cap(n) == jax_codec._round_cap(n)

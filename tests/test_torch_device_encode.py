@@ -151,5 +151,13 @@ def test_unported_options_name_their_roadmap_item(kwargs, item):
     args = dict(mask=None, max_z_error=0.01, h=16, w=16, d=1, dt=DataType.FLOAT,
                 all_valid=True, version=6, cap=4096)
     args.update(kwargs)
+    if item == "item 9":  # float64, ported since: encode_tiles hands it to encode_tiles_f64
+        data = torch.arange(256, dtype=torch.float64).reshape(16, 16, 1) * 0.37
+        stream, total, zmin, zmax, starts, fits = device_encode.encode_tiles(data, **args)
+        want = device_encode.encode_tiles_f64(data, None, 0.01, 16, 16, 1, True, 6, 4096)
+        assert torch.equal(stream, want[0]) and int(total) == int(want[1]) and bool(fits)
+        assert torch.equal(zmin, want[2]) and torch.equal(zmax, want[3])
+        assert torch.equal(starts, want[4]) and zmin.dtype == torch.float64
+        return
     with pytest.raises(NotImplementedError, match=item):
         device_encode.encode_tiles(torch.zeros(16, 16, 1), **args)

@@ -182,7 +182,7 @@ def test_default_device_needs_cuda():
 def test_unported_paths_name_their_roadmap_item():
     # integer dtypes and decode without the index are ported (queue 1 item
     # 5), a masked decode without the index too (item 6: the host record
-    # scanner and the masked K6); float64 is not
+    # scanner and the masked K6); float64 has none (nor has JAX's)
     from lerc_tpu_torch import ResidentCodec
 
     mask = np.ones((16, 16), bool)
@@ -192,5 +192,5 @@ def test_unported_paths_name_their_roadmap_item():
     indexed = codec.decode(blob)
     blob.starts = None
     assert torch.equal(codec.decode(blob), indexed)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64 has no resident codec"):
         FusedResidentCodec(16, 16, 1, np.float64, 0.5, device="cpu")

@@ -18,6 +18,8 @@ its chain derails and its index-free decode returns ok with wrong pixels.
 There the port is held to the host decoder (orchestrator.decode_blob)
 instead, and ``test_jax_depth_diff_scan_fault`` records the JAX fault.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -34,6 +36,7 @@ from lerc_tpu_torch import FusedResidentCodec, ResidentCodec
 from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType, dt_is_int
 from lerc_tpu_torch.interop import codec_kwargs
 from lerc_tpu_torch.ops import device_decode, device_encode, device_scan
+from lerc_tpu_torch.ops import tile_scan as ts
 
 from .test_torch_int import cap_of, int_tile
 
@@ -194,7 +197,9 @@ def test_decode_scanned_refuses_what_it_cannot_decode():
     """A diff record on slice 0, an integer raw diff record and a LUT record
     whose indices pass its LUT clear ok, as the host decoder refuses them; a
     float diff record decodes (the exact f32 chain); micro blocks other than
-    8 and 16 and float64 name their ROADMAP item."""
+    8 and 16 name their ROADMAP item; float64 (ported since) decodes a host
+    scan of the port's f64 stream bit-equal to JAX's softfloat
+    ``decode_tiles_f64``, and a float64 raw diff record clears ok."""
     fdata = float_tile(3)
     stream, total, starts, zmax = port_stream(fdata, 0.01, 6)
     mode, off, nb, ne, pp, lp, nl, nbl = _scanned(stream, total, DataType.FLOAT, 6, 3)[1:9]
@@ -226,8 +231,37 @@ def test_decode_scanned_refuses_what_it_cannot_decode():
     assert not bool(device_decode.decode_scanned(istream, m, *iargs)[1])
     with pytest.raises(NotImplementedError, match="item 12"):
         device_decode.decode_scanned(stream, mode, *args, mb=32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        device_decode.decode_scanned(stream, mode, *args[:-3], DataType.DOUBLE, True, False)
+    ddata = float_tile(3).astype(np.float64) * (1 + 1e-9)
+    dstream, dtotal, _dz0, dz1, _ds = device_encode.encode_tiles_f64(
+        torch.from_numpy(ddata), None, 0.01, H, W, 3, True, 6, 1 << 20)
+    cnts, j0s, n_blocks = ts.block_scan_inputs(np.ones((H, W), bool), 8)
+    recs, _used = ts.tile_scan_ref(dstream.view(torch.uint8)[:int(dtotal)].numpy(), cnts, j0s,
+                                   n_blocks, 3, int(DataType.DOUBLE), 6)
+    head = SimpleNamespace(dt=DataType.DOUBLE, max_z_error=0.01, n_rows=H, n_cols=W, n_depth=3,
+                           micro_block_size=8)
+    dargs = list(device_decode.scanned_args(dstream, 0, recs, None, head, dz1.numpy()))
+    img, ok = device_decode.decode_scanned(*dargs)
+    assert bool(ok) and np.abs(img.numpy() - ddata).max() <= 0.01
+    limbs, bexp = decompose_scalar(0.02)
+    obits, zbits = recs["offset"].view(np.uint64), dz1.numpy().view(np.uint64)
+    jh, jl, jok = jax_decode.decode_tiles_f64(
+        jnp.asarray(dstream.view(torch.uint8).numpy()), jnp.asarray(recs["mode"]),
+        jnp.asarray(recs["payload_pos"].astype(np.int32)),
+        jnp.asarray((obits >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray((obits & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+        jnp.asarray(recs["num_bits"]), jnp.asarray(recs["num_elements"]),
+        jnp.asarray(recs["lut_pos"].astype(np.int32)), jnp.asarray(recs["nbits_lut"]),
+        jnp.ones((H, W), bool), jnp.asarray((zbits >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray((zbits & np.uint64(0xFFFFFFFF)).astype(np.uint32)), limbs, bexp, H, W, 3,
+        True, False)
+    assert bool(jok)
+    jbits = (np.asarray(jh).astype(np.uint64) << np.uint64(32)) | np.asarray(jl)
+    np.testing.assert_array_equal(img.numpy().view(np.uint64), jbits)
+    dmode = dargs[1].clone()
+    raw = int(np.nonzero(dmode.numpy() % 3 == 1)[0][0])  # slice 1 of a block, made raw diff
+    dmode[raw] = 8
+    dargs[1] = dmode
+    assert not bool(device_decode.decode_scanned(*dargs)[1])
 
 
 DIFF_CASES = [np.uint8, np.int16]
