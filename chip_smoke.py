@@ -116,7 +116,17 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      index, bit-equal to the input; tile 0's predictor, levels, methods and
      size; then the float64 kernels' device ms per launch beside their
      plain ms and bounds, the cells' MB/s (best of 3) and the device's busy
-     share over a lossy and a lossless round.
+     share over a lossy and a lossless round;
+  23-26. the tile mosaic on a one-rank NCCL DeviceMesh: the tile-batched
+     K1/K2 against their plain versions on the whole 64-tile stack of each
+     raster (512^2 tiles) that MosaicEncoder hands encode_tiles_batched;
+     the cells (the 4096^2 DEM all-valid and with the bench mask, the
+     uint16 class grid, the uint8 three-band image, the float64 DEM)
+     encoded and decoded through decode_mosaic_device, counted (one K4
+     launch per micro-block group), bit-equal to the per-tile
+     decode_band_device; regions and decode_mosaic of four tiles; the
+     mosaic's K4 against its plain version on every cell's groups; the
+     kernels' times and the DEM round's busy share.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -199,6 +209,20 @@ SOURCES.update({f"decode_scanned{m}_f64": ("lerc_tpu_torch/kernels/decode.cu",
 SOURCES.update({name: ("lerc_tpu_torch/kernels/fpl.cu", f"lerc_tpu/ops/device_fpl.py:{line}")
                 for name, line in (("fpl_sample_histograms_f64", 300), ("fpl_finalize_f64", 344),
                                    ("fpl_restore_f64", 407))})
+
+# the tile mosaic: K4 with LUT records over n units (8x8 and 16x16, every
+# dtype but float64, all-valid and masked) and the tile-batched K1 (per-tile
+# ranges: the LUT instances and float64)
+for _sfx in ("", "_i8", "_u8", "_i16", "_u16", "_i32", "_u32"):
+    for _k4 in ("decode_records_lut", "decode_records_lut_masked", "decode_records_lut16",
+                "decode_records_lut16_masked"):
+        SOURCES[_k4 + _sfx] = ("lerc_tpu_torch/kernels/decode.cu",
+                               "lerc_tpu/ops/device_decode.py:64")
+SOURCES.update({f"encode_tiles{m}": ("lerc_tpu_torch/kernels/encode.cu",
+                                     "lerc_tpu/parallel/sharding.py:53")
+                for m in ("_lut", "_lut16", "_lut_int", "_lut16_int")})
+SOURCES["encode_tiles_f64"] = ("lerc_tpu_torch/kernels/encode.cu",
+                               "lerc_tpu/parallel/sharding.py:137")
 
 
 def fail(msg):
@@ -2712,6 +2736,458 @@ def f64_phases(dev, mask, card, launches, add_row):
                             round_fn=one_round)
 
 
+# ---------------------------------------------------------------------------
+# The tile mosaic (phases 23-26): lerc_tpu_torch.parallel.sharding on a
+# one-rank NCCL DeviceMesh
+# ---------------------------------------------------------------------------
+
+MOSAIC_TILE = 512
+CARD = torch.device("cuda")  # the device of the mosaic phases' own calls
+
+
+def raster_of(tiles):
+    """Four [T, T, D] tiles -> the [2T, 2T, D] raster (host numpy)."""
+    return torch.cat([torch.cat(tiles[:2], 1), torch.cat(tiles[2:4], 1)], 0).cpu().numpy()
+
+
+def k4_name(mb, masked, dt):
+    from lerc_tpu_torch.constants import DT_SUFFIX
+
+    return "decode_records_lut" + ("16" if mb == 16 else "") + ("_masked" if masked else "") \
+        + DT_SUFFIX[dt]
+
+
+def k1_tiles_names(dt, mb):
+    """(batched K1, K2) launch names of a dtype at block size mb."""
+    from lerc_tpu_torch.constants import DataType, dt_is_int
+
+    if dt == DataType.DOUBLE:
+        return "encode_tiles_f64", "write_records_masked_f64"
+    sfx = ("_lut16" if mb == 16 else "_lut") + ("_int" if dt_is_int(dt) else "")
+    return "encode_tiles" + sfx, "write_records" + sfx
+
+
+def mosaic_units(blob):
+    """(info, views, layouts, sections) of a container's units."""
+    from lerc_tpu_torch.parallel import sharding as S
+
+    info, views = S.read_mosaic(blob)
+    layouts = S._tile_band_layouts(views, info["n_bands"])
+    units = [(t, b) for t in range(len(views)) for b in range(info["n_bands"])]
+    return info, views, layouts, S._unit_sections(views, layouts, units, info["n_bands"])
+
+
+def k4_groups(blob):
+    """{mb: units} of the K4-decodable (tiling, not float64) units."""
+    _info, _views, layouts, secs = mosaic_units(blob)
+    out = {}
+    for (t, b), sec in secs.items():
+        hd = layouts[t][b][1]
+        if sec.kind == "tiling" and hd.dt != 7:
+            out.setdefault(hd.micro_block_size, []).append((t, b))
+    return out
+
+
+def lut_records(blob):
+    """LUT records of a single-band container: stuffed records whose numBits
+    byte has bit 5 set, found through the record index."""
+    info, views, layouts, secs = mosaic_units(blob)
+    from lerc_tpu_torch.constants import DataType
+
+    n = 0
+    for (t, b), sec in secs.items():
+        so = int(info["stream_offs"][t])
+        if sec.kind != "tiling" or so < 0:
+            continue
+        dt = layouts[t][b][1].dt
+        for st in info["starts"][t]:
+            if st < 0:
+                break
+            flag = views[t][so + st]
+            b67 = flag >> 6
+            if dt in (DataType.CHAR, DataType.BYTE):
+                off_w = 1
+            elif dt in (DataType.SHORT, DataType.USHORT):
+                off_w = 1 if b67 else 2
+            elif dt == DataType.INT:
+                off_w = 1 if b67 == 3 else 2 if b67 else 4
+            else:
+                off_w = 1 if b67 == 2 else 2 if b67 == 1 else 4
+            n += flag & 3 == 1 and views[t][so + st + 1 + off_w] & 32 != 0
+    return n
+
+
+def check_tiles_encode(raster, mask, mze, mb, tag):
+    """The tile-batched K1 and K2 against their plain versions on the whole
+    tile stack that MosaicEncoder (one rank) hands encode_tiles_batched:
+    every output equal. Returns ({kernel: err}, the kernel timing row
+    inputs)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_encode as enc
+    from lerc_tpu_torch.parallel import sharding as S
+
+    dt = NUMPY_TO_DT[raster.dtype]
+    tiles, masks, _ = S.split_into_tiles(raster, mask, MOSAIC_TILE, MOSAIC_TILE)
+    if raster.dtype == np.uint32:
+        tiles = tiles.view(np.int32)
+    t = torch.from_numpy(np.ascontiguousarray(tiles)).to(CARD)
+    m = torch.from_numpy(np.ascontiguousarray(masks)).to(CARD)
+    k = enc.encode_tiles_batched(t, m, mze, dt, 6, mb)
+    r = enc.encode_tiles_batched(t.cpu(), m.cpu(), mze, dt, 6, mb)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(k, r)):
+        require(torch.equal(a.cpu(), b), f"tile-batched K1/K2 output {i} != plain ({tag}, mb {mb})")
+    k1, k2 = k1_tiles_names(dt, mb)
+    return {k1: max(max_abs(k[4].cpu(), r[4]), max_abs(k[5].cpu(), r[5])),
+            k2: max_abs(k[0].cpu(), r[0])}, (t, m, mze, dt, mb)
+
+
+def k4_inputs(blob, mb, units, dev):
+    from lerc_tpu_torch.ops import device_encode as enc
+    from lerc_tpu_torch.parallel import sharding as S
+
+    info, views, layouts, secs = mosaic_units(blob)
+    stream, starts, zmax, masks = S._group_inputs(info, views, layouts, secs, units, mb)
+    hd = layouts[units[0][0]][units[0][1]][1]
+    valid = None if masks is None else enc.block_valid_words(torch.from_numpy(masks).to(dev), mb)
+    th, tw = info["tile"]
+    args = (torch.from_numpy(stream).to(dev), torch.from_numpy(starts).to(dev), hd.max_z_error,
+            torch.from_numpy(zmax).to(dev), th, tw, hd.n_depth, hd.dt, hd.version)
+    kw = dict(mask=valid, mb=mb, n_tiles=len(units), enable_lut=True)
+    return args, kw, hd, (stream.nbytes, masks is not None)
+
+
+def check_k4(blob, tag):
+    """Each micro-block group's K4 instance against its plain version on
+    the card's and the CPU's copies of the same inputs: images bit-equal,
+    flags equal. Returns {kernel: err}."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    errs = {}
+    for mb, units in sorted(k4_groups(blob).items()):
+        args, kw, hd, (_nb, masked) = k4_inputs(blob, mb, units, CARD)
+        cargs, ckw, _hd, _ = k4_inputs(blob, mb, units, torch.device("cpu"))
+        k = dec.decode_tiles_fast(*args, **kw)
+        r = dec.decode_tiles_fast(*cargs, **ckw)
+        for i, (a, b) in enumerate(zip(k, r)):
+            require(torch.equal(a.cpu(), b), f"K4 {k4_name(mb, masked, hd.dt)} output {i} != "
+                    f"plain ({tag}, {len(units)} units)")
+        errs[k4_name(mb, masked, hd.dt)] = max_abs(k[0].cpu(), r[0])
+    return errs
+
+
+def k4_times(blob):
+    """{kernel: (device ms per launch, plain ms, bound ms)} of each micro-block
+    group's K4 launch on a container's units."""
+    from lerc_tpu_torch.constants import DT_SIZE
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    rows = {}
+    for mb, units in sorted(k4_groups(blob).items()):
+        args, kw, hd, (n_bytes, masked) = k4_inputs(blob, mb, units, CARD)
+        cargs, ckw, _hd, _ = k4_inputs(blob, mb, units, torch.device("cpu"))
+        th, tw, d = args[4], args[5], args[6]
+        n_rec = args[1].numel()
+        bound = (n_bytes + 4 * n_rec + (kw["mask"].numel() * 4 if masked else 0) + 4 * d
+                 * len(units) + len(units) * th * tw * d * DT_SIZE[hd.dt]) / HBM_BYTES_PER_S * 1e3
+        rows[k4_name(mb, masked, hd.dt)] = (
+            device_ms([lambda: dec.decode_tiles_fast(*args, **kw)], "decode_records_lut_kernel"),
+            cuda_ms([lambda: dec.decode_tiles_fast(*cargs, **ckw)], reps=1), bound, len(units))
+    return rows
+
+
+def tiles_encode_times(t, m, mze, dt, mb):
+    """Device ms per launch of the tile-batched K1 and of K2 on a tile
+    group, their plain ms and bounds (as lut_kernel_times)."""
+    from lerc_tpu_torch.constants import DT_SIZE, DataType
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    f64 = dt == DataType.DOUBLE
+    hp, wp, d = t.shape[1], t.shape[2], t.shape[3]
+    n_t = t.shape[0]
+    x = t.to(torch.float64 if f64 else torch.float32 if dt == DataType.FLOAT
+             else torch.int32).reshape(n_t * hp, wp, d).contiguous()
+    valid = enc.block_valid_words(m.reshape(n_t * hp, wp), mb)
+    tile_rec = (hp // mb) * (wp // mb) * d
+    if f64:
+        p = enc.encode_params_f64(mze, 6)
+        k1 = lambda: enc.encode_blocks_f64(x, p, valid, tile_rec)  # noqa: E731
+        rk = k1()[0]
+    else:
+        p = enc.encode_params(mze, 6, 0, dt, mb)
+        k1 = lambda: enc.encode_blocks(x, p, valid, mb, True, tile_rec)  # noqa: E731
+        rk = k1()[0]
+    length = rk[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    total = int(length.sum())
+    cap_w = (total + 4096) // 4
+    if f64:
+        k2 = lambda: enc.write_records_f64(x, rk, starts, cap_w, p, valid)  # noqa: E731
+        k1r = lambda: enc.encode_blocks_f64_ref(x.cpu(), p, valid.cpu(), tile_rec)  # noqa: E731
+    else:
+        k2 = lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True)  # noqa: E731
+        k1r = lambda: enc.encode_blocks_ref(x.cpu(), p, valid.cpu(), mb, True,  # noqa: E731
+                                            tile_rec)
+    bs, n_rec, size = mb * mb, rk.shape[0], DT_SIZE[dt]
+    n_val = int(m.sum()) * d
+    mode = (rk[:, 1] >> 8) & 3
+    coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
+    v_bytes = valid.numel() * 4
+    s = int(np.log2(bs))
+    sort_ops = 0 if f64 else (bs // 2) * s * (s + 1) // 2 * 2
+    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d * n_t
+    k1_o = 20 * n_val + n_rec * sort_ops * (2 if (p.diff_ok and d > 1) else 1)
+    k2_b = size * coded + v_bytes + 20 * n_rec + total
+    k2_o = 12 * coded + int(((rk[:, 1] >> 11) & 1).sum()) * sort_ops
+    ops_rate = F64_OPS_PER_S if f64 else F32_OPS_PER_S
+    k1n, k2n = k1_tiles_names(dt, mb)
+    xc, rkc, stc = x.cpu(), rk.cpu(), starts.cpu()
+    vc = valid.cpu()
+    k2r = ((lambda: enc.write_records_f64_ref(xc, rkc, stc, cap_w, p, vc)) if f64 else
+           (lambda: enc.write_records_ref(xc, rkc, stc, cap_w, p, vc, mb, True)))
+    rows = {}
+    for name, kf, rf, b, o, match in (
+            (k1n, k1, k1r, k1_b, k1_o, "encode_blocks_f64_kernel" if f64
+             else "encode_blocks_lut_kernel"),
+            (k2n, k2, k2r, k2_b, k2_o, "write_records_f64_kernel" if f64
+             else "write_records_lut_kernel")):
+        bms, oms = b / HBM_BYTES_PER_S * 1e3, o / ops_rate * 1e3
+        rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), max(bms, oms),
+                      "bytes" if bms >= oms else "operations")
+    return rows
+
+
+def mosaic_cell(label, raster, mask, mze, mesh, card, rounds=2, tile=MOSAIC_TILE, try_16=True,
+                scanned_ok=False):
+    """One mosaic cell on the card: MosaicEncoder(mesh).encode, then
+    decode_mosaic_device, each counted: the batched K1/K2 of each block size
+    launched (no other kernel on the encode), one K4 launch per micro-block
+    group; the decode bit-equal to the per-tile decode_band_device
+    (decode_mosaic; float64 both within maxZError of the input), lossless
+    exact, lossy within 1.1 * maxZError at the valid pixels (0 elsewhere).
+    Returns (counts, blob, encode ms, decode ms, raw MB, decode)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType, dt_is_int
+    from lerc_tpu_torch.kernels import build
+    from lerc_tpu_torch.parallel import sharding as S
+
+    dt = NUMPY_TO_DT[raster.dtype]
+    h, w, d = raster.shape
+    enc = S.MosaicEncoder(mesh, tile, tile, raster.dtype, n_depth=d, try_16=try_16)
+    mbs = (8, 16) if try_16 and dt != DataType.DOUBLE else (8,)
+    need = [n for mb in mbs for n in k1_tiles_names(dt, mb)]
+    counts, blob = run_counted(need, f"{label} mosaic encode", lambda: enc.encode(raster, mask,
+                                                                                   mze))
+    groups = k4_groups(blob)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = S.decode_mosaic_device(blob, mesh)
+    torch.cuda.synchronize()
+    dcounts = {k: n for k, n in build.LAUNCHES.items() if n}
+    info, views, layouts, secs = mosaic_units(blob)
+    for mb, units in groups.items():
+        masked = any(not secs[u].mask.all() for u in units)
+        name = k4_name(mb, masked, dt)
+        require(dcounts.get(name, 0) == 1,
+                f"{label}: K4 {name} launched {dcounts.get(name, 0)} times for one group")
+    k4 = {k4_name(mb, m, dt) for mb in (8, 16) for m in (False, True)}
+    extra = sorted(set(dcounts) - k4)
+    require(scanned_ok or not extra, f"{label}: kernels {extra} launched on the indexed decode")
+    for k, n in dcounts.items():
+        counts[k] = counts.get(k, 0) + n
+    ref = S.decode_mosaic(blob, device=CARD)
+    sel = np.ones((h, w), bool) if mask is None else mask
+    err = float(np.abs(out.astype(np.float64) - raster.astype(np.float64))[sel].max())
+    if dt == DataType.DOUBLE:
+        require(float(np.abs(ref - raster)[sel].max()) <= mze, f"{label}: per-tile decode error")
+        require(err <= mze, f"{label}: decode error {err} > maxZError")
+    else:
+        require(np.array_equal(out, ref), f"{label}: decode != the per-tile decode_band_device")
+        require(err <= (0 if dt_is_int(dt) else 1.1 * mze), f"{label}: decode error {err}")
+    require((out[~sel] == 0).all(), f"{label}: invalid pixels not 0")
+    enc_ms = min(_wall_ms(lambda: enc.encode(raster, mask, mze)) for _ in range(rounds))
+    dec_ms = min(_wall_ms(lambda: S.decode_mosaic_device(blob, mesh)) for _ in range(rounds))
+    raw_mb = raster.nbytes / 1e6
+    ty, tx = info["grid"]
+    n16 = sum(1 for lay in layouts for _b, hd in lay if hd.micro_block_size == 16)
+    print(f"mosaic cell {label}: {ty}x{tx} tiles of {tile}^2, {len(blob)} B (ratio "
+          f"{raster.nbytes / len(blob):.4f}), {n16} tiles of 16x16 blocks, K4 groups "
+          f"{ {mb: len(u) for mb, u in groups.items()} }, max error {err}; encode {enc_ms:.1f} ms "
+          f"({raw_mb / enc_ms * 1e3:.1f} MB/s), decode {dec_ms:.1f} ms "
+          f"({raw_mb / dec_ms * 1e3:.1f} MB/s) [{card}]", flush=True)
+    return counts, blob, enc_ms, dec_ms, raw_mb, out
+
+
+def _wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mosaic_phases(tiles, mask, card, launches, add_row):
+    """Phases 23-26: the tile mosaic on a one-rank NCCL DeviceMesh."""
+    import torch.distributed as dist
+
+    from lerc_tpu_torch.parallel import sharding as S
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        _mosaic_phases(S.make_mesh(1), tiles, mask, card, launches, add_row)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mosaic_phases(mesh, tiles, mask, card, launches, add_row):
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.parallel import sharding as S
+
+    err = {}
+
+    def merge(e):
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+
+    def count(c):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+
+    dem = raster_of(tiles)
+    mmask = np.tile(mask, (2, 2))  # the bench mask on each 2048^2 quarter, as bench.py
+    grid16 = raster_of([class_grid(t) for t in tiles])
+    u8x3 = raster_of(int_cell_tiles(tiles, np.uint8, 3))
+    dem64 = raster_of(make_tiles64(N_TILES, TILE, tiles[0].device))
+    print(f"mosaic: one-rank DeviceMesh {mesh}; rasters {dem.shape} float32, "
+          f"{grid16.shape} uint16, {u8x3.shape} uint8, {dem64.shape} float64", flush=True)
+
+    # ---- 23. the tile-batched K1/K2 and K4 against their plain versions
+    timing = {}
+    for raster, m, mze, mbs, tag in ((dem, None, MAX_Z_ERROR, (8, 16), "DEM"),
+                                     (dem, mmask, MAX_Z_ERROR, (8, 16), "DEM, bench mask"),
+                                     (grid16, None, 0.5, (8, 16), "uint16 class grid"),
+                                     (u8x3, None, 0.5, (8,), "uint8 x3"),
+                                     (dem64, None, MAX_Z_ERROR, (8,), "float64 DEM")):
+        names = []
+        for mb in mbs:
+            e, ins = check_tiles_encode(raster, m, mze, mb, tag)
+            merge(e)
+            names += sorted(e)
+            timing.setdefault(k1_tiles_names(NUMPY_TO_DT[raster.dtype], mb)[0], ins)
+        print(f"check: the tile-batched K1/K2 ({', '.join(names)}) equal to their plain "
+              f"versions on all {ins[0].shape[0]} {MOSAIC_TILE}^2 tiles of the {tag} (blocks "
+              f"{mbs})", flush=True)
+
+    # ---- 24. the cells, counted
+    cells = {}
+    cells["dem"] = mosaic_cell(f"float32 DEM {2 * TILE}^2, maxZError {MAX_Z_ERROR}", dem, None,
+                               MAX_Z_ERROR, mesh, card)
+    cells["dem_mask"] = mosaic_cell(f"float32 DEM {2 * TILE}^2 with the bench mask, maxZError "
+                                    f"{MAX_Z_ERROR}", dem, mmask, MAX_Z_ERROR, mesh, card)
+    cells["grid"] = mosaic_cell(f"uint16 class grid {2 * TILE}^2, lossless", grid16, None, 0.5, mesh,
+                                card)
+    n16 = len(k4_groups(cells["grid"][1]).get(16, []))
+    n_lut = lut_records(cells["grid"][1])
+    print(f"mosaic: the class grid has {n16} tiles of 16x16 blocks and {n_lut} LUT records",
+          flush=True)
+    if not n16:  # test_mosaic_16x16_tiles_device_decode's raster at 512^2 tiles
+        rng = np.random.default_rng(3)
+        quads = np.full((1024, 1024, 1), 100.0, np.float32)
+        for r0 in range(0, 1024, MOSAIC_TILE):
+            for c0 in range(0, 1024, MOSAIC_TILE):
+                quads[r0:r0 + 16, c0:c0 + 16, 0] += rng.integers(0, 2, (16, 16))
+        cells["quads"] = mosaic_cell("float32 16x16 noise quads 1024^2", quads, None, 0.5, mesh,
+                                     card)
+        require(len(k4_groups(cells["quads"][1]).get(16, [])) > 0, "no 16x16 tiles")
+    if not n_lut:  # test_mosaic_lut_tiles_device_decode's raster at 512^2 tiles
+        rng = np.random.default_rng(11)
+        base = rng.integers(0, 40, (128, 128)).astype(np.float32) * 500
+        lut = np.repeat(np.repeat(base, 8, 0), 8, 1)[:, :, None] + rng.choice(
+            [0, 200.0, 450.0], (1024, 1024, 1), p=[0.8, 0.1, 0.1]).astype(np.float32)
+        cells["lut"] = mosaic_cell("float32 LUT raster 1024^2", lut, None, 0.001, mesh, card,
+                                   try_16=False)
+        require(lut_records(cells["lut"][1]) > 0, "no LUT records")
+    cells["u8x3"] = mosaic_cell(f"uint8 three-band {2 * TILE}^2 (depth-diff), lossless", u8x3, None, 0.5,
+                                mesh, card, scanned_ok=True)
+    n_k6 = cells["u8x3"][0].get("decode_scanned_u8", 0)
+    require(n_k6 > 0, "the depth-diff cell sent no unit to the scanned decode")
+    print(f"mosaic: {n_k6} depth-diff units of the uint8 three-band cell went through K6 "
+          f"(decode_band_device), the others through K4", flush=True)
+    cells["f64"] = mosaic_cell(f"float64 DEM {2 * TILE}^2, maxZError {MAX_Z_ERROR}", dem64, None,
+                               MAX_Z_ERROR, mesh, card, scanned_ok=True)
+    for c in cells.values():
+        count(c[0])
+
+    # ---- 25. region decodes and decode_mosaic of four tiles
+    from lerc_tpu_torch.kernels import build
+
+    blob, full = cells["dem"][1], cells["dem"][5]
+    for (r0, r1, c0, c1), what in (((600, 700, 600, 700), "inside one tile"),
+                                   ((400, 700, 400, 700), "over 2x2 tiles")):
+        c, reg = run_counted(["decode_records_lut"], f"region {what}",
+                             lambda: S.decode_mosaic_region(blob, r0, r1, c0, c1, device=CARD))
+        require(c.get("decode_records_lut") == 1, "a region decode took more than one K4 launch")
+        require(np.array_equal(reg, full[r0:r1, c0:c1]), f"region {what} != the full decode")
+        count(c)
+        print(f"check: decode_mosaic_region {what} ({r0}:{r1}, {c0}:{c1}) equal to the full "
+              f"decode, one K4 launch", flush=True)
+    four = dem[:1024, :1024]
+    blob4 = S.MosaicEncoder(mesh, MOSAIC_TILE, MOSAIC_TILE, np.float32).encode(four, None,
+                                                                              MAX_Z_ERROR)
+    c, out4 = run_counted_band(["fletcher32_parts", "tile_scan", "decode_scanned"],
+                               ["decode_scanned16"], "decode_mosaic of four tiles",
+                               lambda: S.decode_mosaic(blob4, device=CARD))
+    count(c)
+    require(np.array_equal(out4, S.decode_mosaic_device(blob4, mesh)),
+            "decode_mosaic != decode_mosaic_device on four tiles")
+    print("check: decode_mosaic of four 512^2 tiles (K3, the host scanner, K6) equal to "
+          "decode_mosaic_device", flush=True)
+    build.reset_launches()
+
+    # ---- K4 against its plain version on each cell's groups
+    for key, c in cells.items():
+        merge(check_k4(c[1], key))
+    print(f"check: K4 ({', '.join(sorted(k for k in err if k.startswith('decode_records_lut')))}) "
+          f"equal to its plain version on every cell's micro-block groups", flush=True)
+
+    # ---- 26. times
+    for name, ins in timing.items():
+        n_t = ins[0].shape[0]
+        for kname, (ms, plain_ms, bound_ms, bound_by) in tiles_encode_times(*ins).items():
+            if kname.startswith("encode_tiles"):
+                add_row(kname, err.get(kname, 0.0), ms, plain_ms, bound_ms, bound_by, None)
+            print(f"kernel {kname} (tile-batched) on {n_t} {MOSAIC_TILE}^2 tiles: {ms:.4f} "
+                  f"ms/launch (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}) "
+                  f"[{card}]", flush=True)
+    done = set()
+    for key, c in cells.items():
+        for kname, (ms, plain_ms, bound_ms, n_units) in k4_times(c[1]).items():
+            if kname in done:
+                continue
+            done.add(kname)
+            print(f"K4 {kname}: one launch over {n_units} units of the {key} cell", flush=True)
+            add_row(kname, err.get(kname, 0.0), ms, plain_ms, bound_ms, "bytes", None)
+    c = cells["dem"]
+
+    def one_round():
+        blob = S.MosaicEncoder(mesh, MOSAIC_TILE, MOSAIC_TILE, np.float32).encode(
+            dem, None, MAX_Z_ERROR)
+        S.decode_mosaic_device(blob, mesh)
+
+    where_the_time_goes(None, None, c[2] + c[3], card,
+                        "mosaic DEM cell, MosaicEncoder.encode + decode_mosaic_device",
+                        round_fn=one_round)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2883,6 +3359,8 @@ def main():
     fpl_phases(tiles, mask, card, launches, add_row)
     # ---- 20-22. float64 through the band codec
     f64_phases(dev, mask, card, launches, add_row)
+    # ---- 23-26. the tile mosaic on a one-rank NCCL DeviceMesh
+    mosaic_phases(tiles, mask, card, launches, add_row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -82,6 +82,14 @@ LAUNCHES.update({f"{k}{m}_f64": 0 for k in ("encode_blocks", "write_records")
 LAUNCHES.update({f"decode_scanned{mb}{m}_f64": 0 for mb in ("", "16") for m in ("", "_masked")})
 LAUNCHES.update({f"{k}_f64": 0 for k in ("fpl_sample_histograms", "fpl_finalize", "fpl_restore")})
 
+# the mosaic: K4 with LUT records on 8x8 and 16x16 blocks over n units
+# (float32 and every integer dtype, all-valid and masked), and the
+# tile-batched K1 instances (per-tile ranges: LUT on 8x8 and 16x16, float64)
+LAUNCHES.update({f"decode_records_lut{mb}{m}{sfx}": 0 for mb in ("", "16")
+                 for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES})
+LAUNCHES.update({f"encode_tiles{m}": 0 for m in ("_lut", "_lut16", "_lut_int", "_lut16_int",
+                                                  "_f64")})
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 

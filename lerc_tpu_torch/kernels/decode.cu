@@ -1,8 +1,9 @@
 // K4 decode_records: index-driven Lerc2 tile decode for float32 rasters
 // with 8x8 micro blocks, all-valid or masked, with the exact double
-// ScaleBack; its integer instances (decode_records_int) and K6
-// decode_scanned (the band decoder's, and the index-free resident decode's)
-// follow the float kernels and are described there.
+// ScaleBack; its integer instances (decode_records_int), K6 decode_scanned
+// (the band decoder's, and the index-free resident decode's) and the
+// mosaic's K4 (decode_records_lut: LUT records, 16x16 blocks, n units a
+// launch) follow the float kernels and are described there.
 //
 // Replaces lerc_tpu/ops/device_decode.py::decode_tiles_fast (:64) and
 // _exact_f32_scale_back (:30, softfloat f64 in device_softf64.py), and for
@@ -398,7 +399,9 @@ __global__ void decode_scanned_kernel(
                 const int zm = zmax[di];
                 const int a = (int)((uint32_t)off + q * (uint32_t)inv_i);
                 z = m8 == 0 ? lerc2::raw_int((uint32_t)word, size_t_, is_signed)
-                  : m8 == 2 ? 0 : m8 == 3 ? off : min(a, zm);
+                  : m8 == 2 ? 0 : m8 == 3 ? off
+                  : std::is_same<Tout, uint32_t>::value  // uint32: the clamp in u32 order
+                      ? (int)min((uint32_t)a, (uint32_t)zm) : min(a, zm);
                 if (dif) {  // :621-622, :643-644
                     const int ad = m8 == 3 ? off : a;
                     z = m8 == 2 ? prev[k] : min((int)((uint32_t)ad + (uint32_t)prev[k]), zm);
@@ -470,6 +473,208 @@ int launch_scanned_of(int mb, const uint8_t* words, long long n_bytes, const int
         return valid ? launch_scanned<Tout, IS_INT, 16, true>(K6_ARGS)
                      : launch_scanned<Tout, IS_INT, 16, false>(K6_ARGS);
 #undef K6_ARGS
+    return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K4 for the mosaic (decode_records_lut, decode_records_lut16): the indexed
+// decode with LUT records, 8x8 or 16x16 blocks and n units (tiles, or a
+// tile's bands) in one record axis -- decode_tiles_fast with enable_lut
+// (:233-247, :325-341), mb = 16 (:118-123) and n_tiles (:92-95). Record r
+// belongs to unit u = r / unit_rec; starts are absolute byte offsets into
+// the one stream, zmax is [n_units, D] and the validity words are the
+// units' blocks in order. One warp owns one record; lane `lane` decodes
+// positions j = 32k + lane (k < VPL = MB*MB/32).
+//
+// A LUT record (mode 1, numBits byte bit 5) is [header][count][nLut + 1]
+// [nLut entries at numBits][indices at bit_length(nLut) bits]
+// (BitStuffer2.cpp:79-153): value j reads its index at its rank, then entry
+// index - 1 (index 0 is 0, the block minimum). There is no 128-lane window:
+// 16x16 records of any width up to the dtype's decode (JAX caps them at 11
+// bits, :118-123); `fits` only means no record is wider than cap_nb.
+//
+// float32 dequantizes with the exact f64 ScaleBack of K4; integers as the
+// integer K4, uint32 with an unsigned zMax clamp. Per unit the kernel
+// reports {index_ok, fits, diff}: index_ok drops on a record whose parsed
+// length disagrees with the next index entry (each unit's last record is
+// exempt), a stuffed count other than the block's valid count, or a LUT
+// bit when lut is 0; diff is set by a depth-diff record (flag bit 2 at
+// version >= 5), kept apart from index errors -- its offset is reduced as
+// INT for integers, so its length is still checked -- and the caller
+// decodes such units with the previous slice, through K6.
+//
+// Bound: bytes (the units' stream bytes and 4 B of index per record read
+// once, 4*VPL B of validity words per masked block, the images written once).
+// ---------------------------------------------------------------------------
+
+// value i of `width` bits (LSB-first) at byte pos; bytes outside the stream
+// read 0, as K4's window
+__device__ __forceinline__ uint32_t extract_z(const uint8_t* s, long long n_bytes, long long pos,
+                                              long long i, int width) {
+    const long long bitpos = i * width;
+    const long long at = pos + (bitpos >> 3);
+    const int sh = (int)(bitpos & 7);
+    uint64_t v = 0;
+    for (int t = 0; t < 5; ++t) v |= (uint64_t)rd(s, at + t, n_bytes) << (8 * t);
+    const uint64_t qmask = width >= 32 ? 0xFFFFFFFFull : ((1ull << width) - 1);
+    return (uint32_t)((v >> sh) & qmask);
+}
+
+template <typename Tout, bool IS_INT, int MB, bool MASKED>
+__global__ void decode_records_lut_kernel(
+        const uint8_t* __restrict__ s, long long n_bytes, const int* __restrict__ starts,
+        const uint32_t* __restrict__ valid, const int* __restrict__ zmax, double inv, int inv_i,
+        int h, int w, int d, int nbh, int unit_rec, int n_rec, int dt, int size_t_,
+        int is_signed, int version5, int lut, int cap_nb, Tout* __restrict__ img,
+        int* __restrict__ flags) {
+    constexpr int VPL = MB * MB / 32;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.x * WARPS + warp;
+    if (r >= n_rec) return;  // warp-uniform
+    const int u = r / unit_rec, rr = r - u * unit_rec;
+    const int b = rr / d, di = rr - b * d;
+    const long long p = starts[r];
+
+    const uint32_t flag = rd(s, p, n_bytes);
+    const int mode = flag & 3, b67 = flag >> 6;
+    const bool dif = version5 && (flag & 4u);
+    const int off_w = lerc2::offset_width(IS_INT && dif ? lerc2::DT_INT : dt, b67);
+    uint32_t acc = rd(s, p + 1, n_bytes) | rd(s, p + 2, n_bytes) << 8
+                 | rd(s, p + 3, n_bytes) << 16 | rd(s, p + 4, n_bytes) << 24;
+    acc &= off_w == 1 ? 0xFFu : (off_w == 2 ? 0xFFFFu : 0xFFFFFFFFu);
+    const uint32_t nbb = rd(s, p + 1 + off_w, n_bytes);
+    const int cw_code = nbb >> 6;
+    const int cw = cw_code == 0 ? 4 : 3 - cw_code;
+    const int nb = nbb & 31;
+    const bool is_lut = (nbb & 32) && mode == 1;
+    const int n_lut = is_lut ? (int)rd(s, p + 2 + off_w + cw, n_bytes) - 1 : 0;
+    const int nbits_lut = n_lut > 0 ? 32 - __clz(n_lut) : 0;
+    const int lut_bytes = (n_lut * nb + 7) >> 3;
+    const long long pay = mode == 0 ? p + 1 : p + 2 + off_w + cw + (is_lut ? 1 : 0);
+    const int width = mode == 0 ? 8 * size_t_ : nb;
+
+    const uint32_t lt = (1u << lane) - 1u;
+    uint32_t vw[VPL];
+    int cnt = MB * MB;
+    if constexpr (MASKED) {
+        cnt = 0;
+        const size_t blk = (size_t)u * (unit_rec / d) + b;
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) {
+            vw[k] = valid[blk * VPL + k];
+            cnt += __popc(vw[k]);
+        }
+    }
+    const int zm = zmax[u * d + di];
+    const size_t base = (size_t)u * h;
+    const int row0 = (b / nbh) * MB, col0 = (b % nbh) * MB;
+    int before = 0;  // valid positions before 32k
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+        const unsigned j = 32 * k + lane;
+        int rank = (int)j;
+        bool v = true;
+        if constexpr (MASKED) {
+            rank = before + __popc(vw[k] & lt);
+            before += __popc(vw[k]);
+            v = (vw[k] >> lane) & 1u;
+        }
+        uint32_t q = 0;
+        if (v && (mode == 0 || mode == 1)) {
+            if (is_lut) {
+                const uint32_t idx = extract_z(s, n_bytes, pay + lut_bytes, rank, nbits_lut);
+                q = idx ? extract_z(s, n_bytes, pay, (long long)idx - 1, nb) : 0u;
+            } else {
+                q = extract_z(s, n_bytes, pay, rank, width);
+            }
+        }
+        Tout z;
+        if constexpr (IS_INT) {
+            const int off = lerc2::int_offset(acc, off_w, IS_INT && dif ? lerc2::DT_INT : dt, b67);
+            int zi;
+            if (mode == 0) {
+                zi = lerc2::raw_int(q, size_t_, is_signed);
+            } else if (mode == 2) {
+                zi = 0;
+            } else if (mode == 3) {
+                zi = off;
+            } else {
+                const uint32_t a = (uint32_t)off + q * (uint32_t)inv_i;
+                zi = dt == 5 ? (int)(a < (uint32_t)zm ? a : (uint32_t)zm) : min((int)a, zm);
+            }
+            z = (Tout)(v ? zi : 0);
+        } else {
+            const float offset = lerc2::float_offset(acc, b67);
+            float zf;
+            if (mode == 0) {
+                zf = __uint_as_float(q);
+            } else if (mode == 2) {
+                zf = 0.f;
+            } else if (mode == 3) {
+                zf = offset;
+            } else {
+                zf = __double2float_rn(__dadd_rn((double)offset, __dmul_rn((double)q, inv)));
+                const float zmf = __int_as_float(zm);
+                zf = zmf < zf ? zmf : zf;
+            }
+            z = v ? zf : 0.f;
+        }
+        const int row = row0 + (int)(j / MB), col = col0 + (int)(j % MB);
+        img[((base + row) * w + col) * d + di] = z;
+    }
+
+    if (lane == 0) {
+        const uint32_t ne = rd(s, p + 2 + off_w, n_bytes)
+                          | (cw == 2 ? rd(s, p + 3 + off_w, n_bytes) << 8 : 0u);
+        const long long length =
+            mode == 2 ? 1
+            : mode == 3 ? 1 + off_w
+            : mode == 0 ? 1 + (long long)cnt * size_t_
+            : is_lut ? 1 + off_w + 1 + cw + 1 + lut_bytes + (((long long)ne * nbits_lut + 7) >> 3)
+                     : 1 + off_w + 1 + cw + (((long long)ne * nb + 7) >> 3);
+        bool bad = (mode == 1 && (int)ne != cnt) || (is_lut && !lut);
+        if (rr != unit_rec - 1) {
+            const int delta = (int)((uint32_t)starts[r + 1] - (uint32_t)starts[r]);
+            bad |= delta != length;
+        }
+        if (bad) flags[3 * u] = 0;
+        if ((mode == 0 || mode == 1) && width > cap_nb) flags[3 * u + 1] = 0;
+        if (dif) flags[3 * u + 2] = 1;
+    }
+}
+
+template <typename Tout, bool IS_INT, int MB>
+int launch_lut(const uint8_t* words, long long n_bytes, const int* starts, const int* valid,
+               const int* zmax, double inv, int inv_i, int h, int w, int d, int n_units, int dt,
+               int size_t_, int is_signed, int version5, int lut, int cap_nb, void* img,
+               int* flags, cudaStream_t st) {
+    const int nbh = w / MB;
+    const int unit_rec = (h / MB) * nbh * d;
+    const int n_rec = unit_rec * n_units;
+    const int grid = (n_rec + WARPS - 1) / WARPS;
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(valid);
+    Tout* out = static_cast<Tout*>(img);
+    if (valid)
+        decode_records_lut_kernel<Tout, IS_INT, MB, true><<<grid, WARPS * 32, 0, st>>>(
+            words, n_bytes, starts, v, zmax, inv, inv_i, h, w, d, nbh, unit_rec, n_rec, dt,
+            size_t_, is_signed, version5, lut, cap_nb, out, flags);
+    else
+        decode_records_lut_kernel<Tout, IS_INT, MB, false><<<grid, WARPS * 32, 0, st>>>(
+            words, n_bytes, starts, nullptr, zmax, inv, inv_i, h, w, d, nbh, unit_rec, n_rec, dt,
+            size_t_, is_signed, version5, lut, cap_nb, out, flags);
+    return (int)cudaGetLastError();
+}
+
+template <typename Tout, bool IS_INT>
+int launch_lut_of(int mb, const uint8_t* words, long long n_bytes, const int* starts,
+                  const int* valid, const int* zmax, double inv, int inv_i, int h, int w, int d,
+                  int n_units, int dt, int size_t_, int is_signed, int version5, int lut,
+                  int cap_nb, void* img, int* flags, cudaStream_t st) {
+#define K4L_ARGS words, n_bytes, starts, valid, zmax, inv, inv_i, h, w, d, n_units, dt, size_t_, \
+                 is_signed, version5, lut, cap_nb, img, flags, st
+    if (mb == 8) return launch_lut<Tout, IS_INT, 8>(K4L_ARGS);
+    if (mb == 16) return launch_lut<Tout, IS_INT, 16>(K4L_ARGS);
+#undef K4L_ARGS
     return (int)cudaErrorInvalidValue;
 }
 
@@ -550,4 +755,30 @@ extern "C" int decode_records(const uint8_t* words, long long n_bytes, const int
             words, n_bytes, starts, zmax, inv, w, d, nbh, n_rec, cap_nb, lut_unfit, img,
             flags);
     return (int)cudaGetLastError();
+}
+
+// K4 for the mosaic: n_units units of [H, W, D] (H, W multiples of mb, 8 or
+// 16) in one record axis; dt 0..5 or 6 (float32: zmax holds f32 bits);
+// zmax [n_units, D]; valid: [n_units * nBlocks, mb*mb/32] u32 validity words
+// or null (every pixel valid); flags [n_units, 3] int32 set to {1, 1, 0} by
+// the caller; img [n_units, H, W, D] in the dtype
+extern "C" int decode_records_lut(const uint8_t* words, long long n_bytes, const int* starts,
+                                  const int* valid, const int* zmax, double inv, int inv_i,
+                                  int h, int w, int d, int mb, int n_units, int dt, int size_t_,
+                                  int is_signed, int version5, int lut, int cap_nb, void* img,
+                                  int* flags, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+#define K4L_ARGS mb, words, n_bytes, starts, valid, zmax, inv, inv_i, h, w, d, n_units, dt, \
+                 size_t_, is_signed, version5, lut, cap_nb, img, flags, st
+    switch (dt) {
+        case 0: return launch_lut_of<int8_t, true>(K4L_ARGS);
+        case 1: return launch_lut_of<uint8_t, true>(K4L_ARGS);
+        case 2: return launch_lut_of<int16_t, true>(K4L_ARGS);
+        case 3: return launch_lut_of<uint16_t, true>(K4L_ARGS);
+        case 4: return launch_lut_of<int32_t, true>(K4L_ARGS);
+        case 5: return launch_lut_of<uint32_t, true>(K4L_ARGS);
+        case 6: return launch_lut_of<float, false>(K4L_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef K4L_ARGS
 }

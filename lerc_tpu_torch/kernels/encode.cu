@@ -326,7 +326,9 @@ template <> struct ZOf<uint32_t> { using type = int; };
 // ---------------------------------------------------------------------------
 
 // the per-depth image range over the valid values: merge the CTA's warps,
-// one atomic per depth (a block with no valid value takes no part: di < 0)
+// one atomic per depth (a block with no valid value takes no part: di < 0).
+// di = t * D + depth addresses tile t's ranges at zrange[t * 2D ...] (the
+// tile-batched instances; a one-tile launch passes the depth)
 template <typename Z>
 __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS],
                                             int (&s_di)[WARPS], int warp, int lane, Z lo, Z hi,
@@ -357,8 +359,9 @@ __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS]
                     }
                 }
             }
-            atomic_min_z(zrange + dm, l);
-            atomic_max_z(zrange + d + dm, h);
+            Z* zr = zrange + (dm / d) * 2 * d + dm % d;
+            atomic_min_z(zr, l);
+            atomic_max_z(zr + d, h);
         }
     }
 }
@@ -538,7 +541,8 @@ __global__ void encode_blocks_int_kernel(const T* __restrict__ data,
 template <typename T, int MB>
 __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
                                          const uint32_t* __restrict__ valid, int w, int d,
-                                         int nbh, int n_rec, EncP P, int* __restrict__ rec_info,
+                                         int nbh, int n_rec, int tile_rec, EncP P,
+                                         int* __restrict__ rec_info,
                                          typename ZOf<T>::type* __restrict__ zrange,
                                          int* __restrict__ fits) {
     using Z = typename ZOf<T>::type;
@@ -711,7 +715,8 @@ __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
             if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
         }
     }
-    merge_range(s_min, s_max, s_di, warp, lane, lo, hi, live && cnt > 0 ? r % d : -1, d, zrange);
+    merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
+                live && cnt > 0 ? r % d + d * (r / tile_rec) : -1, d, zrange);
 }
 
 // ---------------------------------------------------------------------------
@@ -1032,7 +1037,8 @@ __device__ __forceinline__ unsigned long long first_min_bits(double x0, double x
 template <bool MASKED>
 __global__ void encode_blocks_f64_kernel(const double* __restrict__ data,
                                          const int2* __restrict__ valid, int w, int d, int nbh,
-                                         int n_rec, EncP64 P, int* __restrict__ rec_info,
+                                         int n_rec, int tile_rec, EncP64 P,
+                                         int* __restrict__ rec_info,
                                          double* __restrict__ zrange) {
     __shared__ double s_min[WARPS], s_max[WARPS];
     __shared__ int s_di[WARPS];
@@ -1088,7 +1094,7 @@ __global__ void encode_blocks_f64_kernel(const double* __restrict__ data,
         }
     }
     merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange);
+                live && (!MASKED || cnt > 0) ? r % d + d * (r / tile_rec) : -1, d, zrange);
 }
 
 template <bool MASKED>
@@ -1192,14 +1198,15 @@ int launch_k1(const void* data, const int* valid, int h, int w, int d, const Enc
 }
 
 template <typename T, int MB>
-int launch_k1_lut(const void* data, const int* valid, int h, int w, int d, const EncP& P,
-                  int* rec_info, void* zrange, int* fits, cudaStream_t st) {
+int launch_k1_lut(const void* data, const int* valid, int h, int w, int d, int tile_rec,
+                  const EncP& P, int* rec_info, void* zrange, int* fits, cudaStream_t st) {
     const int nbh = (w + MB - 1) / MB;
     const int n_rec = ((h + MB - 1) / MB) * nbh * d;
     const int grid = (n_rec + WARPS - 1) / WARPS;
     encode_blocks_lut_kernel<T, MB><<<grid, WARPS * 32, 0, st>>>(
         static_cast<const T*>(data), reinterpret_cast<const uint32_t*>(valid), w, d, nbh, n_rec,
-        P, rec_info, static_cast<typename ZOf<T>::type*>(zrange), fits);
+        tile_rec > 0 ? tile_rec : n_rec, P, rec_info,
+        static_cast<typename ZOf<T>::type*>(zrange), fits);
     return (int)cudaGetLastError();
 }
 
@@ -1305,26 +1312,31 @@ extern "C" int write_records_int(const void* data, int in_type, const int* valid
                        (cudaStream_t)stream)
 }
 
-// The LUT instances (the band codec's): mb 8 or 16, validity words always
-// (all set for an aligned all-valid image); data float32 (is_int 0) or
-// int32 (is_int 1, any integer dtype `dt`); zrange f32 or int32 to match.
+// The LUT instances (the band codec's and the mosaic's): mb 8 or 16,
+// validity words always (all set for an aligned all-valid image); data
+// float32 (is_int 0) or int32 (is_int 1, any integer dtype `dt`); zrange f32
+// or int32 to match. tile_rec > 0: the image is a stack of tiles of
+// tile_rec records each (tile height a multiple of mb), and zrange holds
+// [nTiles, 2D] per-tile ranges; 0: one tile, zrange [2D].
 extern "C" int encode_blocks_lut(const void* data, int is_int, const int* valid, int h, int w,
                                  int d, int mb, int dt, int size_t_, float mze, float scale,
                                  float inv, int inv_i, int lossless, float maxq_cap,
                                  int integ_mask, int cap_nb, int raw_ok, int try_diff,
-                                 int* rec_info, void* zrange, int* fits, void* stream) {
+                                 int tile_rec, int* rec_info, void* zrange, int* fits,
+                                 void* stream) {
     const EncP P{mze, scale, inv, maxq_cap, inv_i, lossless, dt, size_t_, integ_mask, cap_nb,
                  raw_ok, try_diff};
     cudaStream_t st = (cudaStream_t)stream;
     if (!valid || (mb != 8 && mb != 16)) return (int)cudaErrorInvalidValue;
     if (is_int)
-        return mb == 8 ? launch_k1_lut<int32_t, 8>(data, valid, h, w, d, P, rec_info, zrange,
-                                                   fits, st)
-                       : launch_k1_lut<int32_t, 16>(data, valid, h, w, d, P, rec_info, zrange,
-                                                    fits, st);
-    return mb == 8 ? launch_k1_lut<float, 8>(data, valid, h, w, d, P, rec_info, zrange, fits, st)
-                   : launch_k1_lut<float, 16>(data, valid, h, w, d, P, rec_info, zrange, fits,
-                                              st);
+        return mb == 8 ? launch_k1_lut<int32_t, 8>(data, valid, h, w, d, tile_rec, P, rec_info,
+                                                   zrange, fits, st)
+                       : launch_k1_lut<int32_t, 16>(data, valid, h, w, d, tile_rec, P, rec_info,
+                                                    zrange, fits, st);
+    return mb == 8 ? launch_k1_lut<float, 8>(data, valid, h, w, d, tile_rec, P, rec_info, zrange,
+                                             fits, st)
+                   : launch_k1_lut<float, 16>(data, valid, h, w, d, tile_rec, P, rec_info, zrange,
+                                              fits, st);
 }
 
 extern "C" int write_records_lut(const void* data, int is_int, const int* valid, int h, int w,
@@ -1348,21 +1360,23 @@ extern "C" int write_records_lut(const void* data, int is_int, const int* valid,
 // float64, 8x8 blocks: valid [nBlocks, 2] u32 validity words (masks, edge
 // blocks) or null for an aligned all-valid image; scale = 1 / (2 * maxZError)
 // and inv = 2 * maxZError in f64; rec_info [nRec, 4] int32 = {length, desc,
-// offset bits low, high}; zrange [2D] f64 set to (+inf, -inf)
+// offset bits low, high}; zrange [2D] f64 set to (+inf, -inf); tile_rec as
+// encode_blocks_lut's (> 0: [nTiles, 2D] per-tile ranges of a tile stack)
 extern "C" int encode_blocks_f64(const double* data, const int* valid, int h, int w, int d,
-                                 double scale, double inv, int integ_mask, int* rec_info,
-                                 double* zrange, void* stream) {
+                                 double scale, double inv, int integ_mask, int tile_rec,
+                                 int* rec_info, double* zrange, void* stream) {
     const int nbh = (w + 7) / 8;
     const int n_rec = ((h + 7) / 8) * nbh * d;
     const int grid = (n_rec + WARPS - 1) / WARPS;
     const EncP64 P{scale, inv, integ_mask};
     const int2* v = reinterpret_cast<const int2*>(valid);
+    const int tr = tile_rec > 0 ? tile_rec : n_rec;
     if (valid)
         encode_blocks_f64_kernel<true><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-            data, v, w, d, nbh, n_rec, P, rec_info, zrange);
+            data, v, w, d, nbh, n_rec, tr, P, rec_info, zrange);
     else
         encode_blocks_f64_kernel<false><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-            data, nullptr, w, d, nbh, n_rec, P, rec_info, zrange);
+            data, nullptr, w, d, nbh, n_rec, tr, P, rec_info, zrange);
     return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
 """Index-driven Lerc2 tile decoding (kernel K4 ``decode_records`` and its
 plain version).
 
-Port of ``lerc_tpu/ops/device_decode.py::decode_tiles_fast`` (:64) for the
-resident codec's path: float32, 8x8 micro blocks, all-valid or masked, one
-tile, no LUT. Each record is parsed at its entry of the encoder's ``starts`` index;
+Port of ``lerc_tpu/ops/device_decode.py::decode_tiles_fast`` (:64): for the
+resident codec's path float32, 8x8 micro blocks, all-valid or masked, one
+tile, no LUT; for the mosaic's (``decode_records_lut``, below) LUT records,
+8x8 and 16x16 blocks, n units in one launch, per-unit flags. Each record is
+parsed at its entry of the encoder's ``starts`` index;
 values are extracted LSB-first and dequantized with the exact double
 ScaleBack of ``_exact_f32_scale_back`` (:30): ``(float)min(zMin +
 q*invScale, zMax)``, one rounding per operation, narrowed to f32 and then
@@ -74,31 +76,38 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
                       z_max_vec: torch.Tensor, h: int, w: int, d: int, dt: DataType,
                       version: int, nb_cap: int = 0, mask=None, mb: int = 8,
                       n_tiles: int = 1, enable_lut: bool = False):
-    """Returns (img [H, W, D], index_ok 0-d bool, fits 0-d bool) on the
-    stream's device, with no host synchronization. img is float32, or the
-    native dtype of an integer `dt`.
+    """The resident codecs' form -- one tile of 8x8 records, enable_lut
+    False -- returns (img [H, W, D], index_ok 0-d bool, fits 0-d bool); a
+    depth-diff record clears index_ok. The mosaic's form -- enable_lut,
+    mb = 16 or n_tiles > 1 -- returns per unit (img [nTiles, H, W, D] for
+    every n_tiles, index_ok [nTiles], fits [nTiles], diff [nTiles]), the
+    depth-diff flag apart from index errors (``decode_records_lut``). Both
+    on the stream's device, with no host synchronization; img is float32,
+    or the native dtype of an integer `dt`.
 
-    z_max_vec: [D] float32 clamp values, int32 for integer dtypes.
-    mask: None, or the [nBlocks, 2] int32 block validity words of the
-    [H, W] mask (``device_encode.block_valid_words``) on the stream's
-    device."""
-    if enable_lut or mb != 8:
-        raise NotImplementedError(
-            "the indexed decode of LUT and 16x16 records: ROADMAP queue 1 item 10 (mosaic)")
-    if n_tiles != 1:
-        raise NotImplementedError("batched tiles: ROADMAP queue 1 item 10 (mosaic)")
+    starts: [nTiles * nRec] int32 absolute byte offsets (each tile's records
+    in turn). z_max_vec: [D] or [nTiles, D] float32 clamp values, int32 for
+    integer dtypes (uint32 as its bits). mask: None, or the block validity
+    words of the tiles' masks stacked in tile order
+    (``device_encode.block_valid_words(masks.reshape(nTiles * H, W), mb)``)
+    on the stream's device."""
     if dt == DataType.DOUBLE:
         raise NotImplementedError(
             "float64 has no indexed decode (JAX's decode_tiles_fast has none): decode float64 "
             "blobs with decode_band_device")
-    if version < 4:
-        raise NotImplementedError("the indexed decode at versions < 4: ROADMAP queue 1 item 10")
-    if h % 8 or w % 8 or d < 1:
+    if mb not in (8, 16) or h % mb or w % mb or d < 1 or n_tiles < 1:
         raise NotImplementedError(
-            "the indexed decode of edge blocks (H, W not multiples of 8): ROADMAP queue 1 item 10")
+            "the indexed decode of edge blocks (H, W not multiples of the block size): JAX's "
+            "decode_tiles_fast has none either (it asserts H % mb == W % mb == 0); decode such "
+            "tiles with decode_band_device")
     max_nb = DEC_MAX_NB[DT_SIZE[dt]]
     eff_cap = max_nb if nb_cap <= 0 else min(nb_cap, max_nb)
     cap_nb = 32 if eff_cap >= max_nb else eff_cap  # 32: every record fits
+    if enable_lut or mb != 8 or n_tiles != 1:
+        img, flags = decode_records_lut(stream, starts, z_max_vec.reshape(n_tiles, d),
+                                        max_z_error, h, w, d, dt, version, mb, n_tiles,
+                                        enable_lut, cap_nb, mask)
+        return img, flags[:, 0] != 0, flags[:, 1] != 0, flags[:, 2] != 0
     if dt_is_int(dt):
         img, flags = decode_records_int(stream, starts, z_max_vec, _inv_i(max_z_error), h, w, d,
                                         dt, version, cap_nb, 0 < nb_cap <= 16, mask)
@@ -296,6 +305,142 @@ def decode_records_int_ref(stream, starts, zmax, inv_i: int, h: int, w: int, d: 
 
 
 # ---------------------------------------------------------------------------
+# K4 for the mosaic: LUT records, 16x16 blocks, n units in one record axis
+# ---------------------------------------------------------------------------
+
+
+def decode_records_lut(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
+                       max_z_error: float, h: int, w: int, d: int, dt: DataType, version: int,
+                       mb: int, n_units: int, lut: bool = True, cap_nb: int = 32,
+                       valid: torch.Tensor | None = None):
+    """(img [nUnits, H, W, D] in dt's dtype (float32 for FLOAT), flags
+    [nUnits, 3] int32 = {index_ok, fits, diff}) -- one launch over every
+    unit's records (kernels/decode.cu, ``decode_records_lut``).
+
+    stream: [S] int32 u32 words; starts: [nUnits * nRec] int32 absolute byte
+    offsets; zmax: [nUnits, D] float32, or int32 for integers (uint32 as its
+    bits); lut: LUT records decode (else a LUT bit clears index_ok); cap_nb:
+    widest record that fits; valid: the units' block validity words
+    [nUnits * nBlocks, mb*mb/32], or None when every pixel is valid."""
+    n_rec = (h // mb) * (w // mb) * d * n_units
+    ztype = torch.int32 if dt_is_int(dt) else torch.float32
+    if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
+        raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
+    if starts.dtype != torch.int32 or starts.shape != (n_rec,) or not starts.is_contiguous():
+        raise ValueError(f"starts must be a contiguous int32 [{n_rec}] tensor")
+    if zmax.dtype != ztype or zmax.shape != (n_units, d) or not zmax.is_contiguous():
+        raise ValueError(f"zmax must be a contiguous {ztype} [{n_units}, {d}] tensor")
+    vt, sfx, valid_ptr = _valid_args(valid, n_units * h, w, mb)
+    inv, inv_i = 2.0 * float(max_z_error), _inv_i(max_z_error)
+    if not build.on_cuda(stream, starts, zmax, *vt):
+        return decode_records_lut_ref(stream, starts, zmax, inv, inv_i, h, w, d, dt, version, mb,
+                                      n_units, lut, cap_nb, valid)
+    fn = build.library("decode").decode_records_lut
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_double] + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    dev = stream.device
+    name = "decode_records_lut" + ("16" if mb == 16 else "") + sfx + DT_SUFFIX[dt]
+    with torch.cuda.device(dev):
+        img = torch.empty(n_units, h, w, d, dtype=DT_TO_TORCH[dt], device=dev)
+        flags = torch.tensor([[1, 1, 0]], dtype=torch.int32, device=dev).repeat(n_units, 1)
+        err = fn(stream.data_ptr(), 4 * stream.numel(), starts.data_ptr(), valid_ptr,
+                 zmax.data_ptr(), inv, inv_i, h, w, d, mb, n_units, int(dt), DT_SIZE[dt],
+                 int(dt_is_signed(dt)), int(version >= 5), int(lut), cap_nb, img.data_ptr(),
+                 flags.data_ptr(), build.launch_stream(stream))
+        build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return img, flags
+
+
+def decode_records_lut_ref(stream, starts, zmax, inv: float, inv_i: int, h: int, w: int, d: int,
+                           dt: DataType, version: int, mb: int, n_units: int, lut: bool,
+                           cap_nb: int, valid: torch.Tensor | None = None):
+    """Plain PyTorch version of the mosaic's K4 (int64 bit arithmetic; the
+    f64 ScaleBack as two separately rounded operations)."""
+    dev = stream.device
+    bs = mb * mb
+    sb = stream.view(torch.uint8).to(torch.int64)
+    n_bytes = sb.numel()
+
+    def rd(idx):  # bytes outside the stream read 0
+        return torch.where((idx >= 0) & (idx < n_bytes), sb[idx.clamp(0, n_bytes - 1)], 0)
+
+    def extract(pos, i, width):  # LSB-first values of `width` bits at byte pos, index i
+        bitpos = i * width
+        at, sh = pos + (bitpos >> 3), bitpos & 7
+        v = sum(rd(at + t) << (8 * t) for t in range(5))
+        return (v >> sh) & ((1 << width.clamp(max=32)) - 1)
+
+    p = starts.to(torch.int64)
+    n = p.numel()
+    flag = rd(p)
+    mode, b67 = flag & 3, flag >> 6
+    dif = ((flag & 4) != 0) & (version >= 5)
+    odt = torch.where(dif, int(DataType.INT), int(dt)) if dt_is_int(dt) else torch.full_like(p, int(dt))
+    off_w = offset_width_ref(odt, b67)
+    acc = rd(p + 1) | rd(p + 2) << 8 | rd(p + 3) << 16 | rd(p + 4) << 24
+    acc = torch.where(off_w == 1, acc & 0xFF, torch.where(off_w == 2, acc & 0xFFFF, acc))
+    nbb = rd(p + 1 + off_w)
+    cw_code = nbb >> 6
+    cw = torch.where(cw_code == 0, 4, 3 - cw_code)
+    nb = nbb & 31
+    is_lut = ((nbb & 32) > 0) & (mode == 1)
+    n_lut = torch.where(is_lut, rd(p + 2 + off_w + cw) - 1, 0)
+    nbits_lut = sum((n_lut >= (1 << k)).to(torch.int64) for k in range(8))
+    lut_bytes = (n_lut * nb + 7) >> 3
+    pay = torch.where(mode == 0, p + 1, p + 2 + off_w + cw + is_lut.to(torch.int64))
+    size = DT_SIZE[dt]
+    width = torch.where(mode == 0, 8 * size, nb)
+
+    vb, cnt = _record_lanes(valid, d, n, dev, bs)
+    rank = (vb.cumsum(1) - 1).clamp(min=0)
+    q = extract(pay[:, None], rank, width[:, None])
+    idx = extract((pay + lut_bytes)[:, None], rank, nbits_lut[:, None])
+    q_lut = torch.where(idx == 0, 0, extract(pay[:, None], (idx - 1).clamp(min=0), nb[:, None]))
+    q = torch.where(is_lut[:, None], q_lut, q)
+
+    zm = zmax.to(torch.int64 if dt_is_int(dt) else torch.float32)[:, None, :].expand(
+        n_units, n // (n_units * d), d).reshape(n)[:, None]
+    m2 = mode[:, None]
+    if dt_is_int(dt):
+        off2 = int_offset_ref(acc, off_w, odt, b67)[:, None]
+        a = _i32(off2 + q * inv_i)
+        if dt == DataType.UINT:  # the clamp in u32 order
+            z_stuff = torch.minimum(a & 0xFFFFFFFF, zm & 0xFFFFFFFF)
+        else:
+            z_stuff = torch.minimum(a, zm)
+        z = torch.where(m2 == 0, raw_int_ref(q, size, dt_is_signed(dt)),
+                        torch.where(m2 == 2, 0, torch.where(m2 == 3, off2, z_stuff)))
+        z = torch.where(vb, z, 0)
+    else:
+        offset = float_offset_ref(acc, b67)
+        z_stuff = (offset.double()[:, None] + q.double() * inv).float()
+        z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
+        z_raw = _as_i32(q).view(torch.float32)
+        z = torch.where(m2 == 0, z_raw,
+                        torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset[:, None], z_stuff)))
+        z = torch.where(vb, z, 0.0)
+    nbv, nbh = h // mb, w // mb
+    img = (z.reshape(n_units, nbv, nbh, d, mb, mb).permute(0, 1, 4, 2, 5, 3)
+           .reshape(n_units, h, w, d).to(DT_TO_TORCH[dt]).contiguous())
+
+    ne = rd(p + 2 + off_w) | torch.where(cw == 2, rd(p + 3 + off_w) << 8, 0)
+    length = torch.where(mode == 2, 1, torch.where(
+        mode == 3, 1 + off_w, torch.where(mode == 0, 1 + size * cnt, torch.where(
+            is_lut, 1 + off_w + 1 + cw + 1 + lut_bytes + ((ne * nbits_lut + 7) >> 3),
+            1 + off_w + 1 + cw + ((ne * nb + 7) >> 3)))))
+    bad = ((mode == 1) & (ne != cnt)) | (is_lut & (not lut))
+    delta = ((p[1:] - p[:-1] + 2**31) % 2**32) - 2**31
+    last = (torch.arange(n, device=dev) % (n // n_units)) == n // n_units - 1
+    bad[:-1] |= (delta != length[:-1]) & ~last[:-1]
+    unfit = ((mode == 0) | (mode == 1)) & (width > cap_nb)
+    flags = torch.stack([~bad.view(n_units, -1).any(1), ~unfit.view(n_units, -1).any(1),
+                         dif.view(n_units, -1).any(1)], 1)
+    return img, flags.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # K6 decode_scanned
 # ---------------------------------------------------------------------------
 
@@ -375,8 +520,12 @@ def scanned_args(words: torch.Tensor, base: int, recs: np.ndarray, valid: torch.
     def i32(field, add=0):
         return torch.from_numpy((recs[field] + add).astype(np.int32)).to(dev)
 
-    if dt_is_int(head.dt):
-        offset, zmax = i32("offset"), torch.from_numpy(np.round(z_max).astype(np.int32)).to(dev)
+    if dt_is_int(head.dt):  # uint32 values of 2^31 and more as their int32 bits
+        def bits(v):
+            return torch.from_numpy((np.round(v).astype(np.int64) & 0xFFFFFFFF).astype(
+                np.uint32).view(np.int32)).to(dev)
+
+        offset, zmax = bits(recs["offset"]), bits(np.asarray(z_max))
     else:
         ft = np.float64 if head.dt == DataType.DOUBLE else np.float32
         offset = torch.from_numpy(recs["offset"].astype(ft)).to(dev)
@@ -462,7 +611,8 @@ def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, num_elements
         zm = zm.to(torch.int64)
         a = _i32(off + q * inv_i)
         z = torch.where(m8 == 0, raw_int_ref(word, size, dt_is_signed(dt)), torch.where(
-            m8 == 2, 0, torch.where(m8 == 3, off, torch.minimum(a, zm))))
+            m8 == 2, 0, torch.where(m8 == 3, off, torch.minimum(a & 0xFFFFFFFF, zm & 0xFFFFFFFF)
+                                    if dt == DataType.UINT else torch.minimum(a, zm))))
         ad = torch.where(m8 == 3, off, a)
 
         def chain(prev, ad_d, zm_d, c0):  # :641-644

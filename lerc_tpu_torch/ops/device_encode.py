@@ -6,7 +6,9 @@ and every integer dtype, all-valid or masked, any H, W and depth, version
 >= 3, 8x8 micro blocks, and for the band codec the LUT block candidate on
 8x8 and 16x16 blocks; and of ``lerc_tpu/ops/device_f64.py::encode_tiles_f64``
 (:95) for float64 (``encode_tiles_f64``, the end of this module: native f64
-in place of JAX's double-single pairs, JAX's wire choices). It makes the same encoder choices byte for byte:
+in place of JAX's double-single pairs, JAX's wire choices); and of the
+mosaic's per-tile encode (``encode_tiles_batched``: a stack of tiles in one
+K1/K2 launch, K1 keeping per-tile ranges). It makes the same encoder choices byte for byte:
 block min/max, f32 quantization with round-half-even and the
 sign-directed +-1 fixup, numBits, the mode
 (const-0, const-offset, raw, bit-stuffed), the reduced offset width, the
@@ -173,6 +175,76 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     return stream, total, zrange[:d], zrange[d:], starts, fits[0] != 0
 
 
+def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: float,
+                         dt: DataType, version: int, mb: int = 8):
+    """The tile-batched encode (``_encode_tiles_sharded``'s ``vmap(encode_one)``,
+    lerc_tpu/parallel/sharding.py:79-125, one micro-block size; and
+    ``_encode_tiles_f64_sharded`` :137-163): every tile of a [T, tileH,
+    tileW, D] stack with its [T, tileH, tileW] bool masks, as
+    ``encode_tiles(..., all_valid=False, enable_lut=True, mb=mb)`` encodes
+    each alone (float64: ``encode_tiles_f64``, 8x8, no LUT candidate).
+
+    Each tile is padded to whole blocks (the padding invalid), and the stack
+    is encoded as one image of T * tileH' rows: its blocks, hence its
+    records, come tile after tile. One K1 launch decides every record and
+    the per-tile ranges (tile_rec), one ``torch.cumsum`` gives the record
+    starts, one K2 launch writes the tiles' record streams back to back.
+    Returns, on the stack's device with no host synchronization: (stream
+    [S/4] int32 u32 words, bases [T] int32 (each tile's first byte), totals
+    [T] int32, starts [T, nRec] int32 relative to each tile's first byte,
+    z_min [T, D], z_max [T, D] (float32, int32, int64 in unsigned order for
+    uint32, or float64, over each tile's valid values; the type's max and
+    min for a tile with none), fits [1] int32). The stream stays under 2^31 bytes: the
+    caller splits larger stacks."""
+    if version < 3:
+        raise NotImplementedError(
+            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+    f64 = dt == DataType.DOUBLE
+    if mb not in (8, 16) or (f64 and mb != 8):
+        raise ValueError("blocks are 8x8, or 16x16 (not float64)")
+    n_t, th, tw, d = tiles.shape
+    if masks.dtype != torch.bool or tuple(masks.shape) != (n_t, th, tw):
+        raise ValueError(f"masks must be bool [{n_t}, {th}, {tw}]")
+    hp, wp = -(-th // mb) * mb, -(-tw // mb) * mb
+    if (hp, wp) != (th, tw):  # whole blocks; the padding is invalid
+        tiles = torch.nn.functional.pad(tiles, (0, 0, 0, wp - tw, 0, hp - th))
+        masks = torch.nn.functional.pad(masks, (0, wp - tw, 0, hp - th))
+    size = DT_SIZE[dt]
+    tile_rec = (hp // mb) * (wp // mb) * d
+    rec_bound = 1 + mb * mb * size  # a raw record; every record taken is no longer
+    cap = n_t * tile_rec * rec_bound
+    if cap >= 2**31:
+        raise ValueError("a tile batch of 2^31 stream bytes or more: split the stack")
+    kind = torch.float64 if f64 else torch.int32 if dt_is_int(dt) else torch.float32
+    data = tiles.to(kind).reshape(n_t * hp, wp, d).contiguous()
+    valid = block_valid_words(masks.reshape(n_t * hp, wp), mb)
+    if f64:
+        p = encode_params_f64(max_z_error, version)
+        rec_info, zrange = encode_blocks_f64(data, p, valid, tile_rec)
+        fits = torch.ones(1, dtype=torch.int32, device=data.device)
+    else:
+        p = encode_params(max_z_error, version, 0, dt, mb)
+        rec_info, zrange, fits = encode_blocks(data, p, valid, mb, True, tile_rec)
+    length = rec_info[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    cap_w = -(-cap // 4)
+    if f64:
+        stream = write_records_f64(data, rec_info, starts, cap_w, p, valid)
+    else:
+        stream = write_records(data, rec_info, starts, cap_w, p, valid, mb, True)
+    starts = starts.view(n_t, tile_rec)
+    bases = starts[:, 0].contiguous()
+    totals = length.view(n_t, tile_rec).sum(1, dtype=torch.int32)
+    zr = zrange.view(n_t, 2, d)
+    zmin, zmax = zr[:, 0], zr[:, 1]
+    if dt == DataType.UINT:  # K1 merges int32 bits in signed order: uint32 ranges from the stack
+        u = data.view(n_t, hp, wp, d).to(torch.int64) & 0xFFFFFFFF
+        m = masks[..., None]
+        zmin = torch.where(m, u, 2**32 - 1).amin((1, 2))
+        zmax = torch.where(m, u, 0).amax((1, 2))
+    return (stream, bases, totals, (starts - bases[:, None]).contiguous(), zmin, zmax, fits)
+
+
 def _check_data(data, h, w, d, dt=DataType.FLOAT):
     kinds = (torch.float32,) if dt == DataType.FLOAT else tuple(dict.fromkeys((DT_TO_TORCH[dt], torch.int32)))
     if data.dtype not in kinds or tuple(data.shape) != (h, w, d):
@@ -281,19 +353,25 @@ def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool):
 
 
 def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
-                  mb: int = 8, lut: bool = False):
+                  mb: int = 8, lut: bool = False, tile_rec: int = 0):
     """Per-record decisions: (rec_info [nRec, 4] int32 = {length, desc,
     offset word, zq}, desc = flag | mode<<8 | diff<<10 | lut<<11 |
     numBits<<16 | offset width<<24; zrange [2D] = per-depth min then max
     over the valid values, f32 or int32; fits [1] int32). valid: block
-    validity words, or None when every pixel is valid (aligned, no LUT)."""
+    validity words, or None when every pixel is valid (aligned, no LUT).
+
+    tile_rec > 0 (the LUT instances): data is a stack of tiles of tile_rec
+    records each, and zrange is [nTiles * 2D], each tile's ranges in turn
+    (counted as ``encode_tiles_lut...``)."""
     h, w, d = data.shape
     lut_sfx = _lut_args(data, p, valid, mb, lut)
     vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
+    _check_tile_rec(tile_rec, _n_rec(data, mb), d, lut)
     if not build.on_cuda(data, *vt):
-        return encode_blocks_ref(data, p, valid, mb, lut)
+        return encode_blocks_ref(data, p, valid, mb, lut, tile_rec)
     if lut:
-        return _encode_blocks_lut(data, p, valid_ptr, mb, "encode_blocks" + lut_sfx)
+        name = ("encode_tiles" if tile_rec else "encode_blocks") + lut_sfx
+        return _encode_blocks_lut(data, p, valid_ptr, mb, name, tile_rec)
     if dt_is_int(p.dt):
         return _encode_blocks_int(data, p, valid_ptr, sfx)
     fn = build.library("encode").encode_blocks
@@ -312,33 +390,40 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | Non
     return rec_info, zrange, fits
 
 
-def _k1_outputs(data, p: EncodeParams, mb: int):
-    """K1's outputs: rec_info, the range set to (+max, -max) of its type,
-    fits set to 1."""
+def _check_tile_rec(tile_rec: int, n_rec: int, d: int, lut: bool = True) -> None:
+    if tile_rec and (not lut or tile_rec < 0 or tile_rec % d or n_rec % tile_rec):
+        raise ValueError("tile_rec: the LUT or float64 instances, a whole number of tiles of "
+                         "whole blocks")
+
+
+def _k1_outputs(data, p: EncodeParams, mb: int, tile_rec: int = 0):
+    """K1's outputs: rec_info, the range set to (+max, -max) of its type
+    (per tile of tile_rec records), fits set to 1."""
     dev, d = data.device, data.shape[2]
+    n_rec = _n_rec(data, mb)
+    n = (n_rec // tile_rec if tile_rec else 1) * d
     if dt_is_int(p.dt):
-        zrange = torch.cat([torch.full((d,), _I32_MAX, dtype=torch.int32, device=dev),
-                            torch.full((d,), _I32_MIN, dtype=torch.int32, device=dev)])
+        lo, hi, kind = _I32_MAX, _I32_MIN, torch.int32
     else:
-        zrange = torch.cat([torch.full((d,), float("inf"), device=dev),
-                            torch.full((d,), float("-inf"), device=dev)])
-    return (torch.empty(_n_rec(data, mb), 4, dtype=torch.int32, device=dev), zrange,
+        lo, hi, kind = float("inf"), float("-inf"), torch.float32
+    zrange = torch.tensor([lo, hi], dtype=kind, device=dev).repeat_interleave(d).repeat(n // d)
+    return (torch.empty(n_rec, 4, dtype=torch.int32, device=dev), zrange,
             torch.ones(1, dtype=torch.int32, device=dev))
 
 
-def _encode_blocks_lut(data, p: EncodeParams, valid_ptr, mb: int, name: str):
+def _encode_blocks_lut(data, p: EncodeParams, valid_ptr, mb: int, name: str, tile_rec: int = 0):
     """Launch a LUT instance of K1 (float32 or int32 data)."""
     h, w, d = data.shape
     fn = build.library("encode").encode_blocks_lut
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     with torch.cuda.device(data.device):
-        rec_info, zrange, fits = _k1_outputs(data, p, mb)
+        rec_info, zrange, fits = _k1_outputs(data, p, mb, tile_rec)
         err = fn(data.data_ptr(), int(dt_is_int(p.dt)), valid_ptr, h, w, d, mb, int(p.dt),
                  DT_SIZE[p.dt], p.mze, p.scale, p.inv, p.inv_i, int(p.lossless), p.maxq_cap,
-                 p.integ_mask, p.cap_nb, int(p.raw_ok), int(p.diff_ok and d > 1),
+                 p.integ_mask, p.cap_nb, int(p.raw_ok), int(p.diff_ok and d > 1), tile_rec,
                  rec_info.data_ptr(), zrange.data_ptr(), fits.data_ptr(),
                  build.launch_stream(data))
         build.check(err, name)
@@ -445,11 +530,19 @@ def _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len):
     return torch.where(use, lut_len, stuff_len), use
 
 
+def _tile_ranges(lo: torch.Tensor, hi: torch.Tensor, d: int, tile_rec: int) -> torch.Tensor:
+    """Per-record range contributions [nRec] -> per-depth min then max, per
+    tile of tile_rec records ([nTiles * 2D]; one tile when tile_rec is 0)."""
+    n_tiles = lo.numel() // tile_rec if tile_rec else 1
+    return torch.cat([lo.view(n_tiles, -1, d).amin(1), hi.view(n_tiles, -1, d).amax(1)],
+                     1).reshape(-1)
+
+
 def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
-                      mb: int = 8, lut: bool = False):
+                      mb: int = 8, lut: bool = False, tile_rec: int = 0):
     """Plain PyTorch version of K1 (int64 bit arithmetic)."""
     if dt_is_int(p.dt):
-        return encode_blocks_int_ref(data, p, valid, mb, lut)
+        return encode_blocks_int_ref(data, p, valid, mb, lut, tile_rec)
     h, w, d = data.shape
     x = _blocks(data, mb)
     n = x.shape[0]
@@ -489,8 +582,8 @@ def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor |
     rec_info = torch.stack([length, desc, _as_i32(off_word).to(torch.int64),
                             zmin.view(torch.int32).to(torch.int64)], 1).to(torch.int32)
     # blocks without a valid value take no part in the per-depth range
-    zrange = torch.cat([torch.where(has, zmin, float("inf")).view(-1, d).amin(0),
-                        torch.where(has, zmax, float("-inf")).view(-1, d).amax(0)])
+    zrange = _tile_ranges(torch.where(has, zmin, float("inf")),
+                          torch.where(has, zmax, float("-inf")), d, tile_rec)
     bad = ((mode == 1) & (nb > p.cap_nb)) | ((mode == 0) & (not p.raw_ok))
     fits = (~bad.any()).to(torch.int32).reshape(1)
     return rec_info, zrange, fits
@@ -552,7 +645,7 @@ def _prev_slice(v: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
-                          mb: int = 8, lut: bool = False):
+                          mb: int = 8, lut: bool = False, tile_rec: int = 0):
     """Plain PyTorch version of the integer K1 instances (int64 arithmetic
     wrapped to int32 where JAX computes in int32); zrange is [2D] int32."""
     h, w, d = data.shape
@@ -619,8 +712,8 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
     lut_bit = (use_lut & (mode == 1)).to(torch.int64)
     desc = flag | (mode << 8) | (ud << 10) | (lut_bit << 11) | (nb << 16) | (off_w << 24)
     rec_info = torch.stack([length, desc, _i32(off_word), zq], 1).to(torch.int32)
-    zrange = torch.cat([torch.where(has, lo, _I32_MAX).view(-1, d).amin(0),
-                        torch.where(has, hi, _I32_MIN).view(-1, d).amax(0)]).to(torch.int32)
+    zrange = _tile_ranges(torch.where(has, lo, _I32_MAX), torch.where(has, hi, _I32_MIN), d,
+                          tile_rec).to(torch.int32)
     bad = ((mode == 1) & (nb > p.cap_nb)) | ((mode == 0) & (not p.raw_ok))
     fits = (~bad.any()).to(torch.int32).reshape(1)
     return rec_info, zrange, fits
@@ -862,29 +955,34 @@ def _check_f64(data, h, w, d):
                          f"{data.dtype} {tuple(data.shape)}")
 
 
-def encode_blocks_f64(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+def encode_blocks_f64(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
+                      tile_rec: int = 0):
     """K1 f64: (rec_info [nRec, 4] int32 = {length, desc, offset bits low
     word, high word}, desc = flag | mode << 8 | numBits << 16 | 8 << 24;
     zrange [2D] f64 = per-depth min then max over the valid values). valid:
     block validity words, or None when every pixel is valid (H, W multiples
-    of 8)."""
+    of 8). tile_rec > 0: a stack of tiles of tile_rec records each, zrange
+    [nTiles * 2D] (counted as ``encode_tiles_f64``)."""
     h, w, d = data.shape
     _check_f64(data, h, w, d)
     vt, sfx, valid_ptr = _valid_args(valid, h, w)
+    n_rec = _n_rec(data)
+    _check_tile_rec(tile_rec, n_rec, d)
     if not build.on_cuda(data, *vt):
-        return encode_blocks_f64_ref(data, p, valid)
+        return encode_blocks_f64_ref(data, p, valid, tile_rec)
     fn = build.library("encode").encode_blocks_f64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    name = "encode_blocks" + sfx + "_f64"
+    name = "encode_tiles_f64" if tile_rec else "encode_blocks" + sfx + "_f64"
     dev = data.device
+    n_tiles = n_rec // tile_rec if tile_rec else 1
     with torch.cuda.device(dev):
-        rec_info = torch.empty(_n_rec(data), 4, dtype=torch.int32, device=dev)
-        zrange = torch.cat([torch.full((d,), float("inf"), dtype=torch.float64, device=dev),
-                            torch.full((d,), float("-inf"), dtype=torch.float64, device=dev)])
-        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.scale, p.inv, p.integ_mask,
+        rec_info = torch.empty(n_rec, 4, dtype=torch.int32, device=dev)
+        zrange = torch.tensor([float("inf"), float("-inf")], dtype=torch.float64,
+                              device=dev).repeat_interleave(d).repeat(n_tiles)
+        err = fn(data.data_ptr(), valid_ptr, h, w, d, p.scale, p.inv, p.integ_mask, tile_rec,
                  rec_info.data_ptr(), zrange.data_ptr(), build.launch_stream(data))
         build.check(err, name)
     build.LAUNCHES[name] += 1
@@ -904,7 +1002,8 @@ def quantize_f64_ref(x: torch.Tensor, zmin: torch.Tensor, p: EncodeParams) -> to
     return torch.where(errc < resid.abs(), qc, q0).to(torch.int64)
 
 
-def encode_blocks_f64_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None):
+def encode_blocks_f64_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
+                          tile_rec: int = 0):
     """Plain PyTorch version of K1 f64."""
     h, w, d = data.shape
     x = _blocks(data)
@@ -933,8 +1032,8 @@ def encode_blocks_f64_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
     rec_info = torch.stack([length, desc, _as_i32(off_bits & 0xFFFFFFFF).to(torch.int64),
                             _as_i32((off_bits >> 32) & 0xFFFFFFFF).to(torch.int64)],
                            1).to(torch.int32)
-    zrange = torch.cat([torch.where(has, zmin, float("inf")).view(-1, d).amin(0),
-                        torch.where(has, zmax, float("-inf")).view(-1, d).amax(0)])
+    zrange = _tile_ranges(torch.where(has, zmin, float("inf")),
+                          torch.where(has, zmax, float("-inf")), d, tile_rec)
     return rec_info, zrange
 
 

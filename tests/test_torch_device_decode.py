@@ -95,9 +95,26 @@ def test_tampered_index_fails_in_both(r, delta):
 
 
 def test_unported_options_name_their_roadmap_item():
-    args = (torch.zeros(1024, dtype=torch.int32), torch.zeros(4, dtype=torch.int32), 0.01,
-            torch.zeros(1), 16, 16, 1, DataType.FLOAT, 6)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        device_decode.decode_tiles_fast(*args, n_tiles=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        device_decode.decode_tiles_fast(*args, enable_lut=True)
+    # LUT records, 16x16 blocks, batched tiles and versions < 4 decode now
+    # (the mosaic's K4 instances); edge blocks stay refused, naming no
+    # ROADMAP item: JAX's decode_tiles_fast has none either
+    stream = torch.zeros(1024, dtype=torch.int32)
+    args = (stream, torch.arange(8, dtype=torch.int32), 0.01, torch.zeros(2, 1), 16, 16, 1,
+            DataType.FLOAT, 6)
+    # (their form: the image and the flags per unit, for every unit count)
+    img, ok, _fits, _diff = device_decode.decode_tiles_fast(*args, n_tiles=2)
+    assert img.shape == (2, 16, 16, 1) and ok.shape == (2,)
+    img, ok, _fits, _diff = device_decode.decode_tiles_fast(
+        *args[:1], torch.arange(4, dtype=torch.int32), 0.01, torch.zeros(1), 16, 16, 1,
+        DataType.FLOAT, 3, enable_lut=True)
+    assert img.shape == (1, 16, 16, 1) and ok.shape == (1,)
+    img, *_ = device_decode.decode_tiles_fast(stream, torch.zeros(1, dtype=torch.int32), 0.01,
+                                              torch.zeros(1), 16, 16, 1, DataType.FLOAT, 6,
+                                              mb=16)
+    assert img.shape == (1, 16, 16, 1)
+    with pytest.raises(NotImplementedError, match="JAX's decode_tiles_fast has none") as err:
+        device_decode.decode_tiles_fast(stream, torch.zeros(6, dtype=torch.int32), 0.01,
+                                        torch.zeros(1), 24, 16, 1, DataType.FLOAT, 6, mb=16)
+    assert "ROADMAP" not in str(err.value)
+    with pytest.raises(NotImplementedError, match="float64 has no indexed decode"):
+        device_decode.decode_tiles_fast(*args[:4], 16, 16, 1, DataType.DOUBLE, 6)

@@ -30,6 +30,7 @@ def test_import_loads_no_jax_and_no_lerc_tpu():
         "import lerc_tpu_torch.ops.device_huffman, lerc_tpu_torch.ops.huffman_scan\n"
         "import lerc_tpu_torch.codec.huffman, lerc_tpu_torch.codec.bitstuffer\n"
         "import lerc_tpu_torch.ops.device_fpl, lerc_tpu_torch.codec.fpl_impl\n"
+        "import lerc_tpu_torch.parallel, lerc_tpu_torch.parallel.sharding\n"
         "from lerc_tpu_torch import ResidentBlob, ResidentCodec\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
