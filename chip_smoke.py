@@ -126,7 +126,26 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      launch per micro-block group), bit-equal to the per-tile
      decode_band_device; regions and decode_mosaic of four tiles; the
      mosaic's K4 against its plain version on every cell's groups; the
-     kernels' times and the DEM round's busy share.
+     kernels' times and the DEM round's busy share;
+  27. the public API (lerc_tpu_torch.encode / decode, compress / decompress,
+     encode_4D, encodeForVersion), each case counted: a band routed to the
+     band codec launches what encode_band_device / decode_band_device
+     launch on it (the same kernels, the same counts), a band on the host
+     codec launches nothing. The bench's 4096^2 float32 DEM as one band at
+     maxZError 0.001, all-valid and with the bench mask on each quarter; a
+     uint8 three-band 512^2 image with one shared mask (bands 2-3 carry no
+     mask section); a float32 1024^2 x 2 band with NaN holes and a noData
+     value (host encode); v5 and v2 encodes of a 512^2 crop (host encode;
+     the v5 blob decodes on the card, the v2 blob on the host). Every routed
+     band's bytes equal encode_band_device's, every decode is bit-equal to
+     the host codec's decode of the same blob and within maxZError; the
+     API's encode and decode MB/s (host clock ending in a synchronize, best
+     of 3) and the host ms of filter_no_data_and_nan on the DEM;
+  28. Q1-Q3, the Pallas probes of tools/profile_pallas.py
+     (lerc_tpu_torch/ops/probes.py), at the probe's shapes: the probe path
+     counted, each kernel against its plain version on the same CUDA
+     tensors, their device ms (torch.profiler), bounds and, for Q1, the
+     torch index_add_ call.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -223,6 +242,10 @@ SOURCES.update({f"encode_tiles{m}": ("lerc_tpu_torch/kernels/encode.cu",
                 for m in ("_lut", "_lut16", "_lut_int", "_lut16_int")})
 SOURCES["encode_tiles_f64"] = ("lerc_tpu_torch/kernels/encode.cu",
                                "lerc_tpu/parallel/sharding.py:137")
+# the Pallas probes of tools/profile_pallas.py (Q1-Q3)
+SOURCES.update({name: ("lerc_tpu_torch/kernels/probes.cu", f"tools/profile_pallas.py:{line}")
+                for name, line in (("probe_write", 36), ("probe_window", 63),
+                                   ("probe_asm", 103))})
 
 
 def fail(msg):
@@ -3187,6 +3210,265 @@ def _mosaic_phases(mesh, tiles, mask, card, launches, add_row):
                         "mosaic DEM cell, MosaicEncoder.encode + decode_mosaic_device",
                         round_fn=one_round)
 
+# ---------------------------------------------------------------------------
+# 27. the public API; 28. the Pallas probes
+# ---------------------------------------------------------------------------
+
+
+def _counts_of(fn):
+    """(launch counts of fn(), fn's result), every count at 0 before it."""
+    from lerc_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return {k: n for k, n in build.LAUNCHES.items() if n}, out
+
+
+def _band_blobs(blob):
+    """A multi-band blob -> its band blobs (the header's blob sizes)."""
+    from lerc_tpu_torch.codec.orchestrator import get_lerc_info
+
+    info = get_lerc_info(blob)
+    ends = info.band_offsets[1:] + [info.blob_size]
+    return [blob[a:b] for a, b in zip(info.band_offsets, ends)]
+
+
+def _host_result(blob):
+    """The host codec's decode of a blob (acceleration off)."""
+    from lerc_tpu_torch.codec import encode_orchestrator as E
+    from lerc_tpu_torch.codec import orchestrator as O
+
+    E.set_acceleration(False)
+    try:
+        return O.decode_blob(blob, device="cpu")
+    finally:
+        E.set_acceleration(None)
+
+
+def _bits_np(a):
+    a = np.asarray(a)
+    return a.view({4: np.uint32, 8: np.uint64}[a.itemsize]) if a.dtype.kind == "f" else a
+
+
+def api_case(label, encode, decode, data, masks, mze, routed, nodata=None):
+    """One API case, counted. encode() -> blob, decode(blob) -> (data
+    [nBands, H, W, D], masks [nBands, H, W]). data [nBands, H, W, D] and
+    masks ([nBands or 1, H, W] or None) are the inputs. routed: whether the
+    bands go to the band codec on encode (decode routes by the blob). The
+    encode launches exactly what encode_band_device launches on the same
+    bands (nothing on the host route), the decode what decode_band_device
+    launches on the routed bands; routed bands' bytes equal
+    encode_band_device's; the decode is bit-equal to the host codec's and
+    within maxZError at the valid pixels (noData pixels exact). Returns
+    (blob, its decode, encode counts, decode counts)."""
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+    from lerc_tpu_torch.codec import header as hdr
+    from lerc_tpu_torch.codec import lerc2_decode
+    from lerc_tpu_torch.codec.orchestrator import _routed_to_device
+
+    enc_counts, blob = _counts_of(encode)
+    bands = _band_blobs(blob)
+    n_bands = data.shape[0]
+    require(len(bands) == n_bands, f"{label}: {len(bands)} bands, {n_bands} given")
+    mk = [None if masks is None else masks[min(i, masks.shape[0] - 1)] for i in range(n_bands)]
+    if routed:
+        def direct():
+            return [encode_band_device(data[i], mk[i], mze, 6, i == 0, n_blobs_more=n_bands - 1 - i)
+                    for i in range(n_bands)]  # one mask, shared: sent with band 1 only
+        want_counts, want = _counts_of(direct)
+        require(want == bands, f"{label}: a routed band's bytes differ from encode_band_device's")
+        require(want_counts and enc_counts == want_counts,
+                f"{label}: API encode launched {enc_counts}, encode_band_device {want_counts}")
+    else:
+        require(not enc_counts, f"{label}: the host encode launched {enc_counts}")
+    dec_counts, (got, got_masks) = _counts_of(lambda: decode(blob))
+
+    def direct_decode():
+        prev = None
+        for b in bands:
+            if _routed_to_device(memoryview(b), data.shape[1] * data.shape[2]):
+                prev = decode_band_device(b, prev).mask
+            else:
+                prev = lerc2_decode.decode_band(b, prev).mask
+    want_counts, _ = _counts_of(direct_decode)
+    require(dec_counts == want_counts,
+            f"{label}: API decode launched {dec_counts}, decode_band_device {want_counts}")
+    host = _host_result(blob)
+    require(np.array_equal(_bits_np(got), _bits_np(host.data)),
+            f"{label}: decode differs from the host codec's")
+    require(np.array_equal(got_masks, host.masks), f"{label}: masks differ from the host codec's")
+    for i, b in enumerate(bands):
+        head, _ = hdr.read_header(memoryview(b))
+        valid = np.broadcast_to(host.masks[i][:, :, None], data[i].shape).copy()
+        valid &= ~np.isnan(data[i].astype(np.float64))
+        x = data[i].astype(np.float64)
+        if nodata is not None:
+            nd = valid & (x == nodata)
+            require(np.array_equal(got[i][nd], data[i][nd]), f"{label}: noData values lost")
+            valid &= ~nd
+        err = float(np.abs(got[i].astype(np.float64) - x)[valid].max()) if valid.any() else 0.0
+        require(err <= head.max_z_error * 1.1 + 1e-12,
+                f"{label}: band {i} error {err} over maxZError {head.max_z_error}")
+    return blob, (got, got_masks), enc_counts, dec_counts
+
+
+def api_phase(tiles, mask, card):
+    """Phase 27: the public API on the card."""
+    import lerc_tpu_torch as lerc
+    from lerc_tpu_torch.codec.encode_orchestrator import filter_no_data_and_nan
+
+    dem = raster_of(tiles)[:, :, 0]  # [4096, 4096] float32
+    mask4 = np.tile(mask, (2, 2))
+    raw_mb = dem.nbytes / 1e6
+
+    def unsqueeze(arr, m):
+        return arr[None, :, :, None], None if m is None else m[None]
+
+    for label, m in (("DEM all-valid", None), ("DEM masked", mask4)):
+        blob, _, enc_c, dec_c = api_case(
+            f"API {label}", lambda m=m: lerc.encode(dem, 1, m is not None, m, MAX_Z_ERROR, 1)[2],
+            lambda b: (lambda r: (r[1][None, :, :, None], np.ones((1,) + dem.shape, bool)
+                                  if r[2] is None else r[2][None]))(lerc.decode(b)),
+            *unsqueeze(dem, m), MAX_Z_ERROR, True)
+        cblob = lerc.compress(dem, MAX_Z_ERROR, m)
+        require(cblob == blob, f"API {label}: compress differs from encode")
+        cdata, _cmask = lerc.decompress(cblob)
+        require(np.array_equal(_bits_np(cdata), _bits_np(lerc.decode(blob)[1])),
+                f"API {label}: decompress differs from decode")
+
+        def timed(fn):
+            best = float("inf")
+            for _ in range(3):
+                best = min(best, _wall_ms(fn))
+            return best
+
+        enc_ms = timed(lambda: lerc.encode(dem, 1, m is not None, m, MAX_Z_ERROR, 1))
+        dec_ms = timed(lambda: lerc.decode(blob))
+        print(f"API {label} ({dem.shape[0]}^2 float32, one band, maxZError {MAX_Z_ERROR}): encode "
+              f"{raw_mb / (enc_ms / 1e3):.1f} MB/s ({enc_ms:.3f} ms), decode "
+              f"{raw_mb / (dec_ms / 1e3):.1f} MB/s ({dec_ms:.3f} ms), ratio "
+              f"{dem.nbytes / len(blob):.4f}; launches encode {enc_c}, decode {dec_c} [{card}]",
+              flush=True)
+    filt = []
+    for _ in range(3):
+        band, mm = dem[:, :, None].copy(), np.ones(dem.shape, bool)
+        t0 = time.perf_counter()
+        filter_no_data_and_nan(band, mm, MAX_Z_ERROR, False, 0.0)
+        filt.append((time.perf_counter() - t0) * 1e3)
+    print(f"API host filter_no_data_and_nan on the {dem.shape[0]}^2 DEM: {min(filt):.3f} ms (best of 3; "
+          f"part of every float32 encode at v6) [{card}]", flush=True)
+
+    # a uint8 three-band image, one shared mask: bands 2-3 carry no mask section
+    crop = (slice(280, 792), slice(480, 992))  # 512^2 over a corner of the bench hole
+    u8 = int_cell_tiles(tiles[:1], np.uint8, 3)[0][crop].permute(2, 0, 1).cpu().numpy().copy()
+    m512 = mask[crop]
+    blob, _, enc_c, dec_c = api_case(
+        "API uint8 x 3 bands, shared mask", lambda: lerc.encode(u8, 1, True, m512, 0, 1)[2],
+        lambda b: (lambda r: (r[1][:, :, :, None], np.broadcast_to(r[2], u8.shape)))(lerc.decode(b)),
+        u8[:, :, :, None], m512[None], 0, True)
+    from lerc_tpu_torch.codec import header as hdr
+    sizes = []
+    for b in _band_blobs(blob):
+        _, pos = hdr.read_header(memoryview(b))
+        sizes.append(int.from_bytes(b[pos:pos + 4], "little"))
+    require(sizes[0] > 0 and sizes[1:] == [0, 0],
+            f"API uint8 x 3: mask sections {sizes}, want one for band 1 only")
+    print(f"API uint8 x 3 bands 512^2, shared mask: mask sections {sizes} B, blob {len(blob)} B, "
+          f"launches encode {enc_c}, decode {dec_c} [{card}]", flush=True)
+
+    # uint32 across 2^31 (repair P6), routed at maxZError 2: blocks below,
+    # across and above 2^31, and blocks of values near 0 and near 2^32 (raw)
+    rng = np.random.default_rng(9)
+    u32 = (2**31 - 600 + rng.integers(0, 1000, (512, 512))).astype(np.uint32)
+    u32[:, 256:] += 1000
+    u32[:64:2, :64], u32[1:64:2, :64] = 5, 2**32 - 5
+    blob, _, enc_c, dec_c = api_case(
+        "API uint32 across 2^31", lambda: lerc.encode(u32, 1, False, None, 2.0, 1)[2],
+        lambda b: (lerc.decode(b)[1][None, :, :, None], np.ones((1, 512, 512), bool)),
+        u32[None, :, :, None], None, 2.0, True)
+    print(f"API uint32 512^2 across 2^31, maxZError 2: blob {len(blob)} B, launches encode "
+          f"{enc_c}, decode {dec_c} [{card}]", flush=True)
+    # masked uint16 / uint32 bands of random values go one-sweep (the valid
+    # values raw; CUDA has no uint16/uint32 boolean index): the card's blob
+    # equals the plain version's and the host decoder reads it exactly
+    from lerc_tpu_torch import encode_band_device
+    from lerc_tpu_torch.codec import lerc2_decode
+    for npdt in (np.uint16, np.uint32):
+        a = rng.integers(0, np.iinfo(npdt).max, (24, 19, 1), dtype=np.uint64).astype(npdt)
+        mk = rng.random((24, 19)) > 0.3
+        b = encode_band_device(a, mk, 0.5, device="cuda")
+        require(b == encode_band_device(a, mk, 0.5, device="cpu")
+                and np.array_equal(lerc2_decode.decode_band(b).data[mk], a[mk]),
+                f"API one-sweep {np.dtype(npdt).name} band")
+
+    # float32 with NaN holes and a noData value (noData in one slice: header fields, host encode)
+    x = np.stack([dem[:1024, :1024], dem[:1024, :1024] + 1.5], -1).copy()
+    rng = np.random.default_rng(7)
+    x[200:260, 300:420, :] = np.nan
+    x[rng.random((1024, 1024)) > 0.995, 0] = -9999.0
+    nd = np.ma.array([-9999.0], mask=[False])
+    blob, _, enc_c, dec_c = api_case(
+        "API float32 NaN + noData (encode_4D)",
+        lambda: lerc.encode_4D(x, 2, None, 0.01, 1, nd)[2],
+        lambda b: (lambda r: (r[1][None], np.broadcast_to(r[2], (1, 1024, 1024))))(
+            lerc.decode_4D(b)), x[None], None, 0.01, False, nodata=-9999.0)
+    print(f"API float32 1024^2 x 2 with NaN holes and noData: host encode, blob {len(blob)} B, "
+          f"launches decode {dec_c} [{card}]", flush=True)
+
+    # v5 and v2 encodes of a 512^2 crop: host encodes; v5 decodes on the card, v2 on the host
+    c512 = dem[:512, :512].copy()
+    for v in (5, 2):
+        blob, _, enc_c, dec_c = api_case(
+            f"API v{v} 512^2", lambda v=v: lerc.encodeForVersion(c512, v, 1, False, None,
+                                                                 MAX_Z_ERROR, 1)[2],
+            lambda b: (lambda r: (r[1][None, :, :, None], np.ones((1, 512, 512), bool)))(
+                lerc.decode(b)), c512[None, :, :, None], None, MAX_Z_ERROR, False)
+        require(bool(dec_c) == (v >= 3), f"API v{v}: decode launches {dec_c}")
+        print(f"API v{v} 512^2 float32: host encode, blob {len(blob)} B, decode launches "
+              f"{dec_c} [{card}]", flush=True)
+
+
+def probe_phase(card, add_row, launches):
+    """Phase 28: Q1-Q3 at the probe's shapes, counted, held to their plain
+    versions on the same CUDA tensors, timed."""
+    from lerc_tpu_torch.ops import probes as P
+
+    names = {"write": "probe_write", "window": "probe_window", "asm": "probe_asm"}
+    inputs = P.probe_inputs(torch.device("cuda"))
+    counts, outs = run_counted(tuple(names.values()), "probe path", lambda: P.run_probes(inputs))
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    lanes = P.LANES
+    n = inputs["window"][0].numel()
+    nbytes = {  # each input read once, each output written once
+        "write": 512 * 4 + 1024 * lanes * 4 + P.WRITE_ROWS * lanes * 4,
+        "window": n * 4 + 1024 * lanes * 4 + 2 * n * lanes * 4,
+        # the last program's slabs and offsets reach the output; JAX's kernel reads all 67 MB
+        "asm": P.PROGRAM * 4 + 2 * P.PROGRAM * lanes * 4 + P.ASM_ROWS * lanes * 4,
+    }
+    match = {"write": "slab_accumulate<false>", "window": "window_kernel",
+             "asm": "slab_accumulate<true>"}
+    for key, got in outs.items():
+        kernel, plain = P.CALLS[key]
+        args = inputs[key]
+        want = plain(*args)
+        err = float((P._i64(got) - P._i64(want)).abs().max())
+        require(err == 0, f"{names[key]}: differs from its plain version by {err}")
+        ms = device_ms([lambda: kernel(*args)], match[key])
+        plain_ms = cuda_ms([lambda: plain(*args)])
+        library_ms = None
+        if key == "write":
+            offs, vals = args
+            rows = (offs.to(torch.int64)[:, None] + torch.arange(2, device=offs.device)).reshape(-1)
+            library_ms = cuda_ms([lambda: torch.zeros(P.WRITE_ROWS, lanes, dtype=torch.int32,
+                                                      device=offs.device).index_add_(0, rows, vals)])
+        add_row(names[key], err, ms, plain_ms, nbytes[key] / HBM_BYTES_PER_S * 1e3, "bytes",
+                library_ms)
+    print(f"probes Q1-Q3 at the probe's shapes: equal to their plain versions, launches {counts}"
+          f" [{card}]", flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3361,6 +3643,12 @@ def main():
     f64_phases(dev, mask, card, launches, add_row)
     # ---- 23-26. the tile mosaic on a one-rank NCCL DeviceMesh
     mosaic_phases(tiles, mask, card, launches, add_row)
+    # ---- 27. the public API
+    t0 = time.perf_counter()
+    api_phase(tiles, mask, card)
+    # ---- 28. the Pallas probes Q1-Q3
+    probe_phase(card, add_row, launches)
+    print(f"phases 27-28: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

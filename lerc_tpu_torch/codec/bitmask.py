@@ -1,12 +1,16 @@
 """Validity bit-mask helpers: 1 bit per pixel, MSB-first within each byte.
 
-The port's own copy of ``lerc_tpu/codec/bitmask.py`` (``bool_to_bits``
-:15, ``bits_to_bool`` :31). The bit layout is the reference's
+The port's own copy of ``lerc_tpu/codec/bitmask.py`` (``mask_size_bytes``
+:11, ``bool_to_bits`` :15, ``bits_to_bool`` :31). The bit layout is the reference's
 (BitMask.h:67, ``bit(k) = 0x80 >> (k & 7)``), numpy's "big" bitorder.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def mask_size_bytes(n_cols: int, n_rows: int) -> int:
+    return (n_cols * n_rows + 7) >> 3
 
 
 def bool_to_bits(mask: np.ndarray) -> np.ndarray:

@@ -44,13 +44,20 @@ bits), then F3 restores the image (float32 from four planes, float64 from
 eight). Float64 tiling blobs take K6's f64 instance. One-sweep blobs are a
 masked scatter of the valid values on the device.
 
-Not in the port yet, and refused before any work with NotImplementedError
-naming their ROADMAP queue 1 item: versions below 3 and micro blocks other
-than 8 and 16 (item 12, with the host codec). Nothing falls back to a host
-decoder: where JAX's ``decode_band_device`` returns None for the host path
-(one-sweep blobs; codes of 31-32 bits; fpl sections of more than 2^25 values
-or foreign ones without the native library; float64 tiling blobs outside its
-softfloat's range), this one decodes or raises.
+Refused before any work with NotImplementedError: versions below 3 (the
+legacy bit order) and micro blocks other than 8 and 16. The host codec
+takes them (``orchestrator.decode_blob`` routes them to
+``lerc2_decode.decode_band``, ``encode_orchestrator.encode_blob`` encodes
+versions below 3 with ``lerc2_encode.BandEncoder``). Nothing falls back to a
+host decoder: where JAX's ``decode_band_device`` returns None for the host
+path (one-sweep blobs; codes of 31-32 bits; fpl sections of more than 2^25
+values or foreign ones without the native library; float64 tiling blobs
+outside its softfloat's range), this one decodes or raises.
+
+uint32 bands: K1 orders the values as int32. The band's ranges come from
+the band in int64 (P6); a band with a micro block that holds valid values on
+both sides of 2^31 and that K1 would quantize (not write raw) is encoded by
+the host ``BandEncoder``, whose f64 arithmetic orders it right.
 """
 from __future__ import annotations
 
@@ -127,10 +134,11 @@ def supports_encode(dt: DataType, max_z_error: float, n_depth: int, all_valid: b
 
 
 def _unported(head: hdr.HeaderInfo) -> None:
-    """Raise for the configurations the port leaves out."""
+    """Raise for the versions the band codec leaves to the host codec."""
     if head.version < 3:
         raise NotImplementedError(
-            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+            "versions < 3 (legacy bit order) are the host codec's: codec/orchestrator.decode_blob "
+            "decodes such blobs, codec/encode_orchestrator.encode_blob encodes them")
 
 
 def _words(payload: torch.Tensor) -> torch.Tensor:
@@ -254,6 +262,7 @@ def encode_band_device(data, mask, max_z_error: float, version: int = 6,
         total = int(total)
         if total > cap:
             raise ValueError("device encode capacity exceeded")
+        zminv, zmaxv = (device_encode.range_values(z, dt) for z in (zminv, zmaxv))
     zmin_vec = zminv.cpu().numpy().astype(np.float64)
     zmax_vec = zmaxv.cpu().numpy().astype(np.float64)
     head.z_min = float(zmin_vec.min())
@@ -308,7 +317,7 @@ def encode_band_device(data, mask, max_z_error: float, version: int = 6,
 
     # the valid values raw, in pixel order, when no larger (the mode byte counts)
     if n_one_sweep <= n_bytes_data + (1 if try_huffman else 0):
-        vals = data_t[mask_t].to(DT_TO_TORCH[dt]).contiguous()
+        vals = as_signed(data_t.to(DT_TO_TORCH[dt]))[mask_t].contiguous()  # (CUDA: no uint index)
         return assemble(ranges, b"\x01", _words(vals.view(torch.uint8).reshape(-1)), n_one_sweep)
     body = b"\x00" + (bytes([image_mode]) if try_huffman else b"") + table
     blob = assemble(ranges, body, payload, n_bytes_data - len(table))
@@ -744,7 +753,8 @@ def decode_band_device(buf, prev_mask: np.ndarray | None = None, verify_checksum
     mb = head.micro_block_size
     if mb not in (8, 16):
         raise NotImplementedError(
-            f"micro blocks of {mb}: ROADMAP queue 1 item 12 (host codec)")
+            f"micro blocks of {mb} are the host codec's: codec/orchestrator.decode_blob decodes "
+            "such blobs")
     cnts, j0s, n_blocks = scanner.block_scan_inputs(mask, mb)
     stream_np = np.frombuffer(src[pos : head.blob_size], dtype=np.uint8)
     scan = scanner.tile_scan if dev.type == "cuda" else scanner.tile_scan_ref

@@ -3,7 +3,8 @@
 The port's own copy of ``lerc_tpu/codec/huffman.py``: the code-length tree
 (:40), canonical codes (:72), the compressed size (:92), the bin range with
 its wrap-around (:105), the table size (:132), the MSB-first word packing
-(:150, :175) and the table's wire I/O (:185, :196); and
+(:150, :175), the table's wire I/O (:185, :196), and the host symbol codec
+``encode_symbols`` / ``decode_symbols`` (:238-331, its numpy path); and
 ``canonical_decode_consts`` from ``lerc_tpu/ops/device_huffman.py:247``,
 without its ``<= 30`` assert: the rows are int64 here, so code lengths 31
 and 32 decode too.
@@ -243,3 +244,92 @@ def canonical_decode_consts(lengths: np.ndarray, codes: np.ndarray):
         consts[L] = (first, first + sel.size, base)
         base += sel.size
     return consts, sorted_syms
+
+
+def encode_symbols(symbols: np.ndarray, lengths: np.ndarray, codes: np.ndarray) -> bytes:
+    """Symbols -> MSB-first bitstream + 1 read-ahead pad uint32 (Lerc2.cpp:2464)."""
+    lens = lengths[symbols]
+    if np.any(lens <= 0):
+        raise ValueError("symbol without code")
+    return pack_codes_msb(codes[symbols], lens, pad_uints=1)
+
+
+def _canonical_order(lengths: np.ndarray) -> np.ndarray:
+    """Symbols in canonical code-assignment order (len desc, index asc)."""
+    size = lengths.size
+    sel = np.flatnonzero(lengths > 0)
+    keys = lengths[sel].astype(np.int64) * size - sel
+    return sel[np.argsort(-keys, kind="stable")]
+
+
+def decode_symbols(buf, lengths: np.ndarray, codes: np.ndarray,
+                   n_symbols: int) -> tuple[np.ndarray, int]:
+    """Decode `n_symbols` canonical-Huffman symbols on the host. Returns
+    (symbols int32, bytes consumed incl. the read-ahead pad uint32).
+
+    A (symbol, length) pair is decoded speculatively at every bit position
+    through a window of the longest code's width; pointer doubling then
+    resolves the serial chain of start positions: O(N log N) gathers in
+    place of a serial walk. ValueError on a stream that is corrupt or too
+    short."""
+    max_len = int(lengths.max(initial=0))
+    if max_len == 0:
+        raise ValueError("empty code table")
+    if n_symbols <= 0:
+        return np.zeros(0, np.int32), 4
+    sym_order = _canonical_order(lengths)
+    lens_order = lengths[sym_order]
+    codes_order = codes[sym_order]
+
+    num_words = len(buf) // 4
+    bits = unpack_bits_msb(buf, num_words)
+    total_bits = bits.size
+    if total_bits == 0:
+        raise ValueError("corrupt huffman stream")
+    pad = max_len + 32
+    bits_p = np.concatenate([bits, np.zeros(pad, dtype=np.uint8)])
+
+    # window value (max_len bits, MSB-first) at every bit position
+    win = np.lib.stride_tricks.sliding_window_view(bits_p, max_len)[:total_bits]
+    powers = np.uint64(1) << np.arange(max_len - 1, -1, -1, dtype=np.uint64)
+    wv = win.astype(np.uint64) @ powers
+
+    # speculative (length, symbol) at every position; canonical codes of one
+    # length are consecutive, and the code is prefix-free: at most one matches
+    spec_len = np.zeros(total_bits, dtype=np.int32)
+    spec_sym = np.zeros(total_bits, dtype=np.int32)
+    pos = 0
+    while pos < sym_order.size:
+        ln = int(lens_order[pos])
+        end = pos
+        while end < sym_order.size and lens_order[end] == ln:
+            end += 1
+        first, cnt = int(codes_order[pos]), end - pos
+        prefix = (wv >> np.uint64(max_len - ln)).astype(np.int64)
+        hit = (prefix >= first) & (prefix < first + cnt) & (spec_len == 0)
+        spec_sym[hit] = sym_order[pos + (prefix[hit] - first)]
+        spec_len[hit] = ln
+        pos = end
+    invalid = spec_len == 0  # no code starts here: step one bit, flagged
+    spec_len[invalid] = 1
+
+    # jump table and pointer doubling over symbol-start positions
+    jump = np.arange(total_bits + pad, dtype=np.int64)
+    jump[:total_bits] += spec_len
+    np.minimum(jump, total_bits + pad - 1, out=jump)
+    positions = np.zeros(n_symbols, dtype=np.int64)
+    filled = 1
+    j = jump
+    while filled < n_symbols:
+        take = min(filled, n_symbols - filled)
+        positions[filled : filled + take] = j[positions[:take]]
+        filled += take
+        if filled < n_symbols:
+            j = j[j]
+
+    if int(positions[-1]) >= total_bits or bool(invalid[positions].any()):
+        raise ValueError("corrupt huffman stream")
+    out = spec_sym[positions]
+    end_bitpos = int(positions[-1]) + int(spec_len[positions[-1]])
+    used = ((end_bitpos + 31) // 32) * 4 + 4  # + read-ahead pad uint32
+    return out.astype(np.int32), used

@@ -172,8 +172,8 @@ class ResidentCodec:
             stream, total, zminv, zmaxv, starts, fits = self._encode_tiles(
                 data, self.cap_full, 0)
         total_i = int(total)
-        zmin_vec = zminv.cpu().numpy().astype(np.float64)
-        zmax_vec = zmaxv.cpu().numpy().astype(np.float64)
+        zmin_vec = device_encode.range_values(zminv, self.dt).cpu().numpy().astype(np.float64)
+        zmax_vec = device_encode.range_values(zmaxv, self.dt).cpu().numpy().astype(np.float64)
         head = hdr.HeaderInfo(
             version=self.version, n_rows=self.h, n_cols=self.w, n_depth=self.d,
             num_valid_pixel=self.num_valid, micro_block_size=8, dt=self.dt,
@@ -326,8 +326,9 @@ class FusedResidentCodec(ResidentCodec):
         header = self._template.to(dev, copy=True)
         bs = self._blob_size_off
         header[bs : bs + 4] = _u32_bytes(total.to(torch.int64) + self._hdr_len)
-        zz = torch.stack([zminv.to(torch.float32).min(),
-                          zmaxv.to(torch.float32).max()]).to(torch.float64)
+        zz = torch.stack([device_encode.range_values(zminv, self.dt).to(torch.float32).min(),
+                          device_encode.range_values(zmaxv, self.dt).to(torch.float32).max()]
+                         ).to(torch.float64)
         header[self._zmin_off : self._zmin_off + 16] = zz.view(torch.uint8)
         # ranges: the native dtype's bytes (the low bytes of int32 values)
         size = DT_SIZE[self.dt]

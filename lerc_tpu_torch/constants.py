@@ -1,7 +1,7 @@
 """Constants of the LERC wire format used by the resident and band codecs.
 
-The port's own copy of the subset of ``lerc_tpu.constants`` it needs (the
-port imports nothing of the JAX package), plus ``MAX_BITS`` from
+The port's own copy of ``lerc_tpu.constants`` (the port imports nothing of
+the JAX package), plus ``MAX_BITS`` from
 ``lerc_tpu/ops/pack_tables.py`` and the per-dtype widths of
 ``lerc_tpu/ops/device_encode.py:514-519``.
 """
@@ -14,6 +14,14 @@ import torch
 
 CURRENT_VERSION = 6
 FILE_KEY_LERC2 = b"Lerc2 "
+FILE_KEY_LERC1 = b"CntZImage "
+
+MICRO_BLOCK_SIZE = 8  # doubled to 16 when the bitrate is low; decoder accepts <= 32
+MAX_MICRO_BLOCK_SIZE = 32
+
+# per-band input data limit (2 GB) and blob limits (2 GB / band, 4 GB total)
+MAX_BYTES_PER_BAND = 0x7FFFFFFF
+MAX_BLOB_BYTES_TOTAL = 0xFFFFFFFF
 
 # widest numBits of a bit-stuffed block (quantized values are < 2**31)
 MAX_BITS = 31
@@ -32,6 +40,18 @@ class DataType(enum.IntEnum):
     DOUBLE = 7
 
 
+class ErrCode(enum.IntEnum):
+    """Error codes of the public API (Lerc_types.h:11-20)."""
+
+    OK = 0
+    FAILED = 1
+    WRONG_PARAM = 2
+    BUFFER_TOO_SMALL = 3
+    NAN = 4
+    HAS_NO_DATA = 5
+    DIMENSIONS_TOO_LARGE = 6
+
+
 class ImageEncodeMode(enum.IntEnum):
     """Whole-image encode modes (Lerc2.h:143)."""
 
@@ -39,6 +59,14 @@ class ImageEncodeMode(enum.IntEnum):
     DELTA_HUFFMAN = 1
     HUFFMAN = 2
     DELTA_DELTA_HUFFMAN = 3  # v6 lossless float path
+
+
+class BlockEncodeMode(enum.IntEnum):
+    """Per-micro-block encode modes (Lerc2.h:144)."""
+
+    RAW_BINARY = 0
+    BITSTUFF_SIMPLE = 1
+    BITSTUFF_LUT = 2
 
 
 DT_TO_NUMPY = {
@@ -108,6 +136,13 @@ def as_signed(t: torch.Tensor) -> torch.Tensor:
 
 def dt_is_int(dt: DataType) -> bool:
     return dt < DataType.FLOAT
+
+
+def max_val_to_quantize(dt: DataType) -> int:
+    """Quantized values above this cap force raw block encoding (Lerc2.h:686-703)."""
+    if dt in (DataType.CHAR, DataType.BYTE, DataType.SHORT, DataType.USHORT):
+        return (1 << 15) - 1
+    return (1 << 30) - 1
 
 
 def dt_is_signed(dt: DataType) -> bool:

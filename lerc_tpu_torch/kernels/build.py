@@ -32,7 +32,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / ".torch_ext_build"
-SOURCES = ("encode", "fletcher32", "decode", "scan", "huffman", "fpl")
+SOURCES = ("encode", "fletcher32", "decode", "scan", "huffman", "fpl", "probes")
 HOST_SOURCES = ("tile_scan", "huffman_scan")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (
@@ -89,6 +89,8 @@ LAUNCHES.update({f"decode_records_lut{mb}{m}{sfx}": 0 for mb in ("", "16")
                  for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES})
 LAUNCHES.update({f"encode_tiles{m}": 0 for m in ("_lut", "_lut16", "_lut_int", "_lut16_int",
                                                   "_f64")})
+# the Pallas probes of tools/profile_pallas.py (Q1-Q3, ops/probes.py)
+LAUNCHES.update({k: 0 for k in ("probe_write", "probe_window", "probe_asm")})
 
 _libs: dict[str, ctypes.CDLL] = {}
 

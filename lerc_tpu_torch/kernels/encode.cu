@@ -109,7 +109,8 @@ __device__ __forceinline__ int wrap_abs(int a) { return a < 0 ? (int)(0u - (uint
 
 // one quantized integer value (device_encode.py:601-613): lossless q = x -
 // zmin; lossy q0 = rint(f32(x - zmin) * scale) with the sign-directed fixup
-// against the exact integer reconstruction
+// against the exact integer reconstruction (x - zmin converts as int32, as
+// JAX's: a block whose range reaches 2^31 is written raw, see wide_block)
 __device__ __forceinline__ uint32_t quantize_int(int x, int zmin, int lossless, float scale,
                                                  int inv_i) {
     const int dx = wrap_sub(x, zmin);
@@ -143,6 +144,23 @@ __device__ __forceinline__ void atomic_max_z(double* a, double v) {
 }
 __device__ __forceinline__ void atomic_min_z(int* a, int v) { atomicMin(a, v); }
 __device__ __forceinline__ void atomic_max_z(int* a, int v) { atomicMax(a, v); }
+
+// uint32 (dtype UINT; int32 bits in): values order and convert as unsigned.
+// flip is INT_MIN for it, else 0: x ^ flip maps unsigned order onto int32
+// order, so one signed min/max serves both (JAX orders uint32 as int32)
+__device__ __forceinline__ int order_flip(const EncP& P) {
+    return P.dt == lerc2::DT_UINT ? INT_MIN : 0;
+}
+__device__ __forceinline__ float int_to_f32(int x, int flip) {
+    return flip ? __uint2float_rn((uint32_t)x) : __int2float_rn(x);
+}
+
+// a block of range 2^31 or more (int32, uint32) is written raw: its x - zmin
+// passes int32, and JAX's quanta of it decode wrong in a LUT record (where
+// JAX's block is right, it is raw too: 32-bit stuffing never beats raw)
+__device__ __forceinline__ bool wide_block(int hi, int zmin) {
+    return (uint32_t)wrap_sub(hi, zmin) >= 0x80000000u;
+}
 
 // reduced offset type code and byte width of an integer block offset
 // (_reduce_offset_int, device_encode.py:79; Lerc2.h:457-492)
@@ -317,12 +335,13 @@ template <> struct ZOf<uint32_t> { using type = int; };
 
 // ---------------------------------------------------------------------------
 // K1: one warp decides one record. Integer instances (encode_tiles
-// :591-614, :651-653, :677-722): int32 block minimum, f32 block maximum for
-// the mode heuristics, offsets reduced per dtype, raw records of 1 + cnt *
-// size native bytes, and the depth-diff candidate of 8/16-bit lossless
-// slices at v >= 5: the warp of record (b, di > 0) also loads slice di-1 of
-// block b and takes the diff record (flag bit 2, offset reduced as INT) when
-// it is strictly shorter.
+// :591-614, :651-653, :677-722): int32 block minimum (uint32: unsigned
+// minimum, and unsigned image ranges), f32 block maximum for the mode
+// heuristics, offsets reduced per dtype, raw records of 1 + cnt * size
+// native bytes (forced for a block of range 2^31 or more), and the
+// depth-diff candidate of 8/16-bit lossless slices at v >= 5: the warp of
+// record (b, di > 0) also loads slice di-1 of block b and takes the diff
+// record (flag bit 2, offset reduced as INT) when it is strictly shorter.
 // ---------------------------------------------------------------------------
 
 // the per-depth image range over the valid values: merge the CTA's warps,
@@ -332,7 +351,7 @@ template <> struct ZOf<uint32_t> { using type = int; };
 template <typename Z>
 __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS],
                                             int (&s_di)[WARPS], int warp, int lane, Z lo, Z hi,
-                                            int di, int d, Z* zrange) {
+                                            int di, int d, Z* zrange, int flip = 0) {
     if (lane == 0) {
         s_min[warp] = lo;
         s_max[warp] = hi;
@@ -354,12 +373,19 @@ __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS]
                         l = fmin(l, s_min[k]);
                         h = fmax(h, s_max[k]);
                     } else {
-                        l = min(l, s_min[k]);
-                        h = max(h, s_max[k]);
+                        l = min(l ^ flip, s_min[k] ^ flip) ^ flip;
+                        h = max(h ^ flip, s_max[k] ^ flip) ^ flip;
                     }
                 }
             }
             Z* zr = zrange + (dm / d) * 2 * d + dm % d;
+            if constexpr (std::is_same<Z, int>::value) {
+                if (flip) {  // uint32: unsigned atomics
+                    atomicMin((unsigned*)zr, (unsigned)l);
+                    atomicMax((unsigned*)(zr + d), (unsigned)h);
+                    return;
+                }
+            }
             atomic_min_z(zr, l);
             atomic_max_z(zr + d, h);
         }
@@ -395,10 +421,13 @@ __device__ __forceinline__ void encode_blocks_body(
         T x0, x1;
         load_pair<T, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
         if constexpr (IS_INT) {
-            const int xi0 = (int)x0, xi1 = (int)x1;
-            lo = __reduce_min_sync(FULL, min(ok0 ? xi0 : INT_MAX, ok1 ? xi1 : INT_MAX));
-            hi = __reduce_max_sync(FULL, max(ok0 ? xi0 : INT_MIN, ok1 ? xi1 : INT_MIN));
-            float fmax = fmaxf(ok0 ? (float)x0 : -CUDART_INF_F, ok1 ? (float)x1 : -CUDART_INF_F);
+            const int xi0 = (int)x0, xi1 = (int)x1, flip = order_flip(P);
+            lo = __reduce_min_sync(FULL, min(ok0 ? xi0 ^ flip : INT_MAX,
+                                             ok1 ? xi1 ^ flip : INT_MAX)) ^ flip;
+            hi = __reduce_max_sync(FULL, max(ok0 ? xi0 ^ flip : INT_MIN,
+                                             ok1 ? xi1 ^ flip : INT_MIN)) ^ flip;
+            float fmax = fmaxf(ok0 ? int_to_f32(xi0, flip) : -CUDART_INF_F,
+                               ok1 ? int_to_f32(xi1, flip) : -CUDART_INF_F);
             for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(FULL, fmax, o));
             int zmin = lo;
             if (MASKED && cnt == 0) zmin = 0, fmax = 0.f;  // const-0 record
@@ -421,12 +450,13 @@ __device__ __forceinline__ void encode_blocks_body(
                                                      ok1 ? (uint32_t)wrap_sub(dv1, dmin) : 0u));
             }
             if (lane == 0) {
-                const float zmin_f = __int2float_rn(zmin);
+                const float zmin_f = int_to_f32(zmin, flip);
                 int nb = bit_len(max_q);
                 const float max_val = __fmul_rn(__fsub_rn(fmax, zmin_f), P.scale);
                 bool const0 = (MASKED && cnt == 0) || (zmin_f == 0.f && fmax == 0.f);
                 const bool force_raw = (P.mze == 0.f && fmax > zmin_f)
-                                       || (P.mze > 0.f && max_val > P.maxq_cap);
+                                       || (P.mze > 0.f && max_val > P.maxq_cap)
+                                       || wide_block(hi, zmin);
                 int tc, off_w;
                 reduce_offset_int(zmin, P.dt, tc, off_w);
                 uint32_t off_word = low_bytes((uint32_t)zmin, off_w);
@@ -510,7 +540,7 @@ __device__ __forceinline__ void encode_blocks_body(
         }
     }
     merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange);
+                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange, IS_INT ? order_flip(P) : 0);
 }
 
 __global__ void encode_blocks_kernel(const float* __restrict__ data, int w, int d, int nbh,
@@ -578,17 +608,18 @@ __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
         float fmax = -CUDART_INF_F, zmin_f = 0.f;
         int zmin_i = 0;
         if constexpr (IS_INT) {
+            const int flip = order_flip(P);
             int l = INT_MAX, h = INT_MIN;
 #pragma unroll
             for (int k = 0; k < VPL; ++k) {
                 if (ok[k]) {
-                    l = min(l, (int)x[k]);
-                    h = max(h, (int)x[k]);
-                    fmax = fmaxf(fmax, (float)x[k]);
+                    l = min(l, (int)x[k] ^ flip);
+                    h = max(h, (int)x[k] ^ flip);
+                    fmax = fmaxf(fmax, int_to_f32((int)x[k], flip));
                 }
             }
-            lo = __reduce_min_sync(FULL, l);
-            hi = __reduce_max_sync(FULL, h);
+            lo = __reduce_min_sync(FULL, l) ^ flip;
+            hi = __reduce_max_sync(FULL, h) ^ flip;
             for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(FULL, fmax, o));
             zmin_i = lo;
             if (cnt == 0) zmin_i = 0, fmax = 0.f;  // const-0 record
@@ -658,10 +689,11 @@ __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
             bool const0, force_raw;
             int zq;  // rec_info[3]: the float zmin's bits, or what integer K2 subtracts
             if constexpr (IS_INT) {
-                const float zf = __int2float_rn(zmin_i);
+                const float zf = int_to_f32(zmin_i, order_flip(P));
                 const float max_val = __fmul_rn(__fsub_rn(fmax, zf), P.scale);
                 const0 = cnt == 0 || (zf == 0.f && fmax == 0.f);
-                force_raw = (P.mze == 0.f && fmax > zf) || (P.mze > 0.f && max_val > P.maxq_cap);
+                force_raw = (P.mze == 0.f && fmax > zf) || (P.mze > 0.f && max_val > P.maxq_cap)
+                            || wide_block(hi, zmin_i);
                 reduce_offset_int(zmin_i, P.dt, tc, off_w);
                 off_word = low_bytes((uint32_t)zmin_i, off_w);
                 zq = zmin_i;
@@ -716,7 +748,8 @@ __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
         }
     }
     merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && cnt > 0 ? r % d + d * (r / tile_rec) : -1, d, zrange);
+                live && cnt > 0 ? r % d + d * (r / tile_rec) : -1, d, zrange,
+                IS_INT ? order_flip(P) : 0);
 }
 
 // ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@
 namespace lerc2 {
 
 constexpr int DT_INT = 4;
+constexpr int DT_UINT = 5;
 constexpr int DT_FLOAT = 6;
 
 // stream byte at pos, the index clamped into [0, n) as JAX's gathers do

@@ -464,7 +464,8 @@ def decode_scanned(stream: torch.Tensor, mode: torch.Tensor, payload_pos: torch.
     LUT records decode whether or not has_lut is set (JAX sizes its graph
     by it)."""
     if mb not in (8, 16):
-        raise NotImplementedError("micro blocks other than 8x8 and 16x16: ROADMAP queue 1 item 12")
+        raise NotImplementedError("micro blocks other than 8x8 and 16x16 are the host codec's: "
+                                  "codec/orchestrator.decode_blob decodes such blobs")
     if d < 1:
         raise ValueError("depth must be >= 1")
     n_rec = _n_blocks(h, w, mb) * d

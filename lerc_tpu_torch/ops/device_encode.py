@@ -133,7 +133,9 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     """Returns (stream [cap/4] int32 u32 words, total 0-d int32, z_min [D],
     z_max [D], starts [nRec] int32, fits 0-d bool), all on data's device,
     with no host synchronization. z_min/z_max are f32 for float32 data and
-    int32 for the integer dtypes (as JAX's).
+    int32 for the integer dtypes (as JAX's); for uint32 they are the bits of
+    the unsigned range (``range_values`` reads them; JAX's are in signed
+    order).
 
     data: [H, W, D] float32, or for an integer `dt` that dtype or int32.
     mask: the block validity words of the [H, W] mask
@@ -143,11 +145,12 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     as JAX's); its z_min/z_max are float64."""
     if version < 3:
         raise NotImplementedError(
-            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+            "versions < 3 (legacy bit order) are the host codec's: codec/lerc2_encode.BandEncoder "
+            "writes them")
     if mb not in (8, 16) or (mb == 16 and not enable_lut):
         raise NotImplementedError(
-            "micro blocks other than 8x8, or 16x16 without the LUT candidate: ROADMAP queue 1 "
-            "item 12 (host codec)")
+            "micro blocks other than 8x8, or 16x16 without the LUT candidate, are the host "
+            "codec's: codec/lerc2_encode.BandEncoder writes them")
     if d < 1:
         raise ValueError("depth must be >= 1")
     if cap % 4:
@@ -198,7 +201,8 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
     caller splits larger stacks."""
     if version < 3:
         raise NotImplementedError(
-            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+            "versions < 3 (legacy bit order) are the host codec's: codec/lerc2_encode.BandEncoder "
+            "writes them")
     f64 = dt == DataType.DOUBLE
     if mb not in (8, 16) or (f64 and mb != 8):
         raise ValueError("blocks are 8x8, or 16x16 (not float64)")
@@ -235,14 +239,14 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
     starts = starts.view(n_t, tile_rec)
     bases = starts[:, 0].contiguous()
     totals = length.view(n_t, tile_rec).sum(1, dtype=torch.int32)
-    zr = zrange.view(n_t, 2, d)
+    zr = range_values(zrange, dt).view(n_t, 2, d)
     zmin, zmax = zr[:, 0], zr[:, 1]
-    if dt == DataType.UINT:  # K1 merges int32 bits in signed order: uint32 ranges from the stack
-        u = data.view(n_t, hp, wp, d).to(torch.int64) & 0xFFFFFFFF
-        m = masks[..., None]
-        zmin = torch.where(m, u, 2**32 - 1).amin((1, 2))
-        zmax = torch.where(m, u, 0).amax((1, 2))
     return (stream, bases, totals, (starts - bases[:, None]).contiguous(), zmin, zmax, fits)
+
+
+def range_values(z: torch.Tensor, dt: DataType) -> torch.Tensor:
+    """K1's ranges as values: uint32's int32 bits as int64, else as they are."""
+    return z.to(torch.int64) & 0xFFFFFFFF if dt == DataType.UINT else z
 
 
 def _check_data(data, h, w, d, dt=DataType.FLOAT):
@@ -402,7 +406,9 @@ def _k1_outputs(data, p: EncodeParams, mb: int, tile_rec: int = 0):
     dev, d = data.device, data.shape[2]
     n_rec = _n_rec(data, mb)
     n = (n_rec // tile_rec if tile_rec else 1) * d
-    if dt_is_int(p.dt):
+    if p.dt == DataType.UINT:  # unsigned order: 2^32 - 1 and 0 as int32 bits
+        lo, hi, kind = -1, 0, torch.int32
+    elif dt_is_int(p.dt):
         lo, hi, kind = _I32_MAX, _I32_MIN, torch.int32
     else:
         lo, hi, kind = float("inf"), float("-inf"), torch.float32
@@ -647,25 +653,32 @@ def _prev_slice(v: torch.Tensor, d: int) -> torch.Tensor:
 def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | None = None,
                           mb: int = 8, lut: bool = False, tile_rec: int = 0):
     """Plain PyTorch version of the integer K1 instances (int64 arithmetic
-    wrapped to int32 where JAX computes in int32); zrange is [2D] int32."""
+    wrapped to int32 where JAX computes in int32); zrange is [2D] int32
+    (uint32: its bits, in unsigned order)."""
     h, w, d = data.shape
     x = _blocks(data, mb)
     n = x.shape[0]
     dev = x.device
-    xi, xf = _i32(x.to(torch.int64)), x.to(torch.float32)
+    xi = _i32(x.to(torch.int64))
+    # the order and f32 value of a value: uint32 unsigned, else int32
+    uns = p.dt == DataType.UINT
+    key = xi & 0xFFFFFFFF if uns else xi
+    kmax, kmin = (2**32 - 1, 0) if uns else (_I32_MAX, _I32_MIN)
+    xf = key.to(torch.float32)
     vb, cnt = _record_lanes(valid, d, n, dev, mb * mb)
     has = cnt > 0
-    lo = torch.where(vb, xi, _I32_MAX).amin(1)
-    hi = torch.where(vb, xi, _I32_MIN).amax(1)
-    zmin = torch.where(has, lo, 0)
+    lo_k = torch.where(vb, key, kmax).amin(1)
+    hi_k = torch.where(vb, key, kmin).amax(1)
+    zmin = torch.where(has, _i32(lo_k), 0)
     fmax = torch.where(has, torch.where(vb, xf, float("-inf")).amax(1), 0.0)
     q = torch.where(vb, quantize_int_ref(xi, zmin[:, None], p), 0)
     max_q = q.amax(1)
     nb = _bit_len(max_q)
-    zmin_f = zmin.to(torch.float32)
+    zmin_f = torch.where(has, lo_k, 0).to(torch.float32)
     max_val = (fmax - zmin_f) * torch.tensor(p.scale, dtype=torch.float32, device=dev)
     const0 = ~has | ((zmin_f == 0) & (fmax == 0))
     force_raw = (fmax > zmin_f) if p.mze == 0 else (max_val > p.maxq_cap)
+    force_raw = force_raw | (has & (hi_k - lo_k >= 2**31))  # a wide block: raw (K1's wide_block)
     tc, off_w = reduce_offset_int_ref(zmin, p.dt)
     off_word = _low_bytes(zmin, off_w)
     cw = torch.where(cnt < 256, 1, 2)
@@ -712,8 +725,8 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
     lut_bit = (use_lut & (mode == 1)).to(torch.int64)
     desc = flag | (mode << 8) | (ud << 10) | (lut_bit << 11) | (nb << 16) | (off_w << 24)
     rec_info = torch.stack([length, desc, _i32(off_word), zq], 1).to(torch.int32)
-    zrange = _tile_ranges(torch.where(has, lo, _I32_MAX), torch.where(has, hi, _I32_MIN), d,
-                          tile_rec).to(torch.int32)
+    zrange = _i32(_tile_ranges(torch.where(has, lo_k, kmax), torch.where(has, hi_k, kmin), d,
+                               tile_rec)).to(torch.int32)
     bad = ((mode == 1) & (nb > p.cap_nb)) | ((mode == 0) & (not p.raw_ok))
     fits = (~bad.any()).to(torch.int32).reshape(1)
     return rec_info, zrange, fits
@@ -931,7 +944,8 @@ def encode_tiles_f64(data: torch.Tensor, mask, max_z_error: float, h: int, w: in
     all_valid."""
     if version < 3:
         raise NotImplementedError(
-            "versions < 3 (legacy bit order): ROADMAP queue 1 item 12 (host codec)")
+            "versions < 3 (legacy bit order) are the host codec's: codec/lerc2_encode.BandEncoder "
+            "writes them")
     if cap % 4:
         raise ValueError("cap must be a multiple of 4")
     _check_f64(data, h, w, d)

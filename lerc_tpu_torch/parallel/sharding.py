@@ -589,8 +589,7 @@ def _decode_tile_blob(view, n_bands: int, device="cuda") -> np.ndarray:
     """The scanned decode of one tile -> [nBands, H, W, D]: its band blobs in
     turn through ``decode_band_device`` (each band's mask passed on for
     the reuse flag). Raises where the band decoder does (NotImplementedError
-    for versions < 3 and blocks other than 8 or 16: ROADMAP queue 1 item
-    12)."""
+    for versions < 3 and blocks other than 8 or 16, the host codec's)."""
     dev = resolve_device(device)
     out, pos, prev = [], 0, None
     for _ in range(n_bands):

@@ -9,7 +9,7 @@ bit-equal to the host decoder ``lerc2_decode.decode_band`` and to JAX's
 device decode where JAX decodes on its device; the configurations of ROADMAP
 queue 1 items 7 (8-bit Huffman), 8 (fpl lossless float32) and 9 (float64),
 refused until they were ported, now encode as JAX does and decode like the
-host decoder; legacy versions (item 12) raise NotImplementedError naming
+host decoder; legacy versions (the host codec's) raise NotImplementedError naming
 their item, before any work.
 """
 import struct
@@ -220,7 +220,7 @@ def test_masked_resident_decode_without_the_index(npdt, d, mze):
 
 UNPORTED_ENCODE = [  # (dtype, maxZError, version, item); None: items 7, 8 and 9, ported since
     (np.uint8, 0.5, 6, None), (np.int8, 0.0, 3, None), (np.float32, 0.0, 6, None),
-    (np.float64, 0.1, 6, None), (np.float32, 0.1, 2, "item 12"),
+    (np.float64, 0.1, 6, None), (np.float32, 0.1, 2, "host codec"),
 ]
 
 
@@ -241,8 +241,19 @@ def test_unported_encodes_name_their_roadmap_item(npdt, mze, version, item, monk
 
     monkeypatch.setattr(device_encode, "encode_tiles",
                         lambda *a, **k: pytest.fail("encode work before the refusal"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as err:
         encode_band_device(make(npdt), None, mze, version=version, device="cpu")
+    assert "ROADMAP" not in str(err.value)
+    # the host codec the message names writes and reads the band, as JAX's
+    from lerc_tpu_torch.codec import encode_orchestrator, orchestrator
+    from lerc_tpu_torch.codec.lerc2_encode import BandEncoder as PortBandEncoder
+
+    data = make(npdt)
+    blob = encode_orchestrator.encode_blob(data[None], None, mze, version, device="cpu")
+    assert blob == PortBandEncoder(data, None, mze, version=version).encode() == \
+        BandEncoder(data, None, mze, version=version).encode()
+    got = orchestrator.decode_blob(blob, device="cpu").data[0]
+    np.testing.assert_array_equal(_bits(got), _bits(lerc2_decode.decode_band(blob).data))
 
 
 def _huffman_blob():
@@ -307,7 +318,7 @@ def test_supports_encode_and_round_cap_match_the_slice():
     assert supports_encode(DataType.FLOAT, 0.0, 1)  # fpl: item 8, ported since
     assert supports_encode(DataType.DOUBLE, 0.1, 1)  # float64: item 9, ported since
     assert supports_encode(DataType.DOUBLE, 0.0, 3, version=6)
-    assert not supports_encode(DataType.FLOAT, 0.1, 1, version=2)  # legacy bit order: item 12
+    assert not supports_encode(DataType.FLOAT, 0.1, 1, version=2)  # legacy bit order: host codec
     for n in (1, 4096, 4097, 100_000):
         assert _round_cap(n) == jax_codec._round_cap(n)
 
@@ -315,12 +326,14 @@ def test_supports_encode_and_round_cap_match_the_slice():
 def test_jax_band_encoder_v2_fault():
     """ROADMAP queue 3: JAX's band encoder writes version-2 blobs in the v3+
     bit order, so the host decoder (legacy order at v2) reads them far out
-    of bound; the port refuses version 2 (item 12)."""
+    of bound; the port's band codec refuses version 2, which the host codec
+    writes and reads."""
     data = make(np.float32)
     blob = jax_codec.encode_band_device(data, MASK, 0.05, version=2)
     host = lerc2_decode.decode_band(blob)
     assert np.abs(host.data - data)[MASK].max() > 1.0
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="host codec") as err:
         encode_band_device(data, MASK, 0.05, version=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert "ROADMAP" not in str(err.value)
+    with pytest.raises(NotImplementedError, match="orchestrator.decode_blob"):
         decode_band_device(blob, device="cpu")

@@ -141,12 +141,12 @@ def test_tie_tile_separates_fused_from_unfused():
     assert (device_encode.quantize_ref(x, zmin, p) != _unfused_q(x, zmin, p)).sum() > 100
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(version=2), "item 12"),
-    (dict(mb=32, enable_lut=True), "item 12"),
-    (dict(mb=16), "item 12"),
+@pytest.mark.parametrize("kwargs,item", [  # ids as before item 12 (the host codec) landed
+    (dict(version=2), "host codec"),
+    (dict(mb=32, enable_lut=True), "host codec"),
+    (dict(mb=16), "host codec"),
     (dict(dt=DataType.DOUBLE), "item 9"),
-])
+], ids=["kwargs0-item 12", "kwargs1-item 12", "kwargs2-item 12", "kwargs3-item 9"])
 def test_unported_options_name_their_roadmap_item(kwargs, item):
     args = dict(mask=None, max_z_error=0.01, h=16, w=16, d=1, dt=DataType.FLOAT,
                 all_valid=True, version=6, cap=4096)
@@ -159,5 +159,7 @@ def test_unported_options_name_their_roadmap_item(kwargs, item):
         assert torch.equal(zmin, want[2]) and torch.equal(zmax, want[3])
         assert torch.equal(starts, want[4]) and zmin.dtype == torch.float64
         return
-    with pytest.raises(NotImplementedError, match=item):
+    # versions < 3 and other blocks: the host encoder's, named, no ROADMAP item
+    with pytest.raises(NotImplementedError, match="lerc2_encode.BandEncoder") as err:
         device_encode.encode_tiles(torch.zeros(16, 16, 1), **args)
+    assert item in str(err.value) and "ROADMAP" not in str(err.value)

@@ -100,11 +100,15 @@ def test_code_table_refusals():
     for bad in (table[:10], table[:-1]):
         with pytest.raises(ValueError):
             huffman.read_code_table(bad, 6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        huffman.read_code_table(table, 2)
+    # version 2's legacy bit order reads as JAX's (item 12, the host codec, landed)
+    table2 = huffman.write_code_table(lengths, huffman.canonical_codes(lengths), 2)
+    assert table2 == jax_huff.write_code_table(lengths, huffman.canonical_codes(lengths), 2)
+    got, want = huffman.read_code_table(table2, 2), jax_huff.read_code_table(table2, 2)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
     lut = jax_bits.encode_lut(np.array([0, 5, 5, 0, 9], np.uint32), 6)  # a valid LUT block
-    with pytest.raises(ValueError, match="LUT mode"):
-        bitstuffer.decode(lut, 5, 6)
+    np.testing.assert_array_equal(bitstuffer.decode(lut, 5, 6)[0], [0, 5, 5, 0, 9])
+    with pytest.raises(ValueError, match="LUT"):
+        bitstuffer.decode(lut[:1] + bytes([lut[1]]) + b"\x00" + lut[3:], 5, 6)  # LUT size 0
     codes = huffman.canonical_codes(lengths)
     codes[int(np.argmax(lengths))] ^= 1  # two codes of one length no longer consecutive
     with pytest.raises(ValueError, match="non-canonical"):

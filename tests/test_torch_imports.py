@@ -31,6 +31,11 @@ def test_import_loads_no_jax_and_no_lerc_tpu():
         "import lerc_tpu_torch.codec.huffman, lerc_tpu_torch.codec.bitstuffer\n"
         "import lerc_tpu_torch.ops.device_fpl, lerc_tpu_torch.codec.fpl_impl\n"
         "import lerc_tpu_torch.parallel, lerc_tpu_torch.parallel.sharding\n"
+        "import lerc_tpu_torch.api, lerc_tpu_torch.codec.orchestrator\n"
+        "import lerc_tpu_torch.codec.encode_orchestrator, lerc_tpu_torch.codec.lerc1\n"
+        "import lerc_tpu_torch.codec.lerc2_decode, lerc_tpu_torch.codec.lerc2_encode\n"
+        "import lerc_tpu_torch.ops.probes\n"
+        "from lerc_tpu_torch import compress, decompress, set_acceleration, ErrCode\n"
         "from lerc_tpu_torch import ResidentBlob, ResidentCodec\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )

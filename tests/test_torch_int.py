@@ -4,7 +4,8 @@ K4) vs the JAX device_encode.encode_tiles / device_decode.decode_tiles_fast
 on the same seeded tiles, for all six integer dtypes.
 
 Criteria (all exact): stream bytes up to `total`, total, starts, fits and
-the int32 per-depth zmin/zmax equal to JAX's; decoded image, index_ok and
+the int32 per-depth zmin/zmax equal to JAX's (uint32: the bits of the
+unsigned ranges, where JAX's are in signed order); decoded image, index_ok and
 fits equal to JAX's wherever JAX's index check passes. Where the encoder
 wrote depth-diff records (v >= 5, lossless 8/16-bit, depth > 1) both
 decoders report index_ok False: the indexed decode has no previous slice
@@ -109,10 +110,15 @@ def test_int_encode_tiles_matches_jax(npdt, d, version, mze, nb_cap):
     assert bool(tfits) == bool(jfits)
     np.testing.assert_array_equal(tstarts.numpy(), jstarts)
     assert tzmin.dtype == tzmax.dtype == torch.int32
-    np.testing.assert_array_equal(tzmin.numpy(), jzmin)
-    np.testing.assert_array_equal(tzmax.numpy(), jzmax)
-    # int32 values, as JAX's xb.astype(int32): uint32 wraps
-    np.testing.assert_array_equal(tzmin.numpy(), data.reshape(-1, d).astype(np.int32).min(0))
+    # int32 values, as JAX's xb.astype(int32): uint32 wraps, and JAX orders
+    # its bits as int32; the port's uint32 ranges are unsigned (repair P6)
+    np.testing.assert_array_equal(jzmin, data.reshape(-1, d).astype(np.int32).min(0))
+    if dt == DataType.UINT:
+        for t, want in ((tzmin, data.reshape(-1, d).min(0)), (tzmax, data.reshape(-1, d).max(0))):
+            np.testing.assert_array_equal(t.numpy().view(np.uint32), want)
+    else:
+        np.testing.assert_array_equal(tzmin.numpy(), jzmin)
+        np.testing.assert_array_equal(tzmax.numpy(), jzmax)
     total = int(jtotal)
     if bool(jfits):
         assert ts.numpy().tobytes()[:total] == js.tobytes()[:total]

@@ -267,7 +267,7 @@ def test_tampered_index_raises_and_unported_versions_name_item_12():
     bad[-3] ^= 0x40
     with pytest.raises(ValueError, match="checksum"):
         P.decode_mosaic_device(bytes(bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="host codec"):  # item 12 landed: its message
         P.MosaicEncoder(None, 32, 32, np.float32, version=2, device="cpu").encode(
             _raster(32, 32), None, 0.01)
 
@@ -357,6 +357,36 @@ def test_uint32_tile_straddling_2_31_repair():
     blob = P.MosaicEncoder(None, 32, 32, np.uint32, try_16=False, device="cpu").encode(data, None,
                                                                                        0.5)
     np.testing.assert_array_equal(_assert_decodes_like_the_host(blob), data)
+    info, _ = P.read_mosaic(blob)
+    assert (info["z_min"], info["z_max"]) == (float(data.min()), float(data.max()))
+
+
+def _wrap_tile():
+    """8x8 blocks of values near 0 and near 2^32 (signed -5..5)."""
+    a = np.zeros((64, 64, 1), np.uint32)
+    a[::2] = 5
+    a[1::2, ::3] = 2**32 - 5
+    return a
+
+
+@pytest.mark.parametrize("case,mze", [("across", 2.0), ("across", 4.0), ("wrap", 0.5),
+                                      ("wrap", 4.0)])
+def test_uint32_tile_blocks_across_2_31_lossy(case, mze):
+    """P6 in the tile-batched K1: a block across 2^31 at maxZError 2 and 4
+    (under the raw cap), and blocks of values near 0 and near 2^32, took
+    their minima in signed order; K1 orders uint32 as unsigned now, and the
+    ranges come from it."""
+    if case == "across":
+        rng = np.random.default_rng(5)
+        data = (2**31 - 600 + rng.integers(0, 100, (64, 64, 1))
+                + np.where(np.arange(64)[None, :, None] >= 20, 1000, 0)).astype(np.uint32)
+    else:
+        data = _wrap_tile()
+    blob = P.MosaicEncoder(None, 32, 32, np.uint32, try_16=False, device="cpu").encode(data, None,
+                                                                                       mze)
+    host = _assert_decodes_like_the_host(blob)
+    err = np.abs(host.astype(np.int64) - data.astype(np.int64)).max()
+    assert err <= (int(mze) if mze > 0.5 else 0)
     info, _ = P.read_mosaic(blob)
     assert (info["z_min"], info["z_max"]) == (float(data.min()), float(data.max()))
 
