@@ -40,7 +40,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      pass counts the full tiles' raw bytes, as bench.py:295), the
      index-free decode beside the indexed one, compression ratios, each
      kernel's device time per launch (torch.profiler) beside its plain
-     version's time (CUDA events), its launches and its bound;
+     version's time (CUDA events), its launches and its bound; then the
+     integer instances no timed path takes (K1, K2, K4, K6 _i8, _u16,
+     _u32; the masked K1m, K2m, K4m of every integer dtype), each held to
+     its plain version and timed once on a 2048^2 tile beside its bound;
   6. where the time goes: device time per round by kernel, and the
      device's busy and idle shares, for each path;
   7. the band codec's kernels against their plain versions: the LUT
@@ -64,13 +67,19 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   13. times: band encode/decode MB/s, host-scanner and analyses ms per
      tile, copies each way, the bench mask's RLE each way beside the
      masked cell's extra time, each new instance's ms against its bound
-     and plain ms, device busy share of a band round;
+     and plain ms, device busy share of a band round; then K6's instances
+     no timed path takes (masked 8x8 of every integer dtype, 16x16 of
+     float32, float64 and every integer dtype, all-valid and masked), each
+     held to its plain version and timed once on a 2048^2 band blob;
   14. 8-bit whole-image Huffman: H1 symbols/histograms, H2 group bits and
      pack, H3 decode, H4 restores (direct, column 0 + rows, masked direct,
      masked delta) and the host lengths-only scan against their plain
      versions, byte for byte, on 48x41 and 61x47 crops of the cells' data
      (depth 1 and 3, uint8 and int8, no mask, a random and a stripes mask,
      both modes), on a 24-row strip wider than a row tile, and at 2048^2;
+     the all-valid restores also on 52 edge shapes (D 1-5 and 8, W 1, 15,
+     17 and 3 tiles + 5 pixels, H 1 and 3, uint8 and int8) and on symbol
+     views at storage offsets 1-15;
   15. four Huffman band cells, lossless v6, through
      encode_band_device(return_index=True) -> decode_band_device with the
      index and without it (the host scan), counted: a uint8 three-band
@@ -80,8 +89,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      direct); tile 0's blob equal to the plain path's, every decode equal
      to the input;
   16. their MB/s, ratios and host-scan ms, and H1-H4's device ms per
-     launch at 2048^2 x 3 beside their plain ms, bounds and, for H1 and the
-     row scan, torch.bincount / torch.cumsum;
+     launch at 2048^2 x 3 beside their plain ms, bounds and, for H1, the
+     column scan and the two all-valid restores, torch.bincount /
+     torch.cumsum / torch.sub; the two restores against their library call
+     in 7 pairs of alternating profiler windows (median and spread);
   17. lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
      sizes and F3 restore against their plain versions, bit for bit, on
      48x41 and 61x47 crops of the DEM (depth 1 and 3, every predictor, every
@@ -126,7 +137,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      launch per micro-block group), bit-equal to the per-tile
      decode_band_device; regions and decode_mosaic of four tiles; the
      mosaic's K4 against its plain version on every cell's groups; the
-     kernels' times and the DEM round's busy share;
+     kernels' times and the DEM round's busy share; then the mosaic K4
+     instances no cell takes (float32 16x16, every integer dtype, 8x8 and
+     16x16, all-valid and masked), each held to its tiles and timed once
+     over the 64 512^2 tiles of the 4096^2 raster beside its bound;
   27. the public API (lerc_tpu_torch.encode / decode, compress / decompress,
      encode_4D, encodeForVersion), each case counted: a band routed to the
      band codec launches what encode_band_device / decode_band_device
@@ -677,12 +691,13 @@ def main_path(tiles, mask, card):
     return launches, results
 
 
-def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3, round_fn=None):
+def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3, round_fn=None, also=()):
     """Phase 6: torch.profiler over `rounds` rounds of a path (by default
     encode + indexed decode of the four tiles, nb_cap 0). Prints the device
-    time per round by operator and its share of `round_ms`, the unprofiled
-    CUDA-event time of one round; the rest is the device waiting on the
-    host."""
+    time per round by operator (the top ten, and those below them whose
+    name contains a string of `also`) and its share of `round_ms`, the
+    unprofiled CUDA-event time of one round; the rest is the device waiting
+    on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     def one_round():
@@ -701,8 +716,9 @@ def where_the_time_goes(codec, tiles, round_ms, card, label, rounds=3, round_fn=
     busy = sum(r[0] for r in rows)
     print(f"profile ({label}): device busy {busy:.4f} ms of {round_ms:.4f} ms per round of the "
           f"four tiles ({busy / round_ms:.1%} busy, {1 - busy / round_ms:.1%} idle) [{card}]")
-    for ms, n, name in rows[:10]:
-        print(f"  profile ({label}): {ms:.4f} ms/round  {n:4d} calls/round  {name[:70]}")
+    for i, (ms, n, name) in enumerate(rows):
+        if i < 10 or any(a in name for a in also):
+            print(f"  profile ({label}): {ms:.4f} ms/round  {n:4d} calls/round  {name[:70]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1100,29 +1116,32 @@ def scan_bounds(totals, shape, size, steps):
 
 
 def int_kernel_times(codec, tiles, ins):
-    """Device ms per launch of one cell's K1, K2, K4 instances (profiler),
-    their plain ms (CUDA events) and bounds."""
+    """Device ms per launch of one cell's K1, K2, K4 instances (profiler;
+    the masked ones when the codec has a mask), their plain ms (CUDA
+    events) and bounds."""
     from lerc_tpu_torch.constants import DT_SIZE
     from lerc_tpu_torch.ops import device_decode as dec
     from lerc_tpu_torch.ops import device_encode as enc
 
     h, w, d = tiles[0].shape
-    dt, size = codec.dt, DT_SIZE[codec.dt]
+    dt, size, v = codec.dt, DT_SIZE[codec.dt], codec.valid
     p, cw = ins[0]["p"], codec.cap // 4
     inv_i = dec._inv_i(codec.mze)
-    k1, k2, k4 = (int_name(b, dt) for b in ("encode_blocks", "write_records", "decode_records"))
+    k1, k2, k4 = (int_name(b, dt, v is not None)
+                  for b in ("encode_blocks", "write_records", "decode_records"))
+    v_bytes = 0 if v is None else v.numel() * 4
 
     def dargs(k):
         return (k["stream"], k["starts"], k["zmax"], inv_i, h, w, d, dt, codec.version, 32,
-                False, None)
+                False, v)
 
     fns = {
-        k1: ([lambda t=t: enc.encode_blocks(t, p) for t in tiles],
-             [lambda t=t: enc.encode_blocks_ref(t, p) for t in tiles],
+        k1: ([lambda t=t: enc.encode_blocks(t, p, v) for t in tiles],
+             [lambda t=t: enc.encode_blocks_ref(t, p, v) for t in tiles],
              "encode_blocks_int_kernel"),
-        k2: ([lambda t=t, k=k: enc.write_records(t, k["rec_info"], k["starts"], cw, p)
+        k2: ([lambda t=t, k=k: enc.write_records(t, k["rec_info"], k["starts"], cw, p, v)
               for t, k in zip(tiles, ins)],
-             [lambda t=t, k=k: enc.write_records_ref(t, k["rec_info"], k["starts"], cw, p)
+             [lambda t=t, k=k: enc.write_records_ref(t, k["rec_info"], k["starts"], cw, p, v)
               for t, k in zip(tiles, ins)], "write_records_int_kernel"),
         k4: ([lambda k=k: dec.decode_records_int(*dargs(k)) for k in ins],
              [lambda k=k: dec.decode_records_int_ref(*dargs(k)) for k in ins],
@@ -1136,14 +1155,116 @@ def int_kernel_times(codec, tiles, ins):
             total = int(k["total"])
             mode = (k["rec_info"][:, 1] >> 8) & 3
             coded = 64 * int(((mode == 0) | (mode == 1)).sum())
-            rows.append({k1: (size * n_px + 16 * n_rec + 8 * d + 4, 20 * n_px),
-                         k2: (size * coded + 20 * n_rec + total, 12 * coded),
-                         k4: (total + 4 * n_rec + 4 * d + size * n_px + 8, 4 * n_px)}[name])
+            rows.append({k1: (size * n_px + v_bytes + 16 * n_rec + 8 * d + 4, 20 * n_px),
+                         k2: (size * coded + v_bytes + 20 * n_rec + total, 12 * coded),
+                         k4: (total + v_bytes + 4 * n_rec + 4 * d + size * n_px + 8,
+                              4 * n_px)}[name])
         b = float(np.mean([r[0] for r in rows])) / HBM_BYTES_PER_S * 1e3
         o = float(np.mean([r[1] for r in rows])) / F32_OPS_PER_S * 1e3
         bnd[name] = (max(b, o), "bytes" if b >= o else "operations")
     return {name: (device_ms(kf, match), cuda_ms(rf, reps=1), *bnd[name])
             for name, (kf, rf, match) in fns.items()}
+
+INT_DTYPES = (np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32)
+
+
+def int_raster(dem, npdt):
+    """The DEM (numpy float [H, W]) as an integer raster in npdt's range:
+    int8 and uint8 a level per 8 and 6.5 m (int8 shifted by -100), int16 and
+    uint16 whole metres (uint16 clipped at 0), int32 and uint32 millimetres
+    (uint32 about 2^31, so its values cross 2^31)."""
+    scale, shift = {np.int8: (1 / 8, -100), np.uint8: (1 / 6.5, 0), np.int16: (1, 0),
+                    np.uint16: (1, 0), np.int32: (1000, 0), np.uint32: (1000, 2**31)}[npdt]
+    info = np.iinfo(npdt)
+    return np.clip(np.round(dem * scale) + shift, info.min, info.max).astype(npdt)
+
+
+def instance_line(name, ms, bound, card, what):
+    print(f"instance {name}: {ms:.4f} ms/launch, bound {bound:.4f} ms by bytes "
+          f"({bound / ms:.1%} of bound), 0 launches on the paths; {what} [{card}]", flush=True)
+
+
+def resident_instance_times(dem, mask, card):
+    """Phase 5b: the integer instances that no timed path takes, each held
+    to its plain version (check_int_kernels; K6 beside), then one device_ms
+    call each (int_kernel_times, timed_scan_kernels) beside its bytes bound,
+    on one 2048^2 tile: K1, K2, K4 and K6 _i8, _u16, _u32 all-valid, and
+    K1m, K2m, K4m of every integer dtype with the bench mask (lossless,
+    int_raster of the DEM)."""
+    from lerc_tpu_torch import FusedResidentCodec
+
+    dem_np = dem[:, :, 0].cpu().numpy().astype(np.float64)
+    for npdt, m in [(t, None) for t in (np.int8, np.uint16, np.uint32)] + \
+                   [(t, mask) for t in INT_DTYPES]:
+        codec = FusedResidentCodec(TILE, TILE, 1, npdt, 0.5, mask=m)
+        tile = torch.from_numpy(int_raster(dem_np, npdt)[:, :, None]).to(dem.device)
+        _err, ins = check_int_kernels(codec, [tile])
+        what = f"one {TILE}^2 {np.dtype(npdt).name} tile{'' if m is None else ', bench mask'}"
+        for name, (ms, _plain, bound, _by) in int_kernel_times(codec, [tile], ins).items():
+            instance_line(name, ms, bound, card, what)
+        if m is None:
+            k = ins[0]
+            per, _plain, steps = timed_scan_kernels([(k["stream"], k["total"], k["zmax"])],
+                                                    codec.dt, codec.version, codec.mze,
+                                                    (TILE, TILE, 1))
+            bnd = scan_bounds([int(k["total"])], (TILE, TILE, 1), tile.element_size(), steps)
+            k6 = int_name("decode_scanned", codec.dt)
+            instance_line(k6, per[k6], bnd["K6"], card, what)
+
+
+def k6_instance_times(dem, mask, card, done):
+    """Phase 13b: K6's instances that no timed path takes and `done` does not
+    hold, on band blobs of one 2048^2 tile: masked 8x8 of every integer
+    dtype (int_raster of the DEM at maxZError 1: lossy, so tiling), 16x16 of
+    float32 and every integer dtype all-valid and masked (the 12-zone class
+    grid in the dtype's range; lossless, 8-bit at maxZError 1 where Huffman
+    would win), and the 16x16 float64 ones (the
+    float32 class grid's blob read as float64, as check_k6_f64_16). Each is
+    held to its plain version, then one device_ms call beside its bytes
+    bound."""
+    from lerc_tpu_torch import encode_band_device
+    from lerc_tpu_torch.constants import DT_SIZE, NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    dem_np = dem[:, :, 0].cpu().numpy().astype(np.float64)
+    zone = np.clip(np.floor((dem_np - dem_np.min()) / np.ptp(dem_np) * 12), 0, 11)
+    cases = []  # (expected name, data, mask, maxZError, as float64)
+    for npdt in INT_DTYPES:
+        dt = NUMPY_TO_DT[np.dtype(npdt)]
+        cases.append((k6_name(8, True, dt), int_raster(dem_np, npdt), mask, 1.0, False))
+        base, step = {np.int8: (-100, 15), np.uint8: (5, 20), np.int16: (100, 2500)}.get(
+            npdt, (100, 5000))
+        grid = (base + step * zone).astype(npdt)
+        cases += [(k6_name(16, m is not None, dt), grid, m, 1.0 if DT_SIZE[dt] == 1 else 0.5,
+                   False) for m in (None, mask)]
+    grid_f = (100 + 5000 * zone).astype(np.float32)
+    for m in (None, mask):
+        cases.append((k6_name(16, m is not None, DataType.FLOAT), grid_f, m, 0.5, False))
+        cases.append((k6_name(16, m is not None, DataType.DOUBLE), grid_f, m, 0.5, True))
+    for want, data, m, mze, as_f64 in cases:
+        if want in done:
+            continue
+        blob = encode_band_device(torch.from_numpy(data[:, :, None]).to(dem.device), m, mze)
+        _scan, recs, _used, a, head = scanned_band(blob)
+        if as_f64:
+            a = list(a)
+            a[3], a[11], a[15] = a[3].double(), a[11].double(), DataType.DOUBLE
+        dt = DataType.DOUBLE if as_f64 else head.dt
+        got = k6_name(head.micro_block_size, a[9] is not None, dt)
+        require(got == want, f"K6 instance times: the blob for {want} takes {got}")
+        img_k, ok_k = dec.decode_scanned(*a)
+        img_r, ok_r = k6_plain(a, head)
+        require(bool(ok_k) and bool(ok_r) and torch.equal(img_k.view(torch.uint8),
+                                                          img_r.view(torch.uint8)),
+                f"K6 {want} != plain on its 2048^2 blob")
+        ms = device_ms([lambda a=a: dec.decode_scanned(*a)], "decode_scanned_kernel")
+        valid = a[9]
+        bound = (tile_section(blob)[0].size + 32 * recs.size
+                 + (0 if valid is None else valid.numel() * 4) + 4
+                 + TILE * TILE * DT_SIZE[dt]) / HBM_BYTES_PER_S * 1e3
+        instance_line(want, ms, bound, card, f"a {TILE}^2 band blob, {recs.size} records"
+                      + (" (float32 class grid read as float64)" if as_f64 else ""))
+
 
 # ---------------------------------------------------------------------------
 # The band codec (encode_band_device / decode_band_device): the LUT and 16x16
@@ -1811,6 +1932,48 @@ def huffman_check(data, mask, tag, scan_ref=True):
     return err  # every comparison above is exact
 
 
+H4_TILE_PX = 2048  # the delta restore's tile of pixels (kernels/huffman.cu RST_PX)
+H4_EDGE_SHAPES = ([(h, w, d) for d in (1, 2, 3, 4, 5, 8) for w in (1, 15, 17, 3 * H4_TILE_PX + 5)
+                   for h in (1, 3)] + [(5, 1, 2), (3, 4099, 5), (2, 33, 8), (4, 16, 4)])
+
+
+def h4_edge_check(dev):
+    """The all-valid H4 restores (huffman_restore; huffman_restore_col0 +
+    huffman_restore_delta) against symbols_to_image_ref, byte for byte, and
+    against the image whose symbols H1 made, on the shapes the kernels'
+    edges need: D = 1, 2, 3, 4, 5, 8 (one u32 of four depths, groups of
+    four), W = 1, 15, 17 and 3 tiles + 5 pixels (a row over several tiles),
+    H = 1 and 3, uint8 and int8; then both restores on symbol views at
+    storage offsets 1-15 (the decoder hands a slice of its buffer)."""
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    rng = np.random.default_rng(14)
+    for h, w, d in H4_EDGE_SHAPES:
+        for dt in (DataType.BYTE, DataType.CHAR):
+            img = torch.from_numpy(rng.integers(0, 256, (h, w, d), dtype=np.uint8)).to(dev)
+            if dt == DataType.CHAR:
+                img = img.view(torch.int8)
+            direct, delta, _ = dh.symbol_streams_device(img.to(torch.int32), None, dt)
+            for is_delta, sym in ((False, direct), (True, delta)):
+                k = dh.symbols_to_image(sym, h, w, d, dt, is_delta)
+                r = dh.symbols_to_image_ref(sym, h, w, d, dt, is_delta)
+                require(torch.equal(k, r) and torch.equal(k, img),
+                        f"H4 {'delta' if is_delta else 'direct'} != plain or input "
+                        f"({h}x{w}x{d} {dt.name})")
+    h, w, d = 7, 301, 3  # h * w * d = 6321: no multiple of 16
+    n = h * w * d
+    buf = torch.from_numpy(rng.integers(0, 256, n + 16, dtype=np.uint8)).to(dev)
+    for off in range(1, 16):
+        sym = buf[off:off + n]
+        for dt in (DataType.BYTE, DataType.CHAR):
+            for is_delta in (False, True):
+                k = dh.symbols_to_image(sym, h, w, d, dt, is_delta)
+                r = dh.symbols_to_image_ref(sym, h, w, d, dt, is_delta)
+                require(torch.equal(k, r), f"H4 {'delta' if is_delta else 'direct'} != plain on a "
+                        f"symbol view at storage offset {off} ({h}x{w}x{d} {dt.name})")
+
+
 def tiling_bytes(t, mask):
     """The 8x8 tiling candidate's payload bytes of a lossless 8-bit band
     (what the Huffman blob beat)."""
@@ -1904,12 +2067,42 @@ def huffman_cell(label, tiles, mask, mode, card):
     return counts, blobs, [i for _, i in enc], (enc_ms, dec_ms, free_ms, scan_ms)
 
 
+PAIRS = 7  # alternating profiler windows of a kernel and its library call
+
+
+def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20):
+    """Device ms per call of a kernel (the wrapper kf, its kernels whose
+    name contains `match`) and of its library call lib, from PAIRS pairs of
+    torch.profiler windows of `reps` calls each, in turns (kernel, library,
+    library, kernel, ...), so that a drift of clocks or of the L2 touches
+    both alike; printed with the spreads and the bound. Returns (kernel
+    median ms, library median ms, bound ms)."""
+    ks, ls = [], []
+    for i in range(PAIRS):
+        order = ((kf, match, ks), (lib, None, ls))
+        for f, m, out in (order if i % 2 == 0 else order[::-1]):
+            rows = profiled_rows([f], reps, (m,))
+            require(rows is not None, f"profiler shows no device time for {m or lib_text}")
+            out.append(sum(r[2] for r in rows if m is None or m in r[0]) / 1e3 / reps)
+    km, lm = float(np.median(ks)), float(np.median(ls))
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    ratios = [k / v for k, v in zip(ks, ls)]
+    print(f"paired timing {name}: median {km:.4f} ms (spread {min(ks):.4f}-{max(ks):.4f}) against "
+          f"{lib_text} median {lm:.4f} ms (spread {min(ls):.4f}-{max(ls):.4f}), {PAIRS} pairs of "
+          f"windows of {reps} calls; kernel / library per pair median {float(np.median(ratios)):.3f} "
+          f"(spread {min(ratios):.3f}-{max(ratios):.3f}); bound {bound:.4f} ms by bytes, "
+          f"{bound / km:.1%} of bound [{card}]", flush=True)
+    return km, lm, bound
+
+
 def huffman_kernel_times(u8x3, mask, flags, card):
     """Device ms per launch of H1-H4 (torch.profiler) at 2048^2 x 3 (the
     uint8 three-band tile; the direct restores on the flag band), their
     plain ms (CUDA events), bounds (bytes, each input read once and each
     output written once, over the HBM rate) and, beside H1 and H4, the one
-    PyTorch call that computes the same function. The masked H1 and masked
+    PyTorch call that computes the same function; the two all-valid
+    restores and their library calls from paired windows (paired_row), the
+    median standing for each. The masked H1 and masked
     direct H4 rows time the whole wrapper (the kernel and its rank-chunk
     glue); the kernel alone is printed beside them. Returns {kernel: (ms,
     plain ms, bound ms, library ms or None)}."""
@@ -1977,15 +2170,20 @@ def huffman_kernel_times(u8x3, mask, flags, card):
                 lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True),
                 2 * d * h, "huffman_restore_col0_kernel",
                 lib=lambda s=syms[:n].view(d, h, w)[:, :, 0]: torch.cumsum(s, 1, dtype=torch.uint8))
-            add(name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
-                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True),
-                2 * n + d * h, "huffman_restore_delta_kernel",
-                lib=lambda s=syms[:n].view(d, h, w): torch.cumsum(s, 2, dtype=torch.uint8))
-        elif mk is None:
-            add(name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, False),
-                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, False),
-                2 * n, "huffman_restore_kernel",
-                lib=lambda s=syms[:n]: torch.sub(s, 0))  # uint8: offset 0, wraps mod 256
+            km, lm, bound = paired_row(
+                name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
+                "huffman_restore_delta_kernel",
+                lambda s=syms[:n].view(d, h, w): torch.cumsum(s, 2, dtype=torch.uint8),
+                "torch.cumsum(s, 2, dtype=torch.uint8)", 2 * n + d * h, card)
+            rows[name] = (km, cuda_ms([lambda: dh.symbols_to_image_ref(
+                syms, h, w, d, DataType.BYTE, True)], reps=1), bound, lm)
+        elif mk is None:  # uint8: offset 0, torch.sub wraps mod 256
+            km, lm, bound = paired_row(
+                name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, False),
+                "huffman_restore_kernel", lambda s=syms[:n]: torch.sub(s, 0), "torch.sub(s, 0)",
+                2 * n, card)
+            rows[name] = (km, cuda_ms([lambda: dh.symbols_to_image_ref(
+                syms, h, w, d, DataType.BYTE, False)], reps=1), bound, lm)
         elif delta:
             add(name, lambda: dh.undelta_masked_device(syms, mk, d, DataType.BYTE),
                 lambda: dh.undelta_masked_device_ref(syms, mk, d, DataType.BYTE),
@@ -2037,6 +2235,10 @@ def huffman_phases(tiles, mask, card, launches, add_row):
         merge(huffman_check(wide, mk, f"24x{wide.shape[1]} uint8 x 3, {mname}"))
     print(f"check: H1-H4 and the host scan equal to their plain versions on a 24x{wide.shape[1]} "
           f"uint8 x 3 strip (no, random and stripes masks; direct and delta)", flush=True)
+    h4_edge_check(tiles[0].device)
+    print(f"check: the all-valid H4 restores equal to their plain versions and to the input on "
+          f"{len(H4_EDGE_SHAPES)} edge shapes (D 1-5 and 8; W 1, 15, 17, {3 * H4_TILE_PX + 5}; H 1 and "
+          f"3; uint8 and int8), and on symbol views at storage offsets 1-15", flush=True)
     for data, mk, what in ((u8x3[0], None, "uint8 x 3"), (u8x3[0], mask, "uint8 x 3, bench mask"),
                            (flags[0], None, "quality flags"),
                            (flags[0], mask, "quality flags, bench mask")):
@@ -2083,7 +2285,7 @@ def huffman_phases(tiles, mask, card, launches, add_row):
 
     where_the_time_goes(None, u8x3, cells[0][3][0] + cells[0][3][1], card,
                         "uint8 three-band Huffman cell, encode_band_device + decode_band_device",
-                        round_fn=cell_round)
+                        round_fn=cell_round, also=("huffman_restore",))
 
 
 # ---------------------------------------------------------------------------
@@ -2919,6 +3121,62 @@ def k4_times(blob):
     return rows
 
 
+def k4_instance_times(dem, mmask, card, done):
+    """Phase 26b: the mosaic's K4 instances that no cell's group takes and
+    `done` does not hold, each one launch over the 64 tiles of 512^2 of the
+    4096^2 raster (numpy float32 DEM at maxZError 0.001, or int_raster of it,
+    lossless) that encode_tiles_batched writes at its block size, all-valid
+    or with the bench mask on each quarter: held to the tiles (exact, or
+    within 1.1 * maxZError), then one device_ms call beside its bytes bound."""
+    from lerc_tpu_torch.constants import DT_SIZE, NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    t, n = MOSAIC_TILE, dem.shape[0] // MOSAIC_TILE
+
+    def stack(x):  # [n*t, n*t, ...] -> [n*n, t, t, ...], tiles in row-major order
+        return x.reshape(n, t, n, t, *x.shape[2:]).transpose(1, 2).reshape(n * n, t, t,
+                                                                           *x.shape[2:])
+
+    m_all = stack(torch.from_numpy(mmask).to(CARD)).contiguous()
+    for npdt in (np.float32,) + INT_DTYPES:
+        dt = NUMPY_TO_DT[np.dtype(npdt)]
+        mze = MAX_Z_ERROR if dt == DataType.FLOAT else 0.5
+        data = dem if dt == DataType.FLOAT else \
+            int_raster(dem[:, :, 0].astype(np.float64), npdt).astype(np.int64)[:, :, None]
+        tiles = stack(torch.from_numpy(data).to(CARD)).contiguous()
+        for mb in (8, 16):
+            for masked in (False, True):
+                name = k4_name(mb, masked, dt)
+                if name in done:
+                    continue
+                m = m_all if masked else torch.ones_like(m_all)
+                stream, bases, totals, starts, _zmin, zmax, fits = enc.encode_tiles_batched(
+                    tiles, m, mze, dt, 6, mb)
+                require(int(fits[0]), f"K4 instance times: {name}'s stack does not fit")
+                starts = (starts + bases[:, None]).reshape(-1).contiguous()
+                if dt == DataType.UINT:
+                    zmax = (zmax & 0xFFFFFFFF).to(torch.int32)  # wraps to uint32's bits
+                zmax = zmax.to(torch.float32 if dt == DataType.FLOAT else torch.int32).contiguous()
+                valid = enc.block_valid_words(m.reshape(n * n * t, t), mb) if masked else None
+                args = (stream, starts, mze, zmax, t, t, 1, dt, 6)
+                kw = dict(mask=valid, mb=mb, n_tiles=n * n, enable_lut=True)
+                img, ok, _fits, _diff = dec.decode_tiles_fast(*args, **kw)
+                if dt == DataType.UINT:  # compared through int64: few ops take uint32
+                    img = img.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+                gap = (img.to(torch.float64) - tiles.to(torch.float64)).abs()[m[..., None]]
+                require(bool(ok.all()) and float(gap.max()) <= (1.1 * mze if dt == DataType.FLOAT
+                                                                else 0),
+                        f"K4 {name} does not decode its stack")
+                ms = device_ms([lambda: dec.decode_tiles_fast(*args, **kw)],
+                               "decode_records_lut_kernel")
+                bound = (int(totals.sum()) + 4 * starts.numel() + (0 if valid is None else
+                         4 * valid.numel()) + 4 * n * n + n * n * t * t * DT_SIZE[dt]) \
+                    / HBM_BYTES_PER_S * 1e3
+                instance_line(name, ms, bound, card, f"one launch over {n * n} tiles of {t}^2 "
+                              f"({np.dtype(npdt).name}{', bench mask' if masked else ''})")
+
+
 def tiles_encode_times(t, m, mze, dt, mb):
     """Device ms per launch of the tile-batched K1 and of K2 on a tile
     group, their plain ms and bounds (as lut_kernel_times)."""
@@ -3199,6 +3457,7 @@ def _mosaic_phases(mesh, tiles, mask, card, launches, add_row):
             done.add(kname)
             print(f"K4 {kname}: one launch over {n_units} units of the {key} cell", flush=True)
             add_row(kname, err.get(kname, 0.0), ms, plain_ms, bound_ms, "bytes", None)
+    k4_instance_times(dem, mmask, card, done)
     c = cells["dem"]
 
     def one_round():
@@ -3633,8 +3892,11 @@ def main():
             codec, ctiles, round_ms, card, f"{codec.dt.name} x {d} cell, encode + index-free decode",
             round_fn=lambda c=codec, ts=ctiles: [c.decode_fast(*c.encode_fast(t)[:2]) for t in ts])
 
+    resident_instance_times(tiles[0], mask, card)
+
     # ---- 7-13. the band codec
     band_phases(tiles, mask, card, launches, add_row, {k["name"] for k in kernels})
+    k6_instance_times(tiles[0], mask, card, {k["name"] for k in kernels})
     # ---- 14-16. 8-bit whole-image Huffman through the band codec
     huffman_phases(tiles, mask, card, launches, add_row)
     # ---- 17-19. lossless float32 (fpl) through the band codec

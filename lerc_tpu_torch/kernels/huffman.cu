@@ -33,9 +33,38 @@
 //                             on a live prefix matching no code, a code past
 //                             the stream, sbits[0] != 0 or a group whose bits
 //                             do not end where the next group's begin.
-//   H4 huffman_restore        symbols_to_image :477 direct: (sym - offset) & 0xFF;
-//      huffman_restore_col0   symbols_to_image delta: a mod-256 scan down column
-//      huffman_restore_delta  0 per depth, then one block-wide scan per row;
+//   H4 huffman_restore        symbols_to_image :476 direct: img = (sym - offset) & 0xFF
+//                             on the pixel-major symbols. Bound: bytes, 2n (n
+//                             read, n written). One thread per 16 bytes, no
+//                             grid-stride cap: a 16-byte load (two aligned ones
+//                             and a funnel shift where sym is a view at an
+//                             unaligned offset), __vsub4 per word, one aligned
+//                             16-byte store; the last partial 16 bytes one at a
+//                             time.
+//      huffman_restore_col0   symbols_to_image delta, column 0: a mod-256 scan down
+//                             column 0 per depth (one CTA per depth).
+//      huffman_restore_delta  symbols_to_image delta, the rows: a mod-256 inclusive
+//                             scan along each row from col0, written
+//                             pixel-interleaved [H, W, D]. Bound: bytes, 2n + D*H.
+//                             A CTA owns whole rows with all their depths and walks
+//                             them as tiles of up to 2,048 consecutive pixels (a
+//                             tile may hold several short rows, a long row several
+//                             tiles). Each thread takes 16 pixels: one 16-byte load
+//                             per depth slice, the bytes of four depths transposed
+//                             into one u32 per pixel, one segmented scan for the
+//                             four (SWAR byte adds: each byte mod 256, no carry
+//                             between them; segments start at column 0, whose
+//                             value is col0's), thread prefix in registers, then
+//                             warp shuffles and shared memory across the CTA; the
+//                             value of each depth carries from tile to tile. The
+//                             scanned pixels go into a shared buffer as the tile's
+//                             [pixels, D] bytes, stored with aligned 16-byte stores
+//                             (a funnel shift where the tile's first byte is not
+//                             16-aligned; the ends one byte at a time). D > 4 goes
+//                             in groups of four depths, with byte writes into the
+//                             buffer; D > 8 shrinks the tile to keep the buffer
+//                             near 16 KB. The grid fills the SMs' resident CTAs and
+//                             strides over the row groups beyond.
 //      huffman_restore_masked expand_compacted_device :389: valid p <- sym[rank(p)];
 //      huffman_restore_delta_masked
 //                             undelta_masked_device :432: one CTA per depth walks
@@ -62,7 +91,10 @@ constexpr int MAX_GRID = 1056;        // 8 CTAs on each of 132 SMs (grid-stride 
 constexpr int PACK_WARPS = 8;         // groups per CTA in H2
 constexpr int PACK_WORDS = 66;        // a group's words from its first: <= (31 + 2048 + 31) / 32 + 1
 constexpr int DEC_THREADS = 128;
-constexpr int ROW_THREADS = 256, ROW_ITEMS = 8;    // the all-valid row scan
+constexpr int ROW_THREADS = 256;                   // column 0's scan
+constexpr int RST_THREADS = 128;                   // the all-valid restores: 16 bytes a thread
+constexpr int RST_PX = 16 * RST_THREADS;           // pixels a delta tile (D <= 8)
+constexpr int RST_BUF = 16384;                     // the delta buffer's bytes for D > 8
 constexpr int SEG_THREADS = 512, SEG_ITEMS = 4;    // the masked un-delta
 
 unsigned grid_of(long long n, int per) {
@@ -297,11 +329,43 @@ __global__ void __launch_bounds__(DEC_THREADS) huffman_decode_kernel(
 // H4
 // ---------------------------------------------------------------------------
 
-__global__ void huffman_restore_kernel(const uint8_t* __restrict__ sym, long long n, int offset,
-                                       uint8_t* __restrict__ img) {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (long long)gridDim.x * blockDim.x)
-        img[i] = (uint8_t)((int)sym[i] - offset);
+// bytes s .. s + 15 of the 32 bytes lo, hi (s in [0, 16); s is uniform
+// across the CTA wherever it is used, so the selects do not diverge)
+__device__ __forceinline__ uint4 shift16(uint4 lo, uint4 hi, int s) {
+    const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const int q = s >> 2;
+    const unsigned r = 8u * (s & 3);
+    unsigned o[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) o[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+    return make_uint4(__funnelshift_r(o[0], o[1], r), __funnelshift_r(o[1], o[2], r),
+                      __funnelshift_r(o[2], o[3], r), __funnelshift_r(o[3], o[4], r));
+}
+
+// the 16 bytes at p, of which the first `need` (1..16) lie in the buffer:
+// the aligned 16 bytes holding p, and the next 16 only where needed bytes
+// lie there (an aligned load never crosses an allocation's granule)
+__device__ __forceinline__ uint4 load16(const uint8_t* p, int need) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const int s = (int)(a & 15);
+    const uint4* q = reinterpret_cast<const uint4*>(a - s);
+    const uint4 lo = __ldg(q);
+    return s ? shift16(lo, s + need > 16 ? __ldg(q + 1) : make_uint4(0, 0, 0, 0), s) : lo;
+}
+
+__device__ __forceinline__ uint4 vsub16(uint4 v, unsigned sub) {
+    return make_uint4(__vsub4(v.x, sub), __vsub4(v.y, sub), __vsub4(v.z, sub), __vsub4(v.w, sub));
+}
+
+// img (16-aligned) [i] = sym[i] - offset mod 256, 16 bytes a thread
+__global__ void __launch_bounds__(RST_THREADS) huffman_restore_kernel(
+        const uint8_t* __restrict__ sym, long long n, int offset, uint8_t* __restrict__ img) {
+    const long long i = ((long long)blockIdx.x * RST_THREADS + threadIdx.x) * 16;
+    if (i + 16 <= n) {
+        *reinterpret_cast<uint4*>(img + i) = vsub16(load16(sym + i, 16), offset * 0x01010101u);
+    } else {
+        for (long long j = i; j < n; ++j) img[j] = (uint8_t)((int)sym[j] - offset);
+    }
 }
 
 // col0[k * h + r] = sum_{i <= r} e[k][i][0] (mod 256), one CTA per depth
@@ -321,32 +385,208 @@ __global__ void __launch_bounds__(ROW_THREADS) huffman_restore_col0_kernel(
     }
 }
 
-// one CTA per (row, depth): the row's mod-256 inclusive scan from col0
-__global__ void __launch_bounds__(ROW_THREADS) huffman_restore_delta_kernel(
-        const uint8_t* __restrict__ sym, const uint8_t* __restrict__ col0, int h, int w, int d,
-        int offset, uint8_t* __restrict__ img) {
-    __shared__ unsigned sm[2 * (ROW_THREADS / 32 + 1)];
-    const long long r = blockIdx.x;
-    const int k = blockIdx.y;
-    const uint8_t* src = sym + k * (long long)h * w + r * w;
-    unsigned carry = 0;
-    for (int c0 = 0; c0 < w; c0 += ROW_THREADS * ROW_ITEMS) {
-        unsigned e[ROW_ITEMS], sum = 0;
-        for (int j = 0; j < ROW_ITEMS; ++j) {
-            const int c = c0 + threadIdx.x * ROW_ITEMS + j;
-            e[j] = c >= w ? 0u : c == 0 ? (unsigned)col0[(long long)k * h + r]
-                                        : (unsigned)((int)src[c] - offset);
-            sum += e[j];
+// four bytes side by side, each added mod 256: the low seven bits add in
+// place, the top bit as an XOR, so no carry crosses into the next byte
+__device__ __forceinline__ unsigned add4(unsigned a, unsigned b) {
+    return ((a & 0x7f7f7f7fu) + (b & 0x7f7f7f7fu)) ^ ((a ^ b) & 0x80808080u);
+}
+
+struct Add4 {
+    using T = unsigned;
+    __device__ static unsigned f(unsigned a, unsigned b) { return add4(a, b); }
+};
+
+// bytes 0..3 of a, b, c, z (four depths' words of four pixels) -> one word
+// per pixel holding its four depths' bytes
+__device__ __forceinline__ void transpose4(unsigned a, unsigned b, unsigned c, unsigned z,
+                                           unsigned* x) {
+    const unsigned lo0 = __byte_perm(a, b, 0x5140), lo1 = __byte_perm(c, z, 0x5140);
+    const unsigned hi0 = __byte_perm(a, b, 0x7362), hi1 = __byte_perm(c, z, 0x7362);
+    x[0] = __byte_perm(lo0, lo1, 0x5410);
+    x[1] = __byte_perm(lo0, lo1, 0x7632);
+    x[2] = __byte_perm(hi0, hi1, 0x5410);
+    x[3] = __byte_perm(hi0, hi1, 0x7632);
+}
+
+// the 16 pixels' words x (depth k in byte k) as their 16 * D bytes at
+// 16-aligned dst
+template <int D>
+__device__ __forceinline__ void put_pixels(const unsigned* x, uint8_t* dst) {
+    uint4* o = reinterpret_cast<uint4*>(dst);
+    unsigned y[4 * D];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {  // pixels 4m .. 4m + 3 -> words D*m .. D*m + D - 1
+        const unsigned a = x[4 * m], b = x[4 * m + 1], c = x[4 * m + 2], e = x[4 * m + 3];
+        if constexpr (D == 4) {
+            y[4 * m] = a, y[4 * m + 1] = b, y[4 * m + 2] = c, y[4 * m + 3] = e;
+        } else if constexpr (D == 3) {
+            y[3 * m] = __byte_perm(a, b, 0x4210);
+            y[3 * m + 1] = __byte_perm(b, c, 0x5421);
+            y[3 * m + 2] = __byte_perm(c, e, 0x6542);
+        } else if constexpr (D == 2) {
+            y[2 * m] = __byte_perm(a, b, 0x5410);
+            y[2 * m + 1] = __byte_perm(c, e, 0x5410);
+        } else {
+            y[m] = __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, e, 0x0040), 0x5410);
         }
-        Seg tot;
-        unsigned acc = carry + block_seg_excl<ROW_THREADS>({0, sum}, tot, sm).v;
-        for (int j = 0; j < ROW_ITEMS; ++j) {
-            const int c = c0 + threadIdx.x * ROW_ITEMS + j;
-            acc += e[j];
-            if (c < w) img[(r * w + c) * d + k] = (uint8_t)acc;
-        }
-        carry += tot.v;
     }
+#pragma unroll
+    for (int m = 0; m < D; ++m) o[m] = make_uint4(y[4 * m], y[4 * m + 1], y[4 * m + 2], y[4 * m + 3]);
+}
+
+// buf's n bytes to dst (any alignment): aligned 16-byte stores, each taken
+// from two aligned 16-byte reads of buf (which holds 16 bytes past n,
+// rounded up to 16), and the two ends one byte at a time
+__device__ __forceinline__ void store_tile(const uint8_t* buf, uint8_t* dst, long long n) {
+    const int sh = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+    uint4* base = reinterpret_cast<uint4*>(dst - sh);  // chunk m: dst bytes [16m - sh, 16m - sh + 16)
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    const long long m_hi = (n + sh) / 16;              // the chunks that end inside n
+    for (long long m = (sh ? 1 : 0) + threadIdx.x; m < m_hi; m += RST_THREADS)
+        base[m] = sh ? shift16(b4[m - 1], b4[m], 16 - sh) : b4[m];
+    const long long head = min(n, (long long)((16 - sh) & 15));
+    const long long tail = max(head, 16 * m_hi - sh);
+    for (long long i = threadIdx.x; i < head; i += RST_THREADS) dst[i] = buf[i];
+    for (long long i = tail + threadIdx.x; i < n; i += RST_THREADS) dst[i] = buf[i];
+}
+
+// the 16 words' running mod-256 sums from acc, restarting at the words
+// whose bit is set in starts; returns the last
+template <bool KEEP>
+__device__ __forceinline__ unsigned scan16(unsigned* x, unsigned starts, unsigned acc) {
+    if (!starts) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            acc = add4(acc, x[j]);
+            if (KEEP) x[j] = acc;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            acc = (starts >> j) & 1 ? x[j] : add4(acc, x[j]);
+            if (KEEP) x[j] = acc;
+        }
+    }
+    return acc;
+}
+
+// D = d (1..4): one group of depths, one u32 a pixel; D = 0: d > 4, in
+// groups of four depths, written into the buffer a byte at a time. CTAs own
+// `rows` whole rows each (all depths), walked as tiles of up to `px`
+// consecutive pixels; thread t takes the tile's pixels 16t .. 16t + 15.
+// flip: 0x80808080 for int8 (sym - 128 mod 256 is sym ^ 0x80), else 0.
+template <int D>
+__global__ void __launch_bounds__(RST_THREADS) huffman_restore_delta_kernel(
+        const uint8_t* __restrict__ sym, const uint8_t* __restrict__ col0, int h, int w, int d,
+        unsigned flip, int rows, int px, uint8_t* __restrict__ img) {
+    __shared__ unsigned sm[2 * (RST_THREADS / 32 + 1)];
+    extern __shared__ uint4 rst_smem[];  // the tile buffer, then the carries
+    uint8_t* buf = reinterpret_cast<uint8_t*>(rst_smem);                    // [px, d] bytes
+    unsigned* carry = reinterpret_cast<unsigned*>(buf + ((px * d + 15) & ~15) + 16);  // per group
+    const int j0 = 16 * threadIdx.x;
+    const long long plane = (long long)h * w;
+    const int n_groups = D ? 1 : (d + 3) >> 2;
+    const long long n_units = ((long long)h + rows - 1) / rows;
+    for (long long u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const long long p_end = min((long long)h, (u + 1) * rows) * w;
+        for (long long p0 = u * rows * w; p0 < p_end; p0 += px) {
+            const int n_px = (int)min((long long)px, p_end - p0);
+            const int cnt = max(0, min(16, n_px - j0));  // this thread's pixels
+            const long long pf = p0 + j0;
+            const long long r_tile = p0 / w;
+            const int c_tile = (int)(p0 - r_tile * w) + j0;  // < w + px
+            const long long rf = r_tile + c_tile / w;        // the first pixel's row, column
+            const int cf = c_tile % w;
+            unsigned starts = 0;  // bit j: pixel j is a row's column 0
+            for (int j = cf ? w - cf : 0; j < 16; j += w) starts |= 1u << j;
+            if (cnt < 16) starts &= (1u << cnt) - 1;
+            for (int g = 0; g < n_groups; ++g) {
+                const int k0 = 4 * g, kn = D ? D : min(4, d - k0);
+                uint4 v[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    v[i] = make_uint4(0, 0, 0, 0);
+                    if ((D ? i < D : i < kn) && cnt > 0) {
+                        v[i] = load16(sym + (k0 + i) * plane + pf, cnt);
+                        v[i] = make_uint4(v[i].x ^ flip, v[i].y ^ flip, v[i].z ^ flip, v[i].w ^ flip);
+                    }
+                }
+                unsigned x[16];
+                transpose4(v[0].x, v[1].x, v[2].x, v[3].x, x);
+                transpose4(v[0].y, v[1].y, v[2].y, v[3].y, x + 4);
+                transpose4(v[0].z, v[1].z, v[2].z, v[3].z, x + 8);
+                transpose4(v[0].w, v[1].w, v[2].w, v[3].w, x + 12);
+                if (cnt < 16) {
+#pragma unroll
+                    for (int j = 0; j < 16; ++j)
+                        if (j >= cnt) x[j] = 0;  // past the rows: bytes of other rows or planes
+                }
+                if (starts) {  // column 0 starts a segment at col0's value
+#pragma unroll
+                    for (int j = 0; j < 16; ++j) {
+                        if ((starts >> j) & 1) {
+                            const long long r = rf + (cf + j) / w;
+                            unsigned cv = 0;
+                            for (int i = 0; i < kn; ++i)
+                                cv |= (unsigned)col0[(long long)(k0 + i) * h + r] << (8 * i);
+                            x[j] = cv;
+                        }
+                    }
+                }
+                const unsigned cin = carry[g];  // the previous tile's last pixel, this group
+                Seg tot;
+                const Seg ex = block_seg_excl<RST_THREADS, Add4>(
+                        {starts != 0, scan16<false>(x, starts, 0u)}, tot, sm);
+                scan16<true>(x, starts, seg_combine<Add4>({0u, cin}, ex).v);
+                if (threadIdx.x == 0) carry[g] = seg_combine<Add4>({0u, cin}, tot).v;
+                if constexpr (D > 0) {
+                    put_pixels<D>(x, buf + j0 * D);  // px = RST_PX: inside the buffer
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 16; ++j)
+                        if (j < cnt)
+                            for (int i = 0; i < kn; ++i)
+                                buf[(j0 + j) * d + k0 + i] = (uint8_t)(x[j] >> (8 * i));
+                }
+            }
+            __syncthreads();
+            store_tile(buf, img + p0 * d, (long long)n_px * d);
+            __syncthreads();  // the buffer is the next tile's
+        }
+    }
+}
+
+// one launch of the delta restore's instance D, its grid filling the
+// card's resident CTAs (queried once per buffer size)
+template <int D>
+int launch_restore_delta(const uint8_t* sym, const uint8_t* col0, int h, int w, int d,
+                         unsigned flip, uint8_t* img, cudaStream_t stream) {
+    const int px = d <= RST_BUF / RST_PX ? RST_PX : (RST_BUF / d > 0 ? RST_BUF / d : 1);
+    const size_t smem = (((size_t)px * d + 15) & ~(size_t)15) + 16 + 4 * (size_t)((d + 3) / 4);
+    static long long slots = 0;
+    static size_t slots_smem = 0;
+    cudaError_t err;
+    if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(huffman_restore_delta_kernel<D>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (slots_smem != smem) {
+        int dev, sms, per_sm;
+        if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+        if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+            return (int)err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, huffman_restore_delta_kernel<D>,
+                                                            RST_THREADS, smem);
+        if (err != cudaSuccess) return (int)err;
+        slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+        slots_smem = smem;
+    }
+    const int rows = w >= px ? 1 : px / w;  // a tile's worth of short rows
+    const long long units = ((long long)h + rows - 1) / rows;
+    huffman_restore_delta_kernel<D><<<(unsigned)(units < slots ? units : slots), RST_THREADS, smem,
+                                      stream>>>(sym, col0, h, w, d, flip, rows, px, img);
+    return (int)cudaGetLastError();
 }
 
 // valid pixel p <- sym[rank(p) * d + k] - offset, 0 elsewhere
@@ -481,11 +721,14 @@ extern "C" int huffman_decode(const unsigned* words, long long n_words, long lon
     return (int)cudaGetLastError();
 }
 
+// img: 16-aligned (a fresh allocation); sym: any alignment
 extern "C" int huffman_restore(const uint8_t* sym, long long n, int offset, uint8_t* img,
                                void* stream) {
     if (n == 0) return 0;
-    huffman_restore_kernel<<<grid_of(n, 256 * 4), 256, 0, (cudaStream_t)stream>>>(
-        sym, n, offset, img);
+    if (reinterpret_cast<uintptr_t>(img) & 15) return (int)cudaErrorMisalignedAddress;
+    const long long threads = (n + 15) / 16;
+    huffman_restore_kernel<<<(unsigned)((threads + RST_THREADS - 1) / RST_THREADS), RST_THREADS, 0,
+                             (cudaStream_t)stream>>>(sym, n, offset, img);
     return (int)cudaGetLastError();
 }
 
@@ -498,12 +741,21 @@ extern "C" int huffman_restore_col0(const uint8_t* sym, int h, int w, int d, int
     return (int)cudaGetLastError();
 }
 
+// sym, img: any alignment; col0: [d, h] u8 from huffman_restore_col0;
+// offset 0 (uint8) or 128 (int8)
 extern "C" int huffman_restore_delta(const uint8_t* sym, const uint8_t* col0, int h, int w,
                                      int d, int offset, uint8_t* img, void* stream) {
     if ((long long)h * w * d == 0) return 0;
-    huffman_restore_delta_kernel<<<dim3(h, d), ROW_THREADS, 0, (cudaStream_t)stream>>>(
-        sym, col0, h, w, d, offset, img);
-    return (int)cudaGetLastError();
+    if (offset != 0 && offset != 128) return (int)cudaErrorInvalidValue;
+    const unsigned flip = offset ? 0x80808080u : 0u;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (d) {
+        case 1: return launch_restore_delta<1>(sym, col0, h, w, d, flip, img, st);
+        case 2: return launch_restore_delta<2>(sym, col0, h, w, d, flip, img, st);
+        case 3: return launch_restore_delta<3>(sym, col0, h, w, d, flip, img, st);
+        case 4: return launch_restore_delta<4>(sym, col0, h, w, d, flip, img, st);
+        default: return launch_restore_delta<0>(sym, col0, h, w, d, flip, img, st);
+    }
 }
 
 extern "C" int huffman_restore_masked(const uint8_t* sym, const uint8_t* mask,

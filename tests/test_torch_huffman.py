@@ -353,6 +353,41 @@ def test_h4_restore_matches_jax(npdt, d, mname):
     np.testing.assert_array_equal(got.numpy()[mask], data[mask])
 
 
+EDGE_SHAPES = [  # (H, W, D, dtype, storage offset of the symbols)
+    (1, 17, 3, np.uint8, 0), (5, 1, 2, np.uint8, 3), (3, 4099, 5, np.uint8, 0),
+    (2, 33, 8, np.uint8, 7), (4, 16, 4, np.int8, 0), (1, 15, 1, np.int8, 15),
+    (3, 6149, 3, np.int8, 1),
+]
+
+
+@pytest.mark.parametrize("h,w,d,npdt,off", EDGE_SHAPES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}-{np.dtype(c[3]).name}-at{c[4]}"
+                              for c in EDGE_SHAPES])
+def test_h4_restore_edge_shapes_match_jax(h, w, d, npdt, off):
+    """The all-valid H4 (``symbols_to_image`` on CPU tensors: its plain
+    version), direct and delta, on the shapes the card's kernels treat
+    apart: D of one u32 and of several groups of four, W of 1, under and over
+    16 and over several 2,048-pixel tiles, H = 1, symbol views at a storage
+    offset. Equal to JAX's ``symbols_to_image`` on the same numpy symbols and
+    to the image they came from."""
+    rng = np.random.default_rng(h * 100_003 + w * 31 + d)
+    info = np.iinfo(npdt)
+    data = rng.integers(info.min, info.max + 1, (h, w, d)).astype(npdt)
+    dt = _dt(npdt)
+    jdt = JaxDT(int(dt))
+    pd, pe, _ = dh.symbol_streams_device(torch.from_numpy(data.astype(np.int32)), None, dt)
+    n = h * w * d
+    for delta, sym in ((False, pd), (True, pe)):
+        syms = sym.numpy()[:n]
+        view = torch.from_numpy(np.concatenate([rng.integers(0, 256, off, dtype=np.uint8), syms,
+                                                rng.integers(0, 256, 5, dtype=np.uint8)]))[off:]
+        got = dh.symbols_to_image(view, h, w, d, dt, delta)
+        want = np.asarray(jdh.symbols_to_image(jnp.asarray(syms), h, w, d, jdt, delta))
+        assert got.dtype == (torch.int8 if npdt == np.int8 else torch.uint8)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), data)
+
+
 # ---------------------------------------------------------------------------
 # the host lengths-only scan
 # ---------------------------------------------------------------------------
