@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Time kernels of two checkouts on one GPU, in turns: parent, change,
+change, parent.
+
+    python3 chip_compare.py MEASURE PARENT_DIR
+
+PARENT_DIR is an unpacked checkout of the older commit (`git archive`).
+Each turn runs in its own process (both trees name their package
+lerc_tpu_torch), builds that tree's kernels and prints one line of ms per
+call. The measurement code is this file's, the same for both trees;
+inputs are chip_smoke.py's four 2048^2 float32 DEM tiles of the tree
+measured. MEASURE is one of:
+
+  fpl  the float32 fpl kernels F1, F2, F2b, F3 and the Huffman kernels H2
+       and H3 (the kernels of `kernels/fpl.cu` and `kernels/block_scan.cuh`
+       serve float32 and float64 from one template; this holds the float32
+       instances to an older checkout's): the tiles round-robin (past the
+       50 MB L2), predictor 1, levels (2, 1, 0, 0), H2/H3 on plane 2; CUDA
+       events over 20 rounds (10 for F3 and H3), launch gaps included.
+  k5   K5 (the index-free record scan) per tile, the index-free decode
+       round (every kernel of decode_fast(header, stream) on the four
+       tiles, encoded by FusedResidentCodec at maxZError 0.001, nb_cap 0)
+       per round, and H4's column-0 scan on the delta symbols of the uint8
+       three-band tile (its kernel and, where the tree zeroes its CTA
+       totals per call, that memset) beside torch.cumsum on its [D, H]
+       view, per call: device time from torch.profiler windows (the tree's
+       chip_smoke.profiled_rows), summed over the device work whose name
+       holds a pattern.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+
+def fpl_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.ops import device_fpl as F
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    n, pred, levels = 2048 * 2048, 1, (2, 1, 0, 0)
+    fin = [F.fpl_finalize(t, pred, levels) for t in tiles]
+
+    def ev(fns, reps=20):
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            for f in fns:
+                f()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / (reps * len(fns))
+
+    out = {
+        "F1": ev([lambda t=t: F.fpl_sample_histograms(t) for t in tiles]),
+        "F2": ev([lambda t=t: F.fpl_finalize(t, pred, levels) for t in tiles]),
+        "F2b": ev([lambda p=p: F.fpl_packbits_size(p, n) for p, _ in fin]),
+        "F3": ev([lambda p=p: F.fpl_restore(p, 2048, 2048, 1, pred, levels) for p, _ in fin], 10),
+    }
+    h2, h3 = [], []
+    for planes, histos in fin:
+        hst = histos[2].cpu().numpy().astype(np.int64)
+        lengths = huffman.compute_code_lengths(hst)
+        codes = huffman.canonical_codes(lengths)
+        table = dh.code_table(lengths, codes, dev)
+        n_words = -(-int((hst * lengths).sum()) // 32) + 1
+        words, _tb, sbits = dh.encode_stream_device(planes[2], table, (n, n, n), n_words)
+        consts, syms = huffman.canonical_decode_consts(lengths, codes)
+        h2.append((planes[2], table, (n, n, n), n_words))
+        h3.append((torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
+                   torch.from_numpy(consts).to(dev), torch.from_numpy(syms).to(dev), (n, n, n)))
+    out["H2"] = ev([lambda a=a: dh.encode_stream_device(*a) for a in h2])
+    out["H3"] = ev([lambda a=a: dh.decode_stream_device(*a) for a in h3], 10)
+    return out
+
+
+def k5_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    codec = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001)
+    outs = [codec.encode_fast(t) for t in tiles]
+    n_rec = codec.n_rec
+
+    def dev_ms(fns, pats, reps=5):
+        """Device ms per call of the work matching any of pats (None: all);
+        the first pattern must show."""
+        rows = cs.profiled_rows(fns, reps, pats[:1])
+        if rows is None:
+            raise SystemExit(f"profiler shows no device time for {pats[0]}")
+        hit = [r for r in rows if any(p is None or p in r[0] for p in pats)]
+        return sum(r[2] for r in hit) / 1e3 / (reps * len(fns))
+
+    out = {
+        "K5": dev_ms([lambda o=o: scan.scan_records(o[1], n_rec, codec.dt, codec.version,
+                                                    o[2][0].reshape(1)) for o in outs],
+                     ("scan_records",)),
+        "index_free_round": 4 * dev_ms([lambda o=o: codec.decode_fast(o[0], o[1]) for o in outs],
+                                       (None,)),
+    }
+    u8 = cs.int_cell_tiles(tiles[:1], np.uint8, 3)[0]
+    h, w, d = u8.shape
+    _direct, sym, _hist = dh.symbol_streams_device(u8.to(torch.int32).contiguous(), None,
+                                                   DataType.BYTE)
+    out["col0"] = dev_ms([lambda: dh.symbols_to_image(sym, h, w, d, DataType.BYTE, True)],
+                         ("huffman_restore_col0", "Memset"), reps=20)
+    col = sym[:h * w * d].view(d, h, w)[:, :, 0]
+    out["torch.cumsum"] = dev_ms([lambda: torch.cumsum(col, 1, dtype=torch.uint8)], (None,),
+                                 reps=20)
+    return out
+
+
+MEASURES = {"fpl": fpl_turn, "k5": k5_turn}
+
+
+def turn(measure: str, tree: str, label: str) -> None:
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    from lerc_tpu_torch.kernels import build
+
+    if not build.__file__.startswith(tree) or not cs.__file__.startswith(tree):
+        raise SystemExit(f"imported {build.__file__}, not the tree {tree}")
+    build.build_all()
+    out = MEASURES[measure](cs, torch.device("cuda"))
+    print(label, " ".join(f"{k}={v:.4f}" for k, v in out.items()), "ms", flush=True)
+
+
+def main() -> None:
+    if len(sys.argv) == 5 and sys.argv[1] == "--turn":
+        turn(*sys.argv[2:])
+        return
+    if len(sys.argv) != 3 or sys.argv[1] not in MEASURES:
+        raise SystemExit(__doc__)
+    measure = sys.argv[1]
+    here = str(Path(__file__).resolve().parent)
+    parent = str(Path(sys.argv[2]).resolve())
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for label, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        subprocess.run([sys.executable, __file__, "--turn", measure, tree, label], check=True)
+
+
+if __name__ == "__main__":
+    main()

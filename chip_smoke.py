@@ -10,12 +10,15 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      tensors (outputs equal: bytes, starts, flags, descriptors; images
      bit-equal): K1 encode_blocks, K2 write_records, K3 fletcher32_parts,
      K4 decode_records and the masked K1m/K2m/K4m at 64x64, 2048x2048 and
-     on small edge tiles; then K5 scan_records (its sizes, doubling and
-     describe kernels, step by step) and K6 decode_scanned on float32
-     streams at 64x64 and 2048x2048 (nb_cap 0 and 16) and on the edge
-     tiles, and every integer instance of K1, K2, K4 (all-valid and
-     masked) and K6 on 64x64 tiles of each integer dtype (lossless v6 with
-     depth-diff records, v4, lossy under nb_cap 16, masked);
+     on small edge tiles; then K5 scan_records (its three kernels: every
+     output -- starts, eight descriptors, chain_ok -- equal to the plain
+     version's) and K6 decode_scanned on float32 streams at 64x64 and
+     2048x2048 (nb_cap 0 and 16) and on the edge tiles, K5 also on those
+     streams truncated, cut short by `total`, with corrupted bytes and
+     asked for records past the chain's end, and every integer instance of
+     K1, K2, K4 (all-valid and masked), K5 and K6 on 64x64 tiles of each
+     integer dtype (lossless v6 with depth-diff records, v4, lossy under
+     nb_cap 16, masked);
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -91,8 +94,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   16. their MB/s, ratios and host-scan ms, and H1-H4's device ms per
      launch at 2048^2 x 3 beside their plain ms, bounds and, for H1, the
      column scan and the two all-valid restores, torch.bincount /
-     torch.cumsum / torch.sub; the two restores against their library call
-     in 7 pairs of alternating profiler windows (median and spread);
+     torch.cumsum / torch.sub; the three restores (column 0, rows, direct)
+     against their library call in 7 pairs of alternating profiler windows
+     (median and spread);
   17. lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
      sizes and F3 restore against their plain versions, bit for bit, on
      48x41 and 61x47 crops of the DEM (depth 1 and 3, every predictor, every
@@ -197,7 +201,7 @@ SOURCES = {
 }
 
 SOURCES.update({name: ("lerc_tpu_torch/kernels/scan.cu", "lerc_tpu/ops/device_scan.py:35")
-                for name in ("scan_records_sizes", "scan_records_double", "scan_records_describe")})
+                for name in ("scan_records_maps", "scan_records_join", "scan_records_emit")})
 # the band codec's LUT instances of K1/K2 (8x8 and 16x16, float32 and int32)
 SOURCES.update({f"{k}{m}{t}": ("lerc_tpu_torch/kernels/encode.cu",
                                "lerc_tpu/ops/device_encode.py:407" if k == "encode_blocks"
@@ -733,36 +737,31 @@ def int_name(base, dt, masked=False):
     return base + ("_masked" if masked else "") + DT_SUFFIX[dt]
 
 
-def check_scan(stream, total, n_rec, dt, version, mze, zmax, shape):
-    """K5's three kernels step by step and K6 against their plain versions
-    on one all-valid stream. Returns ({kernel: max_abs_err}, the kernel
-    scan's outputs)."""
-    from lerc_tpu_torch.ops import device_decode as dec
+def scan_equal(stream, total, n_rec, dt, version, tag):
+    """K5 against its plain version on one stream: the starts, the eight
+    descriptors and chain_ok equal. Returns the kernels' outputs."""
     from lerc_tpu_torch.ops import device_scan as scan
+
+    k = scan.scan_records(stream, n_rec, dt, version, total)
+    r = scan.scan_records_ref(stream, n_rec, dt, version, total)
+    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t for t in (*k[:9], *r[:9])]
+    for name, a, b in zip(("rp", "mode", "offset", "num_bits", "num_elements", "payload_pos",
+                           "lut_pos", "n_lut", "nbits_lut"), bits[:9], bits[9:]):
+        require(torch.equal(a, b), f"K5 scan_records {name} != plain ({tag})")
+    require(bool(k[9]) == bool(r[9]), f"K5 scan_records chain_ok != plain ({tag})")
+    return k
+
+
+def check_scan(stream, total, n_rec, dt, version, mze, zmax, shape):
+    """K5 (whole outputs) and K6 against their plain versions on one
+    all-valid stream. Returns ({kernel: max_abs_err}, the kernel scan's
+    outputs)."""
+    from lerc_tpu_torch.ops import device_decode as dec
 
     h, w, d = shape
     tag = f"{h}x{w}x{d} {dt.name} v{version}"
-    j_k = scan.scan_records_sizes(stream, dt, version)
-    j_r = scan.scan_records_sizes_ref(stream, dt, version)
-    require(torch.equal(j_k, j_r), f"K5 scan_records_sizes != plain ({tag})")
-    rp_k = torch.zeros(n_rec, dtype=torch.int32, device=stream.device)
-    rp_r = rp_k.clone()
-    filled = 1
-    while filled < n_rec:
-        take = min(filled, n_rec - filled)
-        square = filled + take < n_rec
-        j_k, rp_k = scan.scan_records_double(j_k, rp_k, filled, take, square)
-        j_r, rp_r = scan.scan_records_double_ref(j_r, rp_r, filled, take, square)
-        require(torch.equal(j_k, j_r) and torch.equal(rp_k, rp_r),
-                f"K5 scan_records_double != plain at step {filled} ({tag})")
-        filled += take
-    d_k = scan.scan_records_describe(stream, rp_k, dt, version, total)
-    d_r = scan.scan_records_describe_ref(stream, rp_r, dt, version, total)
-    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t for t in (*d_k[:8], *d_r[:8])]
-    require(all(torch.equal(a, b) for a, b in zip(bits[:8], bits[8:]))
-            and bool(d_k[8]) == bool(d_r[8]), f"K5 scan_records_describe != plain ({tag})")
-    require(bool(d_k[8]), f"K5: the record chain does not end at total ({tag})")
-    full = scan.scan_records(stream, n_rec, dt, version, total)
+    full = scan_equal(stream, total, n_rec, dt, version, tag)
+    require(bool(full[9]), f"K5: the record chain does not end at total ({tag})")
     mode, offset, nb = full[1], full[2], full[3]
     ppos = full[5]
     img_k, ok_k = dec.decode_scanned(stream, mode, ppos, offset, nb, full[4], full[6], full[7],
@@ -773,9 +772,29 @@ def check_scan(stream, total, n_rec, dt, version, mze, zmax, shape):
     same = (torch.equal(img_k.view(torch.int32), img_r.view(torch.int32))
             if img_k.dtype == torch.float32 else torch.equal(img_k, img_r))
     require(same and bool(ok_k) == bool(ok_r) and bool(ok_k), f"K6 decode_scanned != plain ({tag})")
-    err = {n: 0.0 for n in ("scan_records_sizes", "scan_records_double", "scan_records_describe")}
+    err = {n: 0.0 for n in SCAN}
     err[int_name("decode_scanned", dt)] = max_abs(img_k, img_r)
     return err, full
+
+
+def check_scan_hostile(stream, total, rp, dt, version, tag):
+    """K5 against its plain version where the chain does not end at
+    `total`: the stream truncated to a third (the chain reaches S), `total`
+    at half (the chain runs on past it, walked record by record), the flag
+    bytes of the records at 1/4, 1/2 and 3/4 of the chain given another
+    mode (the chain derails), and 1,000 records more than the stream holds
+    (past the chain's end every start is S). rp: the intact stream's
+    starts."""
+    tot, n_rec = int(total), rp.numel()
+    bad = stream.clone().view(torch.uint8)
+    for i in (n_rec // 4, n_rec // 2, 3 * n_rec // 4):
+        bad[int(rp[i])] ^= 3
+    for what, s_, t_, n_ in (("truncated to a third", stream[: max(1, tot // 12)].clone(), total,
+                              n_rec),
+                             ("total at half", stream, total // 2, n_rec),
+                             ("3 modes changed", bad.view(torch.int32), total, n_rec),
+                             ("1,000 records past the chain", stream, total, n_rec + 1000)):
+        scan_equal(s_, t_, n_, dt, version, f"{tag}, {what}")
 
 
 def check_int_kernels(codec, tiles):
@@ -821,8 +840,10 @@ def check_int_kernels(codec, tiles):
         ins.append(dict(p=p, rec_info=ri, starts=starts, stream=s_k, total=total, zmax=zmax,
                         fits=int(fi)))
         if v is None and int(fi):
-            e, _ = check_scan(s_k, total, codec.n_rec, dt, codec.version, codec.mze, zmax,
-                              (h, w, d))
+            e, full = check_scan(s_k, total, codec.n_rec, dt, codec.version, codec.mze, zmax,
+                                 (h, w, d))
+            if h * w <= 64 * 64:  # K5 on broken streams too (check_scan_hostile)
+                check_scan_hostile(s_k, total, full[0], dt, codec.version, tag)
             for k, x in e.items():
                 err[k] = max(err.get(k, 0.0), x)
     return err, ins
@@ -891,7 +912,7 @@ INT_CELLS = (  # (label, dtype, depth, maxZError)
     ("int32 DEM", np.int32, 1, 2.0),
     ("uint8 three-band", np.uint8, 3, 0.5),
 )
-SCAN = ("scan_records_sizes", "scan_records_double", "scan_records_describe")
+SCAN = ("scan_records_maps", "scan_records_join", "scan_records_emit")
 
 
 def run_counted(names, label, fn):
@@ -1042,14 +1063,17 @@ def int_cell(label, npdt, d, mze, dem_tiles, card):
 def timed_scan_kernels(stream_sets, dt, version, mze, shape):
     """Device ms per launch of K5's three kernels and of K6 over the given
     (stream, total, zmax) sets (one torch.profiler window of full scan +
-    decode calls), the plain versions' ms on the first set (CUDA events),
-    and the doubling steps per scan."""
+    decode calls; each kernel launches once a call), and the plain
+    versions' ms on the first set (CUDA events). The plain K5 is one
+    function of three stages, each timed alone beside the kernel that does
+    its work: the jump table at every byte beside maps, the doubling chain
+    beside join, the descriptors at the starts beside emit; "K5" is the
+    whole plain function."""
     from lerc_tpu_torch.ops import device_decode as dec
     from lerc_tpu_torch.ops import device_scan as scan
 
     h, w, d = shape
     n_rec = (h // 8) * (w // 8) * d
-    steps = int(np.ceil(np.log2(n_rec)))
     k6 = int_name("decode_scanned", dt)
 
     def call(s, total, zmax):
@@ -1059,60 +1083,75 @@ def timed_scan_kernels(stream_sets, dt, version, mze, shape):
 
     fns = [lambda a=a: call(*a) for a in stream_sets]
     reps = 3
-    kernels = ("scan_records_sizes_kernel", "scan_records_double_kernel",
-               "scan_records_describe_kernel", "decode_scanned_kernel")
+    kernels = tuple(f"{n}_kernel" for n in SCAN) + ("decode_scanned_kernel",)
     rows = profiled_rows(fns, reps, kernels)
     require(rows is not None, "profiler shows no device time for the scan's kernels")
     calls = reps * len(fns)
     per = {}
-    for name, match, n in ((SCAN[0], "scan_records_sizes_kernel", 1),
-                           (SCAN[1], "scan_records_double_kernel", steps),
-                           (SCAN[2], "scan_records_describe_kernel", 1),
-                           (k6, "decode_scanned_kernel", 1)):
+    for name, match in zip((*SCAN, k6), kernels):
         us = sum(r[2] for r in rows if match in r[0])
         require(us > 0, f"profiler shows no device time for {match}")
-        per[name] = us / 1e3 / (calls * n)
+        per[name] = us / 1e3 / calls
     s0, t0, z0 = stream_sets[0]
-    j = scan.scan_records_sizes(s0, dt, version)
-    rp = torch.zeros(n_rec, dtype=torch.int32, device=s0.device)
-    half = 1 << (steps - 1)  # a middle doubling step: half the starts known
     out = scan.scan_records(s0, n_rec, dt, version, t0)
+    jump = scan.scan_records_sizes_ref(s0, dt, version)
+    rp = scan.scan_records_chain_ref(jump, n_rec)
     plain = {
         SCAN[0]: cuda_ms([lambda: scan.scan_records_sizes_ref(s0, dt, version)], reps=1),
-        SCAN[1]: cuda_ms([lambda: scan.scan_records_double_ref(j, rp, half // 2, half // 2,
-                                                                True)], reps=1),
-        SCAN[2]: cuda_ms([lambda: scan.scan_records_describe_ref(s0, out[0], dt, version, t0)],
+        SCAN[1]: cuda_ms([lambda: scan.scan_records_chain_ref(jump, n_rec)], reps=1),
+        SCAN[2]: cuda_ms([lambda: scan.scan_records_describe_ref(s0, rp, dt, version, t0)],
                          reps=1),
-        k6: cuda_ms([lambda: dec.decode_scanned_ref(
-            s0, out[1], out[5], out[2], out[3], out[4], out[6], out[7], out[8], None, 2.0 * mze,
-            dec._inv_i(mze), z0, h, w, d, dt)], reps=1),
+        "K5": cuda_ms([lambda: scan.scan_records_ref(s0, n_rec, dt, version, t0)], reps=1),
     }
-    return per, plain, steps
+    plain[k6] = cuda_ms([lambda: dec.decode_scanned_ref(
+        s0, out[1], out[5], out[2], out[3], out[4], out[6], out[7], out[8], None, 2.0 * mze,
+        dec._inv_i(mze), z0, h, w, d, dt)], reps=1)
+    return per, plain
 
 
-def scan_bounds(totals, shape, size, steps):
-    """Least time of K5 and of K6 for this run's streams (mean over the
-    tiles): the bytes each function needs, each input read once and each
-    output written once, over HBM bandwidth (the operations bound is far
-    below). Streams count their `total` bytes, the part a record lives in.
+def scan_bounds(totals, shape, size):
+    """Least time of K5, of each of its kernels and of K6 for this run's
+    streams (mean over the tiles): the bytes each function needs, each
+    input read once and each output written once, over HBM bandwidth (the
+    operations bound is far below). Streams count their `total` bytes, the
+    part a record lives in. K5 reads the stream and `total` and writes nine
+    [nRec] fields and chain_ok; its bound is shared among its kernels so
+    that theirs add up to it: maps reads the stream, join `total`, emit
+    writes the fields and chain_ok. "excess" is the traffic of the design
+    beyond that bound, from scan_scratch's sizes for `total` bytes: the
+    chunk maps and the chunk-local J each written once and read once, the
+    plan written and read, and the stream's chunks read a second time."""
+    from lerc_tpu_torch.ops import device_scan as scan
 
-    K5's bound (stream in, nine [nRec] fields out) is shared out among its
-    kernels by who does that part of the work: the sizes kernel reads the
-    stream, the doubling steps write the record starts, the describe kernel
-    writes the other eight fields. A scan's launches' bounds thus add up to
-    K5's, and the jump table that the sizes and doubling kernels write and
-    read counts as their excess, not as their bound."""
     h, w, d = shape
     n_rec = (h // 8) * (w // 8) * d
     s = float(np.mean(totals))
+    extra = []
+    for t in totals:
+        n_maps, n_jl, n_plan, _n_lb = scan.scan_scratch(t)
+        extra.append(2 * 4 * n_maps + 2 * 2 * n_jl + 2 * 4 * n_plan + n_jl)
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     return {
-        SCAN[0]: ms(s),                                   # the stream, read once
-        SCAN[1]: ms(4 * (n_rec - 1) / steps),             # one step's share of the starts
-        SCAN[2]: ms(32 * n_rec + 4),                      # 8 fields and the first start
-        "K5": ms(s + 36 * n_rec),                         # the whole scan: stream in, 9 fields out
+        SCAN[0]: ms(s),
+        SCAN[1]: ms(4),
+        SCAN[2]: ms(36 * n_rec + 4),
+        "K5": ms(s + 4 + 36 * n_rec + 4),
+        "excess": ms(float(np.mean(extra))),
         "K6": ms(s + 16 * n_rec + 4 * d + h * w * d * size),
     }
+
+
+def k5_line(what, per, plain, bnd, card, scans=None):
+    """One line for K5 on a cell: its kernels beside their shares of its
+    bound, the whole scan beside the whole bound and the plain function."""
+    whole = sum(per[n] for n in SCAN)
+    on_paths = "" if scans is None else f"; {scans} scans on the paths"
+    print(f"K5 scan_records on {what}: maps {per[SCAN[0]]:.4f}, join {per[SCAN[1]]:.4f}, emit "
+          f"{per[SCAN[2]]:.4f} ms/launch (their shares of the bound {bnd[SCAN[0]]:.4f}, "
+          f"{bnd[SCAN[1]]:.6f}, {bnd[SCAN[2]]:.4f} ms); whole {whole:.4f} ms a tile (bound "
+          f"{bnd['K5']:.4f} ms by bytes: the stream and total read once, 9 descriptor fields "
+          f"and chain_ok written; the design's maps, J and stream re-read {bnd['excess']:.4f} ms "
+          f"more; plain {plain['K5']:.3f} ms{on_paths}) [{card}]", flush=True)
 
 
 def int_kernel_times(codec, tiles, ins):
@@ -1204,10 +1243,9 @@ def resident_instance_times(dem, mask, card):
             instance_line(name, ms, bound, card, what)
         if m is None:
             k = ins[0]
-            per, _plain, steps = timed_scan_kernels([(k["stream"], k["total"], k["zmax"])],
-                                                    codec.dt, codec.version, codec.mze,
-                                                    (TILE, TILE, 1))
-            bnd = scan_bounds([int(k["total"])], (TILE, TILE, 1), tile.element_size(), steps)
+            per, _plain = timed_scan_kernels([(k["stream"], k["total"], k["zmax"])],
+                                             codec.dt, codec.version, codec.mze, (TILE, TILE, 1))
+            bnd = scan_bounds([int(k["total"])], (TILE, TILE, 1), tile.element_size())
             k6 = int_name("decode_scanned", codec.dt)
             instance_line(k6, per[k6], bnd["K6"], card, what)
 
@@ -1934,7 +1972,9 @@ def huffman_check(data, mask, tag, scan_ref=True):
 
 H4_TILE_PX = 2048  # the delta restore's tile of pixels (kernels/huffman.cu RST_PX)
 H4_EDGE_SHAPES = ([(h, w, d) for d in (1, 2, 3, 4, 5, 8) for w in (1, 15, 17, 3 * H4_TILE_PX + 5)
-                   for h in (1, 3)] + [(5, 1, 2), (3, 4099, 5), (2, 33, 8), (4, 16, 4)])
+                   for h in (1, 3)] + [(5, 1, 2), (3, 4099, 5), (2, 33, 8), (4, 16, 4)]
+                  # column 0 over several CTAs, and several rows a thread past 16,384
+                  + [(129, 3, 3), (16584, 2, 5), (40000, 1, 1)])
 
 
 def h4_edge_check(dev):
@@ -1943,8 +1983,10 @@ def h4_edge_check(dev):
     against the image whose symbols H1 made, on the shapes the kernels'
     edges need: D = 1, 2, 3, 4, 5, 8 (one u32 of four depths, groups of
     four), W = 1, 15, 17 and 3 tiles + 5 pixels (a row over several tiles),
-    H = 1 and 3, uint8 and int8; then both restores on symbol views at
-    storage offsets 1-15 (the decoder hands a slice of its buffer)."""
+    H = 1 and 3, uint8 and int8, and H = 129, 16,584 and 40,000 (the
+    column-0 scan across CTAs, more rows a thread); then both restores on
+    symbol views at storage offsets 1-15 (the decoder hands a slice of its
+    buffer)."""
     from lerc_tpu_torch.constants import DataType
     from lerc_tpu_torch.ops import device_huffman as dh
 
@@ -2071,19 +2113,22 @@ PAIRS = 7  # alternating profiler windows of a kernel and its library call
 
 
 def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20):
-    """Device ms per call of a kernel (the wrapper kf, its kernels whose
-    name contains `match`) and of its library call lib, from PAIRS pairs of
+    """Device ms per call of a kernel (the wrapper kf, its device work whose
+    name contains `match`, or any of a tuple of patterns, each of which must
+    show) and of its library call lib, from PAIRS pairs of
     torch.profiler windows of `reps` calls each, in turns (kernel, library,
     library, kernel, ...), so that a drift of clocks or of the L2 touches
     both alike; printed with the spreads and the bound. Returns (kernel
     median ms, library median ms, bound ms)."""
     ks, ls = [], []
+    pats = (match,) if isinstance(match, str) else tuple(match)
     for i in range(PAIRS):
-        order = ((kf, match, ks), (lib, None, ls))
-        for f, m, out in (order if i % 2 == 0 else order[::-1]):
-            rows = profiled_rows([f], reps, (m,))
-            require(rows is not None, f"profiler shows no device time for {m or lib_text}")
-            out.append(sum(r[2] for r in rows if m is None or m in r[0]) / 1e3 / reps)
+        order = ((kf, pats, ks), (lib, (None,), ls))
+        for f, ms, out in (order if i % 2 == 0 else order[::-1]):
+            rows = profiled_rows([f], reps, ms)
+            require(rows is not None, f"profiler shows no device time for {ms[0] or lib_text}")
+            out.append(sum(r[2] for r in rows if any(m is None or m in r[0] for m in ms))
+                       / 1e3 / reps)
     km, lm = float(np.median(ks)), float(np.median(ls))
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
     ratios = [k / v for k, v in zip(ks, ls)]
@@ -2095,14 +2140,33 @@ def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20):
     return km, lm, bound
 
 
+def col0_pair(syms, h, w, d, card):
+    """H4's column-0 scan (its kernel and the memset of its CTA totals)
+    against torch.cumsum on the [D, H] column-0 view of the delta symbols,
+    in PAIRS alternating profiler windows. Returns
+    (kernel median ms, plain ms of the whole delta restore, bound ms,
+    library median ms)."""
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    n = h * w * d
+    km, lm, bound = paired_row(
+        "huffman_restore_col0", lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
+        ("huffman_restore_col0_kernel", "Memset"),
+        lambda s=syms[:n].view(d, h, w)[:, :, 0]: torch.cumsum(s, 1, dtype=torch.uint8),
+        "torch.cumsum(s[:, :, 0], 1, dtype=torch.uint8)", 2 * d * h, card)
+    plain = cuda_ms([lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True)], reps=1)
+    return km, plain, bound, lm
+
+
 def huffman_kernel_times(u8x3, mask, flags, card):
     """Device ms per launch of H1-H4 (torch.profiler) at 2048^2 x 3 (the
     uint8 three-band tile; the direct restores on the flag band), their
     plain ms (CUDA events), bounds (bytes, each input read once and each
     output written once, over the HBM rate) and, beside H1 and H4, the one
-    PyTorch call that computes the same function; the two all-valid
-    restores and their library calls from paired windows (paired_row), the
-    median standing for each. The masked H1 and masked
+    PyTorch call that computes the same function; the three all-valid
+    restores (column 0, rows, direct) and their library calls from paired
+    windows (paired_row, col0_pair), the median standing for each. The masked H1 and masked
     direct H4 rows time the whole wrapper (the kernel and its rank-chunk
     glue); the kernel alone is printed beside them. Returns {kernel: (ms,
     plain ms, bound ms, library ms or None)}."""
@@ -2166,10 +2230,7 @@ def huffman_kernel_times(u8x3, mask, flags, card):
         syms = dh.decode_stream_device(*args)[0]
         name = restore_name(mk is not None, delta)
         if mk is None and delta:
-            add("huffman_restore_col0", lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
-                lambda: dh.symbols_to_image_ref(syms, h, w, d, DataType.BYTE, True),
-                2 * d * h, "huffman_restore_col0_kernel",
-                lib=lambda s=syms[:n].view(d, h, w)[:, :, 0]: torch.cumsum(s, 1, dtype=torch.uint8))
+            rows["huffman_restore_col0"] = col0_pair(syms, h, w, d, card)
             km, lm, bound = paired_row(
                 name, lambda: dh.symbols_to_image(syms, h, w, d, DataType.BYTE, True),
                 "huffman_restore_delta_kernel",
@@ -2237,8 +2298,9 @@ def huffman_phases(tiles, mask, card, launches, add_row):
           f"uint8 x 3 strip (no, random and stripes masks; direct and delta)", flush=True)
     h4_edge_check(tiles[0].device)
     print(f"check: the all-valid H4 restores equal to their plain versions and to the input on "
-          f"{len(H4_EDGE_SHAPES)} edge shapes (D 1-5 and 8; W 1, 15, 17, {3 * H4_TILE_PX + 5}; H 1 and "
-          f"3; uint8 and int8), and on symbol views at storage offsets 1-15", flush=True)
+          f"{len(H4_EDGE_SHAPES)} edge shapes (D 1-5 and 8; W 1, 15, 17, {3 * H4_TILE_PX + 5}; H 1, 3, "
+          f"129, 16584 and 40000; uint8 and int8), and on symbol views at storage offsets 1-15",
+          flush=True)
     for data, mk, what in ((u8x3[0], None, "uint8 x 3"), (u8x3[0], mask, "uint8 x 3, bench mask"),
                            (flags[0], None, "quality flags"),
                            (flags[0], mask, "quality flags, bench mask")):
@@ -3797,10 +3859,13 @@ def main():
             h, w, _ = t.shape
             codec = FusedResidentCodec(h, w, 1, np.float32, MAX_Z_ERROR, nb_cap=nb_cap)
             header, stream, meta, _ = codec.encode_fast(t)
-            check_scan(stream, meta[0].reshape(1), codec.n_rec, codec.dt, codec.version,
-                       codec.mze, codec._zmax_vec(header), (h, w, 1))
-            print(f"check: K5 (3 kernels) and K6 equal to their plain versions on the float32 "
-                  f"{h}x{w} stream, nb_cap={nb_cap}", flush=True)
+            _e, full = check_scan(stream, meta[0].reshape(1), codec.n_rec, codec.dt,
+                                  codec.version, codec.mze, codec._zmax_vec(header), (h, w, 1))
+            check_scan_hostile(stream, meta[0].reshape(1), full[0], codec.dt, codec.version,
+                               f"{h}x{w} float32, nb_cap={nb_cap}")
+            print(f"check: K5 and K6 equal to their plain versions on the float32 {h}x{w} "
+                  f"stream, nb_cap={nb_cap}; K5 also truncated, with `total` at half, with 3 "
+                  f"modes changed and 1,000 records past the chain", flush=True)
     for name, data, mze, nb_cap in edge_tiles():
         h, w, d = data.shape
         codec = FusedResidentCodec(h, w, d, np.float32, mze, nb_cap=nb_cap)
@@ -3860,16 +3925,13 @@ def main():
                           (TILE, TILE, 1))
         for k, x in e.items():
             scan_err[k] = max(scan_err.get(k, 0.0), x)
-    per, plain, steps = timed_scan_kernels(sets, fcodec.dt, fcodec.version, fcodec.mze,
-                                           (TILE, TILE, 1))
-    bnd = scan_bounds([int(o[2][0]) for o in fouts], (TILE, TILE, 1), 4, steps)
+    per, plain = timed_scan_kernels(sets, fcodec.dt, fcodec.version, fcodec.mze, (TILE, TILE, 1))
+    bnd = scan_bounds([int(o[2][0]) for o in fouts], (TILE, TILE, 1), 4)
     for name in (*SCAN, "decode_scanned"):
         b = bnd["K6"] if name == "decode_scanned" else bnd[name]
         add_row(name, scan_err[name], per[name], plain[name], b, "bytes")
-    k5_ms = per[SCAN[0]] + steps * per[SCAN[1]] + per[SCAN[2]]
-    print(f"K5 scan_records, whole (sizes + {steps} doubling steps + describe) on a {TILE}^2 "
-          f"float32 tile at nb_cap 0: {k5_ms:.4f} ms (bound {bnd['K5']:.4f} ms by bytes: "
-          f"stream read once, 9 descriptor fields written) [{card}]")
+    k5_line(f"a {TILE}^2 float32 tile at nb_cap 0", per, plain, bnd, card,
+            launches.get(SCAN[0], 0))
     where_the_time_goes(fcodec, tiles, f_results[0][2], card, "index-free decode, float32",
                         round_fn=lambda: [fcodec.decode_fast(o[0], o[1]) for o in fouts])
     for _counts, codec, ctiles, _outs, round_ms in cells:
@@ -3879,15 +3941,12 @@ def main():
                                                                           ins).items():
             add_row(name, err[name], ms, plain_ms, bound_ms, bound_by)
         sets = [(k["stream"], k["total"], k["zmax"]) for k in ins]
-        per, plain, steps = timed_scan_kernels(sets, codec.dt, codec.version, codec.mze, (h, w, d))
+        per, plain = timed_scan_kernels(sets, codec.dt, codec.version, codec.mze, (h, w, d))
         size = ctiles[0].element_size()
-        bnd = scan_bounds([int(k["total"]) for k in ins], (h, w, d), size, steps)
+        bnd = scan_bounds([int(k["total"]) for k in ins], (h, w, d), size)
         k6 = int_name("decode_scanned", codec.dt)
         add_row(k6, err[k6], per[k6], plain[k6], bnd["K6"], "bytes")
-        print(f"K5 on the {h}x{w}x{d} {codec.dt.name} cell: sizes {per[SCAN[0]]:.4f}, doubling "
-              f"{per[SCAN[1]]:.4f} x {steps}, describe {per[SCAN[2]]:.4f} ms/launch (bounds "
-              f"{bnd[SCAN[0]]:.4f}, {bnd[SCAN[1]]:.4f}, {bnd[SCAN[2]]:.4f} ms; whole scan "
-              f"{bnd['K5']:.4f} ms) [{card}]")
+        k5_line(f"the {h}x{w}x{d} {codec.dt.name} cell", per, plain, bnd, card)
         where_the_time_goes(
             codec, ctiles, round_ms, card, f"{codec.dt.name} x {d} cell, encode + index-free decode",
             round_fn=lambda c=codec, ts=ctiles: [c.decode_fast(*c.encode_fast(t)[:2]) for t in ts])

@@ -49,7 +49,7 @@ LAUNCHES = {"encode_blocks": 0, "write_records": 0,
             "fletcher32_parts": 0, "decode_records": 0,
             "encode_blocks_masked": 0, "write_records_masked": 0,
             "decode_records_masked": 0,
-            "scan_records_sizes": 0, "scan_records_double": 0, "scan_records_describe": 0,
+            "scan_records_maps": 0, "scan_records_join": 0, "scan_records_emit": 0,
             "decode_scanned": 0}
 LAUNCHES.update({f"{k}{m}{sfx}": 0 for sfx in INT_SUFFIXES
                  for k in ("encode_blocks", "write_records", "decode_records")

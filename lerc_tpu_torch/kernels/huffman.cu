@@ -42,7 +42,17 @@
 //                             16-byte store; the last partial 16 bytes one at a
 //                             time.
 //      huffman_restore_col0   symbols_to_image delta, column 0: a mod-256 scan down
-//                             column 0 per depth (one CTA per depth).
+//                             column 0 of every depth. Bound: latency (2 D H bytes,
+//                             one strided byte a row and depth). A CTA of 128
+//                             threads per 128 rows (more rows a thread past 16,384
+//                             rows, at most 128 CTAs, all resident), each thread
+//                             one row's column-0 bytes of up to four depths in one
+//                             u32 (SWAR byte adds; D > 4 in groups of four); a CTA
+//                             publishes its total in a slot the entry point
+//                             zeroes first (one memset) and adds the totals of
+//                             the CTAs before it (one pass, no second kernel;
+//                             one CTA for all rows took 0.0061 ms at 2048 x 3,
+//                             its loads serialized on one SM).
 //      huffman_restore_delta  symbols_to_image delta, the rows: a mod-256 inclusive
 //                             scan along each row from col0, written
 //                             pixel-interleaved [H, W, D]. Bound: bytes, 2n + D*H.
@@ -91,7 +101,7 @@ constexpr int MAX_GRID = 1056;        // 8 CTAs on each of 132 SMs (grid-stride 
 constexpr int PACK_WARPS = 8;         // groups per CTA in H2
 constexpr int PACK_WORDS = 66;        // a group's words from its first: <= (31 + 2048 + 31) / 32 + 1
 constexpr int DEC_THREADS = 128;
-constexpr int ROW_THREADS = 256;                   // column 0's scan
+constexpr int COL_THREADS = 128, COL_MAX_CTAS = 128;  // column 0's scan
 constexpr int RST_THREADS = 128;                   // the all-valid restores: 16 bytes a thread
 constexpr int RST_PX = 16 * RST_THREADS;           // pixels a delta tile (D <= 8)
 constexpr int RST_BUF = 16384;                     // the delta buffer's bytes for D > 8
@@ -368,23 +378,6 @@ __global__ void __launch_bounds__(RST_THREADS) huffman_restore_kernel(
     }
 }
 
-// col0[k * h + r] = sum_{i <= r} e[k][i][0] (mod 256), one CTA per depth
-__global__ void __launch_bounds__(ROW_THREADS) huffman_restore_col0_kernel(
-        const uint8_t* __restrict__ sym, int h, int w, int offset, uint8_t* __restrict__ col0) {
-    __shared__ unsigned sm[2 * (ROW_THREADS / 32 + 1)];
-    const int k = blockIdx.x;
-    const long long plane = (long long)h * w;
-    unsigned carry = 0;
-    for (int r0 = 0; r0 < h; r0 += ROW_THREADS) {
-        const int r = r0 + threadIdx.x;
-        const unsigned e = r < h ? (unsigned)((int)sym[k * plane + (long long)r * w] - offset) : 0u;
-        Seg tot;
-        const Seg ex = block_seg_excl<ROW_THREADS>({0, e}, tot, sm);
-        if (r < h) col0[(long long)k * h + r] = (uint8_t)(carry + ex.v + e);
-        carry += tot.v;
-    }
-}
-
 // four bytes side by side, each added mod 256: the low seven bits add in
 // place, the top bit as an XOR, so no carry crosses into the next byte
 __device__ __forceinline__ unsigned add4(unsigned a, unsigned b) {
@@ -395,6 +388,56 @@ struct Add4 {
     using T = unsigned;
     __device__ static unsigned f(unsigned a, unsigned b) { return add4(a, b); }
 };
+
+// the column-0 symbols of row r of depths k0 .. k0 + nk - 1 (nk <= 4), minus
+// the offset, one byte each in a u32; every load issued before any is used
+__device__ __forceinline__ unsigned col0_word(const uint8_t* __restrict__ sym, long long plane,
+                                              int w, int k0, int nk, int r, unsigned sub) {
+    unsigned b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = i < nk ? sym[(k0 + i) * plane + (long long)r * w] : 0u;
+    return __vsub4(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24, sub);
+}
+
+// col0[k * h + r] = sum_{i <= r} e[k][i][0] (mod 256). CTA b scans `per`
+// rows a thread from row b * COL_THREADS * per, four depths at once (SWAR
+// byte adds), publishes its total in agg (zeroed first, so a slot's nonzero
+// top half says published), and adds the totals of the CTAs before it; the
+// grid is at most COL_MAX_CTAS CTAs of COL_THREADS threads, all resident at
+// once, so no wait is on a CTA that has not started
+__global__ void __launch_bounds__(COL_THREADS) huffman_restore_col0_kernel(
+        const uint8_t* __restrict__ sym, int h, int w, int d, int offset, int per,
+        unsigned long long* agg, uint8_t* __restrict__ col0) {
+    __shared__ unsigned sm[2 * (COL_THREADS / 32 + 1)];
+    const int b = blockIdx.x;
+    const long long plane = (long long)h * w;
+    const unsigned sub = (unsigned)offset * 0x01010101u;
+    const int r0 = (b * COL_THREADS + threadIdx.x) * per;
+    for (int k0 = 0; k0 < d; k0 += 4) {
+        const int nk = min(4, d - k0);
+        unsigned long long* slot = agg + (long long)(k0 / 4) * gridDim.x;
+        unsigned t = 0;
+        for (int i = 0; i < per && r0 + i < h; ++i)
+            t = add4(t, col0_word(sym, plane, w, k0, nk, r0 + i, sub));
+        unsigned tot, before = 0;
+        const unsigned ex = block_excl<COL_THREADS, Add4>(t, tot, sm);
+        if (threadIdx.x == 0) atomicExch(slot + b, 1ULL << 32 | tot);
+        if (threadIdx.x < b) {  // CTA threadIdx.x's total, once published
+            const volatile unsigned long long* q = slot + threadIdx.x;
+            unsigned long long x;
+            do x = *q; while (x >> 32 == 0);
+            before = (unsigned)x;
+        }
+        unsigned base;
+        block_excl<COL_THREADS, Add4>(before, base, sm);
+        unsigned acc = add4(base, ex);
+        for (int i = 0; i < per && r0 + i < h; ++i) {
+            acc = add4(acc, col0_word(sym, plane, w, k0, nk, r0 + i, sub));
+            for (int q = 0; q < nk; ++q)
+                col0[(long long)(k0 + q) * h + r0 + i] = (uint8_t)(acc >> (8 * q));
+        }
+    }
+}
 
 // bytes 0..3 of a, b, c, z (four depths' words of four pixels) -> one word
 // per pixel holding its four depths' bytes
@@ -732,12 +775,25 @@ extern "C" int huffman_restore(const uint8_t* sym, long long n, int offset, uint
     return (int)cudaGetLastError();
 }
 
-// col0: [d, h] u8
+// col0: [d, h] u8; agg: n_agg >= ceil(d / 4) * huffman_restore_col0_ctas(h)
+// u64 of scratch, zeroed here on the stream before the launch
+extern "C" int huffman_restore_col0_ctas(int h) {
+    const int per = (h + COL_THREADS * COL_MAX_CTAS - 1) / (COL_THREADS * COL_MAX_CTAS);
+    return (h + COL_THREADS * per - 1) / (COL_THREADS * per);
+}
+
 extern "C" int huffman_restore_col0(const uint8_t* sym, int h, int w, int d, int offset,
-                                    uint8_t* col0, void* stream) {
+                                    unsigned long long* agg, int n_agg, uint8_t* col0,
+                                    void* stream) {
     if ((long long)h * w * d == 0) return 0;
-    huffman_restore_col0_kernel<<<d, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-        sym, h, w, offset, col0);
+    const int ctas = huffman_restore_col0_ctas(h);
+    if (n_agg < (d + 3) / 4 * ctas) return (int)cudaErrorInvalidValue;
+    const int per = (h + COL_THREADS * COL_MAX_CTAS - 1) / (COL_THREADS * COL_MAX_CTAS);
+    const cudaError_t err =
+        cudaMemsetAsync(agg, 0, sizeof(*agg) * n_agg, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    huffman_restore_col0_kernel<<<ctas, COL_THREADS, 0, (cudaStream_t)stream>>>(
+        sym, h, w, d, offset, per, agg, col0);
     return (int)cudaGetLastError();
 }
 

@@ -397,8 +397,11 @@ def symbols_to_image(sym: torch.Tensor, h: int, w: int, d: int, dt: DataType, de
             build.LAUNCHES["huffman_restore"] += 1
             return _as_dtype(img, dt)
         col0 = torch.empty(d, h, dtype=torch.uint8, device=sym.device)
-        fn = _ctypes_fn("huffman_restore_col0", [_P, _I, _I, _I, _I, _P, _P])
-        err = fn(sym.data_ptr(), h, w, d, _offset(dt), col0.data_ptr(), stream)
+        n_totals = -(-d // 4) * _ctypes_fn("huffman_restore_col0_ctas", [_I])(h)
+        agg = torch.empty(n_totals, dtype=torch.int64, device=sym.device)  # CTA totals
+        fn = _ctypes_fn("huffman_restore_col0", [_P, _I, _I, _I, _I, _P, _I, _P, _P])
+        err = fn(sym.data_ptr(), h, w, d, _offset(dt), agg.data_ptr(), n_totals, col0.data_ptr(),
+                 stream)
         build.check(err, "huffman_restore_col0")
         build.LAUNCHES["huffman_restore_col0"] += 1
         fn = _ctypes_fn("huffman_restore_delta", [_P, _P, _I, _I, _I, _I, _P, _P])

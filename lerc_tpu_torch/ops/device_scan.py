@@ -180,6 +180,18 @@ def _check_stream(stream):
         raise TypeError("stream must be a contiguous 1-D int32 tensor of u32 words")
 
 
+def scan_scratch(s: int) -> tuple[int, int, int, int]:
+    """Elements of K5's scratch for an s-byte stream, as kernels/scan.cu's
+    chunking gives them: u32 chunk-map words, u16 chunk-local J, int32 plan
+    words (three a chunk), u64 look-back words of the join."""
+    fn = build.library("scan").scan_records_scratch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sizes = (ctypes.c_longlong * 4)()
+    build.check(fn(s, sizes), "scan_records_scratch")
+    return tuple(sizes)
+
+
 def scan_records(stream: torch.Tensor, n_rec: int, dt: DataType, version: int,
                  total: torch.Tensor):
     """Record starts of a tile stream without the record-offset index
@@ -188,89 +200,75 @@ def scan_records(stream: torch.Tensor, n_rec: int, dt: DataType, version: int,
     num_elements, payload_pos, lut_pos, n_lut, nbits_lut, chain_ok): [nRec]
     int32 each but offset (f32 for float32, int32 for integer dtypes), and
     chain_ok, a 0-d bool: the last record ends exactly at `total` (a 0-d or
-    one-element int32 tensor). Diff records (version >= 5, flag bit 2) have
-    mode + 8 and, for integer dtypes, offsets reduced as DataType INT.
+    one-element int32 tensor). rp[i] = J^i(0) for the jump table J of
+    ``scan_records_sizes_ref`` (S past the chain's end). Diff records
+    (version >= 5, flag bit 2) have mode + 8 and, for integer dtypes,
+    offsets reduced as DataType INT.
 
-    stream: [S / 4] int32 u32 words; record 0 starts at byte 0."""
-    _check_stream(stream)
-    jump = scan_records_sizes(stream, dt, version)
-    rp = torch.zeros(n_rec, dtype=torch.int32, device=stream.device)
-    filled = 1
-    while filled < n_rec:
-        take = min(filled, n_rec - filled)
-        jump, rp = scan_records_double(jump, rp, filled, take, filled + take < n_rec)
-        filled += take
-    return (rp, *scan_records_describe(stream, rp, dt, version, total))
-
-
-def scan_records_sizes(stream: torch.Tensor, dt: DataType, version: int) -> torch.Tensor:
-    """The jump table [S + 1] int32: J[p] = min(p + size(p), S), J[S] = S."""
-    _check_stream(stream)
-    code, diff_v5, raw_len = _scan_consts(dt, version)
-    if not build.on_cuda(stream):
-        return scan_records_sizes_ref(stream, dt, version)
-    fn = build.library("scan").scan_records_sizes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    s = 4 * stream.numel()
-    with torch.cuda.device(stream.device):
-        jump = torch.empty(s + 1, dtype=torch.int32, device=stream.device)
-        err = fn(stream.data_ptr(), s, code, diff_v5, raw_len, jump.data_ptr(),
-                 build.launch_stream(stream))
-        build.check(err, "scan_records_sizes")
-    build.LAUNCHES["scan_records_sizes"] += 1
-    return jump
-
-
-def scan_records_double(jump: torch.Tensor, rp: torch.Tensor, filled: int, take: int,
-                        square: bool):
-    """One pointer-doubling step: rp[filled : filled + take] =
-    J[rp[:take]], and J squared (J[J]) when `square`. Returns (J or J[J],
-    rp); the kernel writes rp in place."""
-    if not build.on_cuda(jump, rp):
-        return scan_records_double_ref(jump, rp, filled, take, square)
-    fn = build.library("scan").scan_records_double
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(jump.device):
-        jump2 = torch.empty_like(jump) if square else jump
-        err = fn(jump.data_ptr(), jump2.data_ptr(), jump.numel(), rp.data_ptr(), filled, take,
-                 int(square), build.launch_stream(jump))
-        build.check(err, "scan_records_double")
-    build.LAUNCHES["scan_records_double"] += 1
-    return jump2, rp
-
-
-def scan_records_describe(stream: torch.Tensor, rp: torch.Tensor, dt: DataType, version: int,
-                          total: torch.Tensor):
-    """Descriptors at the record starts rp: (mode, offset, num_bits,
-    num_elements, payload_pos, lut_pos, n_lut, nbits_lut, chain_ok)."""
+    stream: [S / 4] int32 u32 words; record 0 starts at byte 0. On CUDA
+    tensors K5's three kernels (kernels/scan.cu: chunk maps, their join,
+    the chunks' starts and descriptors); the plain version on CPU tensors."""
     _check_stream(stream)
     code, diff_v5, raw_len = _scan_consts(dt, version)
     if total.dtype != torch.int32 or total.numel() != 1:
         raise TypeError("total must be a one-element int32 tensor")
-    if not build.on_cuda(stream, rp, total):
-        return scan_records_describe_ref(stream, rp, dt, version, total)
-    fn = build.library("scan").scan_records_describe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n = rp.numel()
-    with torch.cuda.device(stream.device):
-        out = torch.empty(8, n, dtype=torch.int32, device=stream.device)
-        chain_ok = torch.zeros(1, dtype=torch.int32, device=stream.device)
-        err = fn(stream.data_ptr(), 4 * stream.numel(), rp.data_ptr(), n, code, diff_v5,
-                 raw_len, total.data_ptr(), out.data_ptr(), chain_ok.data_ptr(),
-                 build.launch_stream(stream))
-        build.check(err, "scan_records_describe")
-    build.LAUNCHES["scan_records_describe"] += 1
+    if n_rec < 1 or stream.numel() < 1:
+        raise ValueError("a scan needs at least one record and a non-empty stream")
+    if not build.on_cuda(stream, total):
+        return scan_records_ref(stream, n_rec, dt, version, total)
+    lib = build.library("scan")
+    s = 4 * stream.numel()
+    n_maps, n_jl, n_plan, n_lb = scan_scratch(s)
+    dev = stream.device
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    def launch(name, argtypes, *values):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, L, I, I, I, P, *argtypes, P]
+        fn.restype = ctypes.c_int
+        build.check(fn(stream.data_ptr(), s, code, diff_v5, raw_len, total.data_ptr(), *values,
+                       build.launch_stream(stream)), name)
+        build.LAUNCHES[name] += 1
+
+    with torch.cuda.device(dev):
+        maps = torch.empty(n_maps, dtype=torch.int32, device=dev)
+        jl = torch.empty(n_jl, dtype=torch.int16, device=dev)  # J, chunk-local
+        plan = torch.empty(n_plan, dtype=torch.int32, device=dev)
+        lb = torch.empty(n_lb, dtype=torch.int64, device=dev)  # the join's look-back words
+        rp = torch.empty(n_rec, dtype=torch.int32, device=dev)
+        out = torch.empty(8, n_rec, dtype=torch.int32, device=dev)
+        chain_ok = torch.empty(1, dtype=torch.int32, device=dev)
+        outs = (rp.data_ptr(), out.data_ptr(), chain_ok.data_ptr())
+        launch("scan_records_maps", [P, P, P, P], maps.data_ptr(), jl.data_ptr(),
+               plan.data_ptr(), lb.data_ptr())
+        launch("scan_records_join", [L, P, P, P, P, P, P], n_rec, maps.data_ptr(),
+               plan.data_ptr(), lb.data_ptr(), *outs)
+        launch("scan_records_emit", [L, P, P, P, P, P], n_rec, jl.data_ptr(), plan.data_ptr(),
+               *outs)
     mode, offset, *rest = out.unbind(0)
     if dt == DataType.FLOAT:
         offset = offset.view(torch.float32)
-    return (mode, offset, *rest, chain_ok[0] != 0)
+    return (rp, mode, offset, *rest, chain_ok[0] != 0)
+
+
+def scan_records_ref(stream: torch.Tensor, n_rec: int, dt: DataType, version: int,
+                     total: torch.Tensor):
+    """Plain PyTorch version of K5 (the JAX design): the jump table at every
+    byte, ceil(log2 nRec) doubling steps, the descriptors at the starts."""
+    rp = scan_records_chain_ref(scan_records_sizes_ref(stream, dt, version), n_rec)
+    return (rp, *scan_records_describe_ref(stream, rp, dt, version, total))
+
+
+def scan_records_chain_ref(jump: torch.Tensor, n_rec: int) -> torch.Tensor:
+    """rp[i] = J^i(0) for i < n_rec by ceil(log2 n_rec) doubling steps over
+    the jump table of ``scan_records_sizes_ref``."""
+    rp = torch.zeros(n_rec, dtype=torch.int32, device=jump.device)
+    filled = 1
+    while filled < n_rec:
+        take = min(filled, n_rec - filled)
+        jump, rp = scan_records_double_ref(jump, rp, filled, take, filled + take < n_rec)
+        filled += take
+    return rp
 
 
 def _stream_bytes(stream: torch.Tensor):

@@ -1,6 +1,6 @@
-"""The port stands alone: lerc_tpu_torch, chip_smoke.py and
-chip_compare_fpl.py import neither JAX nor anything of the lerc_tpu package,
-at run time or in their sources."""
+"""The port stands alone: lerc_tpu_torch, chip_smoke.py and chip_compare.py
+import neither JAX nor anything of the lerc_tpu package, at run time or in
+their sources."""
 import ast
 import json
 import os
@@ -11,8 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "lerc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                               REPO / "chip_compare_fpl.py"]
+PORT_FILES = sorted((REPO / "lerc_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "chip_compare.py"]
 
 
 def _forbidden(module: str) -> bool:

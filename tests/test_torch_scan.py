@@ -187,13 +187,130 @@ def test_plain_doubling_steps_equal_one_gather_chain():
     record by record (the plain versions alone)."""
     data = float_tile(3)
     stream, total, starts, _zmax = port_stream(data, 0.01, 6)
-    jump = device_scan.scan_records_sizes(stream, DataType.FLOAT, 6).long()
+    jump = device_scan.scan_records_sizes_ref(stream, DataType.FLOAT, 6).long()
     pos, walk = 0, []
     for _ in range(starts.numel()):
         walk.append(pos)
         pos = int(jump[pos])
     np.testing.assert_array_equal(np.array(walk), starts.numpy())
     assert pos == int(total)
+
+
+@pytest.mark.parametrize("extra", [None, 1, 2, 3, 100, 0, 5])
+def test_plain_chain_equals_a_walk(extra):
+    """scan_records_chain_ref, K5's plain doubling stage, gives the first n
+    starts of a record-by-record walk of the jump table for n from 1 to past
+    the chain's end (the stream cut at `total`: S there, J[S] = S)."""
+    data = float_tile(3)
+    stream, total, starts, _zmax = port_stream(data, 0.01, 6)
+    stream = stream[: -(-int(total) // 4)].clone()
+    jump = device_scan.scan_records_sizes_ref(stream, DataType.FLOAT, 6)
+    m = starts.numel()
+    n = extra if extra in (1, 2, 3, 100) else m + (extra or 0)
+    rp = device_scan.scan_records_chain_ref(jump, n)
+    assert rp.dtype == torch.int32 and rp.numel() == n
+    np.testing.assert_array_equal(rp.numpy(), _walk(stream, n, DataType.FLOAT, 6))
+    np.testing.assert_array_equal(rp.numpy()[:m], starts.numpy()[:n])
+    if n > m:
+        assert rp[m] == int(total) and (rp.numpy()[m + 1:] == 4 * stream.numel()).all()
+
+
+def _walk(stream, n_rec, dt, version):
+    """The record starts by walking the jump table one record at a time
+    (J clamped to S, J[S] = S: S past the chain's end)."""
+    jump = device_scan.scan_records_sizes_ref(stream, dt, version).long()
+    pos, walk = 0, []
+    for _ in range(n_rec):
+        walk.append(pos)
+        pos = int(jump[pos])
+    return np.array(walk)
+
+
+BROKEN = ["truncated", "chain ends before n_rec", "byte flipped mid-chain"]
+
+
+def _broken(kind, stream, total, starts):
+    """(stream, total, n_rec) of a broken variant of an intact stream:
+    truncated to a third of `total`; cut at `total` and asked for 7 records
+    more than it holds (the chain reaches S); the mode bits of a raw or
+    stuffed record halfway along the chain flipped to a constant's (the
+    chain derails)."""
+    n_rec, tot = starts.numel(), int(total)
+    if kind == "truncated":
+        return stream[: max(1, tot // 12)].clone(), total, n_rec
+    if kind == "chain ends before n_rec":
+        return stream[: -(-tot // 4)].clone(), total, n_rec + 7
+    bad = stream.clone().view(torch.uint8)
+    flags = bad[starts.long()].numpy()
+    long = np.nonzero((flags & 3) <= 1)[0]  # raw or stuffed: a constant's size differs
+    bad[int(starts[int(long[len(long) // 2])])] ^= 3
+    return bad.view(torch.int32), total, n_rec
+
+
+BROKEN_CASES = [(np.float32, 3, 6, 0.01), (np.float32, 1, 4, 0.0), (np.int16, 1, 4, 0.5),
+                (np.uint8, 3, 4, 0.5), (np.int32, 3, 6, 0.5)]
+
+
+@pytest.mark.parametrize("kind", BROKEN)
+@pytest.mark.parametrize("npdt,d,version,mze", BROKEN_CASES,
+                         ids=[f"{np.dtype(c[0]).name}-d{c[1]}-v{c[2]}" for c in BROKEN_CASES])
+def test_scan_records_on_broken_streams(kind, npdt, d, version, mze):
+    """K5 on truncated, short and derailed streams: the starts equal a
+    record-by-record walk of the jump table and chain_ok is False where the
+    chain cannot end at `total`. Where flag bit 2 means nothing to a record's
+    size (float32, or version < 5), all nine outputs equal JAX's
+    scan_records_device, the mode without the + 8 that the port reports for
+    bit 2 at version >= 5 (JAX drops it); an integer stream at version >= 5
+    is held to the walk alone, since a derailed chain meets bytes with bit 2
+    set, which JAX reads at the image dtype's width."""
+    data = tile_of(npdt, d)
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    stream, total, starts, _zmax = port_stream(data, mze, version)
+    s, t, n_rec = _broken(kind, stream, total, starts)
+    out = device_scan.scan_records(s, n_rec, dt, version, t)
+    rp = out[0].numpy()
+    np.testing.assert_array_equal(rp, _walk(s, n_rec, dt, version))
+    if kind == "chain ends before n_rec":
+        np.testing.assert_array_equal(rp[:-7], starts.numpy())
+        assert rp[-7] == int(total) and (rp[-6:] == 4 * s.numel()).all()
+    else:
+        assert not np.array_equal(rp[:starts.numel()], starts.numpy())
+    if kind != "byte flipped mid-chain":
+        assert not bool(out[9])
+    if dt_is_int(dt) and version >= 5:
+        return
+    ours = [out[0], out[1] & 7, *out[2:9]]
+    for name, a, b in zip(("rp", "mode", "offset", "num_bits", "num_elements", "payload_pos",
+                           "lut_pos", "n_lut", "nbits_lut"), ours, jax_scan_of(s, n_rec, dt, version)):
+        np.testing.assert_array_equal(_bits(a).numpy(), b.view(np.int32) if b.dtype == np.float32
+                                      else b, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["intact"] + BROKEN)
+@pytest.mark.parametrize("npdt", [np.uint8, np.int16], ids=["uint8", "int16"])
+def test_scan_records_depth_diff_streams(kind, npdt):
+    """K5 on integer depth-diff streams (the PR 3 repair of JAX's scan):
+    the starts equal a record-by-record walk of the jump table, intact and
+    broken; on the intact stream they are the encoder's, chain_ok is True,
+    diff records report mode + 8, and the index-free decode equals the host
+    decoder's image."""
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    pf = FusedResidentCodec(**codec_kwargs(H, W, 3, npdt, 0.5, 6, 0), device="cpu")
+    data = _rgb_like(npdt, -2)
+    header, stream, meta, starts = pf.encode_fast(torch.from_numpy(data))
+    total = meta[:1].to(torch.int32)
+    s, t, n_rec = (stream, total, starts.numel()) if kind == "intact" else \
+        _broken(kind, stream, total, starts)
+    out = device_scan.scan_records(s, n_rec, dt, 6, t)
+    np.testing.assert_array_equal(out[0].numpy(), _walk(s, n_rec, dt, 6))
+    if kind != "intact":
+        return
+    np.testing.assert_array_equal(out[0].numpy(), starts.numpy())
+    assert bool(out[9]) and (out[1].numpy() >= 8).any()
+    host = decode_blob(pf.blob_to_bytes(header, stream, meta)).data[0].reshape(H, W, 3)
+    img, ok = pf.decode_fast(header, stream)
+    assert bool(ok)
+    np.testing.assert_array_equal(img.numpy(), host)
 
 
 def test_decode_scanned_refuses_what_it_cannot_decode():
