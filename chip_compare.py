@@ -26,6 +26,16 @@ measured. MEASURE is one of:
        view, per call: device time from torch.profiler windows (the tree's
        chip_smoke.profiled_rows), summed over the device work whose name
        holds a pattern.
+  undelta  H4's masked un-delta (undelta_masked_device) on H1's delta
+       symbols of the uint8 three-band tile with the bench mask, per call:
+       the device time of its kernels and memsets, and of all the call's
+       device work (torch.profiler windows, as k5).
+  f3   F3 (fpl_restore) per call, float32 (predictor 1, levels (2, 1, 0, 0),
+       as fpl) and float64 (the lossless DEM cell's choice: predictor 0,
+       levels (0, 1, 1, 3, 3, 2, 1, 1)), each round-robin over the four
+       tiles' planes (past the L2): the device time of the kernels and
+       memsets, and of all the call's device work (a tree that clones the
+       planes first counts the copy there).
 """
 import subprocess
 import sys
@@ -94,35 +104,67 @@ def k5_turn(cs, dev) -> dict:
     outs = [codec.encode_fast(t) for t in tiles]
     n_rec = codec.n_rec
 
-    def dev_ms(fns, pats, reps=5):
-        """Device ms per call of the work matching any of pats (None: all);
-        the first pattern must show."""
-        rows = cs.profiled_rows(fns, reps, pats[:1])
-        if rows is None:
-            raise SystemExit(f"profiler shows no device time for {pats[0]}")
-        hit = [r for r in rows if any(p is None or p in r[0] for p in pats)]
-        return sum(r[2] for r in hit) / 1e3 / (reps * len(fns))
-
     out = {
-        "K5": dev_ms([lambda o=o: scan.scan_records(o[1], n_rec, codec.dt, codec.version,
-                                                    o[2][0].reshape(1)) for o in outs],
+        "K5": dev_ms(cs, [lambda o=o: scan.scan_records(o[1], n_rec, codec.dt, codec.version,
+                                                        o[2][0].reshape(1)) for o in outs],
                      ("scan_records",)),
-        "index_free_round": 4 * dev_ms([lambda o=o: codec.decode_fast(o[0], o[1]) for o in outs],
-                                       (None,)),
+        "index_free_round": 4 * dev_ms(cs, [lambda o=o: codec.decode_fast(o[0], o[1])
+                                            for o in outs], (None,)),
     }
     u8 = cs.int_cell_tiles(tiles[:1], np.uint8, 3)[0]
     h, w, d = u8.shape
     _direct, sym, _hist = dh.symbol_streams_device(u8.to(torch.int32).contiguous(), None,
                                                    DataType.BYTE)
-    out["col0"] = dev_ms([lambda: dh.symbols_to_image(sym, h, w, d, DataType.BYTE, True)],
+    out["col0"] = dev_ms(cs, [lambda: dh.symbols_to_image(sym, h, w, d, DataType.BYTE, True)],
                          ("huffman_restore_col0", "Memset"), reps=20)
     col = sym[:h * w * d].view(d, h, w)[:, :, 0]
-    out["torch.cumsum"] = dev_ms([lambda: torch.cumsum(col, 1, dtype=torch.uint8)], (None,),
+    out["torch.cumsum"] = dev_ms(cs, [lambda: torch.cumsum(col, 1, dtype=torch.uint8)], (None,),
                                  reps=20)
     return out
 
 
-MEASURES = {"fpl": fpl_turn, "k5": k5_turn}
+def dev_ms(cs, fns, pats, reps=5):
+    """Device ms per call of the work matching any of pats (None: all); the
+    first pattern must show."""
+    rows = cs.profiled_rows(fns, reps, pats[:1])
+    if rows is None:
+        raise SystemExit(f"profiler shows no device time for {pats[0]}")
+    hit = [r for r in rows if any(p is None or p in r[0] for p in pats)]
+    return sum(r[2] for r in hit) / 1e3 / (reps * len(fns))
+
+
+def undelta_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    tiles = cs.make_tiles(1, 2048, dev)
+    u8 = cs.int_cell_tiles(tiles, np.uint8, 3)[0]
+    mask = torch.from_numpy(cs.bench_mask()).to(dev)
+    _direct, sym, _hist = dh.symbol_streams_device(u8.to(torch.int32).contiguous(), mask,
+                                                   DataType.BYTE)
+    call = [lambda: dh.undelta_masked_device(sym, mask, 3, DataType.BYTE)]
+    return {"kernels": dev_ms(cs, call, ("huffman_restore_delta_masked", "Memset"), reps=20),
+            "all": dev_ms(cs, call, (None,), reps=20)}
+
+
+def f3_turn(cs, dev) -> dict:
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    out = {}
+    for label, tiles, pred, levels in (
+            ("f32", cs.make_tiles(4, 2048, dev), 1, (2, 1, 0, 0)),
+            ("f64", cs.make_tiles64(4, 2048, dev), 0, (0, 1, 1, 3, 3, 2, 1, 1))):
+        planes = [F.fpl_finalize(t, pred, levels)[0] for t in tiles]
+        calls = [lambda q=q: F.fpl_restore(q, 2048, 2048, 1, pred, levels) for q in planes]
+        out[f"{label}_kernels"] = dev_ms(cs, calls, ("fpl_restore_", "Memset"))
+        out[f"{label}_all"] = dev_ms(cs, calls, (None,))
+    return out
+
+
+MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

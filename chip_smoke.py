@@ -167,6 +167,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
+import itertools
 import json
 import subprocess
 import sys
@@ -2016,6 +2017,70 @@ def h4_edge_check(dev):
                         f"symbol view at storage offset {off} ({h}x{w}x{d} {dt.name})")
 
 
+def checkerboard(h, w, rows=1):
+    """Valid where (r // rows + c) is even: rows 1 gives no use-above pixel
+    (each valid pixel chains to the previous one in scan order), rows 2 one
+    at every valid pixel of an odd row (about H*W / 4 segments)."""
+    r, c = np.ogrid[:h, :w]
+    return (r // rows + c) % 2 == 0
+
+
+def h4_masked_masks(rng):
+    """(label, [H, W] bool mask, depths) of the masked un-delta's checks: the
+    bench mask and its stripes and checkerboards at full size (73,145,
+    2,096,128, 0 and 1,048,576 segments: past JAX's 2^16), first rows invalid, a
+    single valid pixel, W = 1, H = 1, all valid, none valid."""
+    big = {"bench mask": bench_mask(), "stripes": stripes_mask(TILE, TILE),
+           "checkerboard": checkerboard(TILE, TILE),
+           "two-row checkerboard": checkerboard(TILE, TILE, 2)}
+    out = [(f"{TILE}^2 {k}", m, (3,)) for k, m in big.items()]
+    first = rng.random((301, 257)) > 0.2
+    first[:37] = False
+    one = np.zeros((129, 67), bool)
+    one[77, 31] = True
+    out += [("301x257 first 37 rows invalid", first, (1, 2, 3, 5)),
+            ("129x67 a single valid pixel", one, (1, 3)),
+            ("5000x1 random", rng.random((5000, 1)) > 0.3, (1, 2, 3, 5)),
+            ("1x5000 random", rng.random((1, 5000)) > 0.3, (1, 3, 5)),
+            ("97x131 all valid", np.ones((97, 131), bool), (1, 3, 5)),
+            ("97x131 none valid", np.zeros((97, 131), bool), (3,)),
+            ("257x301 hole and speckle", hole_speckle(257, 301, rng), (1, 2, 3, 4, 5, 8))]
+    return out
+
+
+def h4_masked_check(dev):
+    """The masked un-delta (huffman_restore_delta_masked) against
+    undelta_masked_device_ref, byte for byte, on random delta symbols: every
+    mask of h4_masked_masks at its depths, uint8 and int8; then on symbol
+    views at storage offsets 1-15. Returns the number of cases."""
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    rng = np.random.default_rng(16)
+    cases = 0
+    for label, mask, depths in h4_masked_masks(rng):
+        m = torch.from_numpy(np.ascontiguousarray(mask)).to(dev)
+        for d in depths:
+            sym = torch.from_numpy(rng.integers(0, 256, mask.size * d, dtype=np.uint8)).to(dev)
+            for dt in (DataType.BYTE, DataType.CHAR):
+                k = dh.undelta_masked_device(sym, m, d, dt)
+                r = dh.undelta_masked_device_ref(sym, m, d, dt)
+                require(torch.equal(k, r), f"H4 masked delta != plain ({label}, D {d}, {dt.name})")
+                cases += 1
+    mask = hole_speckle(57, 89, rng)
+    m = torch.from_numpy(mask).to(dev)
+    d = 3
+    buf = torch.from_numpy(rng.integers(0, 256, mask.size * d + 16, dtype=np.uint8)).to(dev)
+    for off in range(1, 16):
+        sym = buf[off:off + mask.size * d]
+        for dt in (DataType.BYTE, DataType.CHAR):
+            require(torch.equal(dh.undelta_masked_device(sym, m, d, dt),
+                                dh.undelta_masked_device_ref(sym, m, d, dt)),
+                    f"H4 masked delta != plain on a symbol view at storage offset {off}")
+            cases += 1
+    return cases
+
+
 def tiling_bytes(t, mask):
     """The 8x8 tiling candidate's payload bytes of a lossless 8-bit band
     (what the Huffman blob beat)."""
@@ -2245,10 +2310,15 @@ def huffman_kernel_times(u8x3, mask, flags, card):
                 2 * n, card)
             rows[name] = (km, cuda_ms([lambda: dh.symbols_to_image_ref(
                 syms, h, w, d, DataType.BYTE, False)], reps=1), bound, lm)
-        elif delta:
-            add(name, lambda: dh.undelta_masked_device(syms, mk, d, DataType.BYTE),
-                lambda: dh.undelta_masked_device_ref(syms, mk, d, DataType.BYTE),
-                live + npx + n, "huffman_restore_delta_masked_kernel")
+        elif delta:  # no one PyTorch call computes it: torch.cumsum of the deltas is a yardstick
+            km, _ym, bound = paired_row(
+                name, lambda: dh.undelta_masked_device(syms, mk, d, DataType.BYTE),
+                ("huffman_restore_delta_masked", "Memset"),
+                lambda s=syms[:n].view(d, npx)[:, :nv]: torch.cumsum(s, 1, dtype=torch.uint8),
+                "torch.cumsum(the deltas, 1, dtype=torch.uint8) (a yardstick, not the function)",
+                live + npx + n, card)
+            rows[name] = (km, cuda_ms([lambda: dh.undelta_masked_device_ref(
+                syms, mk, d, DataType.BYTE)], reps=1), bound, None)
         else:
             add(name, lambda: dh.expand_compacted_device(syms, mk, d, DataType.BYTE),
                 lambda: dh.expand_compacted_device_ref(syms, mk, d, DataType.BYTE),
@@ -2300,6 +2370,12 @@ def huffman_phases(tiles, mask, card, launches, add_row):
     print(f"check: the all-valid H4 restores equal to their plain versions and to the input on "
           f"{len(H4_EDGE_SHAPES)} edge shapes (D 1-5 and 8; W 1, 15, 17, {3 * H4_TILE_PX + 5}; H 1, 3, "
           f"129, 16584 and 40000; uint8 and int8), and on symbol views at storage offsets 1-15",
+          flush=True)
+    n_cases = h4_masked_check(tiles[0].device)
+    print(f"check: the masked delta H4 equal to its plain version in {n_cases} cases (the "
+          f"{TILE}^2 bench, stripes, checkerboard and two-row checkerboard masks at depth 3; "
+          f"first rows invalid, one valid pixel, W = 1, H = 1, all and none valid, hole and "
+          f"speckle; D 1-5 and 8; uint8 and int8; symbol views at storage offsets 1-15)",
           flush=True)
     for data, mk, what in ((u8x3[0], None, "uint8 x 3"), (u8x3[0], mask, "uint8 x 3, bench mask"),
                            (flags[0], None, "quality flags"),
@@ -2391,6 +2467,43 @@ def fpl_check(data, tag, level_sets=FPL_LEVELS):
                     f"F3 != plain or input ({how})")
     # every comparison above is exact
     return dict.fromkeys(FPL64 if data.dtype == torch.float64 else FPL, 0.0)
+
+
+# (h, w, d) of F3's edge checks: n a multiple of the 4096-position tile and
+# not, a single row within and past a tile, a single column, rows longer than
+# a tile, D > 1 slice geometry ([H * W, D]), n below the levels' start indices
+F3_EDGE_SHAPES = ((64, 64, 1), (61, 47, 1), (1, 3000, 1), (1, 9001, 1), (5000, 1, 1),
+                  (3, 9000, 1), (2, 12289, 1), (100, 50, 3), (37, 29, 5), (1, 1, 1), (1, 3, 1),
+                  (2, 2, 1))
+
+
+def f3_edge_check(dev, dtype):
+    """F3 (fpl_restore, fpl_restore_f64) against fpl_restore_ref bit for bit
+    on random planes: every F3_EDGE_SHAPES shape and predictor, both level
+    sets of the word type (every level 0-5 on every plane) and all levels 5;
+    planes with a row stride that is no multiple of 16 and at a storage
+    offset; `planes` unchanged by each call. Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    rng = np.random.default_rng(17)
+    n_pl = F.n_planes(dtype)
+    sets = (FPL_LEVELS64 if n_pl == 8 else FPL_LEVELS) + ((5,) * n_pl,)
+    cases = 0
+    for h, w, d in F3_EDGE_SHAPES:
+        n = h * w * d
+        for stride, off in ((F.padded(n), 0), (n + 3, 5)):
+            buf = torch.from_numpy(rng.integers(0, 256, n_pl * stride + off, dtype=np.uint8))
+            planes = buf.to(dev)[off:].view(n_pl, stride)
+            before = planes.clone()
+            for pred in (0, 1, 2):
+                for levels in sets:
+                    k = bits_of(F.fpl_restore(planes, h, w, d, pred, levels))
+                    r = bits_of(F.fpl_restore_ref(planes, h, w, d, pred, levels))
+                    require(torch.equal(k, r), f"F3 != plain ({h}x{w}x{d} {dtype}, stride "
+                            f"{stride}, offset {off}, predictor {pred}, levels {levels})")
+                    require(torch.equal(planes, before), f"F3 changed its planes ({h}x{w}x{d})")
+                    cases += 1
+    return cases
 
 
 def fpl_section(blob):
@@ -2525,12 +2638,14 @@ def fpl_kernel_times(tile, blob, index, card):
         "fpl_packbits_size": (
             device_ms([lambda: F.fpl_packbits_size(planes, n)], "fpl_pb_"),
             cuda_ms([lambda: F.fpl_packbits_size_ref(planes, n)], reps=1), (4 * n + 16) / mb, None),
-        "fpl_restore": (
-            device_ms([lambda: F.fpl_restore(planes, h, w, d, pred, levels)], "fpl_restore_"),
-            cuda_ms([lambda: F.fpl_restore_ref(planes, h, w, d, pred, levels)], reps=1),
-            8 * n / mb,
-            device_ms([lambda: torch.cumsum(planes[:, :n], 1, dtype=torch.uint8)])),
     }
+    km, lm, bound = paired_row(
+        "fpl_restore", lambda: F.fpl_restore(planes, h, w, d, pred, levels),
+        ("fpl_restore_", "Memset"),
+        lambda: torch.cumsum(planes[:, :n], 1, dtype=torch.uint8),
+        "torch.cumsum(planes, 1, dtype=torch.uint8) (one level of the undo)", 8 * n, card)
+    out["fpl_restore"] = (km, cuda_ms([lambda: F.fpl_restore_ref(planes, h, w, d, pred, levels)],
+                                      reps=1), bound, lm)
     print(f"fpl kernels at {h}x{w}x{d} (predictor {pred}, levels {levels}): F3 "
           f"{out['fpl_restore'][0]:.4f} ms a call, one level of its undo as "
           f"torch.cumsum(dtype=uint8) of the four planes {out['fpl_restore'][3]:.4f} ms [{card}]",
@@ -2591,6 +2706,11 @@ def fpl_phases(tiles, mask, card, launches, add_row):
             err.update(fpl_check(data, f"{ch}x{cw}x{d} DEM crop"))
         print(f"check: F1-F3 equal to their plain versions on the {ch}x{cw} DEM crops (depth 1 "
               f"and 3, predictors 0-2, levels 0-5)", flush=True)
+    n_cases = f3_edge_check(tiles[0].device, torch.float32)
+    print(f"check: F3 equal to its plain version in {n_cases} cases on random planes "
+          f"({len(F3_EDGE_SHAPES)} shapes: n a multiple of the tile and not, one row within and "
+          f"past a tile, one column, rows past a tile, depth 3 and 5; aligned and offset planes; "
+          f"predictors 0-2, levels 0-5 on every plane), the planes unchanged", flush=True)
     err.update(fpl_check(tiles[0], f"{TILE}^2 DEM tile", level_sets=((0, 0, 0, 0), (4, 1, 0, 0),
                                                                      (5, 5, 5, 5))))
     print(f"check: F1-F3 equal to their plain versions on the {TILE}^2 DEM tile (predictors 0-2, "
@@ -2930,11 +3050,17 @@ def f64_kernel_times(tiles, mask, lossy_blobs, lossless_blob, card):
                   "fpl_finalize_kernel"),
         cuda_ms([lambda: F.fpl_finalize_ref(tiles[0], pred, levels)], reps=1),
         (16 * n + 8 * 4 * 256) / mb)
+    turn = itertools.cycle(planes)  # round-robin: 134 MB of planes, past the L2
+    km, _ym, bound = paired_row(
+        "fpl_restore_f64", lambda: F.fpl_restore(next(turn), h, w, d, pred, levels),
+        ("fpl_restore_", "Memset"),
+        lambda: torch.cumsum(next(turn)[:, :n], 1, dtype=torch.uint8),
+        "torch.cumsum(planes, 1, dtype=torch.uint8) (one level of the undo; a yardstick)",
+        16 * n, card)
     out["fpl_restore_f64"] = (
-        device_ms([lambda q=q: F.fpl_restore(q, h, w, d, pred, levels) for q in planes],
-                  "fpl_restore_"),
-        cuda_ms([lambda: F.fpl_restore_ref(planes[0], h, w, d, pred, levels)], reps=1),
-        16 * n / mb)
+        km, cuda_ms([lambda: F.fpl_restore_ref(planes[0], h, w, d, pred, levels)], reps=1), bound)
+    print(f"fpl_restore_f64 at the lossless cell's choice: predictor {pred}, levels {levels} "
+          f"[{card}]", flush=True)
     pb = device_ms([lambda q=q: F.fpl_packbits_size(q, n) for q in planes], "fpl_pb_")
     pb_plain = cuda_ms([lambda: F.fpl_packbits_size_ref(planes[0], n)], reps=1)
     print(f"fpl F2b over the eight planes of a float64 tile: {pb:.4f} ms a call (plain "
@@ -2986,6 +3112,10 @@ def f64_phases(dev, mask, card, launches, add_row):
         merge(check_k6_f64(encode_band_device(tiles[0], m, MAX_Z_ERROR), f"{TILE}^2 tile"))
     band3 = torch.cat([tiles[0], tiles[1], tiles[0] + 0.25], 2).contiguous()
     merge(check_k6_f64(encode_band_device(band3, None, MAX_Z_ERROR), f"{TILE}^2 x 3 band"))
+    n_cases = f3_edge_check(dev, torch.float64)
+    print(f"check: F3 over u64 words equal to its plain version in {n_cases} cases on random "
+          f"planes (the shapes, strides and levels of the float32 check), the planes unchanged",
+          flush=True)
     merge(fpl_check(tiles[0], f"{TILE}^2 float64 DEM tile",
                     ((0,) * 8, (4, 1, 0, 0, 2, 3, 5, 0), (5,) * 8)))
     print(f"check: K1/K2 f64 on the 2047x1999 edge crop and the {TILE}^2 tile (all-valid and "

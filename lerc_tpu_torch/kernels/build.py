@@ -64,14 +64,19 @@ LAUNCHES.update({f"decode_scanned{mb}{m}{sfx}": 0 for mb in ("", "16")
                  for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES if mb or m})
 LAUNCHES["tile_scan"] = 0
 # the 8-bit Huffman path: H1 (all-valid, masked), H2 (group bits, pack), H3,
-# H4 (direct, column 0 + rows, masked direct, masked delta), the host scan
+# H4 (direct, column 0 + rows, masked direct, masked delta), the host scan.
+# huffman_restore_delta_masked is one entry point of four kernels and a
+# memset (huffman_restore_delta_masked_scan, _segments, _resolve, _apply),
+# counted once per call
 LAUNCHES.update({k: 0 for k in (
     "huffman_symbols", "huffman_symbols_masked", "huffman_group_bits", "huffman_pack",
     "huffman_decode", "huffman_restore", "huffman_restore_col0", "huffman_restore_delta",
     "huffman_restore_masked", "huffman_restore_delta_masked", "huffman_scan")})
 # lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
 # sizes, F3 restore; F2b and F3 are one entry point each, of several
-# kernel launches, counted once per call
+# kernel launches, counted once per call (F3: a memset and
+# fpl_restore_tile, with predictor 2 fpl_restore_col_sums, _col_carry and
+# _col_apply)
 LAUNCHES.update({k: 0 for k in (
     "fpl_sample_histograms", "fpl_finalize", "fpl_packbits_size", "fpl_restore")})
 # float64: K1/K2 f64 (8x8, all-valid and masked), K6 f64 (8x8 and 16x16,

@@ -42,21 +42,36 @@
 //   F3 fpl_restore             fpl_restore_device :235 / _f64 :407 (_cumsum_mod_dev
 //                              :202, split_cumsum_dev :218 / split_cumsum64_dev
 //                              :398, _cumsum_mod52_pair :366, undo_float_transform_dev
-//                              :227): for each level from the highest down, a
-//                              chunked scan mod 256 of each plane from index
-//                              level - 1 (chunk sums, one CTA scans them per
-//                              plane, each chunk rescanned with its carry); the
-//                              words; predictor 2: a scan down the columns over
-//                              256-row tiles (a warp a 32-row strip, lanes on
-//                              columns; tile sums scanned by one CTA a column);
-//                              predictors 1 and 2: a segmented flat scan along
-//                              the rows; the transform undone on the way out.
+//                              :227). Bound: bytes, the planes read once and the
+//                              words written once (8n float32, 16n float64: 0.0100
+//                              and 0.0200 ms for a 2048^2 tile at 3.35 TB/s, H100
+//                              SXM). Three kernels a level over the planes in place
+//                              (after a clone), one-CTA carries, the words, then the
+//                              row scan's three took 0.16 / 0.40 ms. Now one pass,
+//                              a CTA per 4,096 positions in ticket order: each
+//                              plane's 16 bytes a thread by one 16-byte load,
+//                              transposed into one word a position (plane b in
+//                              byte b); the level undo (restoreSequence) bytewise
+//                              on the words, each level one block scan over the
+//                              planes at or above it; the tile's carries of every
+//                              level from a decoupled look-back, 32 tiles a step:
+//                              a tile's effect on the carries is affine mod 256
+//                              with binomial coefficients (advance), so each lane
+//                              advances one tile's carries by its distance and the
+//                              warp sums them; predictors 1 and 2: the split-field
+//                              row scan, its carry from a second look-back where a
+//                              tile starts inside a row; the float32 transform
+//                              undone; the words staged in shared memory and
+//                              stored 512 contiguous bytes a warp store. The
+//                              planes are only read (no clone). Predictor 2: a
+//                              column pass over the row-scanned words (tile sums,
+//                              a scan per column, apply), the two scans commuting.
 //
 // Bounds: bytes. F1 reads a sample of about 2^19 words; F2 reads each word
-// once (its neighbours from cache) and writes one byte a plane; F2b and F3
-// read and write each plane byte a few times. The scans' carry passes are
-// serial over chunk counts (n / 4096 per plane, rows / 256 per column), not
-// over values.
+// once (its neighbours from cache) and writes one byte a plane; F2b reads
+// and writes each plane byte a few times; F3 reads each plane byte once.
+// F2b's and F3's column carries are serial over chunk counts (n / 2048 per
+// plane, rows / 256 per column), not over values.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,7 +90,6 @@ constexpr int MAX_GRID = 1056;            // 8 CTAs on each of 132 SMs (grid-str
 constexpr int HIST = 4 * (MAX_DELTA + 1) * 256;  // one CTA's bins: 4 planes x 6 levels
 constexpr int FIN_ITEMS = 4, FIN_TILE = NB * FIN_ITEMS;
 constexpr int PB_ITEMS = 8, PB_CHUNK = NB * PB_ITEMS;
-constexpr int SC_ITEMS = 16, SC_CHUNK = NB * SC_ITEMS;
 constexpr int COL_TILE = 256, COL_ROWS = COL_TILE / WARPS;
 
 // (-1)^j C(k, j) mod 2^32: byte level k of x at q is sum_j COEF[k][j] x[q - j]
@@ -378,81 +392,400 @@ __global__ void fpl_pb_finish_kernel(const unsigned long long* __restrict__ sums
 // F3
 // ---------------------------------------------------------------------------
 
-// chunk sums of plane b's bytes at positions >= lev - 1 (planes at a lower level: none)
-__global__ void __launch_bounds__(NB) fpl_restore_level_sums_kernel(
-        const uint8_t* __restrict__ work, long long pstride, long long n, long long n_chunks,
-        int lev, Levels lv, unsigned* __restrict__ part) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    const int b = blockIdx.y;
-    if (lv.v[b] < lev) return;
-    const uint8_t* p = work + b * pstride;
-    const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    unsigned s = 0;
-    for (int j = 0; j < SC_ITEMS; ++j) {
-        const long long i = i0 + j;
-        if (i >= lev - 1 && i < n) s += p[i];
-    }
-    unsigned tot;
-    block_excl<NB>(s, tot, sm);
-    if (threadIdx.x == 0) part[b * n_chunks + blockIdx.x] = tot;
+// bytes side by side, each added mod 256 (no carry crosses a byte)
+template <class W>
+__device__ __forceinline__ W addb(W a, W b) {
+    constexpr W LO7 = W(0x7F7F7F7F7F7F7F7Full), HI1 = W(0x8080808080808080ull);
+    return ((a & LO7) + (b & LO7)) ^ ((a ^ b) & HI1);
 }
 
-__global__ void __launch_bounds__(NB) fpl_restore_level_carry_kernel(
-        unsigned* __restrict__ part, long long n_chunks, int lev, Levels lv) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    if (lv.v[blockIdx.x] < lev) return;
-    block_scan_in_place<Sum>(part + blockIdx.x * n_chunks, n_chunks, 1, sm);
+// each byte times k (< 256) mod 256
+template <class W>
+__device__ __forceinline__ W mulb(W x, unsigned k) {
+    constexpr W EVEN = W(0x00FF00FF00FF00FFull);
+    return ((x & EVEN) * W(k) & EVEN) | (((x >> 8) & EVEN) * W(k) & EVEN) << 8;
 }
 
-// out[i] = sum of x[lev - 1 .. i] mod 256 for i >= lev - 1 (restoreSequence's step)
-__global__ void __launch_bounds__(NB) fpl_restore_level_apply_kernel(
-        uint8_t* __restrict__ work, long long pstride, long long n, long long n_chunks, int lev,
-        Levels lv, const unsigned* __restrict__ carry) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    const int b = blockIdx.y;
-    if (lv.v[b] < lev) return;
-    uint8_t* p = work + b * pstride;
-    const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    unsigned x[SC_ITEMS], s = 0;
-#pragma unroll
-    for (int j = 0; j < SC_ITEMS; ++j) {
-        const long long i = i0 + j;
-        x[j] = i >= lev - 1 && i < n ? p[i] : 0u;
-        s += x[j];
-    }
-    unsigned tot;
-    unsigned acc = carry[b * n_chunks + blockIdx.x] + block_excl<NB>(s, tot, sm);
-#pragma unroll
-    for (int j = 0; j < SC_ITEMS; ++j) {
-        const long long i = i0 + j;
-        acc += x[j];
-        if (i >= lev - 1 && i < n) p[i] = (uint8_t)acc;
-    }
+template <class W>
+struct ByteAdd {
+    using T = W;
+    __device__ static W f(W a, W b) { return addb<W>(a, b); }
+};
+
+// C(l + a - 1, a) mod 256 for a = 0..4: the product of a consecutive
+// integers mod 256 a!, divided by a!; l enters mod 6144 = 256 * 4!, a
+// multiple of each 256 a! (constant divisors: multiplies, no division)
+__device__ __forceinline__ void binoms256(unsigned long long l, unsigned* coef) {
+    const unsigned long long x = l % 6144u;
+    coef[0] = 1u;
+    coef[1] = (unsigned)(x % 256u);
+    coef[2] = (unsigned)((x * (x + 1) % 512u) / 2u);
+    coef[3] = (unsigned)((x * (x + 1) % 1536u * (x + 2) % 1536u) / 6u);
+    coef[4] = (unsigned)((x * (x + 1) % 6144u * (x + 2) % 6144u * (x + 3) % 6144u) / 24u);
 }
 
-template <class P>
-__global__ void fpl_restore_words_kernel(const uint8_t* __restrict__ work, long long pstride,
-                                         long long n, typename P::W* __restrict__ words) {
-    using W = typename P::W;
-    for (long long i = (long long)blockIdx.x * NB + threadIdx.x; i < n;
-         i += (long long)gridDim.x * NB) {
+// the level undo's carries (slot s: level s + 1's running sum, every plane
+// in its byte) after l more zero bytes: slot s gains C(l + a - 1, a) times
+// slot s + a (Pascal's triangle, each level a prefix sum of the one above)
+template <class W>
+__device__ __forceinline__ void advance(const W* u, unsigned long long l, W* out) {
+    unsigned coef[MAX_DELTA];
+    binoms256(l, coef);
+    for (int s = 0; s < MAX_DELTA; ++s) {
         W v = 0;
-#pragma unroll
-        for (int b = 0; b < P::PLANES; ++b) v |= (W)work[b * pstride + i] << (8 * b);
-        words[i] = v;
+        for (int a = 0; s + a < MAX_DELTA; ++a) v = addb<W>(v, mulb<W>(u[s + a], coef[a]));
+        out[s] = v;
     }
 }
 
-template <class P>
-__global__ void fpl_restore_untransform_kernel(const typename P::W* __restrict__ words,
-                                               long long n, typename P::W* __restrict__ out) {
-    for (long long i = (long long)blockIdx.x * NB + threadIdx.x; i < n;
-         i += (long long)gridDim.x * NB)
-        out[i] = P::store(words[i]);
+// The scratch of one restore (bytes, each part 16-aligned): the ticket and
+// the two look-backs' words (zeroed by the entry point on every call: the
+// level carries' aggregates and inclusive prefixes, LV_WORDS words a tile
+// each; the row scan's, RW_WORDS), then predictor 2's words and column tile
+// sums. A look-back word is state << 32 | one 32-bit piece of the value, so
+// a reader needs no fence: it waits until every piece of a value is there.
+struct RsScratch {
+    long long n_tiles, misc, lagg, linc, ragg, rinc, words, col, end;
+};
+
+constexpr int RS_ITEMS = 16, RS_TILE = NB * RS_ITEMS;  // positions a CTA
+
+__host__ __device__ long long align16(long long b) { return (b + 15) & ~15LL; }
+
+template <class W>
+struct Lb {
+    static constexpr int PIECES = sizeof(W) / 4;
+    static constexpr int LV_WORDS = MAX_DELTA * PIECES, RW_WORDS = 1 + PIECES;
+};
+
+__host__ __device__ RsScratch rs_scratch(long long n, long long rows, int cols, int wbytes) {
+    RsScratch s;
+    const long long pieces = wbytes / 4;
+    s.n_tiles = (n + RS_TILE - 1) / RS_TILE;
+    s.misc = 0;
+    s.lagg = 16;
+    s.linc = s.lagg + align16(8 * MAX_DELTA * pieces * s.n_tiles);
+    s.ragg = s.linc + align16(8 * MAX_DELTA * pieces * s.n_tiles);
+    s.rinc = s.ragg + align16(8 * (1 + pieces) * s.n_tiles);
+    s.words = s.rinc + align16(8 * (1 + pieces) * s.n_tiles);
+    s.col = s.words + align16((long long)wbytes * n);
+    s.end = s.col + align16((long long)wbytes * ((rows + COL_TILE - 1) / COL_TILE) * cols);
+    return s;
 }
 
-// predictor 2, down the columns: part[t * cols + c] = the split sum of column
-// c over row tile t (COL_TILE rows; a warp per COL_ROWS-row strip, lanes on columns)
+constexpr unsigned long long RS_AGG = 1, RS_INC = 2;
+
+// publish value v (k pieces of 32 bits) under state st
+__device__ __forceinline__ void lb_publish(unsigned long long* dst, const unsigned* v, int k,
+                                           unsigned long long st) {
+    volatile unsigned long long* d = dst;
+    for (int i = 0; i < k; ++i) d[i] = st << 32 | v[i];
+}
+
+// wait until one of a tile's two values (its inclusive prefix, or else its
+// aggregate) has all its K pieces; returns the state, pieces in v
+template <int K>
+__device__ __forceinline__ unsigned long long lb_wait(const unsigned long long* agg,
+                                                      const unsigned long long* inc,
+                                                      unsigned* v) {
+    const volatile unsigned long long* a = agg;
+    const volatile unsigned long long* b = inc;
+    for (;;) {
+        unsigned long long x[K], y[K];
+        bool inc_all = true, agg_all = true;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {  // every load issued before any is tested
+            x[i] = b[i];
+            y[i] = a[i];
+        }
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+            inc_all &= x[i] >> 32 == RS_INC;
+            agg_all &= y[i] >> 32 == RS_AGG;
+        }
+        if (inc_all || agg_all) {
+#pragma unroll
+            for (int i = 0; i < K; ++i) v[i] = (unsigned)(inc_all ? x[i] : y[i]);
+            return inc_all ? RS_INC : RS_AGG;
+        }
+    }
+}
+
+// a level carry vector (or a row state) as 32-bit pieces and back
+template <class W>
+__device__ __forceinline__ void to_pieces(const W* w, int n, unsigned* v) {
+    for (int i = 0; i < n; ++i) {
+        v[Lb<W>::PIECES * i] = (unsigned)w[i];
+        if constexpr (sizeof(W) == 8) v[2 * i + 1] = (unsigned)(w[i] >> 32);
+    }
+}
+
+template <class W>
+__device__ __forceinline__ void from_pieces(const unsigned* v, int n, W* w) {
+    for (int i = 0; i < n; ++i) {
+        w[i] = W(v[Lb<W>::PIECES * i]);
+        if constexpr (sizeof(W) == 8) w[i] |= W(v[2 * i + 1]) << 32;
+    }
+}
+
+// warp 0 of tile t: publish the tile's level carries agg (as they leave the
+// tile from zero carries in), then look back 32 tiles a step: each lane
+// waits for one tile's carries (its inclusive prefix, or its aggregate),
+// advances them over the tiles between it and t (the maps compose
+// linearly, so a tile's share of t's carries is its carries advanced by its
+// distance), the nearest inclusive prefix ends the walk and the warp sums
+// the shares up to it. Publishes t's inclusive prefix; c: t's carries in
+// every lane.
+template <class W>
+__device__ void level_lookback(unsigned long long* agg_w, unsigned long long* inc_w, int t,
+                               const W* agg, W* c) {
+    constexpr int K = Lb<W>::LV_WORDS;
+    const int lane = threadIdx.x & 31;
+    unsigned pv[K];
+#pragma unroll
+    for (int s = 0; s < MAX_DELTA; ++s) c[s] = 0;
+    to_pieces<W>(agg, MAX_DELTA, pv);
+    if (t == 0) {
+        if (lane == 0) lb_publish(inc_w, pv, K, RS_INC);
+        return;
+    }
+    if (lane == 0) lb_publish(agg_w + (long long)t * K, pv, K, RS_AGG);
+    for (int base = t - 1;; base -= 32) {
+        const int j = base - lane;
+        unsigned long long st = RS_INC;  // before tile 0: nothing
+        W u[MAX_DELTA] = {}, v[MAX_DELTA];
+        if (j >= 0) {
+            st = lb_wait<K>(agg_w + (long long)j * K, inc_w + (long long)j * K, pv);
+            from_pieces<W>(pv, MAX_DELTA, u);
+        }
+        const unsigned inc = __ballot_sync(FULL, st == RS_INC);
+        const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive prefix
+        advance<W>(u, (unsigned long long)(t - 1 - j) * RS_TILE, v);
+#pragma unroll
+        for (int s = 0; s < MAX_DELTA; ++s) {
+            W x = lane <= stop ? v[s] : W(0);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) x = addb<W>(x, __shfl_xor_sync(FULL, x, o));
+            c[s] = addb<W>(c[s], x);
+        }
+        if (inc) break;
+    }
+    if (lane == 0) {
+        W inc[MAX_DELTA];
+        advance<W>(c, RS_TILE, inc);
+        for (int s = 0; s < MAX_DELTA; ++s) inc[s] = addb<W>(inc[s], agg[s]);
+        to_pieces<W>(inc, MAX_DELTA, pv);
+        lb_publish(inc_w + (long long)t * K, pv, K, RS_INC);
+    }
+}
+
+// One pass over the planes, one CTA per tile of RS_TILE positions in ticket
+// order, thread t on positions 16t .. 16t + 15. Each plane's 16 bytes by one
+// 16-byte load, transposed into one word a position (plane b in byte b:
+// the word's bits). The level undo (restoreSequence: level lev a prefix sum
+// mod 256 from index lev - 1, from the highest level down) runs on those
+// words bytewise, each level one block scan over the planes at or above it;
+// the tile's carries (every level's running sum) come from a decoupled
+// look-back over the tiles' affine carry maps (advance). Then predictors 1
+// and 2: the split-field scan along the rows, restarting at column 0, its
+// carry from a second look-back where the tile does not start a row; the
+// float32 transform undone; out (or, predictor 2, the words for the column
+// pass) staged in shared memory and stored 512 contiguous bytes a warp.
+template <class P>
+__global__ void __launch_bounds__(NB) fpl_restore_tile_kernel(
+        const uint8_t* __restrict__ planes, long long pstride, long long n, int cols, int pred,
+        Levels lv, uint8_t* scratch, typename P::W* __restrict__ out) {
+    using W = typename P::W;
+    using S = SegT<W>;
+    __shared__ W smw[2 * (WARPS + 1)];
+    __shared__ __align__(16) uint8_t stage[NB * (RS_ITEMS * sizeof(W) + 16)];  // the words out
+    __shared__ W sh_c[MAX_DELTA];
+    __shared__ S sh_row;
+    __shared__ int sh_t;
+    const RsScratch rs = rs_scratch(n, 0, 0, sizeof(W));
+    unsigned* ticket = reinterpret_cast<unsigned*>(scratch + rs.misc);
+    auto lbw = [&](long long off) { return reinterpret_cast<unsigned long long*>(scratch + off); };
+    unsigned long long *lagg = lbw(rs.lagg), *linc = lbw(rs.linc);
+    unsigned long long *ragg = lbw(rs.ragg), *rinc = lbw(rs.rinc);
+    const int tid = threadIdx.x;
+    if (tid == 0) sh_t = (int)atomicAdd(ticket, 1u);
+    __syncthreads();
+    const int t = sh_t;
+    const long long i0 = (long long)t * RS_TILE, pb = i0 + RS_ITEMS * tid;
+    const int cnt = (int)max(0LL, min((long long)RS_ITEMS, n - pb));
+    W x[RS_ITEMS];
+#pragma unroll
+    for (int g = 0; g < P::PLANES / 4; ++g) {
+        uint4 v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            v[i] = cnt > 0 ? load16(planes + (4 * g + i) * pstride + pb, cnt)
+                           : make_uint4(0, 0, 0, 0);
+        unsigned y[RS_ITEMS];
+        transpose4(v[0].x, v[1].x, v[2].x, v[3].x, y);
+        transpose4(v[0].y, v[1].y, v[2].y, v[3].y, y + 4);
+        transpose4(v[0].z, v[1].z, v[2].z, v[3].z, y + 8);
+        transpose4(v[0].w, v[1].w, v[2].w, v[3].w, y + 12);
+#pragma unroll
+        for (int k = 0; k < RS_ITEMS; ++k) {
+            const W yk = k < cnt ? W(y[k]) : W(0);
+            if constexpr (sizeof(W) == 8) {
+                x[k] = g == 0 ? yk : x[k] | yk << 32;
+            } else {
+                x[k] = yk;
+            }
+        }
+    }
+    int top = 0;
+    for (int b = 0; b < P::PLANES; ++b) top = max(top, lv.v[b]);
+    if (top > 0) {
+        W agg[MAX_DELTA] = {};
+#pragma unroll
+        for (int lev = MAX_DELTA; lev >= 1; --lev) {
+            if (lev > top) continue;
+            W lm = 0;  // the planes this level undoes
+            for (int b = 0; b < P::PLANES; ++b)
+                if (lv.v[b] >= lev) lm |= W(0xFF) << (8 * b);
+            W acc = 0;
+#pragma unroll
+            for (int k = 0; k < RS_ITEMS; ++k)
+                if (pb + k >= lev - 1) acc = addb<W>(acc, x[k]);
+            W tot;
+            W run = block_excl<NB, ByteAdd<W>>(acc, tot, smw);
+#pragma unroll
+            for (int k = 0; k < RS_ITEMS; ++k)
+                if (pb + k >= lev - 1) {
+                    run = addb<W>(run, x[k]);
+                    x[k] = (run & lm) | (x[k] & ~lm);
+                }
+            agg[lev - 1] = tot & lm;
+        }
+        if (rs.n_tiles > 1) {
+            if (tid < 32) {
+                W c[MAX_DELTA];
+                level_lookback<W>(lagg, linc, t, agg, c);
+                if (tid == 0)
+                    for (int s = 0; s < MAX_DELTA; ++s) sh_c[s] = c[s];
+            }
+            __syncthreads();
+            W c[MAX_DELTA];
+            W any = 0;
+#pragma unroll
+            for (int s = 0; s < MAX_DELTA; ++s) any |= (c[s] = sh_c[s]);
+            if (any) {
+                // position m of the tile gains K_m = sum_a C(m + a, a) c[a]. With
+                // D_a(m) = sum_{b >= a} C(m + b - a, b - a) c[b] (K = D_0),
+                // D_a(m + 1) = D_a(m) + D_{a+1}(m + 1): the binomials once a
+                // thread, then four byte adds a position
+                unsigned coef[MAX_DELTA];
+                binoms256(RS_ITEMS * tid + 1, coef);  // C(m0 + j, j)
+                W dv[MAX_DELTA];  // carries of levels above top are 0: D_a = 0 for a >= top
+#pragma unroll
+                for (int s = 0; s < MAX_DELTA; ++s) {
+                    dv[s] = 0;
+#pragma unroll
+                    for (int j = 0; s + j < MAX_DELTA; ++j)
+                        if (s + j < top) dv[s] = addb<W>(dv[s], mulb<W>(c[s + j], coef[j]));
+                }
+#pragma unroll
+                for (int k = 0; k < RS_ITEMS; ++k) {
+                    x[k] = addb<W>(x[k], dv[0]);
+#pragma unroll
+                    for (int s = MAX_DELTA - 2; s >= 0; --s)
+                        if (s + 1 < top) dv[s] = addb<W>(dv[s], dv[s + 1]);
+                }
+            }
+        }
+    }
+    if (pred >= 1) {
+        unsigned starts = 0;  // bit k: position k is a row's column 0
+        if (cnt > 0) {
+            const long long cf = pb % cols;
+            for (long long k = cf ? cols - cf : 0; k < cnt; k += cols) starts |= 1u << k;
+        }
+        S run = {0u, W(0)};
+#pragma unroll
+        for (int k = 0; k < RS_ITEMS; ++k)
+            if (k < cnt) run = seg_combine<SplitAdd<P>>(run, S{(starts >> k) & 1u, x[k]});
+        S tot;
+        S ex = block_seg_excl<NB, SplitAdd<P>>(run, tot, smw);
+        if (tid == 0) {
+            constexpr int K = Lb<W>::RW_WORDS;
+            S carry = {0u, W(0)};
+            unsigned pv[K];
+            pv[0] = tot.f;
+            to_pieces<W>(&tot.v, 1, pv + 1);
+            // nothing before the tile's first row start reaches its end
+            const bool alone = t == 0 || i0 % cols == 0 || tot.f;
+            lb_publish((alone ? rinc : ragg) + (long long)t * K, pv, K, alone ? RS_INC : RS_AGG);
+            if (t > 0 && i0 % cols != 0) {
+                for (int j = t - 1;; --j) {
+                    const unsigned long long st =
+                        lb_wait<K>(ragg + (long long)j * K, rinc + (long long)j * K, pv);
+                    W u;
+                    from_pieces<W>(pv + 1, 1, &u);
+                    carry = seg_combine<SplitAdd<P>>(S{pv[0], u}, carry);
+                    if (st == RS_INC || pv[0]) break;
+                }
+                if (!tot.f) {
+                    const S inc = seg_combine<SplitAdd<P>>(carry, tot);
+                    pv[0] = inc.f;
+                    to_pieces<W>(&inc.v, 1, pv + 1);
+                    lb_publish(rinc + (long long)t * K, pv, K, RS_INC);
+                }
+            }
+            sh_row = carry;
+        }
+        __syncthreads();
+        run = seg_combine<SplitAdd<P>>(sh_row, ex);
+#pragma unroll
+        for (int k = 0; k < RS_ITEMS; ++k)
+            if (k < cnt) {
+                run = seg_combine<SplitAdd<P>>(run, S{(starts >> k) & 1u, x[k]});
+                x[k] = run.v;
+            }
+    }
+    W* dst = pred == 2 ? reinterpret_cast<W*>(scratch + rs.words) : out;
+    if (pred != 2) {
+#pragma unroll
+        for (int k = 0; k < RS_ITEMS; ++k) x[k] = P::store(x[k]);
+    }
+    // through shared memory (each thread's 16 words, then 16 bytes of padding:
+    // no bank conflicts), so that each warp store writes 512 contiguous bytes
+    constexpr int CHUNK_B = RS_ITEMS * sizeof(W), ROW_B = CHUNK_B + 16;
+    uint8_t* row = stage + tid * ROW_B;
+#pragma unroll
+    for (int m = 0; m < CHUNK_B / 16; ++m) {
+        if constexpr (sizeof(W) == 4) {
+            *reinterpret_cast<uint4*>(row + 16 * m) = make_uint4(x[4 * m], x[4 * m + 1],
+                                                                 x[4 * m + 2], x[4 * m + 3]);
+        } else {
+            *reinterpret_cast<uint4*>(row + 16 * m) = make_uint4(
+                (unsigned)x[2 * m], (unsigned)(x[2 * m] >> 32), (unsigned)x[2 * m + 1],
+                (unsigned)(x[2 * m + 1] >> 32));
+        }
+    }
+    __syncthreads();
+    const long long n_tile = min((long long)RS_TILE, n - i0);
+    W* dt = dst + i0;
+    if (n_tile == RS_TILE) {
+#pragma unroll
+        for (int m = 0; m < CHUNK_B / 16; ++m) {
+            const int q = m * NB + tid;  // the tile's 16-byte piece q
+            reinterpret_cast<uint4*>(dt)[q] =
+                *reinterpret_cast<const uint4*>(stage + (q / (CHUNK_B / 16)) * ROW_B
+                                                + 16 * (q % (CHUNK_B / 16)));
+        }
+    } else {
+        for (int k = tid; k < n_tile; k += NB)
+            dt[k] = *reinterpret_cast<const W*>(stage + (k / RS_ITEMS) * ROW_B
+                                                + sizeof(W) * (k % RS_ITEMS));
+    }
+}
+
+// predictor 2, down the columns of the row-scanned words: part[t * cols + c]
+// = the split sum of column c over row tile t (COL_TILE rows; a warp per
+// COL_ROWS-row strip, lanes on columns)
 template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_col_sums_kernel(
         const typename P::W* __restrict__ words, long long rows, int cols,
@@ -487,10 +820,11 @@ __global__ void __launch_bounds__(NB) fpl_restore_col_carry_kernel(
         block_scan_in_place<SplitAdd<P>>(part + c, n_tiles, cols, sm);
 }
 
+// the column scan from each row tile's carry, the transform undone, to out
 template <class P>
 __global__ void __launch_bounds__(NB) fpl_restore_col_apply_kernel(
-        typename P::W* __restrict__ words, long long rows, int cols,
-        const typename P::W* __restrict__ carry) {
+        const typename P::W* __restrict__ words, long long rows, int cols,
+        const typename P::W* __restrict__ carry, typename P::W* __restrict__ out) {
     using W = typename P::W;
     __shared__ W sm[WARPS][32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -508,80 +842,10 @@ __global__ void __launch_bounds__(NB) fpl_restore_col_apply_kernel(
             for (int k = 0; k < warp; ++k) acc = sadd<P>(acc, sm[k][lane]);
             for (long long r = r0; r < r0 + COL_ROWS && r < rows; ++r) {
                 acc = sadd<P>(acc, words[r * cols + c]);
-                words[r * cols + c] = acc;
+                out[r * cols + c] = P::store(acc);
             }
         }
         __syncthreads();
-    }
-}
-
-// predictors 1 and 2, along the rows: a flat scan of (row start, word) pairs
-template <class P>
-__device__ __forceinline__ SegT<typename P::W> thread_row_seg(
-        const typename P::W* __restrict__ words, long long i0, long long n, int cols) {
-    using S = SegT<typename P::W>;
-    S s = {0u, 0};
-    long long c = i0 % cols;
-    for (int j = 0; j < SC_ITEMS && i0 + j < n; ++j) {
-        s = seg_combine<SplitAdd<P>>(s, S{c == 0, words[i0 + j]});
-        if (++c == cols) c = 0;
-    }
-    return s;
-}
-
-// part[2k], part[2k + 1]: chunk k's (flag, value)
-template <class P>
-__global__ void __launch_bounds__(NB) fpl_restore_row_sums_kernel(
-        const typename P::W* __restrict__ words, long long n, int cols,
-        typename P::W* __restrict__ part) {
-    __shared__ typename P::W sm[2 * (WARPS + 1)];
-    const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    SegT<typename P::W> tot;
-    block_seg_excl<NB, SplitAdd<P>>(thread_row_seg<P>(words, i0, n, cols), tot, sm);
-    if (threadIdx.x == 0) {
-        part[2 * (long long)blockIdx.x] = tot.f;
-        part[2 * (long long)blockIdx.x + 1] = tot.v;
-    }
-}
-
-// one CTA: the chunks' pairs -> exclusive prefixes in place
-template <class P>
-__global__ void __launch_bounds__(NB) fpl_restore_row_carry_kernel(
-        typename P::W* __restrict__ part, long long n_chunks) {
-    using W = typename P::W;
-    using S = SegT<W>;
-    __shared__ W sm[2 * (WARPS + 1)];
-    S carry = {0u, 0};
-    for (long long k0 = 0; k0 < n_chunks; k0 += NB) {
-        const long long k = k0 + threadIdx.x;
-        const S v = k < n_chunks ? S{(unsigned)part[2 * k], part[2 * k + 1]} : S{0u, 0};
-        S tot;
-        const S ex = seg_combine<SplitAdd<P>>(carry, block_seg_excl<NB, SplitAdd<P>>(v, tot, sm));
-        if (k < n_chunks) {
-            part[2 * k] = ex.f;
-            part[2 * k + 1] = ex.v;
-        }
-        carry = seg_combine<SplitAdd<P>>(carry, tot);
-    }
-}
-
-template <class P>
-__global__ void __launch_bounds__(NB) fpl_restore_row_apply_kernel(
-        const typename P::W* __restrict__ words, long long n, int cols,
-        const typename P::W* __restrict__ carry, typename P::W* __restrict__ out) {
-    using W = typename P::W;
-    using S = SegT<W>;
-    __shared__ W sm[2 * (WARPS + 1)];
-    const long long i0 = (long long)blockIdx.x * SC_CHUNK + threadIdx.x * SC_ITEMS;
-    S tot;
-    const S ex = block_seg_excl<NB, SplitAdd<P>>(thread_row_seg<P>(words, i0, n, cols), tot, sm);
-    const long long k = blockIdx.x;
-    S acc = seg_combine<SplitAdd<P>>(S{(unsigned)carry[2 * k], carry[2 * k + 1]}, ex);
-    long long c = i0 % cols;
-    for (int j = 0; j < SC_ITEMS && i0 + j < n; ++j) {
-        acc = seg_combine<SplitAdd<P>>(acc, S{c == 0, words[i0 + j]});
-        out[i0 + j] = P::store(acc.v);
-        if (++c == cols) c = 0;
     }
 }
 
@@ -612,47 +876,30 @@ int launch_finalize(const typename P::W* data, long long n, int cols, int pred, 
     return (int)cudaGetLastError();
 }
 
-// u32 words (float32) or u64 words (float64) of scratch the restore needs
-long long restore_scratch(long long n, long long rows, int cols, int n_planes) {
-    const long long nc = chunks(n, SC_CHUNK);
-    long long s = n_planes * nc;  // the level undo's chunk sums (u32, in fewer words)
-    if (2 * nc > s) s = 2 * nc;
-    if (chunks(rows, COL_TILE) * cols > s) s = chunks(rows, COL_TILE) * cols;
-    return s < 1 ? 1 : s;
-}
-
 template <class P>
-int launch_restore(uint8_t* work, long long pstride, long long n, long long rows, int cols,
-                   int pred, const Levels& lv, typename P::W* part, typename P::W* words,
+int launch_restore(const uint8_t* planes, long long pstride, long long n, long long rows, int cols,
+                   int pred, const Levels& lv, uint8_t* scratch, long long n_scratch,
                    typename P::W* out, cudaStream_t st) {
+    using W = typename P::W;
     if (n == 0) return 0;
-    int top = 0;
-    for (int b = 0; b < P::PLANES; ++b) top = lv.v[b] > top ? lv.v[b] : top;
-    const long long nc = chunks(n, SC_CHUNK);
-    unsigned* lpart = reinterpret_cast<unsigned*>(part);
-    for (int lev = top; lev >= 1; --lev) {
-        fpl_restore_level_sums_kernel<<<dim3((unsigned)nc, P::PLANES), NB, 0, st>>>(
-            work, pstride, n, nc, lev, lv, lpart);
-        fpl_restore_level_carry_kernel<<<P::PLANES, NB, 0, st>>>(lpart, nc, lev, lv);
-        fpl_restore_level_apply_kernel<<<dim3((unsigned)nc, P::PLANES), NB, 0, st>>>(
-            work, pstride, n, nc, lev, lv, lpart);
-    }
-    fpl_restore_words_kernel<P><<<grid_of(n, NB * 8), NB, 0, st>>>(work, pstride, n, words);
+    const RsScratch rs = rs_scratch(n, rows, cols, sizeof(W));
+    if (n_scratch < rs.end || rows * cols != n || cols < 1) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(out)) & 15)
+        return (int)cudaErrorMisalignedAddress;
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, rs.words, st);  // ticket, look-back words
+    if (err != cudaSuccess) return (int)err;
+    fpl_restore_tile_kernel<P><<<(unsigned)rs.n_tiles, NB, 0, st>>>(planes, pstride, n, cols, pred,
+                                                                     lv, scratch, out);
     if (pred == 2) {
+        W* words = reinterpret_cast<W*>(scratch + rs.words);
+        W* part = reinterpret_cast<W*>(scratch + rs.col);
         const long long nt = chunks(rows, COL_TILE);
         const long long ct = chunks(cols, 32);
         const dim3 grid((unsigned)nt, (unsigned)(ct < 65535 ? ct : 65535));
         fpl_restore_col_sums_kernel<P><<<grid, NB, 0, st>>>(words, rows, cols, part);
         fpl_restore_col_carry_kernel<P>
             <<<(unsigned)(cols < MAX_GRID ? cols : MAX_GRID), NB, 0, st>>>(part, nt, cols);
-        fpl_restore_col_apply_kernel<P><<<grid, NB, 0, st>>>(words, rows, cols, part);
-    }
-    if (pred >= 1) {
-        fpl_restore_row_sums_kernel<P><<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part);
-        fpl_restore_row_carry_kernel<P><<<1, NB, 0, st>>>(part, nc);
-        fpl_restore_row_apply_kernel<P><<<(unsigned)nc, NB, 0, st>>>(words, n, cols, part, out);
-    } else {
-        fpl_restore_untransform_kernel<P><<<grid_of(n, NB * 8), NB, 0, st>>>(words, n, out);
+        fpl_restore_col_apply_kernel<P><<<grid, NB, 0, st>>>(words, rows, cols, part, out);
     }
     return (int)cudaGetLastError();
 }
@@ -713,26 +960,28 @@ extern "C" int fpl_packbits_size(const uint8_t* planes, int n_planes, long long 
     return (int)cudaGetLastError();
 }
 
-// words of scratch fpl_restore (u32) and fpl_restore_f64 (u64) need
-extern "C" long long fpl_restore_scratch(long long n, long long rows, int cols, int n_planes) {
-    return restore_scratch(n, rows, cols, n_planes);
+// bytes of scratch fpl_restore (word_bytes 4) and fpl_restore_f64 (8) need;
+// the tiling is this source's alone, callers size their buffer by this query
+extern "C" long long fpl_restore_scratch(long long n, long long rows, int cols, int word_bytes) {
+    return rs_scratch(n, rows, cols, word_bytes).end;
 }
 
-// work u8 [4, pstride]: the planes, overwritten by the level undo; levels [4]
-// on the host; part: fpl_restore_scratch(n, rows, cols, 4) u32; words u32 [n];
-// out float32 bits [n]
-extern "C" int fpl_restore(uint8_t* work, long long pstride, long long n, long long rows, int cols,
-                           int pred, const int* levels, unsigned* part, unsigned* words,
-                           unsigned* out, void* stream) {
-    return launch_restore<Word32>(work, pstride, n, rows, cols, pred, levels_of(levels, 4), part,
-                                  words, out, (cudaStream_t)stream);
+// planes u8 [4, pstride] (any alignment, read only); levels [4] on the host;
+// scratch: fpl_restore_scratch(n, rows, cols, 4) bytes, 16-aligned; out
+// float32 bits [n], 16-aligned
+extern "C" int fpl_restore(const uint8_t* planes, long long pstride, long long n, long long rows,
+                           int cols, int pred, const int* levels, uint8_t* scratch,
+                           long long n_scratch, unsigned* out, void* stream) {
+    return launch_restore<Word32>(planes, pstride, n, rows, cols, pred, levels_of(levels, 4),
+                                  scratch, n_scratch, out, (cudaStream_t)stream);
 }
 
-// float64: work u8 [8, pstride]; levels [8] on the host; part:
-// fpl_restore_scratch(n, rows, cols, 8) u64; words u64 [n]; out float64 bits [n]
-extern "C" int fpl_restore_f64(uint8_t* work, long long pstride, long long n, long long rows,
-                               int cols, int pred, const int* levels, unsigned long long* part,
-                               unsigned long long* words, unsigned long long* out, void* stream) {
-    return launch_restore<Word64>(work, pstride, n, rows, cols, pred, levels_of(levels, 8), part,
-                                  words, out, (cudaStream_t)stream);
+// float64: planes u8 [8, pstride]; levels [8]; scratch:
+// fpl_restore_scratch(n, rows, cols, 8) bytes; out float64 bits [n]
+extern "C" int fpl_restore_f64(const uint8_t* planes, long long pstride, long long n,
+                               long long rows, int cols, int pred, const int* levels,
+                               uint8_t* scratch, long long n_scratch, unsigned long long* out,
+                               void* stream) {
+    return launch_restore<Word64>(planes, pstride, n, rows, cols, pred, levels_of(levels, 8),
+                                  scratch, n_scratch, out, (cudaStream_t)stream);
 }

@@ -40,10 +40,13 @@ kernel for both, over 4 or 8 planes.
      groups, every position live.
   F3 ``fpl_restore`` (``fpl_restore_device`` :235, ``_f64`` :407): the level
      undo (nested prefix sums mod 256 from index level - 1), the words, the
-     split-field prefix sums down the columns (predictor 2) and along the
-     rows (predictors 1, 2), the transform undone (float32): [H, W, D] of
-     the planes' float type. In u32 and u64 words the split-field add is
-     associative, so each is a chunked parallel scan; there is no
+     split-field prefix sums along the rows (predictors 1, 2) and down the
+     columns (predictor 2), the transform undone (float32): [H, W, D] of
+     the planes' float type. The kernel reads each plane once: the level
+     undo runs on the words bytewise, tile by tile, its carries from a
+     look-back over the tiles' affine carry maps; in u32 and u64 words the
+     split-field add is associative, so the row scan rides a second
+     look-back and the column scan is a chunked parallel scan; there is no
      2^25-element limit (JAX's ``_cumsum_mod52_pair`` :366 has one).
 
 On CPU tensors each wrapper runs its plain version (``*_ref``: u32 words in
@@ -454,8 +457,11 @@ def fpl_pack_planes(planes: torch.Tensor, n: int, tables: dict) -> dict:
 
 def fpl_restore(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels) -> torch.Tensor:
     """F3: [H, W, D] from the planes' first H * W * D bytes (uint8 [planes,
-    >= n], unchanged) at their levels under the predictor: float32 from four
-    planes, float64 from eight."""
+    >= n]; the kernel only reads them, so `planes` is left unchanged) at
+    their levels under the predictor: float32 from four planes, float64
+    from eight. On CUDA one pass over the planes (the level undo, the words,
+    the row scan, the transform undone) and, under predictor 2, the column
+    scan over the words."""
     n = h * w * d
     _check_planes(planes, n)
     n_pl = planes.shape[0]
@@ -465,18 +471,15 @@ def fpl_restore(planes: torch.Tensor, h: int, w: int, d: int, pred: int, levels)
     rows, cols = slice_shape(h, w, d)
     f64 = n_pl == N_PLANES64
     scratch = _ctypes_fn("fpl_restore_scratch", [_L, _L, _I, _I], ctypes.c_longlong)(
-        n, rows, cols, n_pl)
+        n, rows, cols, 8 if f64 else 4)
     name = "fpl_restore_f64" if f64 else "fpl_restore"
-    fn = _ctypes_fn(name, [_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P])
-    word = torch.int64 if f64 else torch.int32
+    fn = _ctypes_fn(name, [_P, _L, _L, _L, _I, _I, _P, _P, _L, _P, _P])
     dev = planes.device
     with torch.cuda.device(dev):
-        work = planes.clone()  # the level undo runs in place
-        part = torch.empty(scratch, dtype=word, device=dev)
-        words = torch.empty(n, dtype=word, device=dev)
+        part = torch.empty(scratch, dtype=torch.uint8, device=dev)
         out = torch.empty(h, w, d, dtype=torch.float64 if f64 else torch.float32, device=dev)
-        err = fn(work.data_ptr(), work.shape[1], n, rows, cols, pred, _levels_arg(levels),
-                 part.data_ptr(), words.data_ptr(), out.data_ptr(), build.launch_stream(planes))
+        err = fn(planes.data_ptr(), planes.shape[1], n, rows, cols, pred, _levels_arg(levels),
+                 part.data_ptr(), scratch, out.data_ptr(), build.launch_stream(planes))
         build.check(err, name)
     build.LAUNCHES[name] += 1
     return out

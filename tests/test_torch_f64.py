@@ -391,6 +391,30 @@ def test_f64_finalize_packbits_and_restore_match_jax(shape, pred):
         np.testing.assert_array_equal(got.numpy().reshape(-1).view(np.uint64), jbits)
 
 
+F64_TILE_EDGE_SHAPES = [(1, 5000, 1), (3, 4500, 1)]  # n past one 4,096-position tile
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("shape", F64_TILE_EDGE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in F64_TILE_EDGE_SHAPES])
+def test_f64_restore_tile_edges_match_jax(shape, pred):
+    """F3 over u64 words on random planes where the card's kernel carries
+    between its tiles: n no multiple of the tile, a single row and rows
+    longer than a tile. Equal to ``fpl_restore_device_f64`` bit for bit; the
+    planes unchanged."""
+    h, w, d = shape
+    n = h * w * d
+    rng = np.random.default_rng(n + pred)
+    planes = torch.from_numpy(rng.integers(0, 256, (8, n + 5), dtype=np.uint8))
+    before = planes.clone()
+    lv = FLEVELS[1]
+    got = F.fpl_restore(planes, h, w, d, pred, lv).numpy().reshape(-1).view(np.uint64)
+    jlo, jhi = J.fpl_restore_device_f64(jnp.asarray(planes[:, :n].numpy()), h, w, d, pred, lv)
+    jbits = np.asarray(jlo).astype(np.uint64) | (np.asarray(jhi).astype(np.uint64) << np.uint64(32))
+    np.testing.assert_array_equal(got, jbits.reshape(-1))
+    assert torch.equal(planes, before)
+
+
 @pytest.mark.parametrize("shape", [(1, 2, 1), (1, 3, 1), (2, 2, 1), (4, 1, 1)])
 def test_f64_tiny_bands_levels_above_their_length(shape):
     """Bands of 2-4 values, where JAX's level derivative fails (ROADMAP

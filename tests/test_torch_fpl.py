@@ -135,6 +135,28 @@ def test_restore_matches_jax_and_the_input(shape, pred):
             np.testing.assert_array_equal(np.asarray(want).view(np.uint32), got.view(np.uint32))
 
 
+TILE_EDGE_SHAPES = [(1, 5000, 1), (3, 4500, 1), (37, 121, 3)]  # n: 5000, 13500, 13431
+
+
+@pytest.mark.parametrize("pred", [0, 1, 2])
+@pytest.mark.parametrize("shape", TILE_EDGE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TILE_EDGE_SHAPES])
+def test_restore_tile_edges_match_jax(shape, pred):
+    """F3 on random planes where the card's kernel carries between its
+    4,096-position tiles: n no multiple of the tile, a single row and rows
+    longer than a tile (the row scan's carry), D > 1 slice geometry. Equal
+    to ``fpl_restore_device`` bit for bit; the planes unchanged."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(n + pred)
+    planes = torch.from_numpy(rng.integers(0, 256, (4, n + 7), dtype=np.uint8))
+    before = planes.clone()
+    levels = (4, 5, 0, 2)
+    got = F.fpl_restore(planes, *shape, pred, levels).numpy()
+    want = J.fpl_restore_device(jnp.asarray(planes[:, :n].numpy()), *shape, pred, levels)
+    np.testing.assert_array_equal(np.asarray(want).view(np.uint32), got.view(np.uint32))
+    assert torch.equal(planes, before)
+
+
 def test_tiny_bands_levels_above_their_length():
     """Levels above the value count leave every position as it is: the
     port's F1/F2 run on 2-4 values, where JAX's ``_byte_deriv1`` fails."""

@@ -353,6 +353,121 @@ def test_h4_restore_matches_jax(npdt, d, mname):
     np.testing.assert_array_equal(got.numpy()[mask], data[mask])
 
 
+def checkerboard(h, w, rows=1) -> np.ndarray:
+    """Valid where (r // rows + c) is even: no use-above pixel at rows 1, one
+    at every valid pixel of an odd row at rows 2."""
+    r, c = np.ogrid[:h, :w]
+    return (r // rows + c) % 2 == 0
+
+
+def _first_rows_invalid(h, w, k, seed=11):
+    m = np.random.default_rng(seed).random((h, w)) > 0.2
+    m[:k] = False
+    return m
+
+
+def _hole(h, w, seed=12):
+    m = np.random.default_rng(seed).random((h, w)) > 0.05
+    m[h // 4:h // 2, w // 3:2 * w // 3] = False
+    return m
+
+
+SEGMENT_MASKS = {  # the masked un-delta's segment tables, each against JAX's
+    "rand": MASKS["rand"], "stripes": stripes(), "checkerboard": checkerboard(H, W),
+    "checkerboard-2row": checkerboard(H, W, 2), "first-rows-invalid": _first_rows_invalid(H, W, 9),
+    "w1": np.random.default_rng(13).random((200, 1)) > 0.3,
+    "h1": np.random.default_rng(14).random((1, 200)) > 0.3,
+    "one-valid": np.eye(1, H * W, 777, dtype=bool).reshape(H, W),
+    "all-valid": np.ones((H, W), bool), "hole": _hole(H, W),
+}
+
+
+@pytest.mark.parametrize("mname", list(SEGMENT_MASKS))
+def test_h4_masked_segment_table_matches_jax(mname):
+    """The segment table of the masked un-delta (its kernels' pass 2: each
+    use-above pixel's rank, the rank above it, the parent segment) equal to
+    JAX's host ``_masked_delta_segments``."""
+    mask = SEGMENT_MASKS[mname]
+    got = dh.masked_delta_segments_ref(torch.from_numpy(mask))
+    for g, w in zip(got, jax_codec._masked_delta_segments(mask)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+MASKED_DELTA_CASES = [  # (id, dtype, depth, [H, W] mask)
+    ("checkerboard-u8-d3", np.uint8, 3, checkerboard(H, W)),
+    ("checkerboard-2row-i8-d2", np.int8, 2, checkerboard(H, W, 2)),
+    ("w1-u8-d2", np.uint8, 2, np.random.default_rng(15).random((300, 1)) > 0.3),
+    ("first-rows-invalid-i8-d1", np.int8, 1, _first_rows_invalid(H, W, 9)),
+    ("d5-u8-hole", np.uint8, 5, _hole(H, W)),
+    ("d5-i8-stripes", np.int8, 5, stripes()),
+]
+
+
+def _jax_undelta(pe, mask, d, dt):
+    """JAX's ``undelta_masked_device`` over its host segment table: [D, nv]."""
+    npx = mask.size
+    nv = int(mask.sum())
+    off = 128 if dt == DataType.CHAR else 0
+    deltas = pe.numpy()[:npx * d].reshape(d, npx)[:, :nv].astype(np.int32) - off
+    seg_b, seg_t, seg_par = jax_codec._masked_delta_segments(mask)
+    m_cap = 1 << max(4, (seg_b.shape[0] - 1).bit_length())
+    pad = m_cap - seg_b.shape[0]
+    return np.asarray(jdh.undelta_masked_device(
+        jnp.asarray(deltas), jnp.asarray(np.concatenate([seg_b, np.full(pad, nv, np.int32)])),
+        jnp.asarray(np.concatenate([seg_t, np.zeros(pad, np.int32)])),
+        jnp.asarray(np.concatenate([seg_par, np.zeros(pad, np.int32)])), nv, d, m_cap))
+
+
+@pytest.mark.parametrize("npdt,d,mask", [c[1:] for c in MASKED_DELTA_CASES],
+                         ids=[c[0] for c in MASKED_DELTA_CASES])
+def test_h4_masked_delta_matches_jax(npdt, d, mask):
+    """The masked un-delta (plain version) on H1's delta symbols of a band,
+    on the masks its kernels treat apart (no use-above pixel, one at every
+    other row, W = 1, rows with no valid pixel first, D > 4 in two groups of
+    depths): equal to JAX's ``undelta_masked_device`` over
+    ``_masked_delta_segments`` and to the band at the valid pixels, 0
+    elsewhere."""
+    h, w = mask.shape
+    rng = np.random.default_rng(h * 7 + w + d)
+    info = np.iinfo(npdt)
+    data = rng.integers(info.min, info.max + 1, (h, w, d)).astype(npdt)
+    dt = _dt(npdt)
+    _pd, pe, _ = dh.symbol_streams_device(torch.from_numpy(data.astype(np.int32)),
+                                          torch.from_numpy(mask), dt)
+    got = dh.undelta_masked_device(pe, torch.from_numpy(mask), d, dt).numpy()
+    np.testing.assert_array_equal(got.view(np.uint8)[mask].T,
+                                  _jax_undelta(pe, mask, d, dt).astype(np.uint8))
+    np.testing.assert_array_equal(got[mask], data[mask])
+    assert not got[~mask].any()
+
+
+def test_h4_masked_delta_past_2_16_segments_matches_the_host_decoder():
+    """A 520x512 int8 band of depth 2 under a stripes mask: 133,120
+    segments, past the 2^16 at which JAX's decode gives up. The masked
+    un-delta (plain version) on H1's delta symbols equals the host decoder's
+    (``codec/lerc2_decode``) image of the band's Huffman blob."""
+    from lerc_tpu_torch.codec import lerc2_decode
+    from lerc_tpu_torch.codec.device_codec import band_sections
+    from lerc_tpu_torch.codec.lerc2_encode import BandEncoder
+
+    h, w, d = 520, 512, 2
+    mask = stripes(h, w)
+    assert jax_codec._masked_delta_segments(mask)[0].shape[0] - 1 > 1 << 16
+    x, y = np.meshgrid(np.arange(w), np.arange(h))
+    data = np.stack([(x // 3 + y // 5) % 256 - 128, (x // 7 - y // 2) % 256 - 128],
+                    -1).astype(np.int8)
+    blob = BandEncoder(data, mask, 0.5).encode()
+    sec = band_sections(blob)
+    assert (sec.kind, sec.mode) == ("huffman", 1)  # delta Huffman
+    host = lerc2_decode.decode_band(blob)
+    _pd, pe, _ = dh.symbol_streams_device(torch.from_numpy(data.astype(np.int32)),
+                                          torch.from_numpy(mask), DataType.CHAR)
+    got = dh.undelta_masked_device(pe, torch.from_numpy(mask), d, DataType.CHAR).numpy()
+    np.testing.assert_array_equal(got[mask], host.data[mask])
+    np.testing.assert_array_equal(got[mask], data[mask])
+    assert not got[~mask].any()
+
+
 EDGE_SHAPES = [  # (H, W, D, dtype, storage offset of the symbols)
     (1, 17, 3, np.uint8, 0), (5, 1, 2, np.uint8, 3), (3, 4099, 5, np.uint8, 0),
     (2, 33, 8, np.uint8, 7), (4, 16, 4, np.int8, 0), (1, 15, 1, np.int8, 15),
