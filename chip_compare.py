@@ -36,6 +36,21 @@ measured. MEASURE is one of:
        tiles' planes (past the L2): the device time of the kernels and
        memsets, and of all the call's device work (a tree that clones the
        planes first counts the copy there).
+  k3   K3 (fletcher32_parts) per call on the four resident float32 streams
+       (FusedResidentCodec at maxZError 0.001: header parts, static
+       partials, stream, total) and on the fpl sections as the band
+       codec's tail (each blob after its checksum field, an empty stream,
+       total 0, as device_codec._checksum passes it) of the four float32
+       and the four float64 tiles, lossless: each set round-robin, every
+       result first held to fletcher32_parts_ref and a tail's to its
+       blob's checksum; the device time of the kernel, and of all the
+       call's device work (the zeroed accumulator's fill beside it).
+  h3   H3 (huffman_decode) per call on the delta symbols of the four uint8
+       three-band tiles (the all-valid layout: H1, then H2 with the
+       histogram's code) and on plane 2 of the four float32 fpl tiles
+       (predictor 1, levels (2, 1, 0, 0), as fpl), each set round-robin
+       past the L2, every output (symbols, used bits, ok) first held to
+       decode_stream_device_ref: the device time of the kernel.
 """
 import subprocess
 import sys
@@ -164,7 +179,109 @@ def f3_turn(cs, dev) -> dict:
     return out
 
 
-MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn}
+def k3_inputs(cs, dev) -> dict:
+    """{set: [(K3 args, checksum or None)]}: the resident streams, and the
+    float32 and float64 fpl sections as tails."""
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec, encode_band_device
+    from lerc_tpu_torch.codec import header as hdr
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    codec = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001, device=dev)
+    sk, hl = codec._skip, codec._head_len
+    resident = []
+    for t in tiles:
+        header, stream, meta, _ = codec.encode_fast(t)
+        resident.append(((header[sk:hl], codec._static_ab, header[hl:], stream,
+                          meta[0].reshape(1)), None))
+    out = {"resident": resident}
+    for label, ts in (("f32_tail", tiles), ("f64_tail", cs.make_tiles64(4, 2048, dev))):
+        sets = []
+        for t in ts:
+            blob = encode_band_device(t, None, 0.0, device=dev)
+            head, _ = hdr.read_header(blob)
+            tail = torch.frombuffer(bytearray(blob[hdr.checksum_skip(head.version):]),
+                                    dtype=torch.uint8).to(dev)
+            args = (tail[:0], (0, 0, 0), tail, torch.zeros(1, dtype=torch.int32, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
+            sets.append((args, head.checksum))
+        out[label] = sets
+    return out
+
+
+def k3_turn(cs, dev) -> dict:
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    out = {}
+    for label, sets in k3_inputs(cs, dev).items():
+        for args, checksum in sets:
+            got = int(scan.fletcher32_parts(*args))
+            if got != int(scan.fletcher32_parts_ref(*args)) or \
+                    (checksum is not None and got & 0xFFFFFFFF != checksum):
+                raise SystemExit(f"K3 != its plain version or the blob's checksum ({label})")
+        calls = [lambda a=a: scan.fletcher32_parts(*a) for a, _ in sets]
+        out[label] = dev_ms(cs, calls, ("fletcher32_parts",))
+        out[f"{label}_all"] = dev_ms(cs, calls, (None,))
+    return out
+
+
+def h3_inputs(cs, dev) -> dict:
+    """{set: [H3 args]}: the uint8 three-band tiles' delta streams and the
+    float32 fpl tiles' plane 2."""
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_fpl as F
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    def args_of(sym, hist, layout):
+        hst = hist.cpu().numpy().astype(np.int64)
+        lengths = huffman.compute_code_lengths(hst)
+        codes = huffman.canonical_codes(lengths)
+        n_words = -(-int((hst * lengths).sum()) // 32) + 1
+        words, _tb, sbits = dh.encode_stream_device(sym, dh.code_table(lengths, codes, dev),
+                                                    layout, n_words)
+        consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+        return (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
+                torch.from_numpy(consts).to(dev), torch.from_numpy(sorted_syms).to(dev), layout)
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    u8 = []
+    for t in cs.int_cell_tiles(tiles, np.uint8, 3):
+        _direct, delta, hist = dh.symbol_streams_device(t.to(torch.int32).contiguous(), None,
+                                                        DataType.BYTE)
+        n = t.numel()
+        u8.append(args_of(delta, hist[1], (n, n, n)))
+    n = 2048 * 2048
+    fpl = []
+    for t in tiles:
+        planes, histos = F.fpl_finalize(t, 1, (2, 1, 0, 0))
+        fpl.append(args_of(planes[2], histos[2], (n, n, n)))
+    return {"u8x3": u8, "fpl_plane2": fpl}
+
+
+def h3_turn(cs, dev) -> dict:
+    import torch
+
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    out = {}
+    for label, sets in h3_inputs(cs, dev).items():
+        for a in sets:
+            k, r = dh.decode_stream_device(*a), dh.decode_stream_device_ref(*a)
+            if not (all(torch.equal(x, y) for x, y in zip(k, r)) and bool(k[2])):
+                raise SystemExit(f"H3 != its plain version ({label})")
+        out[label] = dev_ms(cs, [lambda a=a: dh.decode_stream_device(*a) for a in sets],
+                            ("huffman_decode",), reps=10)
+    return out
+
+
+MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
+            "k3": k3_turn, "h3": h3_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

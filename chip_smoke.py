@@ -18,7 +18,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      asked for records past the chain's end, and every integer instance of
      K1, K2, K4 (all-valid and masked), K5 and K6 on 64x64 tiles of each
      integer dtype (lossless v6 with depth-diff records, v4, lossy under
-     nb_cap 16, masked);
+     nb_cap 16, masked); K3 also against the host Fletcher32 on tails of
+     1 B to 1 MB at storage offsets 0-15 before streams at total 0 to
+     capacity, on streams at word offsets 1-3, on a 25.7 MB tail with an
+     empty stream, and with total past capacity and negative;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -43,7 +46,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      pass counts the full tiles' raw bytes, as bench.py:295), the
      index-free decode beside the indexed one, compression ratios, each
      kernel's device time per launch (torch.profiler) beside its plain
-     version's time (CUDA events), its launches and its bound; then the
+     version's time (CUDA events), its launches and its bound (K3 on tile
+     0's stream in paired profiler windows beside torch.sum of its bytes,
+     a yardstick); then the
      integer instances no timed path takes (K1, K2, K4, K6 _i8, _u16,
      _u32; the masked K1m, K2m, K4m of every integer dtype), each held to
      its plain version and timed once on a 2048^2 tile beside its bound;
@@ -82,7 +87,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      both modes), on a 24-row strip wider than a row tile, and at 2048^2;
      the all-valid restores also on 52 edge shapes (D 1-5 and 8, W 1, 15,
      17 and 3 tiles + 5 pixels, H 1 and 3, uint8 and int8) and on symbol
-     views at storage offsets 1-15;
+     views at storage offsets 1-15; H3 also on an fpl plane, with six
+     hostile sidecars and streams cut short, on codes past its decode
+     table (lengths 1..32), an incomplete code, hostile canonical rows,
+     one group and group counts not a multiple of 64;
   15. four Huffman band cells, lossless v6, through
      encode_band_device(return_index=True) -> decode_band_device with the
      index and without it (the host scan), counted: a uint8 three-band
@@ -96,7 +104,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      column scan and the two all-valid restores, torch.bincount /
      torch.cumsum / torch.sub; the three restores (column 0, rows, direct)
      against their library call in 7 pairs of alternating profiler windows
-     (median and spread);
+     (median and spread), H3 in 4 windows of its own;
   17. lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits
      sizes and F3 restore against their plain versions, bit for bit, on
      48x41 and 61x47 crops of the DEM (depth 1 and 3, every predictor, every
@@ -111,8 +119,11 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      more values than 2^25;
   19. their MB/s and ratios, F1-F3's device ms per launch at 2048^2 beside
      their plain ms, bounds and, for F3, the level undo's torch.cumsum; H2
-     and H3 on a Huffman plane; host PackBits and host-scan ms per plane;
-     the device's busy share over an fpl round;
+     and H3 (4 profiler windows) on a Huffman plane; host PackBits and
+     host-scan ms per plane; K3 on the four float32 fpl blobs as the tail
+     (held to its plain version, the host Fletcher32 and each blob's
+     checksum in phase 18), in paired windows beside torch.sum of the same
+     bytes; the device's busy share over an fpl round;
   20. float64: K1/K2 f64 (all-valid, masked, edge blocks, a tile of every
      record mode), K6 f64 (the port's blobs, their records edited on the
      card into depth-diff and LUT records, and for its 16x16 instances a
@@ -129,9 +140,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   22. two lossless float64 cells (v6 fpl over eight planes): the same four
      tiles all-valid and with the bench mask, decoded with and without the
      index, bit-equal to the input; tile 0's predictor, levels, methods and
-     size; then the float64 kernels' device ms per launch beside their
-     plain ms and bounds, the cells' MB/s (best of 3) and the device's busy
-     share over a lossy and a lossless round;
+     size; K3 on their four blobs as the tail (as phase 18); then the
+     float64 kernels' device ms per launch beside their plain ms and
+     bounds, K3 on those tails in paired windows, the cells' MB/s (best of
+     3) and the device's busy share over a lossy and a lossless round;
   23-26. the tile mosaic on a one-rank NCCL DeviceMesh: the tile-batched
      K1/K2 against their plain versions on the whole 64-tile stack of each
      raster (512^2 tiles) that MosaicEncoder hands encode_tiles_batched;
@@ -455,10 +467,19 @@ def check_kernels(codec, tiles, timed):
         k4: ([lambda k=k: dec.decode_records(*dargs(k)) for k in ins],
              [lambda k=k: dec.decode_records_ref(*dargs(k)) for k in ins]),
     }
-    if v is not None:
-        del fns[k3]
+    k3_fns = fns.pop(k3)
     times = {name: (device_ms(kf, f"{name}_kernel"), cuda_ms(rf, reps=1))
              for name, (kf, rf) in fns.items()}
+    if v is None:  # K3 on tile 0's stream beside torch.sum of its bytes, paired windows
+        k0 = ins[0]
+        n_msg = k0["header"].numel() - sk + int(k0["total"])
+        km, _lm, _b = paired_row(
+            f"{k3} (a resident {h}x{w} stream)", k3_fns[0][0], f"{k3}_kernel",
+            lambda s=k0["stream"].view(torch.uint8)[:int(k0["total"])]: torch.sum(
+                s, dtype=torch.int64),
+            "torch.sum(the stream's bytes, dtype=torch.int64) (a yardstick, not the function)",
+            n_msg, card_line(), pairs=K3_H3_PAIRS)
+        times[k3] = (km, cuda_ms(k3_fns[1], reps=1))
     scan_ms = device_ms([lambda k=k: torch.cumsum(k["rec_info"][:, 0], 0, dtype=torch.int32)
                          for k in ins])
     return err, (times, scan_ms, ins)
@@ -502,6 +523,101 @@ def bounds(codec, ins):
         o = float(np.mean([r[1] for r in rows])) * 1e3
         out[name] = (max(b, o), "bytes" if b >= o else "operations")
     return out
+
+
+def k3_check(pre, static, tail, stream, total, tag):
+    """K3 against fletcher32_parts_ref on one message (pre, tail: uint8 CUDA
+    tensors at any storage offset; static: bytes; stream: int32 words) and,
+    where `total` lies in [0, capacity], against the host Fletcher32 of its
+    bytes. Returns the checksum bits."""
+    from lerc_tpu_torch.codec.fletcher32 import fletcher32, fletcher32_partials
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    ab = fletcher32_partials(static, pre.numel() // 2) + (len(static),)
+    t = torch.tensor([total], dtype=torch.int32, device=stream.device)
+    got = int(scan.fletcher32_parts(pre, ab, tail, stream, t)) & 0xFFFFFFFF
+    require(got == int(scan.fletcher32_parts_ref(pre, ab, tail, stream, t)) & 0xFFFFFFFF,
+            f"K3 != plain ({tag})")
+    if 0 <= total <= 4 * stream.numel():
+        msg = b"".join([pre.cpu().numpy().tobytes(), static, tail.cpu().numpy().tobytes(),
+                        stream.view(torch.uint8)[:total].cpu().numpy().tobytes()])
+        require(got == fletcher32(msg), f"K3 != the host Fletcher32 ({tag})")
+    return got
+
+
+def k3_edge_check(dev):
+    """Phase 3: K3 on the shapes of message its grid must cover -- tails of
+    1 B to 1 MB, odd and even, at storage offsets 0-15 (with a 76-byte
+    header at offsets 0-15, with and without a 290-byte static part) before
+    a stream at total 0, odd, at capacity less 3 and at capacity; streams
+    at word offsets 1-3; a 25.7 MB tail with an empty stream (total 0, as
+    the band codec checksums an fpl blob); total past capacity and negative.
+    Returns the number of cases."""
+    rng = np.random.default_rng(33)
+
+    def view(n, off):
+        buf = torch.from_numpy(rng.integers(0, 256, n + 16, dtype=np.uint8)).to(dev)
+        return buf[off:off + n]
+
+    static = rng.integers(0, 256, 290, dtype=np.uint8).tobytes()
+    cap_w = 4096
+    words = view(4 * cap_w, 0).view(torch.int32)
+    n = 0
+    for n_tail in (1, 15, 16, 17, 4095, 65537, 1_000_001):
+        for off in range(16):
+            pre, tail = view(76, (7 * off) % 16), view(n_tail, off)
+            for total in ((0, 4 * cap_w - 3) if off % 2 else (1001, 4 * cap_w)):
+                k3_check(pre, static if off % 3 else b"", tail, words, total,
+                         f"tail {n_tail} B at offset {off}, total {total}")
+                n += 1
+    for w_off in (1, 2, 3):
+        for total in (0, 5, 4 * (cap_w - w_off) - 1, 4 * (cap_w - w_off)):
+            k3_check(view(0, 0), b"", view(9, w_off), words[w_off:], total,
+                     f"stream at word offset {w_off}, total {total}")
+            n += 1
+    empty = torch.zeros(1, dtype=torch.int32, device=dev)
+    k3_check(view(0, 0), b"", view(25_700_001, 5), empty, 0, "25.7 MB tail, empty stream")
+    for total in (4 * cap_w + 5, 2**31 - 1, -1, -100_000):
+        k3_check(view(76, 3), static, view(333, 9), words, total, f"total {total}")
+    return n + 5
+
+
+def k3_tail_check(blobs, tag):
+    """K3 on each blob after its checksum field as the tail, with an empty
+    stream at total 0 (device_codec._checksum's arguments for an fpl
+    blob): equal to its plain version, the host Fletcher32 and the blob's
+    checksum. Returns the tails (uint8 CUDA tensors)."""
+    from lerc_tpu_torch.codec import header as hdr
+
+    tails = []
+    for i, blob in enumerate(blobs):
+        head, _ = hdr.read_header(blob)
+        tail = torch.frombuffer(bytearray(blob[hdr.checksum_skip(head.version):]),
+                                dtype=torch.uint8).cuda()
+        empty = torch.zeros(1, dtype=torch.int32, device=tail.device)
+        got = k3_check(tail[:0], b"", tail, empty, 0, f"{tag}, blob {i} as the tail")
+        require(got == head.checksum, f"K3 != the checksum of {tag}'s blob {i}")
+        tails.append(tail)
+    return tails
+
+
+def k3_tail_pair(tails, label, card):
+    """K3 on the tails of k3_tail_check round-robin, against torch.sum of
+    the same bytes (a yardstick: no PyTorch call computes Fletcher32), in
+    paired profiler windows. Returns the kernel's median ms."""
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    empty = torch.zeros(1, dtype=torch.int32, device=tails[0].device)
+    turn, sums = itertools.cycle(tails), itertools.cycle(tails)
+    km, _lm, bound = paired_row(
+        f"fletcher32_parts ({label} as the tail, {tails[0].numel()} B)",
+        lambda: scan.fletcher32_parts(tails[0][:0], (0, 0, 0), next(turn), empty, empty),
+        "fletcher32_parts_kernel", lambda: torch.sum(next(sums), dtype=torch.int64),
+        "torch.sum(the tail, dtype=torch.int64) (a yardstick, not the function)",
+        sum(t.numel() for t in tails) / len(tails), card, pairs=K3_H3_PAIRS)
+    print(f"K3 on {label} as the tail: {km:.4f} ms a launch, bound {bound:.4f} ms [{card}]",
+          flush=True)
+    return km
 
 
 def small_dem(rng):
@@ -2048,6 +2164,128 @@ def h4_masked_masks(rng):
     return out
 
 
+def h3_args(sym, lengths, codes, layout):
+    """H3's arguments for the live symbols of sym (uint8, whole groups, on
+    the card) packed by H2 under a code table: the words with a zero word
+    past them, their bits, the sidecar, the canonical rows and symbols."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    dev = sym.device
+    table = dh.code_table(lengths, codes, dev)
+    live = dh._live_mask(sym.numel(), layout, dev)
+    total = int(table[0].long()[sym.long()][live].sum())
+    n_words = -(-total // 32) + 1
+    words, _tb, sbits = dh.encode_stream_device(sym, table, layout, n_words)
+    consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+    return (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
+            torch.from_numpy(consts).to(dev), torch.from_numpy(sorted_syms).to(dev), layout)
+
+
+def h3_case(args, tag):
+    """H3 against decode_stream_device_ref: symbols, used bits, ok. Returns ok."""
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    k, r = dh.decode_stream_device(*args), dh.decode_stream_device_ref(*args)
+    require(torch.equal(k[0], r[0]) and torch.equal(k[1], r[1]) and bool(k[2]) == bool(r[2]),
+            f"H3 != plain ({tag})")
+    return bool(k[2])
+
+
+def h3_edge_check(tile):
+    """Phase 14: H3 (symbols, used bits, ok) against its plain version on
+    plane 2 of an fpl float32 tile (4,194,304 symbols) and the same with a
+    hostile sidecar (every start shifted, sbits[0] = 1, one start moved by
+    a bit, negative, past the stream, the starts reversed), the stream cut
+    short in bits and in words; codes with lengths past the decode table's
+    (1..32; a skewed 28-symbol histogram) and an incomplete code (a symbol
+    of the stream dropped); a single group, n_total 1,000 and 4,097, live
+    layouts with planes shorter than a group, hostile canonical rows.
+    Returns the number of cases."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.ops import device_fpl as F
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    dev = tile.device
+    rng = np.random.default_rng(14)
+    n_cases = 0
+
+    def case(args, tag, ok):  # ok None: either (hostile rows)
+        nonlocal n_cases
+        got = h3_case(args, tag)
+        require(ok is None or got == ok, f"H3 ok is {got} ({tag})")
+        n_cases += 1
+
+    planes, histos = F.fpl_finalize(tile, 1, (2, 1, 0, 0))
+    n = tile.numel()
+    hst = histos[2].cpu().numpy().astype(np.int64)
+    lengths = huffman.compute_code_lengths(hst)
+    codes = huffman.canonical_codes(lengths)
+    a = h3_args(planes[2][:n].contiguous(), lengths, codes, (n, n, n))
+    case(a, "fpl plane 2", True)
+    sb = a[2]
+    g = sb.numel()
+
+    def with_sbits(fn):
+        b = sb.clone()
+        fn(b)
+        return (a[0], a[1], b, *a[3:])
+
+    case(with_sbits(lambda b: b.add_(32)), "every start shifted by a word", False)
+    case(with_sbits(lambda b: b[:1].fill_(1)), "sbits[0] = 1", False)
+    case(with_sbits(lambda b: b[g // 2:g // 2 + 1].add_(1)), "one start moved by a bit", False)
+    case(with_sbits(lambda b: b[g // 3:g // 3 + 1].fill_(-5)), "a negative start", False)
+    case(with_sbits(lambda b: b[-2:-1].fill_(2**31 - 1)), "a start past the stream", False)
+    case(with_sbits(lambda b: b.copy_(b.flip(0))), "the starts reversed", False)
+    case((a[0], a[1] // 2, *a[2:]), "n_bits at half", False)
+    half = a[0][:a[0].numel() // 2]
+    case((half, 32 * half.numel(), *a[2:]), "the words cut at half", False)
+
+    def random_case(lengths, n, layout, tag, ok=True, edit=None):
+        codes = huffman.canonical_codes(lengths)
+        g = -(-n // dh.GROUP)
+        sym = torch.from_numpy(rng.choice(np.flatnonzero(lengths), g * dh.GROUP)
+                               .astype(np.uint8)).to(dev)
+        args = h3_args(sym, lengths, codes, layout)
+        if edit is not None:
+            args = edit(args)
+        case(args, tag, ok)
+
+    deep = np.zeros(256, np.int32)
+    order = rng.permutation(256)[:33]
+    deep[order[:31]] = np.arange(1, 32)
+    deep[order[31:]] = 32
+    random_case(deep, 5000, (5000, 5000, 5000), "code lengths 1..32")
+    skew = np.zeros(256, np.int64)
+    skew[:28] = np.round(1.6 ** np.arange(28)).astype(np.int64)
+    skewed = huffman.compute_code_lengths(skew)
+    random_case(skewed, 70_000, (70_000, 70_000, 70_000), "a 28-symbol skewed code")
+    last = int(np.argmax(np.where(skewed == skewed.max(), huffman.canonical_codes(skewed), -1)))
+
+    def drop_last(args):  # the longest length's last code leaves the table
+        cut = skewed.copy()
+        cut[last] = 0
+        consts, sorted_syms = huffman.canonical_decode_consts(cut, huffman.canonical_codes(skewed))
+        return (*args[:3], torch.from_numpy(consts).to(dev),
+                torch.from_numpy(sorted_syms).to(dev), args[5])
+
+    random_case(skewed, 70_000, (70_000, 70_000, 70_000), "an incomplete code", False,
+                drop_last)
+
+    def hostile_rows(args):
+        consts = args[3].clone()
+        consts[5] = torch.tensor([-3, 40, 250])
+        consts[13] = torch.tensor([0, 1 << 20, -7])
+        return (*args[:3], consts, *args[4:])
+
+    random_case(lengths, 3000, (3000, 3000, 3000), "hostile canonical rows", None, hostile_rows)
+    for n_t, layout in ((40, (40, 40, 40)), (1000, (1000, 1000, 1000)),
+                        (4097, (4097, 4097, 4097)), (1000, (1000, 5, 3)), (640, (640, 1, 1)),
+                        (640, (640, 1, 0)), (9000, (9000, 3000, 2999))):
+        random_case(lengths, n_t, layout, f"{n_t} symbols, live layout {layout}")
+    return n_cases
+
+
 def h4_masked_check(dev):
     """The masked un-delta (huffman_restore_delta_masked) against
     undelta_masked_device_ref, byte for byte, on random delta symbols: every
@@ -2175,33 +2413,40 @@ def huffman_cell(label, tiles, mask, mode, card):
 
 
 PAIRS = 7  # alternating profiler windows of a kernel and its library call
+K3_H3_PAIRS = 4  # the same for K3 (beside a yardstick) and H3 (alone)
 
 
-def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20):
+def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20, pairs=PAIRS):
     """Device ms per call of a kernel (the wrapper kf, its device work whose
     name contains `match`, or any of a tuple of patterns, each of which must
     show) and of its library call lib, from PAIRS pairs of
     torch.profiler windows of `reps` calls each, in turns (kernel, library,
     library, kernel, ...), so that a drift of clocks or of the L2 touches
-    both alike; printed with the spreads and the bound. Returns (kernel
-    median ms, library median ms, bound ms)."""
+    both alike; printed with the spreads and the bound. With lib None, the
+    kernel's windows alone. Returns (kernel median ms, library median ms or
+    None, bound ms)."""
     ks, ls = [], []
     pats = (match,) if isinstance(match, str) else tuple(match)
-    for i in range(PAIRS):
-        order = ((kf, pats, ks), (lib, (None,), ls))
+    for i in range(pairs):
+        order = ((kf, pats, ks),) + (() if lib is None else ((lib, (None,), ls),))
         for f, ms, out in (order if i % 2 == 0 else order[::-1]):
             rows = profiled_rows([f], reps, ms)
             require(rows is not None, f"profiler shows no device time for {ms[0] or lib_text}")
             out.append(sum(r[2] for r in rows if any(m is None or m in r[0] for m in ms))
                        / 1e3 / reps)
-    km, lm = float(np.median(ks)), float(np.median(ls))
+    km = float(np.median(ks))
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    tail = f"bound {bound:.4f} ms by bytes, {bound / km:.1%} of bound [{card}]"
+    if lib is None:
+        print(f"paired timing {name}: median {km:.4f} ms (spread {min(ks):.4f}-{max(ks):.4f}), "
+              f"{pairs} windows of {reps} calls; {tail}", flush=True)
+        return km, None, bound
+    lm = float(np.median(ls))
     ratios = [k / v for k, v in zip(ks, ls)]
     print(f"paired timing {name}: median {km:.4f} ms (spread {min(ks):.4f}-{max(ks):.4f}) against "
-          f"{lib_text} median {lm:.4f} ms (spread {min(ls):.4f}-{max(ls):.4f}), {PAIRS} pairs of "
+          f"{lib_text} median {lm:.4f} ms (spread {min(ls):.4f}-{max(ls):.4f}), {pairs} pairs of "
           f"windows of {reps} calls; kernel / library per pair median {float(np.median(ratios)):.3f} "
-          f"(spread {min(ratios):.3f}-{max(ratios):.3f}); bound {bound:.4f} ms by bytes, "
-          f"{bound / km:.1%} of bound [{card}]", flush=True)
+          f"(spread {min(ratios):.3f}-{max(ratios):.3f}); {tail}", flush=True)
     return km, lm, bound
 
 
@@ -2288,10 +2533,13 @@ def huffman_kernel_times(u8x3, mask, flags, card):
         consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
         args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
                 torch.from_numpy(consts).cuda(), torch.from_numpy(sorted_syms).cuda(), layout)
-        if mk is None and delta:
-            add("huffman_decode", lambda: dh.decode_stream_device(*args),
-                lambda: dh.decode_stream_device_ref(*args),
-                total / 8 + 8 * g + n, "huffman_decode_kernel")
+        if mk is None and delta:  # no PyTorch call decodes Huffman: no yardstick either
+            km, _lm, bound = paired_row(
+                "huffman_decode (the uint8 x 3 delta stream)",
+                lambda: dh.decode_stream_device(*args), "huffman_decode", None, "",
+                total / 8 + 8 * g + n, card, pairs=K3_H3_PAIRS)
+            rows["huffman_decode"] = (
+                km, cuda_ms([lambda: dh.decode_stream_device_ref(*args)], reps=1), bound, None)
         syms = dh.decode_stream_device(*args)[0]
         name = restore_name(mk is not None, delta)
         if mk is None and delta:
@@ -2377,6 +2625,11 @@ def huffman_phases(tiles, mask, card, launches, add_row):
           f"first rows invalid, one valid pixel, W = 1, H = 1, all and none valid, hole and "
           f"speckle; D 1-5 and 8; uint8 and int8; symbol views at storage offsets 1-15)",
           flush=True)
+    n_cases = h3_edge_check(tiles[0])
+    print(f"check: H3 equal to its plain version (symbols, used bits, ok) in {n_cases} cases: an "
+          f"fpl plane and the same with six hostile sidecars and a stream cut short in bits and "
+          f"in words, code lengths 1..32, a skewed and an incomplete code, hostile canonical rows, "
+          f"one group, 1,000 and 4,097 symbols, planes shorter than a group", flush=True)
     for data, mk, what in ((u8x3[0], None, "uint8 x 3"), (u8x3[0], mask, "uint8 x 3, bench mask"),
                            (flags[0], None, "quality flags"),
                            (flags[0], mask, "quality flags, bench mask")):
@@ -2676,7 +2929,9 @@ def fpl_kernel_times(tile, blob, index, card):
                        "huffman_group_bits_kernel")
         pk = device_ms([lambda: dh.encode_stream_device(planes[b], table, layout, n_words)],
                        "huffman_pack_kernel")
-        dc = device_ms([lambda: dh.decode_stream_device(*args)], "huffman_decode_kernel")
+        dc = paired_row(f"huffman_decode (fpl plane {b}, {n} symbols)",
+                        lambda: dh.decode_stream_device(*args), "huffman_decode", None, "",
+                        total / 8 + 2 * 4 * sbits.numel() + n, card, pairs=K3_H3_PAIRS)[0]
         stream = words.cpu().numpy().view(np.uint8)
         counts = dh.live_counts(sbits.numel(), layout)
         t0 = time.perf_counter()
@@ -2728,6 +2983,9 @@ def fpl_phases(tiles, mask, card, launches, add_row):
     for c in cells:
         for k, v in c[0].items():
             launches[k] = launches.get(k, 0) + v
+    tails = k3_tail_check(cells[0][1], "the float32 fpl cell")
+    print(f"check: K3 equal to its plain version, the host Fletcher32 and the blob's checksum on "
+          f"the {len(tails)} float32 fpl blobs as the tail ({tails[0].numel()} B each)", flush=True)
     # tile 0 as numpy renders it (the card's exp/sin differ by ulps), through the card
     t0_np = torch.from_numpy(numpy_tile0()).cuda()
     blob = encode_band_device(t0_np, None, 0.0)
@@ -2744,6 +3002,7 @@ def fpl_phases(tiles, mask, card, launches, add_row):
     rows = fpl_kernel_times(tiles[0], cells[0][1][0], cells[0][2][0], card)
     for name, (ms, plain_ms, bound_ms, lib_ms) in rows.items():
         add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes", lib_ms)
+    k3_tail_pair(tails, "the float32 fpl sections", card)
 
     def cell_round():
         enc = [encode_band_device(t, None, 0.0, return_index=True) for t in tiles]
@@ -3135,11 +3394,16 @@ def f64_phases(dev, mask, card, launches, add_row):
     for c in lossy + lossless:
         for k, v in c[0].items():
             launches[k] = launches.get(k, 0) + v
+    tails = k3_tail_check(lossless[0][1], "the lossless float64 cell")
+    print(f"check: K3 equal to its plain version, the host Fletcher32 and the blob's checksum on "
+          f"the {len(tails)} lossless float64 blobs as the tail ({tails[0].numel()} B each)",
+          flush=True)
 
     # ---- times
     rows = f64_kernel_times(tiles, mask, (lossy[0][1], lossy[1][1]), lossless[0][1][0], card)
     for name, (ms, plain_ms, bound_ms) in rows.items():
         add_row(name, err.get(name, 0.0), ms, plain_ms, bound_ms, "bytes", None)
+    k3_tail_pair(tails, "the lossless float64 sections", card)
     from lerc_tpu_torch import decode_band_device
 
     for label, mze, cell in (("lossy float64 cell (maxZError 0.001)", MAX_Z_ERROR, lossy[0]),
@@ -3982,6 +4246,12 @@ def main():
         print(f"check: K1m, K2m, K3, K4m equal to their plain versions on the masked {name} "
               f"tile ({h}x{w}x{d}, {int(m.sum())} valid, maxZError {mze}, nb_cap={nb_cap}); "
               f"{how}", flush=True)
+
+    n_k3 = k3_edge_check(dev)
+    print(f"check: K3 equal to its plain version (and to the host Fletcher32 where total lies "
+          f"in the stream) in {n_k3} cases: tails of 1 B to 1 MB at storage offsets 0-15 before "
+          f"streams at total 0 to capacity, streams at word offsets 1-3, a 25.7 MB tail with an "
+          f"empty stream, total past capacity and negative", flush=True)
 
     # ---- 3b. K5, K6 and the integer instances against their plain versions
     for nb_cap in (0, 16):

@@ -25,14 +25,41 @@
 //                             shared buffer at its warp-scanned offset, stores
 //                             the words only this group touches and atomicOr's
 //                             the first and last, which neighbours may share.
-//   H3 huffman_decode         decode_stream_device :278: one thread per group,
-//                             64 serial symbols from a 64-bit window at
-//                             sbits[g]; canonical decode against per-length
-//                             (first, limit, base) rows in shared memory, in
-//                             u32/u64, so code lengths 31 and 32 work; ok drops
-//                             on a live prefix matching no code, a code past
-//                             the stream, sbits[0] != 0 or a group whose bits
-//                             do not end where the next group's begin.
+//   H3 huffman_decode         decode_stream_device :278: one thread per 64-symbol
+//                             group, its symbols a serial chain. Bound: bytes,
+//                             total / 8 + 8 g + n (stream, sbits and used, the
+//                             symbols). (1) huffman_decode_table_kernel builds
+//                             the decode table once a call into scratch: per
+//                             12-bit prefix the shortest code length <= 12
+//                             matching it and its symbol, as the canonical
+//                             search finds it, and the present lengths past
+//                             12 (12 bits: 11 left 1.4% of an fpl plane's
+//                             symbols to the search and doubled its time; 13
+//                             only grew the copies). (2) A CTA of 128
+//                             consecutive groups copies the table (9 KB) and
+//                             stages its groups' stream span, from sbits[g0]
+//                             to a group's reach past the next CTA's first
+//                             start (contiguous bits), with 16-byte loads
+//                             behind one barrier (clamped to 10 KB and to the
+//                             stream; a group whose words lie outside reads
+//                             global memory, bounds-checked: the sidecar may be
+//                             hostile). (3) A thread decodes its group, four
+//                             symbols a u32 into a padded shared buffer: where
+//                             every code is <= 12 bits, every position live,
+//                             the stream long enough and the words staged, a
+//                             fast loop of a funnel shift, one table lookup and
+//                             a refill every 32 bits (a miss, only on a corrupt
+//                             stream, goes back to the checked loop); else the
+//                             checked loop with liveness as 64 bits computed
+//                             once (one i % plane), the search over the present
+//                             lengths past 12 (u32/int64, so lengths 31 and 32
+//                             work; the order of the search unchanged) and the
+//                             stream's end. (4) The CTA stores its [groups * 64]
+//                             bytes as side-by-side 16-byte stores. ok drops on
+//                             a negative start, a live prefix matching no code,
+//                             a code past n_bits, sbits[0] != 0 or a group
+//                             whose bits do not end where the next group's
+//                             begin.
 //   H4 huffman_restore        symbols_to_image :476 direct: img = (sym - offset) & 0xFF
 //                             on the pixel-major symbols. Bound: bytes, 2n (n
 //                             read, n written). One thread per 16 bytes, no
@@ -104,7 +131,7 @@
 //                             the number of segments (JAX stops at 2^16).
 //
 // Bounds: bytes throughout (8-bit symbols, a few integer operations each).
-// H3's groups are serial chains: their time is latency, far above the bytes
+// H3's groups are serial chains: their time is latency, above the bytes
 // bound.
 
 #include <cstdint>
@@ -120,7 +147,11 @@ constexpr int CHUNK = 256;            // pixels per rank chunk = H1's CTA
 constexpr int MAX_GRID = 1056;        // 8 CTAs on each of 132 SMs (grid-stride beyond)
 constexpr int PACK_WARPS = 8;         // groups per CTA in H2
 constexpr int PACK_WORDS = 66;        // a group's words from its first: <= (31 + 2048 + 31) / 32 + 1
-constexpr int DEC_THREADS = 128;
+constexpr int DEC_THREADS = 128;        // H3: groups a CTA, one a thread
+constexpr int DEC_K = 12;               // H3's table: one entry per 12-bit prefix (8 KB)
+constexpr int DEC_SPAN = 67;            // words a group may read: 2,048 bits from bit 31 on
+constexpr int DEC_STAGE_WORDS = 20 * DEC_THREADS + 96;  // 10 bits a symbol and a group's reach
+constexpr int DEC_OUT_ROW = 17;         // a group's u32 words in the output buffer, padded (1)
 constexpr int COL_THREADS = 128, COL_MAX_CTAS = 128;  // column 0's scan
 constexpr int RST_THREADS = 128;                   // the all-valid restores: 16 bytes a thread
 constexpr int RST_PX = 16 * RST_THREADS;           // pixels a delta tile (D <= 8)
@@ -283,76 +314,228 @@ __global__ void __launch_bounds__(PACK_WARPS * 32) huffman_pack_kernel(
 // H3
 // ---------------------------------------------------------------------------
 
+// H3's decode table, built once a call (huffman_decode_table_kernel) and
+// copied into each CTA's shared memory with 16-byte loads.
+struct DecTable {
+    uint16_t lut[1 << DEC_K];  // (length << 8) | symbol of the shortest code <= K; 0: none
+    long long lfirst[32], llimit[32], lbase[32];  // the present lengths past K, ascending
+    int llen[32];
+    int n_long, pad[3];
+    uint8_t syms[256];  // the canonical-order symbols
+};
+static_assert(sizeof(DecTable) % 16 == 0, "DecTable is copied as uint4");
+
+__global__ void __launch_bounds__(256) huffman_decode_table_kernel(
+        const long long* __restrict__ consts, const uint8_t* __restrict__ sorted_syms,
+        DecTable* __restrict__ tab) {
+    __shared__ long long cf[32], cl[32], cb[32];
+    __shared__ uint8_t ss[256];
+    const int tid = threadIdx.x;
+    if (tid < 32) {  // a lane a length; the lengths past K compacted in order
+        const int L = tid + 1;
+        const long long f = consts[3 * L], lim = consts[3 * L + 1], bs = consts[3 * L + 2];
+        cf[tid] = f;
+        cl[tid] = lim;
+        cb[tid] = bs;
+        const bool is_long = lim > f && L > DEC_K;
+        const unsigned longs = __ballot_sync(FULL, is_long);
+        if (blockIdx.x == 0) {
+            if (is_long) {
+                const int j = __popc(longs & ((1u << tid) - 1u));
+                tab->lfirst[j] = f;
+                tab->llimit[j] = lim;
+                tab->lbase[j] = bs;
+                tab->llen[j] = L;
+            }
+            if (tid == 0) tab->n_long = __popc(longs);
+        }
+    }
+    ss[tid] = sorted_syms[tid];
+    if (blockIdx.x == 0) tab->syms[tid] = ss[tid];
+    __syncthreads();
+    const int p = blockIdx.x * 256 + tid;  // a K-bit prefix
+    if (p >= (1 << DEC_K)) return;
+    unsigned e = 0;
+    for (int L = 1; L <= DEC_K; ++L) {  // the shortest matching length, as the search finds it
+        const long long c = p >> (DEC_K - L);
+        if (c >= cf[L - 1] && c < cl[L - 1]) {
+            long long idx = cb[L - 1] + c - cf[L - 1];
+            idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+            e = ((unsigned)L << 8) | ss[idx];
+            break;
+        }
+    }
+    tab->lut[p] = (uint16_t)e;
+}
+
+// The canonical search over the present lengths past K of a prefix that no
+// code of length <= K matches: (length << 8) | symbol, or 0 for none.
+__device__ __forceinline__ unsigned search_long(unsigned peek, const DecTable& t) {
+    for (int k = 0; k < t.n_long; ++k) {
+        const long long c = (long long)(peek >> (32 - t.llen[k]));
+        if (c >= t.lfirst[k] && c < t.llimit[k]) {
+            long long idx = t.lbase[k] + c - t.lfirst[k];
+            idx = idx < 0 ? 0 : (idx > 255 ? 255 : idx);
+            return ((unsigned)t.llen[k] << 8) | t.syms[idx];
+        }
+    }
+    return 0;
+}
+
+// The 64 positions of the group at i0 as bits: bit s set when i0 + s is live.
+__device__ __forceinline__ unsigned long long live_bits(long long i0, long long n_total,
+                                                        long long plane, long long n_live) {
+    unsigned long long bits = 0;
+    long long r = i0 % plane;  // once a group; the runs between plane boundaries below
+    for (int s = 0; s < GROUP;) {
+        const long long run = plane - r < GROUP - s ? plane - r : GROUP - s;
+        long long nl = n_live - r;
+        nl = nl < 0 ? 0 : (nl > run ? run : nl);
+        if (nl > 0) bits |= (nl == GROUP ? ~0ull : (1ull << nl) - 1) << s;
+        s += (int)run;
+        r = 0;
+    }
+    const long long left = n_total - i0;
+    if (left < GROUP) bits &= left > 0 ? (1ull << left) - 1 : 0ull;
+    return bits;
+}
+
+// the symbol byte of e into byte j & 3 of v
+__device__ __forceinline__ unsigned put_sym(unsigned v, unsigned e, int j) {
+    const unsigned sel[4] = {0x3214u, 0x3240u, 0x3410u, 0x4210u};
+    return __byte_perm(v, e, sel[j & 3]);
+}
+
 __global__ void __launch_bounds__(DEC_THREADS) huffman_decode_kernel(
         const unsigned* __restrict__ words, long long n_words, long long n_bits,
-        const int* __restrict__ sbits, int n_groups, const long long* __restrict__ consts,
-        const uint8_t* __restrict__ sorted_syms, long long n_total, long long plane,
-        long long n_live, uint8_t* __restrict__ syms, int* __restrict__ used_out,
-        int* __restrict__ ok) {
-    __shared__ unsigned long long first[32], limit[32];
-    __shared__ int base[32], lens[32], n_lens;
-    __shared__ uint8_t table[256];
-    if (threadIdx.x == 0) {
-        int n = 0;
-        for (int L = 1; L <= 32; ++L) {
-            const long long f = consts[3 * L], lim = consts[3 * L + 1];
-            if (lim > f) {
-                lens[n] = L;
-                first[n] = (unsigned long long)f;
-                limit[n] = (unsigned long long)lim;
-                base[n] = (int)consts[3 * L + 2];
-                ++n;
-            }
+        const int* __restrict__ sbits, int n_groups, const DecTable* __restrict__ table,
+        long long n_total, long long plane, long long n_live, uint8_t* __restrict__ syms,
+        int* __restrict__ used_out, int* __restrict__ ok) {
+    __shared__ __align__(16) DecTable tab;
+    __shared__ __align__(16) unsigned stage[DEC_STAGE_WORDS];
+    __shared__ unsigned obuf[DEC_THREADS * DEC_OUT_ROW];
+    const int tid = threadIdx.x;
+    const int g0 = blockIdx.x * DEC_THREADS;
+    const int n_out = n_groups - g0 < DEC_THREADS ? n_groups - g0 : DEC_THREADS;
+
+    // the table, and the CTA's stream span, words [s_lo, s_lo + n_stage): from the
+    // 16-aligned word at or below its first group's start to a group's reach past the
+    // next CTA's first start (the sidecar may be hostile: clamped to the buffer and,
+    // word by word at the ends, to [0, n_words)); one barrier for both
+#pragma unroll 4
+    for (int i = tid; i < (int)(sizeof(DecTable) / 16); i += DEC_THREADS)
+        reinterpret_cast<uint4*>(&tab)[i] = __ldg(reinterpret_cast<const uint4*>(table) + i);
+    const long long b0 = sbits[g0];
+    const long long b1 = g0 + DEC_THREADS < n_groups ? sbits[g0 + DEC_THREADS] : n_bits;
+    long long w_lo = b0 < 0 ? 0 : b0 >> 5;
+    if (w_lo > n_words) w_lo = n_words;
+    const long long s_lo = w_lo - (long long)((reinterpret_cast<uintptr_t>(words + w_lo) >> 2) & 3);
+    long long w_hi = b1 < 0 ? 0 : (b1 >> 5) + DEC_SPAN;
+    if (w_hi > n_words) w_hi = n_words;
+    long long span = w_hi - s_lo;
+    span = span < 0 ? 0 : (span > DEC_STAGE_WORDS ? DEC_STAGE_WORDS : span);
+    const int n_stage = (int)((span + 3) & ~3ll);
+#pragma unroll 4
+    for (int v = tid; v < n_stage / 4; v += DEC_THREADS) {
+        const long long k = s_lo + 4 * v;
+        uint4 x;
+        if (k >= 0 && k + 4 <= n_words) {
+            x = __ldg(reinterpret_cast<const uint4*>(words + k));
+        } else {
+            unsigned w4[4];
+            for (int j = 0; j < 4; ++j) w4[j] = k + j >= 0 && k + j < n_words ? words[k + j] : 0u;
+            x = make_uint4(w4[0], w4[1], w4[2], w4[3]);
         }
-        n_lens = n;
+        reinterpret_cast<uint4*>(stage)[v] = x;
     }
-    for (int i = threadIdx.x; i < 256; i += DEC_THREADS) table[i] = sorted_syms[i];
     __syncthreads();
-    const long long g = (long long)blockIdx.x * DEC_THREADS + threadIdx.x;
-    if (g >= n_groups) return;
-    const int nl = n_lens;
-    const long long start = sbits[g];
-    long long pos = start;
-    bool bad = pos < 0;
-    long long wi = bad ? 0 : pos >> 5;
-    auto load = [&](long long k) -> unsigned long long {
-        return k >= 0 && k < n_words ? (unsigned long long)words[k] : 0ull;
-    };
-    unsigned long long win = (load(wi) << 32) | load(wi + 1);  // bits from word wi on
-    int sh = bad ? 0 : (int)(pos & 31);
-    int used = 0;
-    for (int s = 0; s < GROUP; ++s) {
-        const long long i = g * GROUP + s;
-        uint8_t out = 0;
-        if (!bad && is_live(i, n_total, plane, n_live)) {
-            const unsigned peek = (unsigned)((win << sh) >> 32);
-            int j = 0, L = 0;
-            unsigned long long c = 0;
-            for (; j < nl; ++j) {
-                L = lens[j];
-                c = peek >> (32 - L);
-                if (c >= first[j] && c < limit[j]) break;
-            }
-            if (j == nl || pos + L > n_bits) {
-                bad = true;
-            } else {
-                out = table[base[j] + (int)(c - first[j])];
-                pos += L;
-                used += L;
-                sh += L;
-                if (sh >= 32) {
-                    sh -= 32;
-                    ++wi;
-                    win = (win << 32) | load(wi + 1);
+
+    const long long g = (long long)g0 + tid;
+    if (tid < n_out) {
+        const long long start = sbits[g];
+        const long long w0 = start < 0 ? 0 : start >> 5;  // the group's first word
+        // a group reads words w0 .. w0 + DEC_SPAN - 1 at most: staged, or from
+        // global memory one at a time (words outside [0, n_words) read as 0)
+        const long long r0 = w0 - s_lo;
+        const bool staged = r0 >= 0 && r0 + DEC_SPAN <= n_stage;
+        auto load = [&](int k) -> unsigned {
+            if (staged) return stage[r0 + k];
+            const long long w = w0 + k;
+            return w >= 0 && w < n_words ? __ldg(words + w) : 0u;
+        };
+        const int p0 = start < 0 ? 0 : (int)(start & 31);  // the first bit, from word w0's first
+        const long long rem = n_bits - start;  // the bits left: a group needs at most 2048
+        const int lim = p0 + (int)(rem < 0 ? -1 : (rem > 4096 ? 4096 : rem));
+        const unsigned long long live = live_bits(g * GROUP, n_total, plane, n_live);
+        bool bad = start < 0;
+        int p = p0;
+        unsigned* out = obuf + tid * DEC_OUT_ROW;
+        if (tab.n_long == 0 && !bad && staged && live == ~0ull
+                && lim - p0 >= 2048) {
+            // no code longer than K, every position live, the stream long enough, the
+            // words staged: no test but the table's miss, which only a corrupt stream
+            // meets and which goes back to the checked loop
+            unsigned hi = stage[r0], lo = stage[r0 + 1];
+            for (int c = 0; c < GROUP / 4; ++c) {  // four symbols a u32
+                unsigned v = 0;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const unsigned peek = __funnelshift_l(lo, hi, p);  // the next 32 bits
+                    const unsigned e = tab.lut[peek >> (32 - DEC_K)];
+                    if (e == 0) goto checked;
+                    const int np = p + (int)(e >> 8);
+                    v = put_sym(v, e, j);
+                    if ((np ^ p) >= 32) {  // into the next word
+                        hi = lo;
+                        lo = stage[r0 + (np >> 5) + 1];
+                    }
+                    p = np;
                 }
+                out[c] = v;
+            }
+            goto done;
+        }
+    checked:
+        p = p0;
+        {
+            unsigned hi = load(0), lo = load(1);
+            for (int c = 0; c < GROUP / 4; ++c) {
+                const unsigned lc = (unsigned)(live >> (4 * c));
+                unsigned v = 0;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    if (bad || !(lc & (1u << j))) continue;
+                    const unsigned peek = __funnelshift_l(lo, hi, p);
+                    unsigned e = tab.lut[peek >> (32 - DEC_K)];
+                    if (e == 0) e = search_long(peek, tab);
+                    const int np = p + (int)(e >> 8);
+                    if (e == 0 || np > lim) {
+                        bad = true;
+                        continue;
+                    }
+                    v = put_sym(v, e, j);
+                    if ((np ^ p) >= 32) {
+                        hi = lo;
+                        lo = load((np >> 5) + 1);
+                    }
+                    p = np;
+                }
+                out[c] = v;
             }
         }
-        syms[i] = out;
+    done:
+        const int used = p - p0;
+        used_out[g] = used;
+        if (bad || (g == 0 && start != 0)
+                || (g + 1 < n_groups && (long long)sbits[g + 1] - start != used))
+            *ok = 0;
     }
-    used_out[g] = used;
-    if (bad || (g == 0 && start != 0)
-            || (g + 1 < n_groups && (long long)sbits[g + 1] - start != used))
-        *ok = 0;
+    __syncthreads();  // the CTA's [n_out * 64] bytes, 16-byte stores side by side
+    for (int i = tid; i < n_out * (GROUP / 16); i += DEC_THREADS) {
+        const unsigned* r = obuf + (i >> 2) * DEC_OUT_ROW + 4 * (i & 3);
+        reinterpret_cast<uint4*>(syms + (long long)g0 * GROUP)[i] =
+            make_uint4(r[0], r[1], r[2], r[3]);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1044,16 +1227,33 @@ extern "C" int huffman_pack(const uint8_t* sym, const int* table, long long n_to
     return (int)cudaGetLastError();
 }
 
-// consts [33, 3] int64; syms [n_groups * 64]; used [n_groups]; ok: 1 on entry
+// bytes of scratch huffman_decode needs for its decode table (the table's
+// layout is this source's alone; callers size their buffer by this query)
+extern "C" long long huffman_decode_scratch() { return (long long)sizeof(DecTable); }
+
+// consts [33, 3] int64; sorted_syms [256]; syms [n_groups * 64], 16-aligned (a
+// fresh allocation); used [n_groups]; ok: 1 on entry; words: any alignment;
+// scratch: huffman_decode_scratch() bytes, 16-aligned. Two launches: the decode
+// table, then the groups.
 extern "C" int huffman_decode(const unsigned* words, long long n_words, long long n_bits,
                               const int* sbits, int n_groups, const long long* consts,
                               const uint8_t* sorted_syms, long long n_total, long long plane,
-                              long long n_live, uint8_t* syms, int* used, int* ok, void* stream) {
+                              long long n_live, void* scratch, long long n_scratch,
+                              uint8_t* syms, int* used, int* ok, void* stream) {
     if (n_groups == 0) return 0;
+    if (n_scratch < huffman_decode_scratch()) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(syms) | reinterpret_cast<uintptr_t>(scratch)) & 15)
+        return (int)cudaErrorMisalignedAddress;
+    const cudaStream_t st = (cudaStream_t)stream;
+    DecTable* tab = static_cast<DecTable*>(scratch);
+    huffman_decode_table_kernel<<<((1 << DEC_K) + 255) / 256, 256, 0, st>>>(consts, sorted_syms,
+                                                                             tab);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     const unsigned grid = (unsigned)((n_groups + DEC_THREADS - 1) / DEC_THREADS);
-    huffman_decode_kernel<<<grid, DEC_THREADS, 0, (cudaStream_t)stream>>>(
-        words, n_words, n_bits, sbits, n_groups, consts, sorted_syms, n_total, plane, n_live,
-        syms, used, ok);
+    huffman_decode_kernel<<<grid, DEC_THREADS, 0, st>>>(words, n_words, n_bits, sbits, n_groups,
+                                                       tab, n_total, plane, n_live, syms, used,
+                                                       ok);
     return (int)cudaGetLastError();
 }
 

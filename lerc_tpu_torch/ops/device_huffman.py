@@ -14,8 +14,9 @@ functions' names:
      group, its bit count (``huffman_group_bits``), an exclusive scan over
      the groups (the sidecar ``sbits``, ``torch.cumsum``), then the
      MSB-first codes into LE u32 words (``huffman_pack``);
-  H3 ``decode_stream_device`` (:278): one thread per group decodes its 64
-     symbols serially from ``sbits[g]``, canonically;
+  H3 ``decode_stream_device`` (:278): a decode table of the code's 12-bit
+     prefixes (one small kernel), then one thread per group decodes its 64
+     symbols serially from ``sbits[g]`` through that table;
   H4 ``symbols_to_image`` (:477), ``expand_compacted_device`` (:389) and
      ``undelta_masked_device`` (:432): symbols back to the [H, W, D] image.
 
@@ -314,14 +315,18 @@ def decode_stream_device(words: torch.Tensor, n_bits: int, sbits: torch.Tensor,
         raise ValueError("n_bits exceeds the words given")
     if not build.on_cuda(words, sbits, consts, sorted_syms):
         return decode_stream_device_ref(words, n_bits, sbits, consts, sorted_syms, layout)
-    fn = _ctypes_fn("huffman_decode", [_P, _L, _L, _P, _I, _P, _P, _L, _L, _L, _P, _P, _P, _P])
+    fn = _ctypes_fn("huffman_decode",
+                    [_P, _L, _L, _P, _I, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P, _P])
+    n_scratch = _ctypes_fn("huffman_decode_scratch", [], _L)()
     with torch.cuda.device(words.device):
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=words.device)  # the table
         syms = torch.empty(g * GROUP, dtype=torch.uint8, device=words.device)
         used = torch.empty(g, dtype=torch.int32, device=words.device)
         ok = torch.ones(1, dtype=torch.int32, device=words.device)
         err = fn(words.data_ptr(), words.numel(), n_bits, sbits.contiguous().data_ptr(), g,
                  consts.contiguous().data_ptr(), sorted_syms.data_ptr(), n_total, plane, n_live,
-                 syms.data_ptr(), used.data_ptr(), ok.data_ptr(), build.launch_stream(words))
+                 scratch.data_ptr(), n_scratch, syms.data_ptr(), used.data_ptr(), ok.data_ptr(),
+                 build.launch_stream(words))
         build.check(err, "huffman_decode")
     build.LAUNCHES["huffman_decode"] += 1
     return syms, used, ok[0] != 0

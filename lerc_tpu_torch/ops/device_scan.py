@@ -31,14 +31,15 @@ def fletcher32_parts(pre: torch.Tensor, static_ab: tuple[int, int, int],
                      tail: torch.Tensor, stream: torch.Tensor,
                      total: torch.Tensor) -> torch.Tensor:
     """Fletcher32 of pre || STATIC || tail || stream[:total] as a 0-d int32
-    tensor holding the u32 checksum bits. K3 on CUDA tensors; the plain
-    version on CPU tensors."""
+    tensor holding the u32 checksum bits. K3 on CUDA tensors (one launch:
+    the whole grid reads every part, whatever its length and alignment);
+    the plain version on CPU tensors."""
     _check(pre, tail, stream, total, static_ab)
     if not build.on_cuda(pre, tail, stream, total):
         return fletcher32_parts_ref(pre, static_ab, tail, stream, total)
     lib = build.library("fletcher32")
     fn = lib.fletcher32_parts
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

@@ -1,6 +1,8 @@
 """Port parity: the plain version of K3 (fletcher32_parts) vs the JAX
 device_scan.fletcher32_device_parts and vs the host Fletcher32 of the
-concatenated message bytes. Criterion: equal checksums."""
+concatenated message bytes, on short and long tails (tens of thousands of
+bytes, odd and even, with and without a stream and a static part).
+Criterion: equal checksums."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -33,6 +35,11 @@ def _message(n_pre, n_static, n_tail, total, seed):
     (8, 4, 10, 0),      # empty stream
     (76, 4, 9, 0),      # empty stream after an odd tail
     (76, 4, 10, 4 * CAP_W),  # full capacity
+    # long tails (the band codec checksums a whole fpl blob as the tail)
+    (76, 4, 40001, 333),      # odd, before a stream
+    (76, 290, 65536, 2047),   # even, after a static part
+    (0, 0, 30001, 0),         # alone: no header part, no static part, an empty stream
+    (8, 0, 50000, 4 * CAP_W),  # even, before a full stream
 ])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fletcher32_parts_matches_jax_and_host(n_pre, n_static, n_tail, total, seed):

@@ -303,6 +303,123 @@ def test_h3_decodes_codes_of_31_and_32_bits():
     np.testing.assert_array_equal(sb.numpy(), sbits)
 
 
+DEEP_HISTOS = {  # codes past 12 bits: lengths 2..15 and 1..19
+    "skewed-28": np.round(1.6 ** np.arange(28)).astype(np.int64),
+    "pow2-20": 2 ** np.arange(20, dtype=np.int64),
+}
+
+
+def deep_stream(kind, n=3000, seed=5):
+    """(lengths, codes, symbols [g * 64], H3 args) of n symbols drawn evenly
+    from a deep code's symbols, packed by H2's plain version."""
+    hst = np.zeros(256, np.int64)
+    hst[:DEEP_HISTOS[kind].size] = DEEP_HISTOS[kind]
+    lengths = huffman.compute_code_lengths(hst)
+    codes = huffman.canonical_codes(lengths)
+    g = -(-n // G)
+    sym = torch.zeros(g * G, dtype=torch.uint8)
+    sym[:n] = torch.from_numpy(np.random.default_rng(seed).choice(np.flatnonzero(lengths), n)
+                               .astype(np.uint8))
+    layout = (n, n, n)
+    n_words = -(-int(lengths[sym[:n].numpy()].sum()) // 32) + 1
+    words, _tb, sbits = dh.encode_stream_device(sym, dh.code_table(lengths, codes, "cpu"), layout,
+                                                n_words)
+    consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+    args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits, torch.from_numpy(consts),
+            torch.from_numpy(sorted_syms), layout)
+    return lengths, codes, sym, args
+
+
+def jax_h3(args, lengths, sbits=None, consts=None):
+    """JAX's decode_stream_device on the plain version's arguments."""
+    words, _nb, sb, cst, sorted_syms, (n, _p, _l) = args
+    sb = sb if sbits is None else sbits
+    cst = cst if consts is None else consts
+    w = words.numpy().view(np.uint32)
+    stream_u32 = np.zeros(-(-4 * w.size // 512) * 128, np.uint32)
+    stream_u32[:w.size] = w
+    lanes = sorted_syms.numpy().astype(np.float32).reshape(16, 16, 1)
+    out = jdh.decode_stream_device(jnp.asarray(stream_u32), jnp.asarray(np.asarray(sb)),
+                                   jnp.asarray(np.asarray(cst).astype(np.int32)),
+                                   jnp.asarray(lanes), n, int(lengths.max()))
+    return np.asarray(out[0]), np.asarray(out[1]), bool(out[2])
+
+
+@pytest.mark.parametrize("kind", list(DEEP_HISTOS))
+def test_h3_deep_codes_match_jax(kind):
+    """Codes past 12 bits (past the CUDA kernel's decode table, into its
+    search over the longer lengths): the plain version equals JAX's decode
+    and the input."""
+    lengths, _codes, sym, args = deep_stream(kind)
+    assert lengths.max() > 12
+    n = args[5][0]
+    syms, used, ok = dh.decode_stream_device(*args)
+    jsyms, jused, jok = jax_h3(args, lengths)
+    assert bool(ok) and jok
+    np.testing.assert_array_equal(syms.numpy()[:n], sym.numpy()[:n])
+    np.testing.assert_array_equal(syms.numpy()[:n], jsyms[:n])
+    np.testing.assert_array_equal(used.numpy(), jused)
+
+
+def test_h3_incomplete_code_matches_jax():
+    """A table that lacks one code of the stream (its longest length's last
+    code): each group decodes up to that symbol's first place, then stops;
+    used bits equal to JAX's, ok False in both."""
+    lengths, codes, sym, args = deep_stream("skewed-28")
+    longest = np.flatnonzero(lengths == lengths.max())
+    drop = int(longest[np.argmax(codes[longest])])
+    cut = lengths.copy()
+    cut[drop] = 0
+    consts, sorted_syms = huffman.canonical_decode_consts(cut, codes)
+    args = (*args[:3], torch.from_numpy(consts), torch.from_numpy(sorted_syms), args[5])
+    syms, used, ok = dh.decode_stream_device(*args)
+    jsyms, jused, jok = jax_h3(args, lengths, consts=consts)
+    assert not bool(ok) and not jok
+    np.testing.assert_array_equal(used.numpy(), jused)
+    n = args[5][0]
+    inp, got = sym.numpy()[:n], syms.numpy()[:n]
+    for g0 in range(0, n, G):
+        grp = inp[g0:g0 + G]
+        f = int(np.argmax(grp == drop)) if (grp == drop).any() else grp.size
+        np.testing.assert_array_equal(got[g0:g0 + f], grp[:f])
+        np.testing.assert_array_equal(jsyms[g0:g0 + f], grp[:f])
+        assert not got[g0 + f:g0 + grp.size].any()
+    assert (inp == drop).any()
+
+
+@pytest.mark.parametrize("how", ["moved", "negative", "past", "shifted"])
+def test_h3_hostile_sidecar_matches_jax(how):
+    """A sidecar that lies: one start moved by a bit, one negative, one past
+    the stream, every start shifted by a word. ok False in both; the used
+    bits equal JAX's in every group whose start the edit left (for the moved
+    start, in every group), the symbols too where the group is whole."""
+    lengths, _codes, sym, args = deep_stream("skewed-28")
+    sb = args[2].numpy().copy()
+    g, k = sb.size, sb.size // 2
+    if how == "moved":
+        sb[k] += 1
+    elif how == "negative":
+        sb[k] = -5
+    elif how == "past":
+        sb[k] = 2**31 - 1
+    else:
+        sb += 32
+    hostile = (args[0], args[1], torch.from_numpy(sb), *args[3:])
+    syms, used, ok = dh.decode_stream_device(*hostile)
+    _jsyms, jused, jok = jax_h3(args, lengths, sbits=sb)
+    assert not bool(ok) and not jok
+    if how == "shifted":
+        return
+    keep = np.ones(g, bool)
+    if how != "moved":
+        keep[k] = False
+        assert used.numpy()[k] == 0
+    np.testing.assert_array_equal(used.numpy()[keep], jused[keep])
+    keep[k] = False
+    whole = np.repeat(keep, G)[:args[5][0]]
+    np.testing.assert_array_equal(syms.numpy()[:whole.size][whole], sym.numpy()[:whole.size][whole])
+
+
 RESTORE_CASES = [(np.uint8, 1, "none"), (np.int8, 3, "none"), (np.uint8, 1, "rand"),
                  (np.int8, 2, "stripes")]
 

@@ -1,6 +1,6 @@
-"""The port stands alone: lerc_tpu_torch, chip_smoke.py and chip_compare.py
-import neither JAX nor anything of the lerc_tpu package, at run time or in
-their sources."""
+"""The port stands alone: lerc_tpu_torch, chip_smoke.py, chip_compare.py and
+the chip_tune_*.py scripts import neither JAX nor anything of the lerc_tpu
+package, at run time or in their sources."""
 import ast
 import json
 import os
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "lerc_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "chip_compare.py"]
+    REPO / "chip_smoke.py", REPO / "chip_compare.py", *sorted(REPO.glob("chip_tune_*.py"))]
 
 
 def _forbidden(module: str) -> bool:
