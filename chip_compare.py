@@ -51,6 +51,18 @@ measured. MEASURE is one of:
        (predictor 1, levels (2, 1, 0, 0), as fpl), each set round-robin
        past the L2, every output (symbols, used bits, ok) first held to
        decode_stream_device_ref: the device time of the kernel.
+  f2b  F2b (fpl_packbits_size) per call on the planes of the four float32
+       tiles (predictor 1, levels (2, 1, 0, 0), as fpl) and on the eight
+       planes of the four float64 tiles (the lossless DEM cell's choice, as
+       f3), each set round-robin past the L2, every result first held to
+       fpl_packbits_size_ref: the device time of F2b's kernels and memsets
+       (names holding "fpl_p"), and of all the call's device work (a tree
+       that zeroes its sums with a fill kernel counts it there).
+  h1m  the masked H1 (symbol_streams_device with a mask) per call on the
+       uint8 three-band tile with the bench mask, its outputs first held to
+       symbol_streams_device_ref: the device time of its kernel and memsets
+       (names holding "huffman_symbols"), and of all the call's device work
+       (a tree with rank-chunk glue counts its torch ops there).
 """
 import subprocess
 import sys
@@ -280,8 +292,47 @@ def h3_turn(cs, dev) -> dict:
     return out
 
 
+def f2b_turn(cs, dev) -> dict:
+    import torch
+
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    out = {}
+    for label, tiles, pred, levels in (
+            ("f32", cs.make_tiles(4, 2048, dev), 1, (2, 1, 0, 0)),
+            ("f64", cs.make_tiles64(4, 2048, dev), 0, (0, 1, 1, 3, 3, 2, 1, 1))):
+        n = 2048 * 2048
+        planes = [F.fpl_finalize(t, pred, levels)[0] for t in tiles]
+        for q in planes:
+            if not torch.equal(F.fpl_packbits_size(q, n), F.fpl_packbits_size_ref(q, n)):
+                raise SystemExit(f"F2b != its plain version ({label})")
+        calls = [lambda q=q: F.fpl_packbits_size(q, n) for q in planes]
+        out[f"{label}_kernels"] = dev_ms(cs, calls, ("fpl_p", "Memset"), reps=10)
+        out[f"{label}_all"] = dev_ms(cs, calls, (None,), reps=10)
+    return out
+
+
+def h1m_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    tiles = cs.make_tiles(1, 2048, dev)
+    u8 = cs.int_cell_tiles(tiles, np.uint8, 3)[0].to(torch.int32).contiguous()
+    mask = torch.from_numpy(cs.bench_mask()).to(dev)
+    k = dh.symbol_streams_device(u8, mask, DataType.BYTE)
+    r = dh.symbol_streams_device_ref(u8, mask, DataType.BYTE)
+    if not all(torch.equal(a, b) for a, b in zip(k, r)):
+        raise SystemExit("H1 masked != its plain version")
+    call = [lambda: dh.symbol_streams_device(u8, mask, DataType.BYTE)]
+    return {"kernels": dev_ms(cs, call, ("huffman_symbols", "Memset"), reps=20),
+            "all": dev_ms(cs, call, (None,), reps=20)}
+
+
 MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
-            "k3": k3_turn, "h3": h3_turn}
+            "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

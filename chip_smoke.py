@@ -2319,6 +2319,58 @@ def h4_masked_check(dev):
     return cases
 
 
+H1M_TILE_PX = 2048  # the masked H1's tile of pixels (kernels/huffman.cu H1M_PX)
+
+
+def h1m_edge_check(u8x3, mask):
+    """The masked H1 (huffman_symbols_masked) against
+    symbol_streams_device_ref (both streams and the histograms, exactly) on
+    random 8-bit data: an empty, a full and a random mask, one valid pixel
+    (the first, the last), at W 47 (not a multiple of 32) and H W not a
+    multiple of the tile, D 1, 2, 3, 4, 5 and 8, uint8 and int8; valid pixels
+    only in every 500th tile; one column; the bench mask on the 2048^2 x 3
+    tile. Returns the number of cases."""
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    dev = u8x3.device
+    rng = np.random.default_rng(18)
+    cases = 0
+
+    def case(data, mk, label):
+        nonlocal cases
+        m = torch.from_numpy(np.ascontiguousarray(mk)).to(dev)
+        for dt in (DataType.BYTE, DataType.CHAR):
+            x = (data - 128 if dt == DataType.CHAR else data).contiguous()
+            k = dh.symbol_streams_device(x, m, dt)
+            r = dh.symbol_streams_device_ref(x, m, dt)
+            require(all(torch.equal(a, b) for a, b in zip(k, r)),
+                    f"H1 masked != plain ({label}, {dt.name})")
+            cases += 1
+
+    def rand(h, w, d):
+        return torch.from_numpy(rng.integers(0, 256, (h, w, d), dtype=np.int32)).to(dev)
+
+    for h, w in ((61, 47), (129, 31)):
+        first, last = np.zeros((h, w), bool), np.zeros((h, w), bool)
+        first[0, 0] = last[-1, -1] = True
+        masks = {"empty": np.zeros((h, w), bool), "full": np.ones((h, w), bool),
+                 "first pixel": first, "last pixel": last, "random": rng.random((h, w)) > 0.3,
+                 "stripes": stripes_mask(h, w)}
+        for d in (1, 2, 3, 4, 5, 8):
+            data = rand(h, w, d)
+            for name, mk in masks.items():
+                case(data, mk, f"{h}x{w}x{d}, {name} mask")
+    rows = 1001  # a tile a row
+    sparse = np.zeros((rows, H1M_TILE_PX), bool)
+    sparse[::500] = rng.random((len(range(0, rows, 500)), H1M_TILE_PX)) > 0.5
+    for d in (1, 3):
+        case(rand(rows, H1M_TILE_PX, d), sparse, f"{rows}x{H1M_TILE_PX}x{d}, every 500th tile")
+    case(rand(5000, 1, 2), rng.random((5000, 1)) > 0.5, "5000x1x2, random mask")
+    case(u8x3.to(torch.int32), mask, f"{TILE}^2 uint8 x 3, bench mask")
+    return cases
+
+
 def tiling_bytes(t, mask):
     """The 8x8 tiling candidate's payload bytes of a lossless 8-bit band
     (what the Huffman blob beat)."""
@@ -2477,9 +2529,9 @@ def huffman_kernel_times(u8x3, mask, flags, card):
     PyTorch call that computes the same function; the three all-valid
     restores (column 0, rows, direct) and their library calls from paired
     windows (paired_row, col0_pair), the median standing for each. The masked H1 and masked
-    direct H4 rows time the whole wrapper (the kernel and its rank-chunk
-    glue); the kernel alone is printed beside them. Returns {kernel: (ms,
-    plain ms, bound ms, library ms or None)}."""
+    direct H4 rows time the whole wrapper (the kernel and its memset, or
+    its rank-chunk glue); the kernel alone is printed beside them. Returns
+    {kernel: (ms, plain ms, bound ms, library ms or None)}."""
     from lerc_tpu_torch.codec import huffman
     from lerc_tpu_torch.constants import DataType
     from lerc_tpu_torch.ops import device_huffman as dh
@@ -2493,7 +2545,7 @@ def huffman_kernel_times(u8x3, mask, flags, card):
         rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), n_bytes / mb,
                       None if lib is None else device_ms([lib]))
         if alone is not None:
-            print(f"{name}: {rows[name][0]:.4f} ms per call with its rank-chunk glue, the kernel "
+            print(f"{name}: {rows[name][0]:.4f} ms per call, all its device work, the kernel "
                   f"alone {device_ms([kf], alone):.4f} ms [{card}]", flush=True)
 
     for data, mk, delta in ((u8x3, None, True), (u8x3, m, True), (flags, None, False),
@@ -2505,7 +2557,7 @@ def huffman_kernel_times(u8x3, mask, flags, card):
         h1 = "huffman_symbols" + ("" if mk is None else "_masked")
         if h1 not in rows:
             live = n if mk is None else nv * d
-            kern = "huffman_symbols_kernel"
+            kern = h1 + "_kernel"
             add(h1, lambda x=x, mk=mk: dh.symbol_streams_device(x, mk, DataType.BYTE),
                 lambda x=x, mk=mk: dh.symbol_streams_device_ref(x, mk, DataType.BYTE),
                 4 * live + (0 if mk is None else npx) + 2 * live + 2048,
@@ -2625,6 +2677,11 @@ def huffman_phases(tiles, mask, card, launches, add_row):
           f"first rows invalid, one valid pixel, W = 1, H = 1, all and none valid, hole and "
           f"speckle; D 1-5 and 8; uint8 and int8; symbol views at storage offsets 1-15)",
           flush=True)
+    n_cases = h1m_edge_check(u8x3[0], mask)
+    print(f"check: the masked H1 equal to its plain version in {n_cases} cases (empty, full, "
+          f"random and stripes masks, the first or last pixel alone, at 61x47 and 129x31, D 1-5 "
+          f"and 8; valid pixels in every 500th tile; one column; the {TILE}^2 x 3 bench mask; "
+          f"uint8 and int8)", flush=True)
     n_cases = h3_edge_check(tiles[0])
     print(f"check: H3 equal to its plain version (symbols, used bits, ok) in {n_cases} cases: an "
           f"fpl plane and the same with six hostile sidecars and a stream cut short in bits and "
@@ -2720,6 +2777,68 @@ def fpl_check(data, tag, level_sets=FPL_LEVELS):
                     f"F3 != plain or input ({how})")
     # every comparison above is exact
     return dict.fromkeys(FPL64 if data.dtype == torch.float64 else FPL, 0.0)
+
+
+F2B_TILE = 16384  # F2b's tile of bytes a plane (kernels/fpl.cu PB_TILE)
+
+
+def f2b_edge_planes(rng):
+    """[(label, u8 plane)] for F2b at its tile T: a constant plane (one
+    run), an alternating one (n runs of 1), runs of 129, 130, 258 and 259
+    starting at T - L - 1 .. T + 1, literals chained across an edge, runs
+    over several tiles with no start, n 1-5 and T - 1, T, T + 1, a drawn run
+    list over five tiles and noise. Neighbouring runs differ in value."""
+    T = F2B_TILE
+
+    def runs(lengths):
+        steps = rng.integers(1, 256, len(lengths))
+        return np.repeat((np.cumsum(steps) % 256).astype(np.uint8), lengths)
+
+    out = [("constant", np.full(3 * T + 5, 7, np.uint8)),
+           ("alternating", (np.arange(2 * T + 3) % 2).astype(np.uint8))]
+    for L in (129, 130, 258, 259):
+        for s in (-L - 1, -L, -L + 1, -1, 0, 1):
+            out.append((f"runs of {L} from T{s:+d}",
+                        runs([T + s, L, L, 1, L, 1, 1, 1, 2 * T - 7, L])))
+    out += [("literals across an edge", runs([T - 5] + [1] * 20 + [129, 1, 1] + [1] * 300)),
+            ("literals after long runs across an edge",
+             runs([T - 150] + [1] * 300 + [130, 1, 259, 1] + [1] * 200 + [258, 2])),
+            ("runs over several tiles", runs([5, 3 * T + 7, 1, 1, 2 * T, 1, 129, T, 1]))]
+    for n in (1, 2, 3, 4, 5, T - 1, T, T + 1):
+        out.append((f"n {n}", runs(rng.choice([1, 1, 2, 129, 130], size=n))[:n]))
+        out.append((f"n {n} constant", np.full(n, 3, np.uint8)))
+    lengths = rng.choice([1, 1, 1, 2, 3, 128, 129, 130, 131, 258, 259, 260, T - 1, T, T + 1],
+                         size=200)
+    out.append(("drawn runs", runs(lengths)[:5 * T + 11]))
+    out.append(("noise", rng.integers(0, 256, 5 * T + 77, dtype=np.uint8)))
+    return out
+
+
+def f2b_edge_check(dev):
+    """F2b (fpl_packbits_size) against fpl_packbits_size_ref on every
+    f2b_edge_planes case at 4 and 8 planes (plane b the case rolled by
+    17 b), in three layouts: padded to whole groups, an odd plane stride,
+    and a view at storage offset 5. Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    rng = np.random.default_rng(17)
+    cases = 0
+    for label, plane in f2b_edge_planes(rng):
+        n = plane.size
+        for n_pl in (4, 8):
+            rows = torch.from_numpy(np.stack([np.roll(plane, 17 * b) for b in range(n_pl)]))
+            odd = n + 1 if n % 2 == 0 else n + 2
+            buf = torch.zeros(n_pl * odd + 5, dtype=torch.uint8, device=dev)
+            for layout, planes in (
+                    ("padded", torch.zeros(n_pl, F.padded(n), dtype=torch.uint8, device=dev)),
+                    ("odd stride", torch.zeros(n_pl, odd, dtype=torch.uint8, device=dev)),
+                    ("offset 5", buf[5:].view(n_pl, odd))):
+                planes[:, :n] = rows.to(dev)
+                require(torch.equal(F.fpl_packbits_size(planes, n),
+                                    F.fpl_packbits_size_ref(planes, n)),
+                        f"F2b != plain ({label}, n {n}, {n_pl} planes, {layout})")
+                cases += 1
+    return cases
 
 
 # (h, w, d) of F3's edge checks: n a multiple of the 4096-position tile and
@@ -2888,10 +3007,13 @@ def fpl_kernel_times(tile, blob, index, card):
             device_ms([lambda: F.fpl_finalize(tile, pred, levels)], "fpl_finalize_kernel"),
             cuda_ms([lambda: F.fpl_finalize_ref(tile, pred, levels)], reps=1),
             (8 * n + 4 * 4 * 256) / mb, None),
-        "fpl_packbits_size": (
-            device_ms([lambda: F.fpl_packbits_size(planes, n)], "fpl_pb_"),
-            cuda_ms([lambda: F.fpl_packbits_size_ref(planes, n)], reps=1), (4 * n + 16) / mb, None),
     }
+    km, _lm, bound = paired_row(
+        "fpl_packbits_size (the four planes of a float32 tile)",
+        lambda: F.fpl_packbits_size(planes, n), ("fpl_packbits_size_kernel", "Memset"), None, "",
+        4 * n + 16, card, pairs=K3_H3_PAIRS)
+    out["fpl_packbits_size"] = (
+        km, cuda_ms([lambda: F.fpl_packbits_size_ref(planes, n)], reps=1), bound, None)
     km, lm, bound = paired_row(
         "fpl_restore", lambda: F.fpl_restore(planes, h, w, d, pred, levels),
         ("fpl_restore_", "Memset"),
@@ -2961,6 +3083,11 @@ def fpl_phases(tiles, mask, card, launches, add_row):
             err.update(fpl_check(data, f"{ch}x{cw}x{d} DEM crop"))
         print(f"check: F1-F3 equal to their plain versions on the {ch}x{cw} DEM crops (depth 1 "
               f"and 3, predictors 0-2, levels 0-5)", flush=True)
+    n_cases = f2b_edge_check(tiles[0].device)
+    print(f"check: F2b equal to its plain version in {n_cases} cases at 4 and 8 planes (constant "
+          f"and alternating planes, runs of 129-259 across tile edges, literals chained across "
+          f"an edge, runs over several tiles, n 1-5 and the tile +- 1, drawn runs, noise; padded, "
+          f"odd-stride and offset planes)", flush=True)
     n_cases = f3_edge_check(tiles[0].device, torch.float32)
     print(f"check: F3 equal to its plain version in {n_cases} cases on random planes "
           f"({len(F3_EDGE_SHAPES)} shapes: n a multiple of the tile and not, one row within and "
@@ -3320,7 +3447,10 @@ def f64_kernel_times(tiles, mask, lossy_blobs, lossless_blob, card):
         km, cuda_ms([lambda: F.fpl_restore_ref(planes[0], h, w, d, pred, levels)], reps=1), bound)
     print(f"fpl_restore_f64 at the lossless cell's choice: predictor {pred}, levels {levels} "
           f"[{card}]", flush=True)
-    pb = device_ms([lambda q=q: F.fpl_packbits_size(q, n) for q in planes], "fpl_pb_")
+    pb, _lm, _bound = paired_row(
+        "fpl_packbits_size (the eight planes of a float64 tile, four tiles round-robin)",
+        lambda: F.fpl_packbits_size(next(turn), n), ("fpl_packbits_size_kernel", "Memset"), None,
+        "", 8 * n + 32, card, pairs=K3_H3_PAIRS)
     pb_plain = cuda_ms([lambda: F.fpl_packbits_size_ref(planes[0], n)], reps=1)
     print(f"fpl F2b over the eight planes of a float64 tile: {pb:.4f} ms a call (plain "
           f"{pb_plain:.3f} ms, bound {(8 * n + 32) / mb:.4f} ms) [{card}]", flush=True)

@@ -31,14 +31,26 @@
 //                              predicted words of 1024 positions and the 5 before
 //                              them in shared memory; each position writes its
 //                              plane bytes at their levels and counts them.
-//   F2b fpl_packbits_size      packbits_size_device :88, over 4 or 8 planes: per
-//                              plane, run starts counted per 2048-byte chunk, the
-//                              counts scanned by one CTA, the starts scattered at
-//                              their ranks; each run then reads its start, its
-//                              successor's and its predecessor's, and adds its
-//                              repeat segments, literal and literal-stretch opening
-//                              to three sums; one thread per plane applies JAX's
-//                              formula.
+//   F2b fpl_packbits_size      packbits_size_device :88, over 4 or 8 planes. Bound:
+//                              bytes, the planes read once (4n or 8n: 0.0050 and
+//                              0.0100 ms for a 2048^2 tile at 3.35 TB/s, H100 SXM).
+//                              Five launches a call took 0.12 / 0.39 ms: per-chunk
+//                              counts, a one-CTA scan a plane, every run start
+//                              scattered into an int32 array of n + 1 entries a
+//                              plane, a sum that read it three times, a one-CTA
+//                              finish. Now a memset (the tickets) and one kernel,
+//                              one CTA per 16 KB tile of a plane: the tile read
+//                              once by 16-byte loads, its run starts a 64-bit mask
+//                              a thread, the runs inside those 64 bytes counted
+//                              by popcounts (each shorter than 129), the two at
+//                              its ends by arithmetic; the tile exports its first
+//                              and last start, its sums and two flags; the
+//                              plane's last tile to finish (an
+//                              atomic ticket) joins the summaries with two max
+//                              scans (the run that opens at a tile's last start
+//                              ends at the next tile's first; whether the run
+//                              before it left a literal rides the second scan)
+//                              and applies JAX's formula. No array of n entries.
 //   F3 fpl_restore             fpl_restore_device :235 / _f64 :407 (_cumsum_mod_dev
 //                              :202, split_cumsum_dev :218 / split_cumsum64_dev
 //                              :398, _cumsum_mod52_pair :366, undo_float_transform_dev
@@ -68,10 +80,9 @@
 //                              a scan per column, apply), the two scans commuting.
 //
 // Bounds: bytes. F1 reads a sample of about 2^19 words; F2 reads each word
-// once (its neighbours from cache) and writes one byte a plane; F2b reads
-// and writes each plane byte a few times; F3 reads each plane byte once.
-// F2b's and F3's column carries are serial over chunk counts (n / 2048 per
-// plane, rows / 256 per column), not over values.
+// once (its neighbours from cache) and writes one byte a plane; F2b and F3
+// read each plane byte once. F3's column carries are serial over chunk
+// counts (rows / 256 per column), not over values.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -89,7 +100,7 @@ constexpr int WARPS = NB / 32;
 constexpr int MAX_GRID = 1056;            // 8 CTAs on each of 132 SMs (grid-stride beyond)
 constexpr int HIST = 4 * (MAX_DELTA + 1) * 256;  // one CTA's bins: 4 planes x 6 levels
 constexpr int FIN_ITEMS = 4, FIN_TILE = NB * FIN_ITEMS;
-constexpr int PB_ITEMS = 8, PB_CHUNK = NB * PB_ITEMS;
+constexpr int PB_BYTES = 64, PB_TILE = NB * PB_BYTES;  // F2b: 16 KB a tile
 constexpr int COL_TILE = 256, COL_ROWS = COL_TILE / WARPS;
 
 // (-1)^j C(k, j) mod 2^32: byte level k of x at q is sum_j COEF[k][j] x[q - j]
@@ -289,102 +300,242 @@ __global__ void __launch_bounds__(NB) fpl_finalize_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// F2b (grid y or x: one plane each)
+// F2b (grid y: one plane each)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool run_start(const uint8_t* p, long long i, long long n) {
-    return i < n && (i == 0 || p[i] != p[i - 1]);
-}
+// One tile's summary for the join (32 bytes): its first and last run start
+// (-1: none), the terms of the runs that start in it and end before its last
+// start, and two flags for the terms that need a neighbour tile.
+struct PbTile {
+    int f, l;
+    unsigned flags;  // PB_NEEDS_F: the run at f leaves a literal of length < 130, so
+                     // it opens a stretch unless the run before it left one;
+                     // PB_PLIT_L: the run before l (inside the tile) left a literal
+    unsigned segs, lit, stretch, pad0, pad1;
+};
+constexpr unsigned PB_NEEDS_F = 1, PB_PLIT_L = 2;
+constexpr int PB_NONE = 0x7FFFFFFF;  // "no start" for a minimum
 
-// counts[b][c]: run starts in chunk c of plane b
-__global__ void __launch_bounds__(NB) fpl_pb_count_kernel(
-        const uint8_t* __restrict__ planes, long long pstride, long long n, long long n_chunks,
-        int* __restrict__ counts) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    const int b = blockIdx.y;
-    const uint8_t* p = planes + b * pstride;
-    const long long i0 = (long long)blockIdx.x * PB_CHUNK + threadIdx.x * PB_ITEMS;
-    unsigned cnt = 0;
-    for (int j = 0; j < PB_ITEMS; ++j) cnt += run_start(p, i0 + j, n);
-    unsigned tot;
-    block_excl<NB>(cnt, tot, sm);
-    if (threadIdx.x == 0) counts[b * n_chunks + blockIdx.x] = (int)tot;
-}
-
-// counts -> exclusive bases in place; n_runs[b]; the sentinel start n
-__global__ void __launch_bounds__(NB) fpl_pb_scan_kernel(
-        int* __restrict__ counts, long long n_chunks, long long n, int* __restrict__ starts,
-        long long sstride, int* __restrict__ n_runs) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    const int b = blockIdx.x;
-    unsigned* c = reinterpret_cast<unsigned*>(counts + b * n_chunks);
-    const unsigned last = (unsigned)counts[b * n_chunks + n_chunks - 1];
-    __syncthreads();
-    block_scan_in_place<Sum>(c, n_chunks, 1, sm);
-    if (threadIdx.x == 0) {
-        const unsigned total = c[n_chunks - 1] + last;
-        n_runs[b] = (int)total;
-        starts[b * sstride + total] = (int)n;
+struct MaxU {
+    using T = unsigned;
+    __device__ static unsigned f(unsigned a, unsigned b) { return a > b ? a : b; }
+};
+struct MaxU64 {
+    using T = unsigned long long;
+    __device__ static unsigned long long f(unsigned long long a, unsigned long long b) {
+        return a > b ? a : b;
     }
+};
+
+// bit i of the result: byte i of x is not 0
+__device__ __forceinline__ unsigned nonzero4(unsigned x) {
+    return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24 & 0xFu;
 }
 
-__global__ void __launch_bounds__(NB) fpl_pb_scatter_kernel(
-        const uint8_t* __restrict__ planes, long long pstride, long long n, long long n_chunks,
-        const int* __restrict__ bases, int* __restrict__ starts, long long sstride) {
-    __shared__ unsigned sm[2 * (WARPS + 1)];
-    const int b = blockIdx.y;
-    const uint8_t* p = planes + b * pstride;
-    const long long i0 = (long long)blockIdx.x * PB_CHUNK + threadIdx.x * PB_ITEMS;
-    unsigned flags = 0, cnt = 0;
-    for (int j = 0; j < PB_ITEMS; ++j)
-        if (run_start(p, i0 + j, n)) {
-            flags |= 1u << j;
-            ++cnt;
+// the terms of one run of length L: 2 x (repeat segments), literal, and
+// whether that literal opens a stretch given whether the run before left one
+struct PbTerms {
+    unsigned long long segs = 0, lit = 0, stretch = 0;
+    __device__ void add(long long L, bool prev_lit) {
+        const long long r = L % 129;
+        segs += L / 129 + (r >= 2);
+        if (r == 1) {
+            ++lit;
+            stretch += L >= 130 || !prev_lit;
         }
-    unsigned tot;
-    long long rank = bases[b * n_chunks + blockIdx.x] + block_excl<NB>(cnt, tot, sm);
-    for (int j = 0; j < PB_ITEMS; ++j)
-        if (flags >> j & 1u) starts[b * sstride + rank++] = (int)(i0 + j);
-}
-
-// sums[b] += (repeat segments, literals, literal stretches opened) of its runs
-__global__ void __launch_bounds__(NB) fpl_pb_sum_kernel(
-        const int* __restrict__ starts, long long sstride, const int* __restrict__ n_runs,
-        unsigned long long* __restrict__ sums) {
-    __shared__ unsigned long long red[3][WARPS];
-    const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int* s = starts + b * sstride;
-    const long long runs = n_runs[b];
-    unsigned long long acc[3] = {0, 0, 0};
-    for (long long r = (long long)blockIdx.x * NB + threadIdx.x; r < runs;
-         r += (long long)gridDim.x * NB) {
-        const long long len = (long long)s[r + 1] - s[r];
-        const long long prev = r > 0 ? (long long)s[r] - s[r - 1] : 0;
-        const bool lit = len % 129 == 1;
-        acc[0] += len / 129 + (len % 129 >= 2);
-        acc[1] += lit;
-        acc[2] += lit && (len >= 130 || prev % 129 != 1);
     }
-    for (int k = 0; k < 3; ++k) {
-        unsigned long long v = acc[k];
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-        if (lane == 0) red[k][warp] = v;
+};
+
+// Pass over one tile of PB_TILE bytes of plane blockIdx.y, then, in the
+// plane's last tile to finish (a ticket per plane), the join of the plane's
+// tile summaries. Thread t takes the 64 bytes from a = t0 + 64 t by 16-byte
+// loads (two aligned ones and a funnel shift at any alignment: the shift is
+// the same for every thread of the CTA) and makes M, bit i set where a + i
+// starts a run (its byte differs from the one before, or a + i = 0). The
+// nearest starts of the threads before and after it in the tile (two block
+// scans, max and min) close its first and last start's runs; a start whose
+// next start is past the tile is the tile's last start l, one with none
+// before it in the tile its first f. Every other run is counted by
+// popcounts of M, at most two runs a thread by arithmetic.
+// The join walks the summaries in tile order 256 at a time: P_U, the last
+// start before tile U (a max scan of l), closes the run at P_U with length
+// f_U - P_U; whether the run before P_U left a literal rides a second max
+// scan, of 2 l + that flag. The run at the plane's last start ends at n.
+__global__ void __launch_bounds__(NB) fpl_packbits_size_kernel(
+        const uint8_t* __restrict__ planes, long long pstride, int n, int n_tiles,
+        unsigned* __restrict__ tickets, PbTile* __restrict__ tiles, int* __restrict__ sizes) {
+    __shared__ int wmax[WARPS], wmin[WARPS];
+    __shared__ unsigned red[3][WARPS];
+    __shared__ unsigned sh_flags;
+    __shared__ bool sh_last;
+    __shared__ unsigned long long sm64[2 * (WARPS + 1)];
+    __shared__ unsigned sm32[2 * (WARPS + 1)];
+    const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const uint8_t* p = planes + b * pstride;
+    const int t0 = blockIdx.x * PB_TILE, a = t0 + PB_BYTES * tid;
+    const int cnt = max(0, min(PB_BYTES, n - a));
+    if (tid == 0) sh_flags = 0;
+
+    // the 64 bytes as 16 words (zero past n), and the byte before a
+    unsigned wd[16];
+    {
+        const uintptr_t addr = reinterpret_cast<uintptr_t>(p + a);
+        const int s = (int)(addr & 15);
+        const uint4* q = reinterpret_cast<const uint4*>(addr - s);
+        uint4 v[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+            v[k] = 16 * k - s < cnt ? __ldg(q + k) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const uint4 x = s ? shift16(v[k], v[k + 1], s) : v[k];
+            wd[4 * k] = x.x, wd[4 * k + 1] = x.y, wd[4 * k + 2] = x.z, wd[4 * k + 3] = x.w;
+        }
+    }
+    unsigned prev = __shfl_up_sync(FULL, wd[15], 1) >> 24;
+    if (lane == 0 && a > 0 && cnt > 0) prev = p[a - 1];
+    unsigned long long M = 0;
+    {
+        unsigned pw = prev << 24;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            M |= (unsigned long long)nonzero4(wd[j] ^ __funnelshift_l(pw, wd[j], 8)) << (4 * j);
+            pw = wd[j];
+        }
+        if (a == 0) M |= 1ull;
+        if (cnt < PB_BYTES) M &= cnt ? (~0ull >> (PB_BYTES - cnt)) : 0ull;
+    }
+
+    // the nearest starts of the threads before (Pt) and after (Nt) in the tile
+    const int fs = M ? a + __ffsll((long long)M) - 1 : PB_NONE;
+    const int ls = M ? a + 63 - __clzll((long long)M) : -1;
+    int pm = ls, sn = fs;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(FULL, pm, o), v = __shfl_down_sync(FULL, sn, o);
+        if (lane >= o) pm = max(pm, u);
+        if (lane + o < 32) sn = min(sn, v);
+    }
+    int Pt = __shfl_up_sync(FULL, pm, 1), Nt = __shfl_down_sync(FULL, sn, 1);
+    if (lane == 0) Pt = -1, wmin[warp] = sn;
+    if (lane == 31) Nt = PB_NONE, wmax[warp] = pm;
+    __syncthreads();
+    int tf = PB_NONE, tl = -1;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+        if (k < warp) Pt = max(Pt, wmax[k]);
+        if (k > warp) Nt = min(Nt, wmin[k]);
+        tf = min(tf, wmin[k]), tl = max(tl, wmax[k]);
+    }
+    // The runs whose start lies in the thread's 64 bytes. A run whose next
+    // start lies there too is shorter than 129: it adds a repeat segment if
+    // longer than 1, else a literal, which opens a stretch unless the run
+    // before was a literal too (of length 1 where that run starts here as
+    // well): popcounts. The run at the first start takes P from before; the
+    // run at the last start N from after (a later tile's: the tile exports it).
+    unsigned segs = 0, lit = 0, stretch = 0;
+    if (M) {
+        const int fi = __ffsll((long long)M) - 1, li = 63 - __clzll((long long)M);
+        const unsigned long long A = M & ~(1ull << li), nx = M >> 1;  // nx: s + 1 starts too
+        segs = (unsigned)__popcll((long long)(A & ~nx));
+        lit = (unsigned)__popcll((long long)(A & nx));
+        stretch = (unsigned)__popcll((long long)(A & ~(1ull << fi) & nx & ~(M << 1)));
+        if (fi != li && (nx >> fi & 1ull)) {  // the first start's run is a literal of 1
+            if (Pt >= 0) stretch += (a + fi - Pt) % 129 != 1;
+            else atomicOr(&sh_flags, PB_NEEDS_F);  // it is the tile's first start
+        }
+        const unsigned long long lo = M & ((1ull << li) - 1ull);
+        const int s = a + li, P = lo ? a + 63 - __clzll((long long)lo) : Pt;
+        if (Nt == PB_NONE) {  // s is the tile's last start: its run ends in a later tile
+            if (P >= 0 && (s - P) % 129 == 1) atomicOr(&sh_flags, PB_PLIT_L);
+        } else {
+            const int L = Nt - s, r = L % 129;
+            segs += L / 129 + (r >= 2);
+            if (r == 1) {
+                ++lit;
+                if (L >= 130) ++stretch;
+                else if (P >= 0) stretch += (s - P) % 129 != 1;
+                else atomicOr(&sh_flags, PB_NEEDS_F);
+            }
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        segs += __shfl_xor_sync(FULL, segs, o);
+        lit += __shfl_xor_sync(FULL, lit, o);
+        stretch += __shfl_xor_sync(FULL, stretch, o);
+    }
+    if (lane == 0) red[0][warp] = segs, red[1][warp] = lit, red[2][warp] = stretch;
+    __syncthreads();
+    if (tid == 0) {
+        PbTile e;
+        e.f = tf == PB_NONE ? -1 : tf;
+        e.l = tl;
+        e.flags = sh_flags;
+        e.segs = e.lit = e.stretch = e.pad0 = e.pad1 = 0;
+        for (int k = 0; k < WARPS; ++k)
+            e.segs += red[0][k], e.lit += red[1][k], e.stretch += red[2][k];
+        tiles[(long long)b * n_tiles + blockIdx.x] = e;
+        __threadfence();
+        sh_last = atomicAdd(tickets + b, 1u) == (unsigned)n_tiles - 1u;
     }
     __syncthreads();
-    if (threadIdx.x < 3) {
-        unsigned long long v = 0;
-        for (int w = 0; w < WARPS; ++w) v += red[threadIdx.x][w];
-        if (v) atomicAdd(&sums[b * 3 + threadIdx.x], v);
-    }
-}
+    if (!sh_last) return;
 
-__global__ void fpl_pb_finish_kernel(const unsigned long long* __restrict__ sums, int n_planes,
-                                     int* __restrict__ sizes) {
-    const int b = threadIdx.x;
-    if (b < n_planes) {
-        const unsigned long long segs = sums[3 * b], lit = sums[3 * b + 1],
-                                 stretch = sums[3 * b + 2];
-        sizes[b] = (int)(2 * segs + lit + stretch + lit / 128);
+    // the join, in the plane's last tile to finish
+    __threadfence();
+    PbTerms acc;
+    unsigned carry_l = 0;             // 1 + the last start so far, 0: none
+    unsigned long long carry_k = 0;   // 1 + 2 x that start + (the run before it left a literal)
+    const int4* tw = reinterpret_cast<const int4*>(tiles + (long long)b * n_tiles);
+    for (int u0 = 0; u0 < n_tiles; u0 += NB) {
+        const int u = u0 + tid;
+        int f = -1, l = -1;
+        unsigned flags = 0;
+        if (u < n_tiles) {
+            const int4 x = __ldcg(tw + 2 * u), y = __ldcg(tw + 2 * u + 1);
+            f = x.x, l = x.y, flags = (unsigned)x.z;
+            acc.segs += (unsigned)x.w, acc.lit += (unsigned)y.x, acc.stretch += (unsigned)y.y;
+        }
+        unsigned tot_l;
+        const unsigned el = MaxU::f(carry_l, block_excl<NB, MaxU>(f >= 0 ? (unsigned)l + 1u : 0u,
+                                                                  tot_l, sm32));
+        const int P = (int)el - 1;  // the last start before tile u
+        bool out = false;           // whether the run before l left a literal
+        if (f >= 0) out = f != l ? (flags & PB_PLIT_L) != 0 : P >= 0 && (f - P) % 129 == 1;
+        unsigned long long tot_k;
+        const unsigned long long ek = MaxU64::f(carry_k, block_excl<NB, MaxU64>(
+                f >= 0 ? 2ull * (unsigned)l + out + 1ull : 0ull, tot_k, sm64));
+        if (f >= 0) {
+            bool lt = false;  // whether the run at P left a literal
+            if (P >= 0) {
+                const long long L = f - P;
+                lt = L % 129 == 1;
+                acc.add(L, ek > 0 && ((ek - 1) & 1));
+            }
+            if (f != l && (flags & PB_NEEDS_F) && !lt) ++acc.stretch;
+        }
+        carry_l = MaxU::f(carry_l, tot_l);
+        carry_k = MaxU64::f(carry_k, tot_k);
+    }
+    if (tid == 0 && carry_k > 0) {  // the run at the plane's last start ends at n
+        const long long P = (long long)((carry_k - 1) >> 1);
+        acc.add(n - P, (carry_k - 1) & 1);
+    }
+    unsigned long long v[3] = {acc.segs, acc.lit, acc.stretch};
+    __shared__ unsigned long long red64[3][WARPS];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(FULL, v[k], o);
+        if (lane == 0) red64[k][warp] = v[k];
+    }
+    __syncthreads();
+    if (tid == 0) {
+        unsigned long long s[3] = {0, 0, 0};
+        for (int k = 0; k < 3; ++k)
+            for (int w = 0; w < WARPS; ++w) s[k] += red64[k][w];
+        sizes[b] = (int)(2 * s[0] + s[1] + s[2] + s[1] / 128);
     }
 }
 
@@ -937,26 +1088,30 @@ extern "C" int fpl_finalize_f64(const unsigned long long* data, long long n, int
                                    histos, (cudaStream_t)stream);
 }
 
-extern "C" long long fpl_packbits_chunks(long long n) { return chunks(n, PB_CHUNK); }
+// bytes of scratch fpl_packbits_size needs for n bytes a plane: a ticket a
+// plane, then a 32-byte summary a tile and plane
+extern "C" long long fpl_packbits_scratch(long long n, int n_planes) {
+    return 32 + (long long)sizeof(PbTile) * n_planes * chunks(n, PB_TILE);
+}
 
-// planes u8 [n_planes, pstride] (4 or 8); counts int32 [n_planes,
-// fpl_packbits_chunks(n)]; starts int32 [n_planes, n + 1]; n_runs int32
-// [n_planes]; sums u64 [n_planes, 3], zeroed; sizes int32 [n_planes]
+// planes u8 [n_planes, pstride] (4 or 8; any alignment, read only); scratch:
+// fpl_packbits_scratch(n, n_planes) bytes, 16-aligned, its tickets zeroed
+// here on the stream; sizes int32 [n_planes]
 extern "C" int fpl_packbits_size(const uint8_t* planes, int n_planes, long long pstride,
-                                 long long n, int* counts, int* starts, int* n_runs,
-                                 unsigned long long* sums, int* sizes, void* stream) {
+                                 long long n, uint8_t* scratch, long long n_scratch, int* sizes,
+                                 void* stream) {
     if (n == 0) return 0;
-    if (n_planes < 1 || n_planes > MAX_PLANES) return (int)cudaErrorInvalidValue;
+    if (n_planes < 1 || n_planes > MAX_PLANES || n > (1LL << 31) - 2 * PB_TILE ||
+        n_scratch < fpl_packbits_scratch(n, n_planes))
+        return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(scratch) & 15) return (int)cudaErrorMisalignedAddress;
     const cudaStream_t st = (cudaStream_t)stream;
-    const long long nc = chunks(n, PB_CHUNK);
-    fpl_pb_count_kernel<<<dim3((unsigned)nc, n_planes), NB, 0, st>>>(planes, pstride, n, nc,
-                                                                      counts);
-    fpl_pb_scan_kernel<<<n_planes, NB, 0, st>>>(counts, nc, n, starts, n + 1, n_runs);
-    fpl_pb_scatter_kernel<<<dim3((unsigned)nc, n_planes), NB, 0, st>>>(planes, pstride, n, nc,
-                                                                        counts, starts, n + 1);
-    fpl_pb_sum_kernel<<<dim3(grid_of(n, NB), n_planes), NB, 0, st>>>(starts, n + 1, n_runs,
-                                                                      sums);
-    fpl_pb_finish_kernel<<<1, 32, 0, st>>>(sums, n_planes, sizes);
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, 32, st);  // the tickets
+    if (err != cudaSuccess) return (int)err;
+    const long long nt = chunks(n, PB_TILE);
+    fpl_packbits_size_kernel<<<dim3((unsigned)nt, n_planes), NB, 0, st>>>(
+        planes, pstride, (int)n, (int)nt, reinterpret_cast<unsigned*>(scratch),
+        reinterpret_cast<PbTile*>(scratch + 32), sizes);
     return (int)cudaGetLastError();
 }
 

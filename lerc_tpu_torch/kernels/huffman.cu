@@ -5,18 +5,30 @@
 // one-hot group packing, static roll chains); here the same functions are
 // shared-memory tables, warp scans, ballots and atomics.
 //
-//   H1 huffman_symbols        symbol_streams_device :50, symbol_streams_masked_device
-//                             :72, histogram256 :118. One thread per pixel (all
-//                             depths): direct symbols pixel-major at the pixel's
-//                             rank, delta symbols depth-major, both 256-bin
-//                             histograms of the live symbols (warp-aggregated
-//                             shared atomics, one global add per bin and CTA).
-//                             With a mask, a rank is the chunk's base (an
-//                             exclusive scan of per-chunk counts, torch glue as
-//                             K2's record offsets) plus the popc prefix in the
-//                             chunk; the previous valid pixel is the pixel of
-//                             rank - 1: the highest lower bit of the ballot, of an
-//                             earlier warp, or the chunk's carried-in index.
+//   H1 huffman_symbols        symbol_streams_device :50, histogram256 :118: one thread
+//                             per pixel (all depths): direct symbols pixel-major,
+//                             delta symbols depth-major, both 256-bin histograms
+//                             (warp-aggregated shared atomics, one global add per
+//                             bin and CTA).
+//      huffman_symbols_masked symbol_streams_masked_device :72 + histogram256. Bound:
+//                             bytes, 4 nv D + H W + 2 nv D (the valid pixels' words
+//                             and the mask read, their symbols written): 0.0207 ms
+//                             for the bench mask's 2048^2 x 3 tile at 3.35 TB/s (H100
+//                             SXM). Torch glue for the chunks' ranks and last valid
+//                             pixels (ten ops, 0.11 ms) before a kernel of a serial
+//                             loop over warps, __match_any_sync per symbol and
+//                             scattered byte stores (0.10 ms) took 0.21 ms. Now a
+//                             memset and one kernel: tiles of 2,048 pixels in ticket
+//                             order, a thread's 16 pixels by one 16-byte mask load
+//                             and 16-byte data loads, one byte a depth; each tile's
+//                             rank base and the last valid pixel before it from a
+//                             decoupled look-back over (count, last valid) pairs
+//                             (sum and max: a long invalid stretch carries "last"
+//                             across tiles); the sources' loads issued before any
+//                             symbol; the tile's symbols staged in shared memory and
+//                             stored contiguously (its valid ranks are consecutive),
+//                             the zero tails shared out by invalid pixels; one
+//                             shared histogram, flushed once a CTA.
 //   H2 huffman_group_bits     encode_stream_device :160 (+ _map256 :141): one warp
 //      huffman_pack           per 64-symbol group. Pass 1 sums the group's code
 //                             lengths; the exclusive scan over the groups is the
@@ -143,7 +155,8 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int GROUP = 64;
-constexpr int CHUNK = 256;            // pixels per rank chunk = H1's CTA
+constexpr int CHUNK = 256;            // pixels per rank chunk = H1's (all-valid) CTA
+constexpr int H1M_THREADS = 128, H1M_PX = 16 * H1M_THREADS;  // H1 masked: a tile
 constexpr int MAX_GRID = 1056;        // 8 CTAs on each of 132 SMs (grid-stride beyond)
 constexpr int PACK_WARPS = 8;         // groups per CTA in H2
 constexpr int PACK_WORDS = 66;        // a group's words from its first: <= (31 + 2048 + 31) / 32 + 1
@@ -169,62 +182,119 @@ __device__ __forceinline__ bool is_live(long long i, long long n_total, long lon
 }
 
 // ---------------------------------------------------------------------------
+// shared by H1 (masked) and H4 (masked): decoupled look-back, mask bits, tile stores
+// ---------------------------------------------------------------------------
+
+constexpr unsigned long long UD_AGG = 1, UD_INC = 2;  // look-back states; 0: not yet published
+
+// warp 0 of chunk c (H1's masked tiles, the masked un-delta's chunks):
+// publish the chunk's total, then a decoupled look-back 32 chunks a step
+// (chunks run in ticket order, so every chunk waited on has started): each
+// lane waits for one chunk's word, the nearest inclusive prefix ends the
+// walk, and the warp folds the words up to it (the combines are
+// commutative); publish the inclusive prefix. Returns the exclusive prefix
+// in every lane.
+template <class L>
+__device__ typename L::T ud_lookback(unsigned long long* lb, int c, typename L::T tot) {
+    using T = typename L::T;
+    const int lane = threadIdx.x & 31;
+    if (c == 0) {
+        if (lane == 0) atomicExch(lb, L::word(UD_INC, tot));
+        return T(0);
+    }
+    if (lane == 0) atomicExch(lb + c, L::word(UD_AGG, tot));
+    T acc = T(0);
+    for (int base = c - 1;; base -= 32) {
+        const int j = base - lane;
+        unsigned long long x = L::word(UD_INC, T(0));  // before chunk 0: nothing
+        if (j >= 0) {
+            const volatile unsigned long long* q = lb + j;
+            do x = *q; while (x == 0);
+        }
+        const unsigned inc = __ballot_sync(FULL, L::state(x) == UD_INC);
+        const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive prefix
+        T v = lane <= stop ? L::value(x) : T(0);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v = L::f(v, __shfl_xor_sync(FULL, v, o));
+        acc = L::f(acc, v);
+        if (inc) break;
+    }
+    if (lane == 0) atomicExch(lb + c, L::word(UD_INC, L::f(acc, tot)));
+    return acc;
+}
+
+// bit j: mask[p + j] != 0, for the n (0..16) pixels from p (>= 0)
+__device__ __forceinline__ unsigned mask_bits16(const uint8_t* __restrict__ mask, long long p,
+                                                int n) {
+    if (n <= 0) return 0;
+    const uint4 v = load16(mask + p, n);
+    const unsigned wd[4] = {v.x, v.y, v.z, v.w};
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bytes of 0 or 0xFF -> one bit each
+        const unsigned b = __vcmpne4(wd[i], 0u) & 0x01010101u;
+        bits |= ((b * 0x01020408u) >> 24 & 0xFu) << (4 * i);
+    }
+    return n < 16 ? bits & ((1u << n) - 1u) : bits;
+}
+
+// buf's n bytes to dst (any alignment): aligned 16-byte stores, each taken
+// from two aligned 16-byte reads of buf (which holds 16 bytes past n,
+// rounded up to 16), and the two ends one byte at a time; the CTA's
+// THREADS threads share the work
+template <int THREADS>
+__device__ __forceinline__ void store_tile(const uint8_t* buf, uint8_t* dst, long long n) {
+    const int sh = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+    uint4* base = reinterpret_cast<uint4*>(dst - sh);  // chunk m: dst bytes [16m - sh, 16m - sh + 16)
+    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+    const long long m_hi = (n + sh) / 16;              // the chunks that end inside n
+    for (long long m = (sh ? 1 : 0) + threadIdx.x; m < m_hi; m += THREADS)
+        base[m] = sh ? shift16(b4[m - 1], b4[m], 16 - sh) : b4[m];
+    const long long head = min(n, (long long)((16 - sh) & 15));
+    const long long tail = max(head, 16 * m_hi - sh);
+    for (long long i = threadIdx.x; i < head; i += THREADS) dst[i] = buf[i];
+    for (long long i = tail + threadIdx.x; i < n; i += THREADS) dst[i] = buf[i];
+}
+
+// n zero bytes at dst (any alignment): aligned 16-byte stores and the two
+// ends one byte at a time, shared by the CTA's THREADS threads
+template <int THREADS>
+__device__ __forceinline__ void zero_bytes(uint8_t* dst, long long n) {
+    if (n <= 0) return;
+    const long long head = min(n, (long long)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15));
+    const long long nb = (n - head) / 16;
+    uint4* body = reinterpret_cast<uint4*>(dst + head);
+    for (long long m = threadIdx.x; m < nb; m += THREADS) body[m] = make_uint4(0, 0, 0, 0);
+    for (long long i = threadIdx.x; i < head; i += THREADS) dst[i] = 0;
+    for (long long i = head + 16 * nb + threadIdx.x; i < n; i += THREADS) dst[i] = 0;
+}
+
+// ---------------------------------------------------------------------------
 // H1
 // ---------------------------------------------------------------------------
 
-template <bool MASKED>
 __global__ void __launch_bounds__(CHUNK) huffman_symbols_kernel(
-        const int* __restrict__ data, const uint8_t* __restrict__ mask,
-        const int* __restrict__ chunk_base, const int* __restrict__ chunk_last, int h, int w,
-        int d, int offset, long long n_chunks, uint8_t* __restrict__ direct,
-        uint8_t* __restrict__ delta, int* __restrict__ histos) {
+        const int* __restrict__ data, int h, int w, int d, int offset, long long n_chunks,
+        uint8_t* __restrict__ direct, uint8_t* __restrict__ delta, int* __restrict__ histos) {
     __shared__ unsigned hist[2 * 256];
-    __shared__ int warp_cnt[CHUNK / 32];
-    __shared__ long long warp_last[CHUNK / 32];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tid = threadIdx.x, lane = tid & 31;
     for (int i = tid; i < 512; i += CHUNK) hist[i] = 0;
     __syncthreads();
     const long long npx = (long long)h * w;
     for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
         const long long p = c * CHUNK + tid;
-        const bool v = p < npx && (!MASKED || mask[p]);
-        long long rank = p, q = p - 1;
-        if (MASKED) {
-            const unsigned ballot = __ballot_sync(FULL, v);
-            if (lane == 0) {
-                warp_cnt[warp] = __popc(ballot);
-                warp_last[warp] = ballot ? c * CHUNK + warp * 32 + 31 - __clz(ballot) : -1;
-            }
-            __syncthreads();
-            int before = 0;
-            long long last = chunk_last[c];
-            for (int k = 0; k < warp; ++k) {
-                before += warp_cnt[k];
-                if (warp_last[k] >= 0) last = warp_last[k];
-            }
-            const unsigned below = ballot & ((1u << lane) - 1u);
-            rank = chunk_base[c] + before + __popc(below);
-            q = below ? c * CHUNK + warp * 32 + 31 - __clz(below) : last;
-            __syncthreads();  // warp_cnt / warp_last are the next chunk's
-        }
+        const bool v = p < npx;
         const unsigned act = __ballot_sync(FULL, v);
         if (!v) continue;
         const long long row = p / w, col = p - row * w;
-        long long src;  // the pixel the delta is taken against; -1: none (0)
-        if (MASKED) {
-            const bool left_ok = col > 0 && mask[p - 1];
-            const bool above_ok = row > 0 && mask[p - w];
-            src = (!left_ok && above_ok) ? p - w : q;
-        } else {
-            src = col > 0 ? p - 1 : (row > 0 ? p - w : -1);
-        }
+        const long long src = col > 0 ? p - 1 : (row > 0 ? p - w : -1);  // -1: none (0)
         for (int k = 0; k < d; ++k) {
             const int x = data[p * d + k];
             const int prev = src >= 0 ? data[src * d + k] : 0;
             const unsigned sd = (unsigned)(x + offset) & 0xFFu;
             const unsigned se = (unsigned)(x - prev + offset) & 0xFFu;
-            direct[rank * d + k] = (uint8_t)sd;
-            delta[k * npx + rank] = (uint8_t)se;
+            direct[p * d + k] = (uint8_t)sd;
+            delta[k * npx + p] = (uint8_t)se;
             unsigned peers = __match_any_sync(act, sd);
             if (lane == __ffs(peers) - 1) atomicAdd(&hist[sd], (unsigned)__popc(peers));
             peers = __match_any_sync(act, se);
@@ -233,6 +303,211 @@ __global__ void __launch_bounds__(CHUNK) huffman_symbols_kernel(
     }
     __syncthreads();
     for (int i = tid; i < 512; i += CHUNK)
+        if (hist[i]) atomicAdd(&histos[i], (int)hist[i]);
+}
+
+// H1 masked: the look-back word of a tile, (1 + its last valid pixel) << 32 |
+// its valid pixels; the combine takes the later last (the max) and the sum
+// of the counts. Word: state << 62 | (1 + last) << 31 | count (each < 2^31).
+struct H1Look {
+    using T = unsigned long long;
+    __device__ static unsigned long long state(unsigned long long x) { return x >> 62; }
+    __device__ static T value(unsigned long long x) {
+        return (x >> 31 & 0x7FFFFFFFull) << 32 | (x & 0x7FFFFFFFull);
+    }
+    __device__ static unsigned long long word(unsigned long long st, T v) {
+        return st << 62 | (v >> 32) << 31 | (v & 0xFFFFFFFFull);
+    }
+    __device__ static T f(T a, T b) {
+        const unsigned long long hi = a >> 32 > b >> 32 ? a >> 32 : b >> 32;
+        return hi << 32 | (unsigned)((unsigned)a + (unsigned)b);
+    }
+};
+
+// the low bytes of D int32 words, byte k from word k
+template <int D>
+__device__ __forceinline__ unsigned pack_bytes(const int* v) {
+    unsigned r = 0;
+#pragma unroll
+    for (int k = 0; k < D; ++k) r |= ((unsigned)v[k] & 0xFFu) << (8 * k);
+    return r;
+}
+
+// pixel q's D values (int32 words at q * D) packed: one load a depth
+template <int D>
+__device__ __forceinline__ unsigned pixel_bytes(const int* __restrict__ data, long long q) {
+    int v[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) v[k] = __ldg(data + q * D + k);
+    return pack_bytes<D>(v);
+}
+
+// One CTA per tile of H1M_PX pixels at a time, tiles in ticket order (the
+// grid strides over them; the histograms stay in shared memory until the
+// CTA is done). Thread t takes pixels 16t .. 16t + 15 of the tile: its valid
+// bits and those of the row above by 16-byte mask loads, its pixels' D
+// words (D = 1..4) by 16-byte loads, packed one byte a depth. The tile's
+// valid count and last valid pixel, scanned over the threads and looked
+// back over the tiles before it (H1Look), give each pixel its rank and the
+// last valid pixel before it. The delta's source is the left pixel if
+// valid, else the one above if valid (row > 0), else the last valid pixel
+// (none: 0); every source load is issued before any symbol is made. The
+// tile's valid pixels have the consecutive ranks R .. R + c - 1, so its
+// direct symbols ([R D, (R + c) D)) and each depth's delta symbols
+// ([k npx + R, + c)) are staged in shared memory and stored contiguously;
+// the zero tails (ranks nv .. npx - 1 of each stream, bytes npx D ..
+// n_pad) are shared out by invalid pixels: a tile with inv invalid pixels
+// and g before it zeroes ranks [npx - g - inv, npx - g). Histograms: one in
+// shared memory, a shared atomic a symbol (lanes on one bin cost less than
+// lanes on one bank; copies by lane were slower). D = 0: any depth, four
+// depths a group, data and sources read by 4-byte loads, direct symbols
+// stored in place.
+template <int D>
+__global__ void __launch_bounds__(H1M_THREADS) huffman_symbols_masked_kernel(
+        const int* __restrict__ data, const uint8_t* __restrict__ mask, int h, int w, int d,
+        int offset, int n_tiles, unsigned long long* lb, int* __restrict__ histos,
+        uint8_t* __restrict__ direct, uint8_t* __restrict__ delta, long long n_pad) {
+    constexpr int WARPS = H1M_THREADS / 32, DS = D ? D : 4;
+    __shared__ unsigned hist[512];
+    __shared__ __align__(16) uint8_t sdir[D ? H1M_PX * D + 16 : 16];
+    __shared__ __align__(16) uint8_t sdel[DS][H1M_PX + 16];
+    __shared__ unsigned long long sm64[2 * (WARPS + 1)];
+    __shared__ unsigned svb[H1M_THREADS];
+    __shared__ unsigned long long sh_pre;
+    __shared__ int sh_t;
+    const int tid = threadIdx.x, lane = tid & 31;
+    for (int i = tid; i < 512; i += H1M_THREADS) hist[i] = 0;
+    const long long npx = (long long)h * w;
+    for (;;) {
+        if (tid == 0) sh_t = (int)atomicAdd(lb + n_tiles, 1ULL);  // the ticket
+        __syncthreads();
+        const int t = sh_t;
+        if (t >= n_tiles) break;
+        const long long tp0 = (long long)t * H1M_PX, p0 = tp0 + 16 * tid;
+        const int tpx = (int)min((long long)H1M_PX, npx - tp0);
+        const int cnt = (int)max(0LL, min(16LL, npx - p0));
+        const unsigned vb = mask_bits16(mask, p0, cnt);
+        unsigned ab = 0;  // bit j: pixel p0 + j - w is valid (row > 0)
+        if (p0 >= w) {
+            ab = mask_bits16(mask, p0 - w, cnt);
+        } else {
+            for (int j = 0; j < cnt; ++j)
+                if (p0 + j >= w && mask[p0 + j - w]) ab |= 1u << j;
+        }
+        const bool pv0 = tid == 0 && p0 > 0 && cnt > 0 && mask[p0 - 1];  // thread 0's left
+        unsigned xp[16];  // D > 0: pixel j's D bytes (depth k in byte k)
+        unsigned xl = 0;  // the same of the pixel before p0
+        if constexpr (D > 0) {
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(data + p0 * D);
+            const int nbytes = 4 * D * cnt;
+            int x[16 * D];  // pixel j's depth k at x[j * D + k]
+#pragma unroll
+            for (int m = 0; m < D * 4; ++m) {  // 16 bytes: words 4m .. 4m + 3
+                const uint4 v = 16 * m < nbytes ? load16(src + 16 * m, min(16, nbytes - 16 * m))
+                                                : make_uint4(0, 0, 0, 0);
+                x[4 * m] = (int)v.x, x[4 * m + 1] = (int)v.y;
+                x[4 * m + 2] = (int)v.z, x[4 * m + 3] = (int)v.w;
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) xp[j] = pack_bytes<D>(x + j * D);
+            xl = __shfl_up_sync(FULL, xp[15], 1);
+            if (lane == 0) xl = p0 > 0 && cnt > 0 ? pixel_bytes<D>(data, p0 - 1) : 0u;
+        }
+        const int nvt = __popc(vb);
+        unsigned long long tot;
+        const unsigned long long ex = block_excl<H1M_THREADS, H1Look>(
+                (unsigned long long)(vb ? p0 + 32 - __clz(vb) : 0) << 32 | (unsigned)nvt, tot,
+                sm64);
+        if (tid < 32) {
+            const unsigned long long pre = ud_lookback<H1Look>(lb, t, tot);
+            if (tid == 0) sh_pre = pre;
+        }
+        svb[tid] = vb;
+        __syncthreads();
+        const unsigned long long pre = sh_pre, thr = H1Look::f(pre, ex);
+        const long long R = (unsigned)pre;                  // the tile's first rank
+        const int c = (int)(unsigned)tot;                   // its valid pixels
+        const int rl0 = (int)(unsigned)ex;                  // the thread's first rank in the tile
+        const long long qt = (long long)(thr >> 32) - 1;    // the last valid pixel before p0
+        const bool pv = tid > 0 ? (svb[tid - 1] >> 15 & 1u) : pv0;
+        unsigned col0 = 0;  // bit j: pixel j is a row's column 0
+        if (cnt > 0) {
+            const long long cf = p0 % w;
+            for (long long j = cf ? w - cf : 0; j < 16; j += w) col0 |= 1u << j;
+        }
+        const unsigned left = (vb << 1 | (pv ? 1u : 0u)) & ~col0;
+        const unsigned up = vb & ~left & ab;  // the delta taken against the pixel above
+        auto last_before = [&](int j) -> long long {  // else the last valid pixel before it
+            const unsigned below = vb & ((1u << j) - 1u);
+            return below ? p0 + 31 - __clz(below) : qt;
+        };
+        if constexpr (D > 0) {
+            const unsigned flip = offset ? 0x80808080u : 0u;
+            unsigned pp[16];  // the sources' bytes: every load issued before any is used
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                pp[j] = j ? xp[j - 1] : xl;
+                if ((vb & ~left) >> j & 1u) {
+                    const long long q = up >> j & 1u ? p0 + j - w : last_before(j);
+                    pp[j] = q >= 0 ? pixel_bytes<D>(data, q) : 0u;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                if (!(vb >> j & 1u)) continue;
+                const int rl = rl0 + __popc(vb & ((1u << j) - 1u));
+                const unsigned sd = xp[j] ^ flip, se = __vsub4(xp[j], pp[j]) ^ flip;
+#pragma unroll
+                for (int i = 0; i < D; ++i) {
+                    const unsigned a = sd >> (8 * i) & 0xFFu, e = se >> (8 * i) & 0xFFu;
+                    sdir[rl * D + i] = (uint8_t)a;
+                    sdel[i][rl] = (uint8_t)e;
+                    atomicAdd(&hist[a], 1u);
+                    atomicAdd(&hist[256 + e], 1u);
+                }
+            }
+        }
+        for (int k0 = 0; k0 < (D ? D : d); k0 += DS) {
+            const int kn = D ? D : min(4, d - k0);
+            if constexpr (D == 0) {  // any depth, four a group: 4-byte loads, direct in place
+                for (int j = 0; j < 16; ++j) {
+                    if (!(vb >> j & 1u)) continue;
+                    const long long p = p0 + j;
+                    const int rl = rl0 + __popc(vb & ((1u << j) - 1u));
+                    const long long q = left >> j & 1u ? p - 1
+                                        : up >> j & 1u ? p - w : last_before(j);
+                    for (int i = 0; i < kn; ++i) {
+                        const int k = k0 + i, xv = data[p * d + k];
+                        const int pw = q >= 0 ? data[q * d + k] : 0;
+                        const unsigned a = ((unsigned)xv + offset) & 0xFFu;
+                        const unsigned e = ((unsigned)(xv - pw) + offset) & 0xFFu;
+                        direct[(R + rl) * d + k] = (uint8_t)a;
+                        sdel[i][rl] = (uint8_t)e;
+                        atomicAdd(&hist[a], 1u);
+                        atomicAdd(&hist[256 + e], 1u);
+                    }
+                }
+            }
+            __syncthreads();
+            const long long gap = tp0 - R, inv = tpx - c;  // invalid pixels before and in the tile
+            const long long z0 = npx - gap - inv;           // its share of the zero tails
+            for (int i = 0; i < kn; ++i) {
+                store_tile<H1M_THREADS>(sdel[i], delta + (k0 + i) * npx + R, c);
+                zero_bytes<H1M_THREADS>(delta + (k0 + i) * npx + z0, inv);
+            }
+            if (k0 == 0) {
+                if constexpr (D > 0)
+                    store_tile<H1M_THREADS>(sdir, direct + R * D, (long long)c * D);
+                zero_bytes<H1M_THREADS>(direct + z0 * d, inv * d);
+                if (t == n_tiles - 1) {  // past the last pixel: to whole groups
+                    zero_bytes<H1M_THREADS>(direct + npx * d, n_pad - npx * d);
+                    zero_bytes<H1M_THREADS>(delta + npx * d, n_pad - npx * d);
+                }
+            }
+            __syncthreads();  // the buffers and sh_t are the next group's or tile's
+        }
+    }
+    for (int i = tid; i < 512; i += H1M_THREADS)
         if (hist[i]) atomicAdd(&histos[i], (int)hist[i]);
 }
 
@@ -649,22 +924,6 @@ __device__ __forceinline__ void put_pixels(const unsigned* x, uint8_t* dst) {
     for (int m = 0; m < D; ++m) o[m] = make_uint4(y[4 * m], y[4 * m + 1], y[4 * m + 2], y[4 * m + 3]);
 }
 
-// buf's n bytes to dst (any alignment): aligned 16-byte stores, each taken
-// from two aligned 16-byte reads of buf (which holds 16 bytes past n,
-// rounded up to 16), and the two ends one byte at a time
-__device__ __forceinline__ void store_tile(const uint8_t* buf, uint8_t* dst, long long n) {
-    const int sh = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
-    uint4* base = reinterpret_cast<uint4*>(dst - sh);  // chunk m: dst bytes [16m - sh, 16m - sh + 16)
-    const uint4* b4 = reinterpret_cast<const uint4*>(buf);
-    const long long m_hi = (n + sh) / 16;              // the chunks that end inside n
-    for (long long m = (sh ? 1 : 0) + threadIdx.x; m < m_hi; m += RST_THREADS)
-        base[m] = sh ? shift16(b4[m - 1], b4[m], 16 - sh) : b4[m];
-    const long long head = min(n, (long long)((16 - sh) & 15));
-    const long long tail = max(head, 16 * m_hi - sh);
-    for (long long i = threadIdx.x; i < head; i += RST_THREADS) dst[i] = buf[i];
-    for (long long i = tail + threadIdx.x; i < n; i += RST_THREADS) dst[i] = buf[i];
-}
-
 // the 16 words' running mod-256 sums from acc, restarting at the words
 // whose bit is set in starts; returns the last
 template <bool KEEP>
@@ -765,7 +1024,7 @@ __global__ void __launch_bounds__(RST_THREADS) huffman_restore_delta_kernel(
                 }
             }
             __syncthreads();
-            store_tile(buf, img + p0 * d, (long long)n_px * d);
+            store_tile<RST_THREADS>(buf, img + p0 * d, (long long)n_px * d);
             __syncthreads();  // the buffer is the next tile's
         }
     }
@@ -832,8 +1091,6 @@ __global__ void __launch_bounds__(CHUNK) huffman_restore_masked_kernel(
 // H4 masked delta: rank space (undelta_masked_device :432)
 // ---------------------------------------------------------------------------
 
-constexpr unsigned long long UD_AGG = 1, UD_INC = 2;  // look-back states; 0: not yet published
-
 // Look-back words of the masked un-delta's two scans. Counts: state << 62 |
 // use-above << 31 | valid (each < 2^31); value b << 32 | a. Sums: state << 32
 // | four bytes (SWAR, bytewise mod 256).
@@ -857,62 +1114,12 @@ struct UdSums {
     __device__ static T f(T a, T b) { return add4(a, b); }
 };
 
-// warp 0 of chunk c: publish the chunk's total, then a decoupled look-back
-// 32 chunks a step (chunks run in ticket order, so every chunk waited on has
-// started): each lane waits for one chunk's word, the nearest inclusive
-// prefix ends the walk, and the warp folds the words up to it (the combines
-// are commutative); publish the inclusive prefix. Returns the exclusive
-// prefix in every lane.
-template <class L>
-__device__ typename L::T ud_lookback(unsigned long long* lb, int c, typename L::T tot) {
-    using T = typename L::T;
-    const int lane = threadIdx.x & 31;
-    if (c == 0) {
-        if (lane == 0) atomicExch(lb, L::word(UD_INC, tot));
-        return T(0);
-    }
-    if (lane == 0) atomicExch(lb + c, L::word(UD_AGG, tot));
-    T acc = T(0);
-    for (int base = c - 1;; base -= 32) {
-        const int j = base - lane;
-        unsigned long long x = L::word(UD_INC, T(0));  // before chunk 0: nothing
-        if (j >= 0) {
-            const volatile unsigned long long* q = lb + j;
-            do x = *q; while (x == 0);
-        }
-        const unsigned inc = __ballot_sync(FULL, L::state(x) == UD_INC);
-        const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive prefix
-        T v = lane <= stop ? L::value(x) : T(0);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v = L::f(v, __shfl_xor_sync(FULL, v, o));
-        acc = L::f(acc, v);
-        if (inc) break;
-    }
-    if (lane == 0) atomicExch(lb + c, L::word(UD_INC, L::f(acc, tot)));
-    return acc;
-}
-
 struct Sum64 {
     using T = unsigned long long;
     __device__ static unsigned long long f(unsigned long long a, unsigned long long b) {
         return a + b;
     }
 };
-
-// bit j: mask[p + j] != 0, for the n (0..16) pixels from p (>= 0)
-__device__ __forceinline__ unsigned mask_bits16(const uint8_t* __restrict__ mask, long long p,
-                                                int n) {
-    if (n <= 0) return 0;
-    const uint4 v = load16(mask + p, n);
-    const unsigned wd[4] = {v.x, v.y, v.z, v.w};
-    unsigned bits = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bytes of 0 or 0xFF -> one bit each
-        const unsigned b = __vcmpne4(wd[i], 0u) & 0x01010101u;
-        bits |= ((b * 0x01020408u) >> 24 & 0xFu) << (4 * i);
-    }
-    return n < 16 ? bits & ((1u << n) - 1u) : bits;
-}
 
 // pass 1, one CTA per chunk of UD_PX pixels in ticket order; thread t takes
 // pixels 16t .. 16t + 15 of the chunk. Valid and use-above bits (valid, left
@@ -1186,24 +1393,68 @@ int launch_undelta_masked(const uint8_t* sym, const uint8_t* mask, int h, int w,
     return (int)cudaGetLastError();
 }
 
+struct H1mArgs {
+    const int* data;
+    const uint8_t* mask;
+    int h, w, d, offset, n_tiles;
+    uint8_t *scratch, *direct, *delta;
+    long long n_pad;
+};
+
+// scratch: the histograms (2048 bytes), then the look-back words and the ticket
+template <int D>
+int launch_symbols_masked(const H1mArgs& a, cudaStream_t st) {
+    huffman_symbols_masked_kernel<D><<<grid_of(a.n_tiles, 1), H1M_THREADS, 0, st>>>(
+        a.data, a.mask, a.h, a.w, a.d, a.offset, a.n_tiles,
+        reinterpret_cast<unsigned long long*>(a.scratch + 2048), reinterpret_cast<int*>(a.scratch),
+        a.direct, a.delta, a.n_pad);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// data [h, w, d] int32; mask [h * w] bool or null; chunk_base, chunk_last
-// [ceil(h*w / 256)] (masked only); direct, delta: zeroed u8; histos [2, 256]
-// int32, zeroed
-extern "C" int huffman_symbols(const int* data, const uint8_t* mask, const int* chunk_base,
-                               const int* chunk_last, int h, int w, int d, int offset,
-                               uint8_t* direct, uint8_t* delta, int* histos, void* stream) {
+// data [h, w, d] int32; direct, delta: zeroed u8; histos [2, 256] int32, zeroed
+extern "C" int huffman_symbols(const int* data, int h, int w, int d, int offset, uint8_t* direct,
+                               uint8_t* delta, int* histos, void* stream) {
     const long long n_chunks = ((long long)h * w + CHUNK - 1) / CHUNK;
     if (n_chunks == 0) return 0;
-    const unsigned grid = grid_of(n_chunks, 1);
-    if (mask)
-        huffman_symbols_kernel<true><<<grid, CHUNK, 0, (cudaStream_t)stream>>>(
-            data, mask, chunk_base, chunk_last, h, w, d, offset, n_chunks, direct, delta, histos);
-    else
-        huffman_symbols_kernel<false><<<grid, CHUNK, 0, (cudaStream_t)stream>>>(
-            data, mask, chunk_base, chunk_last, h, w, d, offset, n_chunks, direct, delta, histos);
+    huffman_symbols_kernel<<<grid_of(n_chunks, 1), CHUNK, 0, (cudaStream_t)stream>>>(
+        data, h, w, d, offset, n_chunks, direct, delta, histos);
     return (int)cudaGetLastError();
+}
+
+// bytes of scratch huffman_symbols_masked needs: the histograms (the
+// output, int32 [2, 256]) first, then a look-back word a tile and the ticket
+extern "C" long long huffman_symbols_masked_scratch(int h, int w) {
+    return 2048 + 8 * (((long long)h * w + H1M_PX - 1) / H1M_PX + 1);
+}
+
+// data [h, w, d] int32 (4-byte aligned); mask [h * w] bool; scratch:
+// huffman_symbols_masked_scratch(h, w) bytes, 16-aligned, zeroed here on the
+// stream (one memset), the histograms in its first 2048; direct, delta: u8
+// [n_pad >= h * w * d], every byte written (the tails zero)
+extern "C" int huffman_symbols_masked(const int* data, const uint8_t* mask, int h, int w, int d,
+                                      int offset, uint8_t* scratch, long long n_scratch,
+                                      uint8_t* direct, uint8_t* delta, long long n_pad,
+                                      void* stream) {
+    const long long npx = (long long)h * w;
+    if (npx * d == 0) return 0;
+    if (npx >= (1LL << 31) - 2 * H1M_PX || n_pad < npx * d ||
+        n_scratch < huffman_symbols_masked_scratch(h, w))
+        return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(scratch) & 15) return (int)cudaErrorMisalignedAddress;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, huffman_symbols_masked_scratch(h, w), st);
+    if (err != cudaSuccess) return (int)err;
+    const H1mArgs a = {data, mask, h, w, d, offset, (int)((npx + H1M_PX - 1) / H1M_PX),
+                       scratch, direct, delta, n_pad};
+    switch (d) {
+        case 1: return launch_symbols_masked<1>(a, st);
+        case 2: return launch_symbols_masked<2>(a, st);
+        case 3: return launch_symbols_masked<3>(a, st);
+        case 4: return launch_symbols_masked<4>(a, st);
+        default: return launch_symbols_masked<0>(a, st);
+    }
 }
 
 extern "C" int huffman_group_bits(const uint8_t* sym, const int* table, long long n_total,

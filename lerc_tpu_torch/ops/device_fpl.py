@@ -376,25 +376,24 @@ def fpl_packbits_size(planes: torch.Tensor, n: int) -> torch.Tensor:
     length L after a run of length Lp: 2 * (L // 129 + (L % 129 >= 2))
     bytes of repeats, a literal when L % 129 == 1, which opens a literal
     stretch when L >= 130 or the run before left none; plus
-    literals // 128. The kernel compacts the run starts (per-chunk counts,
-    a scan of them, ranks inside each chunk), then each run reads its own
-    start and its neighbours'."""
+    literals // 128. The kernel reads each plane once, a CTA per 16 KB
+    tile: the runs inside a tile add their terms there, and the plane's
+    last tile to finish joins the tiles' summaries (first and last start,
+    sums, two flags; ``packbits_size_tiled_ref`` is the same algebra in
+    plain PyTorch). A memset and one launch a call; scratch of a summary a
+    tile, sized by the source's ``fpl_packbits_scratch``."""
     _check_planes(planes, n)
     if not build.on_cuda(planes):
         return fpl_packbits_size_ref(planes, n)
     n_pl = planes.shape[0]
-    nc = _ctypes_fn("fpl_packbits_chunks", [_L], ctypes.c_longlong)(n)
-    fn = _ctypes_fn("fpl_packbits_size", [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P])
+    n_scratch = _ctypes_fn("fpl_packbits_scratch", [_L, _I], ctypes.c_longlong)(n, n_pl)
+    fn = _ctypes_fn("fpl_packbits_size", [_P, _I, _L, _L, _P, _L, _P, _P])
     dev = planes.device
     with torch.cuda.device(dev):
-        counts = torch.empty(n_pl, nc, dtype=torch.int32, device=dev)
-        starts = torch.empty(n_pl, n + 1, dtype=torch.int32, device=dev)
-        n_runs = torch.empty(n_pl, dtype=torch.int32, device=dev)
-        sums = torch.zeros(n_pl, 3, dtype=torch.int64, device=dev)
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
         sizes = torch.empty(n_pl, dtype=torch.int32, device=dev)
-        err = fn(planes.data_ptr(), n_pl, planes.shape[1], n, counts.data_ptr(),
-                 starts.data_ptr(), n_runs.data_ptr(), sums.data_ptr(), sizes.data_ptr(),
-                 build.launch_stream(planes))
+        err = fn(planes.data_ptr(), n_pl, planes.shape[1], n, scratch.data_ptr(), n_scratch,
+                 sizes.data_ptr(), build.launch_stream(planes))
         build.check(err, "fpl_packbits_size")
     build.LAUNCHES["fpl_packbits_size"] += 1
     return sizes
@@ -422,6 +421,73 @@ def fpl_packbits_size_ref(planes: torch.Tensor, n: int) -> torch.Tensor:
     stretch = lit & ((change & (length >= 130)) | ~prev_run_lit)
     lit_total = lit.sum(1)
     return (2 * segs.sum(1) + lit_total + stretch.sum(1) + lit_total // 128).to(torch.int32)
+
+
+def packbits_size_tiled_ref(planes: torch.Tensor, n: int, tile: int) -> torch.Tensor:
+    """F2b's algebra in plain PyTorch, at any tile size (tests only; the
+    kernel's tile is 16 KB). Each tile of `tile` bytes sums the terms of the
+    runs that start in it and end before its last start, and exports its
+    first start f, its last start l, whether the run at f leaves a literal
+    of length < 130 (it opens a stretch unless the run before left a
+    literal) and whether the run before l, inside the tile, left one. The
+    join, in tile order: P_U, the last start before tile U, is an exclusive
+    max scan of l + 1; the run at P_U ends at f_U; whether the run before
+    P_U left a literal is the low bit of a second exclusive max scan, of
+    2 l + that flag of each tile + 1. The run at the last start ends at n."""
+    x = planes[:, :n].to(torch.int64)
+    n_tiles = -(-n // tile)
+    out = []
+    for p in x:
+        start = torch.ones(n, dtype=torch.bool, device=p.device)
+        start[1:] = p[1:] != p[:-1]
+        pos = torch.nonzero(start).flatten()
+        tid = pos // tile
+        first = torch.ones_like(start[:pos.numel()])   # the tile's first start
+        first[1:] = tid[1:] != tid[:-1]
+        closed = torch.zeros_like(first)                 # the next start is in the tile
+        closed[:-1] = ~first[1:]
+        ln = torch.zeros_like(pos)
+        ln[:-1] = pos[1:] - pos[:-1]
+        lt = closed & (ln % 129 == 1)
+        prev_lt = torch.zeros_like(lt)
+        prev_lt[1:] = lt[:-1]
+        prev_lt &= ~first
+        opens = lt & ((ln >= 130) | (~first & ~prev_lt))
+        segs = int(torch.where(closed, ln // 129 + (ln % 129 >= 2).to(torch.int64), 0).sum())
+        lit, stretch = int(lt.sum()), int(opens.sum())
+        last = ~closed                                   # the tile's last start
+        f = torch.full((n_tiles,), -1, dtype=torch.int64, device=p.device)
+        l = f.clone()
+        f[tid[first]] = pos[first]
+        l[tid[last]] = pos[last]
+        needs_f = torch.zeros(n_tiles, dtype=torch.bool, device=p.device)
+        needs_f[tid[first]] = lt[first] & (ln[first] < 130)
+        plit_l = torch.zeros_like(needs_f)
+        plit_l[tid[last]] = prev_lt[last]
+        has = f >= 0
+
+        def excl_max(v):
+            c = torch.cummax(v, 0).values
+            return torch.cat([c.new_zeros(1), c[:-1]]), int(c[-1])
+
+        P = excl_max(torch.where(has, l + 1, 0))[0] - 1
+        out_lit = torch.where(f != l, plit_l, (P >= 0) & ((f - P) % 129 == 1))
+        ek, k_total = excl_max(torch.where(has, 2 * l + out_lit.to(torch.int64) + 1, 0))
+        closes = has & (P >= 0)
+        L = f - P
+        r = L % 129
+        lt_p = closes & (r == 1)
+        segs += int(torch.where(closes, L // 129 + (r >= 2).to(torch.int64), 0).sum())
+        lit += int(lt_p.sum())
+        stretch += int((lt_p & ((L >= 130) | ((ek - 1) % 2 == 0))).sum())
+        stretch += int((has & (f != l) & needs_f & ~lt_p).sum())
+        Lz = n - (k_total - 1) // 2  # the run at the plane's last start
+        segs += Lz // 129 + (Lz % 129 >= 2)
+        if Lz % 129 == 1:
+            lit += 1
+            stretch += Lz >= 130 or (k_total - 1) % 2 == 0
+        out.append(2 * segs + lit + stretch + lit // 128)
+    return torch.tensor(out, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

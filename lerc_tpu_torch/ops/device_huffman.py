@@ -7,9 +7,10 @@ delta-vs-neighbour symbols (Lerc2.cpp:2311-2606). The wrappers keep the JAX
 functions' names:
 
   H1 ``symbol_streams_device`` (``symbol_streams_device`` :50,
-     ``symbol_streams_masked_device`` :72 and ``histogram256`` :118): one
-     thread per pixel writes the direct (pixel-major) and delta (depth-major)
-     u8 symbols and counts both 256-bin histograms of the live symbols;
+     ``symbol_streams_masked_device`` :72 and ``histogram256`` :118): the
+     direct (pixel-major) and delta (depth-major) u8 symbols and both 256-bin
+     histograms of the live symbols; all-valid one thread per pixel, masked
+     one kernel over tiles in ticket order whose ranks come from a look-back;
   H2 ``encode_stream_device`` (:160 with ``_map256`` :141): per 64-symbol
      group, its bit count (``huffman_group_bits``), an exclusive scan over
      the groups (the sidecar ``sbits``, ``torch.cumsum``), then the
@@ -42,7 +43,7 @@ from ..kernels import build
 from .device_scan import _as_i32
 
 GROUP = 64    # symbols per packing group (the sidecar's unit)
-CHUNK = 256   # pixels per rank chunk (H1, the masked direct restore)
+CHUNK = 256   # pixels per rank chunk (the masked direct restore)
 
 
 def live_layout(npx: int, d: int, n_valid: int | None, delta: bool) -> tuple[int, int, int]:
@@ -81,32 +82,21 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 # ---------------------------------------------------------------------------
-# rank chunks: a pixel's rank among the valid pixels (glue shared by H1 and H4)
+# rank chunks: a pixel's rank among the valid pixels (glue of H4's masked direct restore)
 # ---------------------------------------------------------------------------
 
 
-def rank_chunks(mask_flat: torch.Tensor, prev: bool = True):
-    """Per CHUNK-pixel chunk of a flat bool mask: (base int32 [nc], the
-    valid pixels before the chunk; last int32 [nc], the index of the last
-    valid pixel before the chunk or -1; None when prev is False). The
-    exclusive scans of per-chunk counts and last indices, as K2's record
-    offsets: a pixel's rank is its chunk's base plus its popc prefix."""
+def rank_chunks(mask_flat: torch.Tensor) -> torch.Tensor:
+    """Per CHUNK-pixel chunk of a flat bool mask, the valid pixels before
+    the chunk (int32 [nc]): the exclusive scan of per-chunk counts, as K2's
+    record offsets; a pixel's rank is its chunk's base plus its popc
+    prefix."""
     npx = mask_flat.numel()
     nc = -(-npx // CHUNK)
     m = torch.zeros(nc * CHUNK, dtype=torch.bool, device=mask_flat.device)
     m[:npx] = mask_flat
-    mc = m.view(nc, CHUNK)
-    cnt = mc.sum(1, dtype=torch.int32)
-    base = (torch.cumsum(cnt, 0, dtype=torch.int32) - cnt).contiguous()
-    if not prev:
-        return base, None
-    pos = torch.arange(1, CHUNK + 1, dtype=torch.int32, device=m.device)
-    inner = (mc * pos).amax(1)  # 1 + the last valid position in the chunk, 0 if none
-    first = torch.arange(nc, dtype=torch.int32, device=m.device) * CHUNK
-    last_in = torch.where(inner > 0, first + inner - 1, -1)
-    last = torch.cummax(last_in, 0).values
-    last = torch.cat([last.new_full((1,), -1), last[:-1]]).contiguous()
-    return base, last
+    cnt = m.view(nc, CHUNK).sum(1, dtype=torch.int32)
+    return (torch.cumsum(cnt, 0, dtype=torch.int32) - cnt).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +114,13 @@ def symbol_streams_device(data: torch.Tensor, mask: torch.Tensor | None, dt: Dat
     int32 band (8-bit values) with an optional [H, W] bool mask. Both
     streams have ceil(H*W*D / 64) * 64 entries, zero past the live symbols
     (layouts in the module docstring); histos[0] counts the direct and
-    histos[1] the delta stream's live symbols."""
+    histos[1] the delta stream's live symbols. All-valid: one thread per
+    pixel. Masked: one kernel and one memset, no torch op: tiles of 2,048
+    pixels in ticket order, each tile's base rank and the last valid pixel
+    before it from a decoupled look-back over (valid count, last valid
+    pixel), its symbols staged in shared memory and stored contiguously
+    (its valid pixels' ranks are consecutive), one shared histogram a CTA;
+    histos is then a view of the call's zeroed scratch."""
     _check_data(data)
     if mask is not None and (mask.dtype != torch.bool or mask.shape != data.shape[:2]):
         raise TypeError("mask must be an [H, W] bool tensor")
@@ -133,24 +129,31 @@ def symbol_streams_device(data: torch.Tensor, mask: torch.Tensor | None, dt: Dat
     h, w, d = data.shape
     npx = h * w
     n_pad = -(-npx * d // GROUP) * GROUP
-    name = "huffman_symbols" if mask is None else "huffman_symbols_masked"
-    fn = _ctypes_fn("huffman_symbols", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P])
-    with torch.cuda.device(data.device):
-        direct = torch.zeros(n_pad, dtype=torch.uint8, device=data.device)
-        delta = torch.zeros(n_pad, dtype=torch.uint8, device=data.device)
-        histos = torch.zeros(2, 256, dtype=torch.int32, device=data.device)
-        if mask is None:
-            base = last = m = None
-        else:
-            m = mask.contiguous().view(-1)
-            base, last = rank_chunks(m)
-        err = fn(data.data_ptr(), 0 if m is None else m.data_ptr(),
-                 0 if base is None else base.data_ptr(), 0 if last is None else last.data_ptr(),
-                 h, w, d, _offset(dt), direct.data_ptr(), delta.data_ptr(), histos.data_ptr(),
-                 build.launch_stream(data))
-        build.check(err, name)
-    build.LAUNCHES[name] += 1
-    return direct, delta, histos
+    dev = data.device
+    stream = build.launch_stream(data)
+    if mask is None:
+        fn = _ctypes_fn("huffman_symbols", [_P, _I, _I, _I, _I, _P, _P, _P, _P])
+        with torch.cuda.device(dev):
+            direct = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
+            delta = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
+            histos = torch.zeros(2, 256, dtype=torch.int32, device=dev)
+            err = fn(data.data_ptr(), h, w, d, _offset(dt), direct.data_ptr(), delta.data_ptr(),
+                     histos.data_ptr(), stream)
+            build.check(err, "huffman_symbols")
+        build.LAUNCHES["huffman_symbols"] += 1
+        return direct, delta, histos
+    m = mask.contiguous()
+    n_scratch = _ctypes_fn("huffman_symbols_masked_scratch", [_I, _I], ctypes.c_longlong)(h, w)
+    fn = _ctypes_fn("huffman_symbols_masked", [_P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _L, _P])
+    with torch.cuda.device(dev):
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+        direct = torch.empty(n_pad, dtype=torch.uint8, device=dev)
+        delta = torch.empty(n_pad, dtype=torch.uint8, device=dev)
+        err = fn(data.data_ptr(), m.data_ptr(), h, w, d, _offset(dt), scratch.data_ptr(),
+                 n_scratch, direct.data_ptr(), delta.data_ptr(), n_pad, stream)
+        build.check(err, "huffman_symbols_masked")
+    build.LAUNCHES["huffman_symbols_masked"] += 1
+    return direct, delta, scratch[:2048].view(torch.int32).view(2, 256)
 
 
 def symbol_streams_device_ref(data: torch.Tensor, mask: torch.Tensor | None, dt: DataType):
@@ -449,7 +452,7 @@ def expand_compacted_device(sym: torch.Tensor, mask: torch.Tensor, d: int, dt: D
     m = mask.contiguous().view(-1)
     fn = _ctypes_fn("huffman_restore_masked", [_P, _P, _P, _L, _I, _I, _P, _P])
     with torch.cuda.device(sym.device):
-        base, _ = rank_chunks(m, prev=False)
+        base = rank_chunks(m)
         img = torch.empty(h, w, d, dtype=torch.uint8, device=sym.device)
         err = fn(sym.data_ptr(), m.data_ptr(), base.data_ptr(), h * w, d, _offset(dt),
                  img.data_ptr(), build.launch_stream(sym))

@@ -7,12 +7,16 @@ Criteria (exact): F1's histograms equal to counts taken from JAX's own
 intermediate arrays, and the host choice (predictor and levels) equal to
 ``fpl_choose_device``; F2's planes and histograms and F2b's PackBits sizes
 equal to ``fpl_finalize_device`` (predictors 0, 1 and 2 forced, every level
-0..5); F3 equal to ``fpl_restore_device`` and to the input bits; the Huffman
+0..5), and F2b's plain version and ``packbits_size_tiled_ref`` (the
+kernel's per-tile algebra at tiles of 1-64 bytes) equal to
+``packbits_size_device`` on edge planes and drawn run lists; F3 equal to
+``fpl_restore_device`` and to the input bits; the Huffman
 planes' streams and group start bits through H2 equal to
 ``fpl_pack_planes_device``. Shapes: depth 1 and 3, 1x5, 2x3, 1xN, Nx1 and a
 1300x1250 band that F1 samples at a row stride of 3. JAX compiles once per
 shape and predictor (static levels once per tuple), so the shapes are few.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,6 +206,106 @@ def test_packbits_size_matches_jax_formula(name):
     # JAX's formula is an estimate of the true size; they differ on long literal stretches
     true = len(fpl_impl.encode_packbits(plane))
     assert abs(int(got[0]) - true) <= n // 128 + 2
+
+
+def edge_runs(T, seed=0):
+    """[(label, u8 plane)] of F2b's edge cases at a tile of T bytes: a
+    constant plane (one run), an alternating one (n runs of 1), runs of 129,
+    130, 258 and 259 starting at T - L - 1 .. T + 1, literals chained across
+    an edge, runs over several tiles with no start, n 1-5 and T - 1, T,
+    T + 1, drawn runs over five tiles, noise. Neighbouring runs differ."""
+    rng = np.random.default_rng(seed)
+
+    def runs(lengths):
+        steps = rng.integers(1, 256, len(lengths))
+        return np.repeat((np.cumsum(steps) % 256).astype(np.uint8), lengths)
+
+    out = [("constant", np.full(3 * T + 5, 7, np.uint8)),
+           ("alternating", (np.arange(2 * T + 3) % 2).astype(np.uint8))]
+    for L in (129, 130, 258, 259):
+        for s in (-L - 1, -L, -L + 1, -1, 0, 1):
+            out.append((f"runs of {L} from T{s:+d}",
+                        runs([max(1, T + s), L, L, 1, L, 1, 1, 1, max(1, 2 * T - 7), L])))
+    out += [("literals across an edge", runs([max(1, T - 5)] + [1] * 20 + [129, 1, 1] + [1] * 300)),
+            ("literals after long runs across an edge",
+             runs([max(1, T - 150)] + [1] * 300 + [130, 1, 259, 1] + [1] * 200 + [258, 2])),
+            ("runs over several tiles", runs([5, 3 * T + 7, 1, 1, 2 * T, 1, 129, T, 1]))]
+    for n in sorted({1, 2, 3, 4, 5, max(1, T - 1), T, T + 1}):
+        out.append((f"n {n}", runs(rng.choice([1, 1, 2, 129, 130], size=n))[:n]))
+        out.append((f"n {n} constant", np.full(n, 3, np.uint8)))
+    lengths = rng.choice([1, 1, 1, 2, 3, 128, 129, 130, 131, 258, 259, 260, max(1, T - 1), T,
+                          T + 1], size=200)
+    out.append(("drawn runs", runs(lengths)[:5 * T + 11]))
+    out.append(("noise", rng.integers(0, 256, 5 * T + 77, dtype=np.uint8)))
+    return out
+
+
+F2B_TILE = 16384  # the kernel's tile of bytes a plane (kernels/fpl.cu PB_TILE)
+EDGE_PLANES = edge_runs(F2B_TILE)
+
+
+_jax_packbits_size = jax.jit(J.packbits_size_device)  # one compile per length
+
+
+def jax_packbits_size(plane):
+    return int(_jax_packbits_size(jnp.asarray(plane.astype(np.uint32))))
+
+
+@pytest.mark.parametrize("n_pl", [4, 8])
+@pytest.mark.parametrize("case", range(len(EDGE_PLANES)), ids=[c[0] for c in EDGE_PLANES])
+def test_packbits_size_edge_planes_match_jax(case, n_pl):
+    """F2b's plain version on the edge planes at the kernel's tile, at 4 and
+    8 planes (plane b the case rolled by 17 b), against JAX plane by plane."""
+    plane = EDGE_PLANES[case][1]
+    n = plane.size
+    rolled = [np.roll(plane, 17 * b) for b in range(n_pl)]
+    planes = torch.zeros(n_pl, F.padded(n), dtype=torch.uint8)
+    planes[:, :n] = torch.from_numpy(np.stack(rolled))
+    got = F.fpl_packbits_size(planes, n).numpy()
+    assert got.tolist() == [jax_packbits_size(p) for p in rolled]
+
+
+TILE_SIZES = [1, 2, 3, 16, 64]
+
+
+@pytest.mark.parametrize("tile", TILE_SIZES)
+@pytest.mark.parametrize("name", sorted(PB_PLANES))
+def test_packbits_size_tiled_ref_matches_jax(name, tile):
+    """The kernel's algebra (per-tile summaries, then the join) at small
+    tiles, so that every boundary case of the join runs."""
+    plane = _runs(PB_PLANES[name])
+    n = plane.size
+    planes = torch.from_numpy(np.stack([np.roll(plane, 17 * b) for b in range(4)]))
+    got = F.packbits_size_tiled_ref(planes, n, tile).numpy()
+    assert got.tolist() == [jax_packbits_size(np.roll(plane, 17 * b)) for b in range(4)]
+
+
+@pytest.mark.parametrize("tile", TILE_SIZES)
+def test_packbits_size_tiled_ref_edge_planes_match_plain(tile):
+    """The same on the edge planes generated at this tile and at 64, against
+    the plain version (held to JAX above)."""
+    for T in sorted({tile, 64}):
+        for label, plane in edge_runs(T, seed=T):
+            planes = torch.from_numpy(plane[None])
+            assert torch.equal(F.packbits_size_tiled_ref(planes, plane.size, tile),
+                               F.fpl_packbits_size_ref(planes, plane.size)), (label, T)
+
+
+RUN_LENGTHS = st.one_of(st.integers(1, 5), st.sampled_from([127, 128, 129, 130, 131, 257, 258,
+                                                            259, 260]), st.integers(1, 300))
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.tuples(st.integers(0, 3), RUN_LENGTHS), min_size=1, max_size=24))
+def test_packbits_size_tiled_ref_matches_jax_on_drawn_runs(runs):
+    """Drawn run lists (values 0-3, so neighbouring runs sometimes merge)
+    at every tile size, against JAX and the plain version."""
+    plane = np.concatenate([np.full(n, v, np.uint8) for v, n in runs])
+    want = jax_packbits_size(plane)
+    planes = torch.from_numpy(plane[None])
+    assert int(F.fpl_packbits_size_ref(planes, plane.size)[0]) == want
+    for tile in TILE_SIZES:
+        assert int(F.packbits_size_tiled_ref(planes, plane.size, tile)[0]) == want, tile
 
 
 @settings(max_examples=60, deadline=None)

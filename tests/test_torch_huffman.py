@@ -137,10 +137,30 @@ def stripes(h=H, w=W) -> np.ndarray:
     return m
 
 
-MASKS = {"none": None, "rand": np.random.default_rng(9).random((H, W)) > 0.3, "stripes": stripes()}
+def one_pixel(i) -> np.ndarray:
+    m = np.zeros((H, W), bool)
+    m.flat[i] = True
+    return m
+
+
+def sparse_rows() -> np.ndarray:
+    """Valid pixels in rows 0 and 40 alone: a long invalid stretch carries
+    the last valid pixel across the masked H1's tiles."""
+    m = np.zeros((H, W), bool)
+    m[[0, 40]] = np.random.default_rng(10).random((2, W)) > 0.5
+    return m
+
+
+MASKS = {"none": None, "rand": np.random.default_rng(9).random((H, W)) > 0.3, "stripes": stripes(),
+         "empty": np.zeros((H, W), bool), "full": np.ones((H, W), bool), "first": one_pixel(0),
+         "last": one_pixel(-1), "sparse-rows": sparse_rows()}
 H1_CASES = [  # (dtype, depth, mask)
     (np.uint8, 1, "none"), (np.int8, 3, "none"), (np.uint8, 1, "rand"), (np.int8, 3, "stripes"),
     (np.uint8, 3, "rand"),
+    # the masked H1's edge masks, depths 1-4 and 8, uint8 and int8
+    (np.uint8, 1, "empty"), (np.int8, 3, "empty"), (np.uint8, 2, "full"), (np.int8, 4, "full"),
+    (np.uint8, 3, "first"), (np.int8, 1, "last"), (np.uint8, 8, "sparse-rows"),
+    (np.int8, 8, "rand"), (np.uint8, 4, "stripes"), (np.int8, 2, "sparse-rows"),
 ]
 
 
