@@ -63,6 +63,25 @@ measured. MEASURE is one of:
        symbol_streams_device_ref: the device time of its kernel and memsets
        (names holding "huffman_symbols"), and of all the call's device work
        (a tree with rank-chunk glue counts its torch ops there).
+  k4int  the integer K4 (decode_records_int) per call on the four uint8
+       three-band tiles of chip_smoke's int cell (FusedResidentCodec at
+       maxZError 0.5), encoded at v6 (depth-diff records: index_ok drops,
+       the image is still the records' parse) and at v4 (no diff records:
+       the image is the decode), and on the int16 and int32 cells' four
+       tiles, each set round-robin past the L2, every output first held to
+       decode_records_int_ref: the device time of the kernel; then the
+       resident uint8 three-band round (encode_fast, the indexed attempt and
+       the index-free decode of the four v6 tiles): its device busy time,
+       the K4, K5 and K6 kernels in it, and its CUDA-event time.
+  k6int  K6 (decode_scanned) per call on K5's descriptors of the same v6
+       uint8 three-band, int16 and int32 tiles and of the four float32 DEM
+       tiles (FusedResidentCodec at maxZError 0.001), each set round-robin
+       past the L2, every output first held to decode_scanned_ref: the
+       device time of the kernel.
+  instances  the tree's own chip_smoke phases 5b and 13b on one DEM tile:
+       every integer instance of K1, K2, K4 and K6 no timed path takes and
+       K6's masked, 16x16 and float64 instances, each held to its plain
+       version and timed once (one `instance` line each).
 """
 import subprocess
 import sys
@@ -331,8 +350,114 @@ def h1m_turn(cs, dev) -> dict:
             "all": dev_ms(cs, call, (None,), reps=20)}
 
 
+def u8x3_sets(cs, dev, version):
+    """chip_smoke's four uint8 three-band tiles encoded by
+    FusedResidentCodec at maxZError 0.5 and `version`: (codec, tiles,
+    [(header, stream, meta, starts)])."""
+    import numpy as np
+
+    from lerc_tpu_torch import FusedResidentCodec
+
+    tiles = cs.int_cell_tiles(cs.make_tiles(4, 2048, dev), np.uint8, 3)
+    codec = FusedResidentCodec(2048, 2048, 3, np.uint8, 0.5, version)
+    return codec, tiles, [codec.encode_fast(t) for t in tiles]
+
+
+def int_sets(cs, dev):
+    """{label: (codec, tiles, encodes)}: the uint8 three-band tiles at v6
+    and v4 (u8x3_sets), and chip_smoke's int16 and int32 cells (the four
+    DEM tiles in whole metres at maxZError 0.5, at maxZError 2)."""
+    import numpy as np
+
+    from lerc_tpu_torch import FusedResidentCodec
+
+    out = {"u8x3_v6": u8x3_sets(cs, dev, 6), "u8x3_v4": u8x3_sets(cs, dev, 4)}
+    dem = cs.make_tiles(4, 2048, dev)
+    for label, npdt, mze in (("i16", np.int16, 0.5), ("i32", np.int32, 2.0)):
+        tiles = cs.int_cell_tiles(dem, npdt, 1)
+        codec = FusedResidentCodec(2048, 2048, 1, npdt, mze)
+        out[label] = (codec, tiles, [codec.encode_fast(t) for t in tiles])
+    return out
+
+
+def k4int_turn(cs, dev) -> dict:
+    import torch
+
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    out = {}
+    for label, (codec, tiles, outs) in int_sets(cs, dev).items():
+        args = [(o[1], o[3], codec._zmax_vec(o[0]), dec._inv_i(codec.mze), codec.h, codec.w,
+                 codec.d, codec.dt, codec.version, 32, False, None) for o in outs]
+        for a in args:
+            (ik, fk), (ir, fr) = dec.decode_records_int(*a), dec.decode_records_int_ref(*a)
+            if not (torch.equal(ik, ir) and torch.equal(fk, fr)):
+                raise SystemExit(f"the integer K4 != its plain version ({label})")
+        out[label] = dev_ms(cs, [lambda a=a: dec.decode_records_int(*a) for a in args],
+                            ("decode_records_int",), reps=10)
+        if label == "u8x3_v6":
+            def round_():
+                for t in tiles:
+                    o = codec.encode_fast(t)
+                    codec.decode_fast(o[0], o[1], o[3])
+                    codec.decode_fast(o[0], o[1])
+
+            rows = cs.profiled_rows([round_], 3, ("decode_records_int",))
+            if rows is None:
+                raise SystemExit("profiler shows no device time for the uint8 round")
+            for key, pats in (("round_busy", (None,)), ("round_K4", ("decode_records_int",)),
+                              ("round_K5", ("scan_records",)), ("round_K6", ("decode_scanned",))):
+                out[key] = sum(r[2] for r in rows if any(p is None or p in r[0] for p in pats)
+                               ) / 1e3 / 3
+            out["round_events"] = cs.cuda_ms([round_], reps=3)
+    return out
+
+
+def k6int_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    f32 = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001)
+    sets = {label: s[::2] for label, s in int_sets(cs, dev).items() if label != "u8x3_v4"}
+    sets["f32"] = (f32, [f32.encode_fast(t) for t in cs.make_tiles(4, 2048, dev)])
+    out = {}
+    for label, (codec, outs) in sets.items():
+        args = []
+        for o in outs:
+            k = scan.scan_records(o[1], codec.n_rec, codec.dt, codec.version, o[2][0].reshape(1))
+            args.append((o[1], k[1], k[5], k[2], k[3], k[4], k[6], k[7], k[8], None, codec.mze,
+                         codec._zmax_vec(o[0]), codec.h, codec.w, codec.d, codec.dt, True, False))
+        for a in args:
+            ik, ok_k = dec.decode_scanned(*a)
+            ir, ok_r = dec.decode_scanned_ref(*a[:10], 2.0 * a[10], dec._inv_i(a[10]), a[11],
+                                              *a[12:16])
+            if not (torch.equal(ik.reshape(-1).view(torch.uint8), ir.reshape(-1).view(torch.uint8))
+                    and bool(ok_k) and bool(ok_r)):
+                raise SystemExit(f"K6 != its plain version ({label})")
+        out[label] = dev_ms(cs, [lambda a=a: dec.decode_scanned(*a) for a in args],
+                            ("decode_scanned",), reps=10)
+    return out
+
+
+def instances_turn(cs, dev) -> dict:
+    """The tree's chip_smoke phases 5b and 13b on one DEM tile: each integer
+    instance of K1, K2, K4 and K6 that no timed path takes, and K6's masked,
+    16x16 and float64 instances, held to its plain version and timed once
+    (their `instance` lines)."""
+    tile = cs.make_tiles(1, 2048, dev)[0]
+    mask = cs.bench_mask()
+    card = cs.card_line()
+    cs.resident_instance_times(tile, mask, card)
+    cs.k6_instance_times(tile, mask, card, set())
+    return {}
+
 MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
-            "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn}
+            "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
+            "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

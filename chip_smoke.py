@@ -22,6 +22,14 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      1 B to 1 MB at storage offsets 0-15 before streams at total 0 to
      capacity, on streams at word offsets 1-3, on a 25.7 MB tail with an
      empty stream, and with total past capacity and negative;
+  3c. the strip kernels (the integer K4 and K6, kernels/decode.cu) against
+     their plain versions, images, flags and ok, at the edges of the strips
+     their CTAs own (widths 8(S-1), 8S, 8S+8, 8(2S+1), one block row, one
+     block column, edge blocks; depths 1, 2, 3, 5, 8 at v4 and v6; all-valid,
+     empty, full and bench masks; raw-only, const, LUT, 16x16, float32,
+     float64 and deep tiles) and on hostile inputs (truncated streams,
+     starts shuffled within and across strips or past the end, a record
+     ending at the stream's last byte), the case count printed;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -48,7 +56,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      kernel's device time per launch (torch.profiler) beside its plain
      version's time (CUDA events), its launches and its bound (K3 on tile
      0's stream in paired profiler windows beside torch.sum of its bytes,
-     a yardstick); then the
+     a yardstick; the integer K4 and K6 in windows over the four tiles,
+     K4 _u8 also on the tiles encoded at v4); then the
      integer instances no timed path takes (K1, K2, K4, K6 _i8, _u16,
      _u32; the masked K1m, K2m, K4m of every integer dtype), each held to
      its plain version and timed once on a 2048^2 tile beside its bound;
@@ -1024,6 +1033,314 @@ def int_cell_tiles(dem_tiles, npdt, d):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3c: the strip kernels (the integer K4 and K6, kernels/decode.cu) at
+# the edges of their strips, on hostile indexes and descriptors
+# ---------------------------------------------------------------------------
+
+
+def strip_tile(npdt, h, w, d, raw, rng):
+    """A tile for the strip cases: band-correlated slices (depth-diff records
+    at v >= 5 where lossless 8/16-bit) with, block by block in turn, a
+    const-0 block, a const-offset block and a full-range block (raw
+    records); with raw, full-range values everywhere. Floats: a DEM-like
+    surface with 3e6 / -1 blocks as the full-range ones."""
+    is_int = np.issubdtype(npdt, np.integer)
+    lo, hi = ((max(np.iinfo(npdt).min, -40000), min(np.iinfo(npdt).max, 70000)) if is_int
+              else (-500.0, 900.0))
+    full = ((lambda s: rng.integers(np.iinfo(npdt).min, np.iinfo(npdt).max, s, dtype=np.int64,
+                                    endpoint=True)) if is_int
+            else (lambda s: np.where(rng.random(s) < 0.5, 3.0e6, -1.0)))
+    if raw:
+        return full((h, w, d)).astype(npdt)
+    x = np.linspace(0, 6, w)[None, :]
+    y = np.linspace(0, 4, h)[:, None]
+    base = (np.sin(x + y) * 0.5 + 0.5) * (hi - lo) * 0.3 + lo + (hi - lo) * 0.2
+    step = (lambda s: rng.integers(-3, 2, s)) if is_int else (lambda s: rng.normal(0, 0.3, s))
+    bands = [base + step((h, w))]
+    for _ in range(1, d):
+        bands.append(bands[-1] + step((h, w)))
+    z = np.stack(bands, -1)
+    nbh = -(-w // 8)
+    for b in range(-(-h // 8) * nbh):
+        r, c = divmod(b, nbh)
+        blk = (slice(8 * r, 8 * r + 8), slice(8 * c, 8 * c + 8))
+        if b % 4 == 1:
+            z[blk] = 0
+        elif b % 4 == 2:
+            z[blk] = 7
+        elif b % 4 == 3:
+            z[blk] = full(z[blk].shape)
+    if is_int:
+        z = np.round(z)
+        return np.clip(z, np.iinfo(npdt).min, np.iinfo(npdt).max).astype(npdt)
+    return z.astype(npdt)
+
+
+def strip_encode(data, mask, mze, version, dev, mb=8, lut=False):
+    """The port's tile encode of one strip case on dev: (stream words,
+    total, zmax [D], starts, validity words or None)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    dt = NUMPY_TO_DT[data.dtype]
+    valid = None if mask is None else enc.block_valid_words(torch.from_numpy(mask).to(dev), mb)
+    n_rec = -(-h // mb) * -(-w // mb) * d
+    cap = -(-(h * w * d * data.dtype.itemsize + n_rec * 16 + 4096) // 1024) * 1024
+    stream, total, _zmin, zmax, starts, fits = enc.encode_tiles(
+        torch.from_numpy(data).to(dev), valid, mze, h, w, d, dt, valid is None, version, cap,
+        enable_lut=lut, mb=mb)
+    require(bool(fits), f"strip case {data.dtype} {h}x{w}x{d}: the encode does not fit")
+    return stream, total.reshape(1), zmax.contiguous(), starts, valid
+
+
+def strip_k4_case(args, tag):
+    """K4 (integer) against its plain version on one set of arguments:
+    the image and both flags equal."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    (i_k, f_k), (i_r, f_r) = dec.decode_records_int(*args), dec.decode_records_int_ref(*args)
+    require(torch.equal(i_k, i_r) and torch.equal(f_k, f_r), f"K4 strip case != plain ({tag})")
+
+
+def strip_scanned(stream, total, data, mask, version, mb):
+    """The host scanner's descriptors of a strip case's stream, scanned with
+    `mask` (None: every pixel valid)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import tile_scan as ts
+
+    h, w, d = data.shape
+    dt = NUMPY_TO_DT[data.dtype]
+    tot = int(total)
+    m = np.ones((h, w), bool) if mask is None else mask
+    cnts, j0s, n = ts.block_scan_inputs(m, mb)
+    recs, used = ts.tile_scan(stream.view(torch.uint8)[:tot].cpu().numpy(), cnts, j0s, n, d,
+                              int(dt), version)
+    require(used == tot, f"strip case: the host scanner stops at {used} of {tot} bytes")
+    return recs
+
+
+def strip_k6_args(stream, recs, data, mze, mb, valid, zmax):
+    """K6's arguments for the descriptors `recs` of a strip case's stream,
+    decoded with the validity words `valid` (None: all-valid)."""
+    from types import SimpleNamespace
+
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    h, w, d = data.shape
+    head = SimpleNamespace(dt=NUMPY_TO_DT[data.dtype], max_z_error=mze, n_rows=h, n_cols=w,
+                           n_depth=d, micro_block_size=mb)
+    return list(dec.scanned_args(stream, 0, recs, valid, head, zmax.cpu().numpy()))
+
+
+def strip_k6_case(a, tag):
+    """K6 against its plain version on one set of arguments: the image's
+    bytes and ok equal."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    img_k, ok_k = dec.decode_scanned(*a)
+    img_r, ok_r = dec.decode_scanned_ref(*a[:10], 2.0 * a[10], dec._inv_i(a[10]), a[11],
+                                         *a[12:16], a[18])
+    require(torch.equal(img_k.reshape(-1).view(torch.uint8), img_r.reshape(-1).view(torch.uint8))
+            and bool(ok_k) == bool(ok_r), f"K6 strip case != plain ({tag})")
+
+
+def strip_hostile(stream, total, n, span, rng):
+    """The hostile variants of an intact stream of n records in strips of
+    `span` records: (the stream truncated to an eighth, a permutation of
+    the records within each strip, one across the tile, the stream moved
+    behind a pad so that its last record ends at its last byte, the pad)."""
+    within = np.concatenate([rng.permutation(min(span, n - i)) + i for i in range(0, n, span)])
+    tot = int(total)
+    pad = (4 - tot % 4) % 4 or 4
+    moved = torch.zeros((pad + tot) // 4 * 4, dtype=torch.uint8, device=stream.device)
+    moved[pad:] = stream.view(torch.uint8)[:tot]
+    return (stream[: max(1, stream.numel() // 8)].clone(), within, rng.permutation(n),
+            moved.view(torch.int32), pad)
+
+
+def strip_k4_hostile(args, total, span, rng, tag):
+    """K4 on hostile indexes of an intact stream (strip_hostile): the stream
+    truncated, starts shuffled within and across strips, a seventh of them
+    moved past the end, the stream behind a pad. Returns the case count."""
+    stream, starts = args[:2]
+    cut, within, across, moved, pad = strip_hostile(stream, total, starts.numel(), span, rng)
+    past = starts.clone()
+    past[::7] += 4 * stream.numel() + 100
+
+    def perm(p):
+        return starts[torch.from_numpy(p).to(starts.device)].contiguous()
+
+    cases = (("truncated", cut, starts), ("shuffled within strips", stream, perm(within)),
+             ("shuffled across strips", stream, perm(across)), ("starts past the end", stream, past),
+             ("ending at the last byte", moved, (starts + pad).contiguous()))
+    for what, s_, st_ in cases:
+        strip_k4_case((s_, st_, *args[2:]), f"{tag}, {what}")
+    return len(cases)
+
+
+def strip_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
+    """Phase 3c: the integer K4 (every dtype, all-valid and masked) and K6
+    (every dtype, 8x8 and 16x16, all-valid and masked) bit-equal to their
+    plain versions, flags and ok included, at the edges of the strips their
+    CTAs own (decode.cu strip_geometry: S blocks a strip): widths 8(S-1),
+    8S, 8S+8 and 8(2S+1), a single block row, a single block column; depths
+    1, 2, 3, 5 and 8 at v4 and v6 (depth-diff records); all-valid, empty,
+    full and a crop of the bench mask across its hole's corner; raw-only
+    tiles (int32 depth-8 strips pass the stage); const-0, const-offset and
+    raw blocks; K6 also on edge blocks, on LUT records and 16x16 blocks,
+    float32 and float64, on stuffed counts equal to the in-image area (an
+    all-valid stream decoded under a mask), and deep tiles whose depths
+    come in chunks; then hostile indexes and descriptors: a truncated
+    stream, starts (payload positions) shuffled within and across strips,
+    moved past the end, and a stream whose last record ends at its last
+    byte. Returns the number of cases."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    rng = np.random.default_rng(15)
+    bench = bench_mask()
+    n_cases = 0
+
+    def masks(kind, h, w):
+        return {"all-valid": None, "empty": np.zeros((h, w), bool),
+                "full": np.ones((h, w), bool),
+                "bench": np.ascontiguousarray(bench[296:296 + h, 480:480 + w])}[kind]
+
+    for npdt in dtypes or INT_DTYPES:
+        size = np.dtype(npdt).itemsize
+        dt = NUMPY_TO_DT[np.dtype(npdt)]
+        for d in depths:
+            s = dec.strip_blocks(8, d, size)
+            shapes = [(8, 8 * (s - 1) or 8), (8, 8 * s), (16, 8 * s + 8), (8, 8 * (2 * s + 1)),
+                      (40, 8)]
+            for version in (4, 6):
+                for si, (h, w) in enumerate(shapes):
+                    mze = 2.0 if si == 2 else 0.5
+                    kinds = ["all-valid", ("empty", "full", "bench")[(si + version) % 3]]
+                    for kind in kinds:
+                        for raw in ((False, True) if si == 1 and kind == "all-valid" else (False,)):
+                            data = strip_tile(npdt, h, w, d, raw, rng)
+                            m = masks(kind, h, w)
+                            tag = (f"{np.dtype(npdt).name} {h}x{w}x{d} v{version} {kind}"
+                                   f"{' raw' if raw else ''}")
+                            stream, total, zmax, starts, valid = strip_encode(data, m, mze,
+                                                                              version, dev)
+                            args = (stream, starts, zmax, dec._inv_i(mze), h, w, d, dt, version,
+                                    32, False, valid)
+                            strip_k4_case(args, tag)
+                            recs = strip_scanned(stream, total, data, m, version, 8)
+                            strip_k6_case(strip_k6_args(stream, recs, data, mze, 8, valid, zmax),
+                                          tag)
+                            n_cases += 2
+                            if si == 3 and kind == "all-valid" and version == 6:
+                                n_cases += strip_k4_hostile(args, total, s * d, rng, tag)
+                                n_cases += strip_k6_hostile(stream, total, recs, data, mze, zmax,
+                                                            s * d, rng, tag)
+                            if kind == "all-valid" and si in (1, 3):  # stuffed counts = area
+                                mv = masks("bench", h, w)
+                                v = enc.block_valid_words(torch.from_numpy(mv).to(dev), 8)
+                                strip_k6_case(strip_k6_args(stream, recs, data, mze, 8, v, zmax),
+                                              f"{tag}, decoded under the bench mask")
+                                n_cases += 1
+                # K6 alone: edge blocks
+                for h, w in ((13, 8 * s + 3), (21, 5)):
+                    for kind in ("all-valid", "bench"):
+                        data = strip_tile(npdt, h, w, d, False, rng)
+                        m = masks(kind, h, w)
+                        stream, total, zmax, _starts, valid = strip_encode(data, m, 0.5, version,
+                                                                           dev)
+                        recs = strip_scanned(stream, total, data, m, version, 8)
+                        strip_k6_case(strip_k6_args(stream, recs, data, 0.5, 8, valid, zmax),
+                                      f"{np.dtype(npdt).name} {h}x{w}x{d} v{version} {kind} edge")
+                        n_cases += 1
+    if dtypes is None:
+        n_cases += strip_k6_more(dev, rng, masks)
+    return n_cases
+
+
+def strip_k6_hostile(stream, total, recs, data, mze, zmax, span, rng, tag):
+    """K6 on hostile descriptors of an intact stream (strip_hostile): the
+    stream truncated, payload positions shuffled within and across strips,
+    a seventh of them moved past the end, the stream behind a pad. Returns
+    the case count."""
+    cut, within, across, moved, pad = strip_hostile(stream, total, recs.size, span, rng)
+    cases = [("truncated", cut, recs)]
+    for what, perm in (("shuffled within strips", within), ("shuffled across strips", across)):
+        r2 = recs.copy()
+        r2["payload_pos"] = recs["payload_pos"][perm]
+        cases.append((what, stream, r2))
+    r2 = recs.copy()
+    r2["payload_pos"][::7] += 4 * stream.numel() + 100
+    cases.append(("past the end", stream, r2))
+    r2 = recs.copy()
+    r2["payload_pos"] += pad
+    r2["lut_pos"] += pad
+    cases.append(("ending at the last byte", moved, r2))
+    for what, s_, r_ in cases:
+        strip_k6_case(strip_k6_args(s_, r_, data, mze, 8, None, zmax), f"{tag}, {what}")
+    return len(cases)
+
+
+def strip_k6_more(dev, rng, masks):
+    """K6's float32, float64, LUT and 16x16 strip cases, and deep tiles
+    whose depths come in chunks (K4 int32 at depth 40 too)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    n_cases = 0
+    for npdt, mze in ((np.float32, 0.001), (np.float64, 0.001)):
+        for d in (1, 3):
+            s = dec.strip_blocks(8, d, np.dtype(npdt).itemsize)
+            for h, w in ((8, 8 * (s - 1)), (16, 8 * s + 8), (13, 8 * (2 * s + 1) + 3), (40, 8)):
+                for kind in ("all-valid", "bench"):
+                    data = strip_tile(npdt, h, w, d, False, rng)
+                    m = masks(kind, h, w)
+                    stream, total, zmax, _st, valid = strip_encode(data, m, mze, 6, dev)
+                    recs = strip_scanned(stream, total, data, m, 6, 8)
+                    strip_k6_case(strip_k6_args(stream, recs, data, mze, 8, valid, zmax),
+                                  f"{np.dtype(npdt).name} {h}x{w}x{d} {kind}")
+                    n_cases += 1
+    for npdt, mze in ((np.int16, 0.5), (np.uint8, 0.5), (np.float32, 0.5)):
+        for mb in (8, 16):
+            for d in (1, 3):
+                s = dec.strip_blocks(mb, d, np.dtype(npdt).itemsize)
+                for h, w in ((mb, mb * (s - 1) or mb), (2 * mb, mb * s + mb), (mb + 5, mb * s + 3)):
+                    zone = (np.arange(h)[:, None] // 5 + np.arange(w)[None, :] // 7) % 12
+                    data = np.repeat((zone * 20 + 3)[:, :, None], d, 2) + np.arange(d)
+                    data = data.astype(npdt)
+                    for kind in ("all-valid", "bench"):
+                        m = masks(kind, h, w)
+                        stream, total, zmax, _st, valid = strip_encode(data, m, mze, 6, dev, mb,
+                                                                       lut=True)
+                        recs = strip_scanned(stream, total, data, m, 6, mb)
+                        require(((recs["mode"] & 7) == 4).any() or kind != "all-valid",
+                                f"K6 strip case {h}x{w}x{d} mb {mb}: no LUT record")
+                        strip_k6_case(strip_k6_args(stream, recs, data, mze, mb, valid, zmax),
+                                      f"{np.dtype(npdt).name} {h}x{w}x{d} mb {mb} LUT {kind}")
+                        n_cases += 1
+    for npdt, d, mb, lut in ((np.int32, 40, 8, False), (np.float64, 20, 8, False),
+                             (np.int16, 20, 16, True)):
+        h, w = 2 * mb, 3 * mb + (0 if mb == 8 and npdt == np.int32 else 5)
+        for kind in ("all-valid", "bench"):
+            data = strip_tile(npdt, h, w, d, False, rng)
+            m = masks(kind, h, w)
+            mze = 0.001 if npdt == np.float64 else 0.5
+            stream, total, zmax, starts, valid = strip_encode(data, m, mze, 6, dev, mb, lut)
+            tag = f"deep {np.dtype(npdt).name} {h}x{w}x{d} mb {mb} {kind}"
+            if npdt == np.int32:
+                strip_k4_case((stream, starts, zmax, dec._inv_i(mze), h, w, d,
+                               NUMPY_TO_DT[np.dtype(npdt)], 6, 32, False, valid), tag)
+                n_cases += 1
+            recs = strip_scanned(stream, total, data, m, 6, mb)
+            strip_k6_case(strip_k6_args(stream, recs, data, mze, mb, valid, zmax), tag)
+            n_cases += 1
+    return n_cases
+
+
 INT_CELLS = (  # (label, dtype, depth, maxZError)
     ("int16 DEM in whole metres", np.int16, 1, 0.5),
     ("int32 DEM", np.int32, 1, 2.0),
@@ -1224,6 +1541,33 @@ def timed_scan_kernels(stream_sets, dt, version, mze, shape):
         s0, out[1], out[5], out[2], out[3], out[4], out[6], out[7], out[8], None, 2.0 * mze,
         dec._inv_i(mze), z0, h, w, d, dt)], reps=1)
     return per, plain
+
+
+def records_calls(ins, codec, shape):
+    """The integer K4's calls on each tile's stream and index (the inputs of
+    check_int_kernels), every record fitting."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    h, w, d = shape
+    return [lambda k=k: dec.decode_records_int(k["stream"], k["starts"], k["zmax"],
+                                               dec._inv_i(codec.mze), h, w, d, codec.dt,
+                                               codec.version, 32, False, None) for k in ins]
+
+
+def scanned_calls(stream_sets, codec, shape):
+    """K6 calls on K5's descriptors of each (stream, total, zmax) set, the
+    scan done once beforehand."""
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_scan as scan
+
+    h, w, d = shape
+    calls = []
+    for s, total, zmax in stream_sets:
+        o = scan.scan_records(s, codec.n_rec, codec.dt, codec.version, total)
+        a = (s, o[1], o[5], o[2], o[3], o[4], o[6], o[7], o[8], None, codec.mze, zmax, h, w, d,
+             codec.dt, True, False)
+        calls.append(lambda a=a: dec.decode_scanned(*a))
+    return calls
 
 
 def scan_bounds(totals, shape, size):
@@ -2500,6 +2844,52 @@ def paired_row(name, kf, match, lib, lib_text, n_bytes, card, reps=20, pairs=PAI
           f"windows of {reps} calls; kernel / library per pair median {float(np.median(ratios)):.3f} "
           f"(spread {min(ratios):.3f}-{max(ratios):.3f}); {tail}", flush=True)
     return km, lm, bound
+
+
+def strip_pair(name, fns, match, bound_ms, card, reps=5, windows=K3_H3_PAIRS):
+    """Device ms per launch of a strip kernel (the integer K4, K6) over its
+    tiles' calls fns round-robin (past the L2 on four 2048^2 tiles), from
+    `windows` torch.profiler windows of `reps` rounds each: the median and
+    spread, printed beside the bound. Returns the median."""
+    ks = []
+    for _ in range(windows):
+        rows = profiled_rows(fns, reps, (match,))
+        require(rows is not None, f"profiler shows no device time for {match}")
+        ks.append(sum(r[2] for r in rows if match in r[0]) / 1e3 / (reps * len(fns)))
+    km = float(np.median(ks))
+    print(f"paired timing {name}: median {km:.4f} ms a launch (spread {min(ks):.4f}-"
+          f"{max(ks):.4f}), {windows} windows of {reps} rounds over {len(fns)} tiles; bound "
+          f"{bound_ms:.4f} ms by bytes, {bound_ms / km:.1%} of bound [{card}]", flush=True)
+    return km
+
+
+def k4_v4_tiles(dem_tiles, card):
+    """K4 decode_records_u8 a second time, on the uint8 three-band cell's
+    four tiles encoded at v4 (no depth-diff records: index_ok holds and the
+    image is the decode), each output held to its plain version and to the
+    tile, then timed as strip_pair. Returns (ms, bound ms)."""
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    tiles = int_cell_tiles(dem_tiles, np.uint8, 3)
+    codec = FusedResidentCodec(TILE, TILE, 3, np.uint8, 0.5, 4)
+    args, n_bytes = [], []
+    for i, t in enumerate(tiles):
+        header, stream, meta, starts = codec.encode_fast(t)
+        a = (stream, starts, codec._zmax_vec(header), dec._inv_i(0.5), TILE, TILE, 3, codec.dt,
+             4, 32, False, None)
+        (i_k, f_k), (i_r, f_r) = dec.decode_records_int(*a), dec.decode_records_int_ref(*a)
+        require(torch.equal(i_k, i_r) and torch.equal(f_k, f_r),
+                f"K4 decode_records_u8 != plain on v4 tile {i}")
+        require(bool(f_k.all()) and torch.equal(i_k, t), f"K4 decode_records_u8: v4 tile {i} "
+                "not decoded with its index")
+        args.append(a)
+        n_bytes.append(int(meta[0]) + 4 * codec.n_rec + 12 + t.numel() + 8)
+    bound = float(np.mean(n_bytes)) / HBM_BYTES_PER_S * 1e3
+    ms = strip_pair("decode_records_u8 (the four uint8 x 3 tiles at v4)",
+                    [lambda a=a: dec.decode_records_int(*a) for a in args], "decode_records_int",
+                    bound, card)
+    return ms, bound
 
 
 def col0_pair(syms, h, w, d, card):
@@ -4319,6 +4709,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
     from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.constants import DataType
     from lerc_tpu_torch.kernels import build
 
     # ---- 1. the card
@@ -4415,6 +4806,16 @@ def main():
               f"{np.dtype(npdt).name} tile (maxZError {mze}, v{version}, nb_cap={nb_cap}"
               f"{', masked' if masked else ''})", flush=True)
 
+    # ---- 3c. the strip kernels at their strips' edges and on hostile inputs
+    t0 = time.perf_counter()
+    n_strip = strip_edge_check(dev)
+    print(f"check: the integer K4 and K6 equal to their plain versions (images, flags, ok) in "
+          f"{n_strip} strip cases: widths 8(S-1), 8S, 8S+8, 8(2S+1), one block row, one block "
+          f"column, edge blocks; depths 1, 2, 3, 5, 8 at v4 and v6; all-valid, empty, full and "
+          f"bench masks; raw-only, const, LUT, 16x16, float32, float64 and deep tiles; truncated "
+          f"streams, shuffled and past-the-end starts, a record ending at the last byte "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # ---- 4, 5. the main paths, counted, then timed
     launches, results = main_path(tiles, None, card)
     m_launches, m_results = main_path(tiles, mask, card)
@@ -4457,6 +4858,8 @@ def main():
             scan_err[k] = max(scan_err.get(k, 0.0), x)
     per, plain = timed_scan_kernels(sets, fcodec.dt, fcodec.version, fcodec.mze, (TILE, TILE, 1))
     bnd = scan_bounds([int(o[2][0]) for o in fouts], (TILE, TILE, 1), 4)
+    per["decode_scanned"] = strip_pair("decode_scanned", scanned_calls(
+        sets, fcodec, (TILE, TILE, 1)), "decode_scanned", bnd["K6"], card)
     for name in (*SCAN, "decode_scanned"):
         b = bnd["K6"] if name == "decode_scanned" else bnd[name]
         add_row(name, scan_err[name], per[name], plain[name], b, "bytes")
@@ -4467,15 +4870,22 @@ def main():
     for _counts, codec, ctiles, _outs, round_ms in cells:
         err, ins = check_int_kernels(codec, ctiles)
         h, w, d = ctiles[0].shape
-        for name, (ms, plain_ms, bound_ms, bound_by) in int_kernel_times(codec, ctiles,
-                                                                          ins).items():
+        times = int_kernel_times(codec, ctiles, ins)
+        k4 = int_name("decode_records", codec.dt)  # the strip kernels: paired windows
+        times[k4] = (strip_pair(k4, records_calls(ins, codec, (h, w, d)), "decode_records_int",
+                                times[k4][2], card), *times[k4][1:])
+        for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
             add_row(name, err[name], ms, plain_ms, bound_ms, bound_by)
         sets = [(k["stream"], k["total"], k["zmax"]) for k in ins]
         per, plain = timed_scan_kernels(sets, codec.dt, codec.version, codec.mze, (h, w, d))
         size = ctiles[0].element_size()
         bnd = scan_bounds([int(k["total"]) for k in ins], (h, w, d), size)
         k6 = int_name("decode_scanned", codec.dt)
-        add_row(k6, err[k6], per[k6], plain[k6], bnd["K6"], "bytes")
+        add_row(k6, err[k6], strip_pair(k6, scanned_calls(sets, codec, (h, w, d)),
+                                        "decode_scanned", bnd["K6"], card),
+                plain[k6], bnd["K6"], "bytes")
+        if codec.dt == DataType.BYTE:
+            k4_v4_tiles(tiles, card)
         k5_line(f"the {h}x{w}x{d} {codec.dt.name} cell", per, plain, bnd, card)
         where_the_time_goes(
             codec, ctiles, round_ms, card, f"{codec.dt.name} x {d} cell, encode + index-free decode",

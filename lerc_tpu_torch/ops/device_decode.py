@@ -117,6 +117,16 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
     return img, flags[0] != 0, flags[1] != 0
 
 
+def strip_blocks(mb: int, d: int, size: int) -> int:
+    """Blocks a CTA of the strip kernels (the integer K4 and K6) owns:
+    ``strip_geometry`` of kernels/decode.cu, whose strips hold at most 2,048
+    pixels and 8 KB of image (one block, its depths in chunks, when a block
+    passes that). The edge cases of tests and chip_smoke.py take their
+    widths from it."""
+    bp, pb = mb * mb, d * size
+    return max(1, min(2048, 8192 // pb) // bp) if bp * pb <= 8192 else 1
+
+
 def _inv_i(max_z_error: float) -> int:
     """The integer dequantization step round(f32(2 * f32(maxZError)))."""
     return int(np.round(np.float32(2.0) * np.float32(max_z_error)))

@@ -26,6 +26,8 @@ import torch
 from lerc_tpu.constants import DataType as JDataType
 from lerc_tpu.ops import device_decode as jax_decode
 from lerc_tpu.ops import device_encode as jax_encode
+from lerc_tpu_torch import FusedResidentCodec
+from lerc_tpu_torch.codec import lerc2_decode
 from lerc_tpu_torch.constants import DT_SIZE, DT_TO_TORCH, NUMPY_TO_DT, DataType
 from lerc_tpu_torch.ops import device_decode, device_encode
 
@@ -194,3 +196,101 @@ def test_reduce_offset_boundaries(dt):
     jtc, joff_w = _reduce_offset_int(jnp.asarray(z.numpy().astype(np.int32)), JDataType(int(dt)))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jtc))
     np.testing.assert_array_equal(off_w.numpy(), np.asarray(joff_w))
+
+
+def strip_tile(npdt, h, w, d, seed):
+    """Band-correlated slices (depth-diff records at v >= 5) with, block by
+    block in turn, a const-0, a const-offset and a full-range (raw) block."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(npdt)
+    lo, hi = max(info.min, -40000), min(info.max, 70000)
+    x = np.linspace(0, 6, w)[None, :]
+    y = np.linspace(0, 4, h)[:, None]
+    bands = [(np.sin(x + y) * 0.5 + 0.5) * (hi - lo) * 0.3 + lo + (hi - lo) * 0.2
+             + rng.integers(-2, 3, (h, w))]
+    for _ in range(1, d):
+        bands.append(bands[-1] + rng.integers(-3, 2, (h, w)))
+    z = np.round(np.stack(bands, -1))
+    nbh = w // 8
+    for b in range(h // 8 * nbh):
+        blk = (slice(8 * (b // nbh), 8 * (b // nbh) + 8), slice(8 * (b % nbh), 8 * (b % nbh) + 8))
+        z[blk] = (z[blk], 0, 7, rng.integers(info.min, info.max, (8, 8, d), endpoint=True))[b % 4]
+    return np.clip(z, info.min, info.max).astype(npdt)
+
+
+def strip_mask(h, w):
+    """A hole and a sprinkle of invalid pixels (the bench mask's shape)."""
+    mask = np.ones((h, w), bool)
+    mask[h // 8: max(h // 8 + 1, h // 3), w // 4: 3 * w // 4] = False
+    mask[np.random.default_rng(h * w).random((h, w)) > 0.9] = False
+    return mask
+
+
+def strip_cases():
+    """(dtype, depth, version, masked, H, W) at the edges of the strips the
+    CTAs of the integer K4 and K6 own (device_decode.strip_blocks: S blocks
+    a strip): a row of S - 1 blocks (a partial strip, one block row), two
+    rows of S + 1 blocks (a strip and one block), and one block column."""
+    out = []
+    for npdt in (np.uint8, np.int16):
+        for d in (1, 2, 3, 5):
+            s = device_decode.strip_blocks(8, d, np.dtype(npdt).itemsize)
+            shapes = ((8, 8 * (s - 1)), (16, 8 * s + 8), (40, 8))
+            for version in (4, 6):
+                for masked in (False, True):
+                    out.append((npdt, d, version, masked, *shapes[(d + version + masked) % 3]))
+    return out
+
+
+@pytest.mark.parametrize("mb,d,size,s", [(8, 3, 1, 32), (8, 1, 4, 32), (8, 1, 8, 16), (8, 5, 1, 25),
+                                         (8, 8, 4, 4), (8, 40, 4, 1), (16, 1, 2, 8), (16, 20, 2, 1)])
+def test_strip_blocks(mb, d, size, s):
+    """The strip kernels' blocks a CTA: 2,048 pixels and 8 KB of image at
+    most, one block (its depths in chunks) past that."""
+    assert device_decode.strip_blocks(mb, d, size) == s
+
+
+STRIP_CASES = strip_cases()
+STRIP_IDS = [f"{np.dtype(c[0]).name}-d{c[1]}-v{c[2]}-{'masked' if c[3] else 'valid'}-"
+             f"{c[4]}x{c[5]}" for c in STRIP_CASES]
+
+
+def strip_encoded(npdt, d, version, masked, h, w):
+    """The port's resident encode of a strip case (lossless): (data, mask,
+    codec, header, stream, meta, starts, blob, host decoder's band)."""
+    data = strip_tile(npdt, h, w, d, seed=d + version)
+    mask = strip_mask(h, w) if masked else None
+    codec = FusedResidentCodec(h, w, d, npdt, 0.5, version, mask=mask, device="cpu")
+    header, stream, meta, starts = codec.encode_fast(torch.from_numpy(data))
+    blob = codec.blob_to_bytes(header, stream, meta)
+    host = lerc2_decode.decode_band(blob)
+    want = data if mask is None else np.where(mask[:, :, None], data, 0)
+    np.testing.assert_array_equal(np.where(host.mask[:, :, None], host.data, 0), want)
+    return data, mask, codec, header, stream, meta, starts, blob, host
+
+
+@pytest.mark.parametrize("npdt,d,version,masked,h,w", STRIP_CASES, ids=STRIP_IDS)
+def test_strip_edges_decode_records_int(npdt, d, version, masked, h, w):
+    """decode_records_int_ref (the plain integer K4) at the strip kernel's
+    edges against JAX's decode_tiles_fast and the host decoder: where the
+    stream holds depth-diff records both refuse the index (the image is the
+    index-free decode's, tests/test_torch_scan.py); elsewhere all three
+    images are equal and exact (invalid pixels 0)."""
+    data, mask, codec, header, stream, _meta, starts, _blob, host = strip_encoded(
+        npdt, d, version, masked, h, w)
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    zmax = codec._zmax_vec(header)
+    img, idx_ok, fits = device_decode.decode_tiles_fast(stream, starts, 0.5, zmax, h, w, d, dt,
+                                                        version, mask=codec.valid)
+    jimg, jidx, jfit = jax_decode.decode_tiles_fast(
+        jnp.asarray(stream.numpy().view(np.uint8)), jnp.asarray(starts.numpy()), jnp.float32(0.5),
+        jnp.asarray(zmax.numpy()), h, w, d, JDataType(int(dt)), version,
+        mask=None if mask is None else jnp.asarray(mask))
+    assert bool(fits) and bool(jfit)
+    flags = stream.numpy().view(np.uint8)[starts.numpy()]
+    if version >= 5 and ((flags & 4) != 0).any():
+        assert not bool(idx_ok) and not bool(jidx)
+        return
+    assert bool(idx_ok) and bool(jidx)
+    np.testing.assert_array_equal(img.numpy(), np.asarray(jimg))
+    np.testing.assert_array_equal(img.numpy(), np.where(host.mask[:, :, None], host.data, 0))

@@ -38,7 +38,7 @@ from lerc_tpu_torch.interop import codec_kwargs
 from lerc_tpu_torch.ops import device_decode, device_encode, device_scan
 from lerc_tpu_torch.ops import tile_scan as ts
 
-from .test_torch_int import cap_of, int_tile
+from .test_torch_int import STRIP_CASES, STRIP_IDS, cap_of, int_tile, strip_encoded
 
 H = W = 32
 
@@ -452,3 +452,39 @@ def test_jax_depth_diff_scan_fault(npdt):
                 jr.decode(jblob)
         pblob.starts = None
         np.testing.assert_array_equal(pr.decode(pblob).numpy(), host)
+
+
+@pytest.mark.parametrize("npdt,d,version,masked,h,w", STRIP_CASES, ids=STRIP_IDS)
+def test_strip_edges_decode_scanned(npdt, d, version, masked, h, w):
+    """decode_scanned_ref (the plain K6) at the strip kernel's edges, on the
+    descriptors of the port's scan (all-valid: K5's plain version) or of the
+    host scanner (masked), against JAX's decode_tiles fed the same
+    descriptors and against the host decoder: bit-equal images (invalid
+    pixels 0), ok True. On depth-diff streams JAX's own scan is at fault
+    (test_jax_depth_diff_scan_fault), not its decode of these descriptors."""
+    data, mask, codec, header, stream, meta, _starts, blob, host = strip_encoded(
+        npdt, d, version, masked, h, w)
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    zmax = codec._zmax_vec(header)
+    if mask is None:
+        desc = device_scan.scan_records(stream, codec.n_rec, dt, version, meta[0].reshape(1))
+        assert bool(desc[9])
+        a = (stream, desc[1], desc[5], desc[2], desc[3], desc[4], desc[6], desc[7], desc[8], None,
+             0.5, zmax, h, w, d, dt, True, False)
+    else:
+        cnts, j0s, n = ts.block_scan_inputs(mask, 8)
+        recs, used = ts.tile_scan(stream.numpy().view(np.uint8)[:int(meta[0])], cnts, j0s, n, d,
+                                  int(dt), version)
+        assert used == int(meta[0])
+        head = SimpleNamespace(dt=dt, max_z_error=0.5, n_rows=h, n_cols=w, n_depth=d,
+                               micro_block_size=8)
+        a = device_decode.scanned_args(stream, 0, recs, codec.valid, head, zmax.numpy())
+    img, ok = device_decode.decode_scanned(*a)
+    assert bool(ok)
+    np.testing.assert_array_equal(img.numpy(), np.where(host.mask[:, :, None], host.data, 0))
+    jimg, jok = jax_decode.decode_tiles(
+        jnp.asarray(stream.numpy().view(np.uint8)), *(jnp.asarray(t.numpy()) for t in a[1:9]),
+        jnp.ones((h, w), bool) if mask is None else jnp.asarray(mask), jnp.float32(0.5),
+        jnp.asarray(zmax.numpy()), h, w, d, JDataType(int(dt)), mask is None, False)
+    assert bool(jok)
+    np.testing.assert_array_equal(img.numpy(), np.asarray(jimg))
