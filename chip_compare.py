@@ -78,11 +78,36 @@ measured. MEASURE is one of:
        tiles (FusedResidentCodec at maxZError 0.001), each set round-robin
        past the L2, every output first held to decode_scanned_ref: the
        device time of the kernel.
+  h2   H2 (encode_stream_device) per call on the delta streams of the four
+       uint8 three-band tiles (H1's all-valid layout, the histogram's code)
+       and on plane 2 of the four float32 fpl tiles (predictor 1, levels
+       (2, 1, 0, 0), as fpl), each set round-robin past the L2, every output
+       (words, total bits, sbits) first held to encode_stream_device_ref:
+       the device time of all the call's device work (a tree of two
+       kernels counts their cumsum, subtraction and zeroed output there),
+       and of its kernels alone (names holding "huffman"); then chip_smoke's
+       uint8 three-band Huffman cell round (encode_band_device with the
+       index and decode_band_device of the four tiles): its device busy
+       time, H2's share of it and its CUDA-event time.
+  k1int  the integer K1 (encode_blocks) per call on the four tiles of
+       chip_smoke's uint8 three-band (v6, depth-diff candidates), int16 and
+       int32 cells (FusedResidentCodec's parameters: maxZError 0.5, 0.5 and
+       2, version 6, nb_cap 0), and the float K1 on the four float32 DEM
+       tiles at maxZError 0.001, all-valid and with the bench mask, each set
+       round-robin past the L2, every output (rec_info, zrange, fits) first
+       held to encode_blocks_ref: the device time of the kernel; then the
+       resident uint8 three-band encode (FusedResidentCodec.encode_fast of
+       the four tiles): its device busy time, K1's share and its CUDA-event
+       time.
   instances  the tree's own chip_smoke phases 5b and 13b on one DEM tile:
        every integer instance of K1, K2, K4 and K6 no timed path takes and
        K6's masked, 16x16 and float64 instances, each held to its plain
        version and timed once (one `instance` line each).
+  windows  the parent's whole chip_smoke.py, one turn only, its profiler
+       windows counted: those taken and those that came back with no
+       kernel row (this tree's chip_smoke.py prints its own count).
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -455,9 +480,158 @@ def instances_turn(cs, dev) -> dict:
     cs.k6_instance_times(tile, mask, card, set())
     return {}
 
+def h2_inputs(cs, dev) -> dict:
+    """{set: [H2 args]}: the uint8 three-band tiles' delta streams and the
+    float32 fpl tiles' plane 2, each with its histogram's code and the words
+    sized ceil(bits / 32) + 1."""
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.constants import DataType
+    from lerc_tpu_torch.ops import device_fpl as F
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    def args_of(sym, hist, layout):
+        hst = hist.cpu().numpy().astype(np.int64)
+        lengths = huffman.compute_code_lengths(hst)
+        table = dh.code_table(lengths, huffman.canonical_codes(lengths), dev)
+        return sym, table, layout, -(-int((hst * lengths).sum()) // 32) + 1
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    u8 = []
+    for t in cs.int_cell_tiles(tiles, np.uint8, 3):
+        _direct, delta, hist = dh.symbol_streams_device(t.to(torch.int32).contiguous(), None,
+                                                        DataType.BYTE)
+        n = t.numel()
+        u8.append(args_of(delta, hist[1], (n, n, n)))
+    n = 2048 * 2048
+    fpl = []
+    for t in tiles:
+        planes, histos = F.fpl_finalize(t, 1, (2, 1, 0, 0))
+        fpl.append(args_of(planes[2], histos[2], (n, n, n)))
+    return {"u8x3": u8, "fpl_plane2": fpl}
+
+
+def h2_turn(cs, dev) -> dict:
+    import torch
+
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    out = {}
+    for label, sets in h2_inputs(cs, dev).items():
+        for a in sets:
+            k, r = dh.encode_stream_device(*a), dh.encode_stream_device_ref(*a)
+            if not (torch.equal(k[0], r[0]) and int(k[1]) == int(r[1]) and torch.equal(k[2], r[2])):
+                raise SystemExit(f"H2 != its plain version ({label})")
+        calls = [lambda a=a: dh.encode_stream_device(*a) for a in sets]
+        out[f"{label}_all"] = dev_ms(cs, calls, (None,), reps=10)
+        out[f"{label}_kernels"] = dev_ms(cs, calls, ("huffman",), reps=10)
+    out.update(round_ms(cs, huffman_round(cs, dev), ("huffman_encode", "huffman_group_bits",
+                                                     "huffman_pack")))
+    return out
+
+
+def huffman_round(cs, dev):
+    """chip_smoke's uint8 three-band Huffman cell round: encode_band_device
+    (with the index) and decode_band_device of the four tiles."""
+    import numpy as np
+
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+
+    tiles = cs.int_cell_tiles(cs.make_tiles(4, 2048, dev), np.uint8, 3)
+
+    def round_():
+        enc = [encode_band_device(t, None, 0.5, return_index=True) for t in tiles]
+        return [decode_band_device(b, index=i) for b, i in enc]
+
+    return round_
+
+
+def round_ms(cs, fn, pats, reps=3):
+    """A round's device busy ms (every device item in a torch.profiler window,
+    copies included), the share of the kernels matching pats, and its
+    CUDA-event ms."""
+    rows = cs.profiled_rows([fn], reps, (None,))
+    if rows is None:
+        raise SystemExit("profiler shows no device time for the round")
+    busy = sum(r[2] for r in rows) / 1e3 / reps
+    part = sum(r[2] for r in rows if any(p in r[0] for p in pats)) / 1e3 / reps
+    return {"round_busy": busy, "round_part": part, "round_events": cs.cuda_ms([fn], reps=reps)}
+
+
+def k1int_inputs(cs, dev) -> dict:
+    """{cell: [(tile, EncodeParams, validity words or None)]}: the four
+    tiles of chip_smoke's uint8 three-band, int16 and int32 cells with
+    FusedResidentCodec's parameters, and the four float32 DEM tiles at
+    maxZError 0.001, all-valid and with the bench mask (the float K1)."""
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    dem = cs.make_tiles(4, 2048, dev)
+    out = {}
+    for label, npdt, d, mze in (("u8x3", np.uint8, 3, 0.5), ("i16", np.int16, 1, 0.5),
+                                ("i32", np.int32, 1, 2.0)):
+        p = enc.encode_params(mze, 6, 0, NUMPY_TO_DT[np.dtype(npdt)])
+        out[label] = [(t, p, None) for t in cs.int_cell_tiles(dem, npdt, d)]
+    p = enc.encode_params(0.001, 6, 0, DataType.FLOAT)
+    valid = enc.block_valid_words(torch.from_numpy(cs.bench_mask()).to(dev))
+    out["f32"] = [(t, p, None) for t in dem]
+    out["f32_masked"] = [(t, p, valid) for t in dem]
+    return out
+
+
+def k1int_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    out = {}
+    for label, sets in k1int_inputs(cs, dev).items():
+        for a in sets:
+            k, r = enc.encode_blocks(*a), enc.encode_blocks_ref(*a)
+            if not all(torch.equal(x, y) for x, y in zip(k, r)):
+                raise SystemExit(f"the integer K1 != its plain version ({label})")
+        out[label] = dev_ms(cs, [lambda a=a: enc.encode_blocks(*a) for a in sets],
+                            ("encode_blocks",), reps=10)
+    codec = FusedResidentCodec(2048, 2048, 3, np.uint8, 0.5)
+    tiles = cs.int_cell_tiles(cs.make_tiles(4, 2048, dev), np.uint8, 3)
+    out.update(round_ms(cs, lambda: [codec.encode_fast(t) for t in tiles], ("encode_blocks",)))
+    return out
+
+
+def windows_turn(cs, dev) -> dict:
+    """The tree's whole chip_smoke.py (its main()) with every profiler
+    window it reads counted: those taken, and those that came back with no
+    kernel row (the tree's _kernel_rows wrapped). A run that fails still
+    gives its counts."""
+    counts = {"windows": 0, "empty": 0}
+    rows_of = cs._kernel_rows
+
+    def counted(prof):
+        rows = rows_of(prof)
+        counts["windows"] += 1
+        counts["empty"] += not rows
+        return rows
+
+    cs._kernel_rows = counted
+    os.chdir(Path(cs.__file__).parent)
+    try:
+        cs.main()
+    except SystemExit as e:
+        print(f"chip_smoke.py exited: {e}", flush=True)
+    return counts
+
+
 MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
             "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
-            "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn}
+            "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn,
+            "h2": h2_turn, "k1int": k1int_turn, "windows": windows_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:
@@ -485,7 +659,10 @@ def main() -> None:
     parent = str(Path(sys.argv[2]).resolve())
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for label, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+    turns = (("parent", parent), ("change", here), ("change", here), ("parent", parent))
+    if measure == "windows":  # a turn is a whole smoke run; this tree's prints its own count
+        turns = turns[:1]
+    for label, tree in turns:
         subprocess.run([sys.executable, __file__, "--turn", measure, tree, label], check=True)
 
 

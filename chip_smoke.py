@@ -30,6 +30,15 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      float64 and deep tiles) and on hostile inputs (truncated streams,
      starts shuffled within and across strips or past the end, a record
      ending at the stream's last byte), the case count printed;
+  3d. the redesigned H2 (huffman_encode, one look-back kernel) and integer
+     K1 (strips) against their plain versions at the edges of their tiles
+     and strips (H2: streams of 64 to 3T+64 symbols, every layout, n_live 0
+     and 1, planes shorter than a tile, zero gaps spanning whole tiles,
+     1-bit and 32-bit codes, each stream decoded back by H3, the fpl planes
+     of a DEM tile; K1: strip-edge widths, one block row and column, depths
+     1-8 and deep chunks, every dtype at v4 and v6, lossless and lossy,
+     every mask kind, raw and const blocks, fits dropping), the case counts
+     printed;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -56,8 +65,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      kernel's device time per launch (torch.profiler) beside its plain
      version's time (CUDA events), its launches and its bound (K3 on tile
      0's stream in paired profiler windows beside torch.sum of its bytes,
-     a yardstick; the integer K4 and K6 in windows over the four tiles,
-     K4 _u8 also on the tiles encoded at v4); then the
+     a yardstick; the integer K1, K4 and K6 in windows over the four
+     tiles, K4 _u8 also on the tiles encoded at v4); then the
      integer instances no timed path takes (K1, K2, K4, K6 _i8, _u16,
      _u32; the masked K1m, K2m, K4m of every integer dtype), each held to
      its plain version and timed once on a 2048^2 tile beside its bound;
@@ -88,8 +97,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      no timed path takes (masked 8x8 of every integer dtype, 16x16 of
      float32, float64 and every integer dtype, all-valid and masked), each
      held to its plain version and timed once on a 2048^2 band blob;
-  14. 8-bit whole-image Huffman: H1 symbols/histograms, H2 group bits and
-     pack, H3 decode, H4 restores (direct, column 0 + rows, masked direct,
+  14. 8-bit whole-image Huffman: H1 symbols/histograms, H2 (one memset
+     and one kernel), H3 decode, H4 restores (direct, column 0 + rows, masked direct,
      masked delta) and the host lengths-only scan against their plain
      versions, byte for byte, on 48x41 and 61x47 crops of the cells' data
      (depth 1 and 3, uint8 and int8, no mask, a random and a stripes mask,
@@ -247,7 +256,7 @@ for _sfx in ("", "_i8", "_u8", "_i16", "_u16", "_i32", "_u32"):
 # 8-bit whole-image Huffman: H1-H4 (kernels/huffman.cu) and the host scan
 SOURCES.update({name: ("lerc_tpu_torch/kernels/huffman.cu", f"lerc_tpu/ops/device_huffman.py:{line}")
                 for name, line in (("huffman_symbols", 50), ("huffman_symbols_masked", 72),
-                                   ("huffman_group_bits", 160), ("huffman_pack", 160),
+                                   ("huffman_encode", 160),
                                    ("huffman_decode", 278), ("huffman_restore", 477),
                                    ("huffman_restore_col0", 477), ("huffman_restore_delta", 477),
                                    ("huffman_restore_masked", 389),
@@ -357,24 +366,33 @@ def _kernel_rows(prof):
     return rows
 
 
-def profiled_rows(fns, reps, matches=(None,), tries=3):
+WINDOWS = {"taken": 0, "empty": 0}  # profiled_rows' windows, and those with no kernel row
+
+
+def profiled_rows(fns, reps, matches=(None,), tries=5):
     """The CUDA kernel rows of a torch.profiler window over `reps` rounds of
     fns (after a warm-up pass). The profiler's trace has come back empty
     now and then on the card; the window is taken again, up to `tries`
     times, until every pattern of `matches` (None: any kernel) has a row.
-    Returns the rows, or None when it never does."""
+    Each window that comes back without a kernel row is said and counted
+    in WINDOWS. Returns the rows, or None when it never does."""
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
         f()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for k in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 for f in fns:
                     f()
             torch.cuda.synchronize()
         rows = _kernel_rows(prof)
+        WINDOWS["taken"] += 1
+        if not rows:
+            WINDOWS["empty"] += 1
+            print(f"profiler window {k + 1} of {tries} came back empty (wanted {matches})",
+                  flush=True)
         if all(any(m is None or m in r[0] for r in rows) for m in matches):
             return rows
     return None
@@ -1338,6 +1356,177 @@ def strip_k6_more(dev, rng, masks):
             recs = strip_scanned(stream, total, data, m, 6, mb)
             strip_k6_case(strip_k6_args(stream, recs, data, mze, mb, valid, zmax), tag)
             n_cases += 1
+    return n_cases
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the redesigned H2 (one look-back kernel, kernels/huffman.cu) and
+# integer K1 (strips, kernels/encode.cu) at the edges of their tiles and strips
+# ---------------------------------------------------------------------------
+
+H2_TILE = 8192  # huffman.cu ENC_T: the symbols of one H2 tile
+
+
+def h2_codes():
+    """(label, code lengths) of phase 3d's H2 codes: a random 40-symbol
+    histogram's, two symbols (1-bit codes), and lengths 1..31, 32, 32 (the
+    skewed code of tests/test_torch_huffman.py's 31- and 32-bit case)."""
+    from lerc_tpu_torch.codec import huffman
+
+    rng = np.random.default_rng(16)
+    hst = np.zeros(256, np.int64)
+    hst[rng.choice(256, 40, replace=False)] = rng.integers(1, 5000, 40)
+    two = np.zeros(256, np.int32)
+    two[[3, 250]] = 1
+    deep = np.zeros(256, np.int32)
+    order = np.random.default_rng(3).permutation(256)[:33]
+    deep[order[:31]] = np.arange(1, 32)
+    deep[order[31:]] = 32
+    return [("random", huffman.compute_code_lengths(hst)), ("1-bit", two), ("1..32-bit", deep)]
+
+
+def h2_case(sym, lengths, layout, tag):
+    """H2 (words, total bits, sbits) bit-equal to its plain version on one
+    stream, the words sized exactly ceil(bits / 32) + 1, and H3 decoding the
+    stream back to its live symbols."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.ops import device_huffman as dh
+
+    dev = sym.device
+    codes = huffman.canonical_codes(lengths)
+    table = dh.code_table(lengths, codes, dev)
+    live = dh._live_mask(sym.numel(), layout, dev)
+    total = int(table[0].long()[sym.long()][live].sum())
+    n_words = -(-total // 32) + 1
+    k = dh.encode_stream_device(sym, table, layout, n_words)
+    r = dh.encode_stream_device_ref(sym, table, layout, n_words)
+    require(torch.equal(k[0], r[0]) and int(k[1]) == int(r[1]) == total
+            and torch.equal(k[2], r[2]), f"H2 != plain ({tag})")
+    consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
+    out, _used, ok = dh.decode_stream_device(
+        torch.cat([k[0], k[0].new_zeros(1)]), 32 * n_words, k[2], torch.from_numpy(consts).to(dev),
+        torch.from_numpy(sorted_syms).to(dev), layout)
+    require(bool(ok) and torch.equal(out[:sym.numel()][live], sym[live]),
+            f"H3 does not decode H2's stream back ({tag})")
+
+
+def h2_edge_check(dev, fpl_tile=None, tile=H2_TILE):
+    """Phase 3d, H2: words, total bits and sbits bit-equal to the plain
+    version and each stream decoded back by H3 (h2_case), at the edges of
+    H2's tiles of T = `tile` symbols: streams of 64, T - 64, T, T + 64 and
+    3T + 64 symbols; all-valid, masked direct (n_live 0, 1 and a third)
+    and masked delta layouts (planes of 7 and 1,000 symbols, shorter than a
+    tile and not whole groups, n_total not whole groups; planes of 3T + 100
+    with 100 live, whose zero gaps span whole tiles); the codes of h2_codes;
+    then the four fpl planes of a DEM tile (`fpl_tile`, predictor 1, levels
+    2, 1, 0, 0). Returns the number of cases."""
+    from lerc_tpu_torch.codec import huffman
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    rng = np.random.default_rng(16)
+    n_cases = 0
+    for cname, lengths in h2_codes():
+        used = np.flatnonzero(lengths)
+        for n in (64, tile - 64, tile, tile + 64, 3 * tile + 64):
+            sym = torch.from_numpy(rng.choice(used, n).astype(np.uint8)).to(dev)
+            for lname, layout in (("all-valid", (n, n, n)), ("direct, none live", (n, n, 0)),
+                                  ("direct, one live", (n, n, 1)),
+                                  ("direct, a third live", (n, n, n // 3 + 5)),
+                                  ("delta, planes of 7", (n - 3, 7, 3)),
+                                  ("delta, planes of 1,000", (n - 37, 1000, 300)),
+                                  ("delta, gaps of whole tiles", (n, 3 * tile + 100, 100))):
+                h2_case(sym, lengths, layout, f"{n} symbols, {lname}, {cname} code")
+                n_cases += 1
+    if fpl_tile is not None:
+        planes, histos = F.fpl_finalize(fpl_tile, 1, (2, 1, 0, 0))
+        n = fpl_tile.numel()
+        for b in range(planes.shape[0]):
+            lengths = huffman.compute_code_lengths(histos[b].cpu().numpy().astype(np.int64))
+            if lengths is not None:
+                h2_case(planes[b], lengths, (n, n, n), f"fpl plane {b}")
+                n_cases += 1
+    return n_cases
+
+
+def k1int_case(dev, data, mask, mze, version, nb_cap, as_int32, tag):
+    """The integer K1 (rec_info, zrange, fits) bit-equal to
+    encode_blocks_int_ref on one tile (numpy [H, W, D]); validity words for a
+    mask or edge blocks. Returns fits."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    x = torch.from_numpy(data).to(dev)
+    if as_int32:
+        x = x.to(torch.int32)
+    if mask is None and (h % 8 or w % 8):
+        mask = np.ones((h, w), bool)
+    valid = None if mask is None else enc.block_valid_words(torch.from_numpy(mask).to(x.device))
+    p = enc.encode_params(mze, version, nb_cap, NUMPY_TO_DT[data.dtype])
+    k, r = enc.encode_blocks(x, p, valid), enc.encode_blocks_ref(x, p, valid)
+    require(all(torch.equal(a, b) for a, b in zip(k, r)), f"K1 integer != plain ({tag})")
+    return bool(k[2])
+
+
+def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
+    """Phase 3d, the integer K1: rec_info, zrange and fits bit-equal to
+    encode_blocks_int_ref (k1int_case) at the edges of its strips (S blocks
+    a strip, device_decode.strip_shape): widths 8(S-1), 8S, 8S+8, 8(2S+1) and
+    8S+3 (edge blocks), a single block row, a single block column; depths 1,
+    2, 3, 5 and 8, and deep tiles whose depths come in chunks (int32 at
+    depth 40, uint8 at 130); every dtype at v4 and v6 (the depth-diff
+    candidate off and on), lossless and lossy (maxZError 2), the input in
+    its dtype and, on one shape, as int32; all-valid, empty, full and bench
+    masks; strip_tile's const-0, const-offset, stuffed and full-range blocks
+    (raw: uint32 across 2^31, int32 blocks of range 2^31 or more), raw-only
+    tiles; nb_cap 2, which makes fits drop. Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    rng = np.random.default_rng(16)
+    bench = bench_mask()
+    n_cases = 0
+
+    def masks(kind, h, w):
+        return {"all-valid": None, "empty": np.zeros((h, w), bool), "full": np.ones((h, w), bool),
+                "bench": np.ascontiguousarray(bench[296:296 + h, 480:480 + w])}[kind]
+
+    for npdt in dtypes or INT_DTYPES:
+        size = np.dtype(npdt).itemsize
+        name = np.dtype(npdt).name
+        for d in depths:
+            s = dec.strip_shape(8, d, size, 1)[0]
+            shapes = [(8, 8 * (s - 1) or 8), (8, 8 * s), (16, 8 * s + 8), (8, 8 * (2 * s + 1)),
+                      (13, 8 * s + 3), (40, 8)]
+            for version in (4, 6):
+                for si, (h, w) in enumerate(shapes):
+                    for kind in ("all-valid", ("empty", "full", "bench")[(si + version) % 3]):
+                        data = strip_tile(npdt, h, w, d, False, rng)
+                        for mze in (0.5, 2.0):
+                            tag = f"{name} {h}x{w}x{d} v{version} {kind} maxZError {mze}"
+                            k1int_case(dev, data, masks(kind, h, w), mze, version, 0, False, tag)
+                            n_cases += 1
+                            if si == 2 and size < 4:
+                                k1int_case(dev, data, masks(kind, h, w), mze, version, 0, True,
+                                           tag + ", int32 input")
+                                n_cases += 1
+                    if si == 1:
+                        raw = strip_tile(npdt, h, w, d, True, rng)
+                        k1int_case(dev, raw, None, 0.5, version, 0, False,
+                                   f"{name} raw {h}x{w}x{d}")
+                        fits = k1int_case(dev, data, None, 2.0, version, 2, False,
+                                          f"{name} {h}x{w}x{d} nb_cap 2")
+                        require(not fits, f"nb_cap 2: fits kept ({name} {h}x{w}x{d} v{version})")
+                        n_cases += 2
+    if dtypes is None:  # deep tiles: depths in chunks, each staged with the slice before
+        for npdt, d in ((np.int32, 40), (np.uint8, 130)):
+            for h, w in ((8, 8), (16, 24)):
+                for kind in ("all-valid", "bench"):
+                    data = strip_tile(npdt, h, w, d, False, rng)
+                    for version, mze in ((6, 0.5), (4, 2.0)):
+                        k1int_case(dev, data, masks(kind, h, w), mze, version, 0, False,
+                                   f"{np.dtype(npdt).name} deep {h}x{w}x{d} v{version} {kind}")
+                        n_cases += 1
     return n_cases
 
 
@@ -2424,8 +2613,8 @@ def huffman_check(data, mask, tag, scan_ref=True):
         if scan_ref:
             require(np.array_equal(hs.huffman_group_offsets_ref(stream, lengths, codes, counts),
                                    offs), f"host scan != plain ({how})")
-        err.update(dict.fromkeys(("huffman_group_bits", "huffman_pack", "huffman_decode",
-                                  "huffman_scan", restore_name(m is not None, delta)), 0.0))
+        err.update(dict.fromkeys(("huffman_encode", "huffman_decode", "huffman_scan",
+                                  restore_name(m is not None, delta)), 0.0))
         if m is None and delta:
             err["huffman_restore_col0"] = 0.0
     return err  # every comparison above is exact
@@ -2745,8 +2934,8 @@ def huffman_cell(label, tiles, mask, mode, card):
 
     masked = mask is not None
     required = ("encode_blocks_lut_int", "write_records_lut_int", "fletcher32_parts",
-                "huffman_symbols" + ("_masked" if masked else ""), "huffman_group_bits",
-                "huffman_pack", "huffman_decode", "huffman_scan")
+                "huffman_symbols" + ("_masked" if masked else ""), "huffman_encode",
+                "huffman_decode", "huffman_scan")
     required += ((restore_name(masked, True),) if mode == 1 else (restore_name(masked, False),))
     if mode == 1 and not masked:
         required += ("huffman_restore_col0",)
@@ -2965,13 +3154,16 @@ def huffman_kernel_times(u8x3, mask, flags, card):
         g = sym.numel() // dh.GROUP
         words, _tb, sbits = dh.encode_stream_device(sym, table, layout, n_words)
         live = layout[2] * (n // layout[1])
-        if mk is None and delta:  # H2 and H3 at their main-path shape
-            add("huffman_group_bits", lambda: dh.encode_stream_device(sym, table, layout, n_words),
-                lambda: dh.encode_stream_device_ref(sym, table, layout, n_words),
-                n + 2048 + 4 * g, "huffman_group_bits_kernel")
-            add("huffman_pack", lambda: dh.encode_stream_device(sym, table, layout, n_words),
-                lambda: dh.encode_stream_device_ref(sym, table, layout, n_words),
-                n + 4 * g + total / 8 + 2048, "huffman_pack_kernel")
+        if mk is None and delta:  # H2 and H3 at their main-path shape; H2: its whole call
+            km, _lm, bound = paired_row(
+                "huffman_encode (the uint8 x 3 delta stream, its memset and kernel)",
+                lambda: dh.encode_stream_device(sym, table, layout, n_words),
+                ("huffman_encode_kernel", "Memset"), None, "",
+                n + 2048 + 4 * g + 4 * n_words, card,
+                pairs=K3_H3_PAIRS)
+            rows["huffman_encode"] = (
+                km, cuda_ms([lambda: dh.encode_stream_device_ref(sym, table, layout, n_words)],
+                            reps=1), bound, None)
         consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
         args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
                 torch.from_numpy(consts).cuda(), torch.from_numpy(sorted_syms).cuda(), layout)
@@ -3318,7 +3510,7 @@ def fpl_cell(label, tiles, mask, card, plain_tile0=True, rounds=3):
     from lerc_tpu_torch import decode_band_device, encode_band_device
 
     required = ("encode_blocks_lut", "write_records_lut", "fletcher32_parts", *FPL)
-    huffman = ("huffman_group_bits", "huffman_pack", "huffman_decode", "huffman_scan")
+    huffman = ("huffman_encode", "huffman_decode", "huffman_scan")
 
     def path():
         enc = [encode_band_device(t, mask, 0.0, return_index=True) for t in tiles]
@@ -3437,10 +3629,12 @@ def fpl_kernel_times(tile, blob, index, card):
         consts, sorted_syms = huffman.canonical_decode_consts(lengths, codes)
         args = (torch.cat([words, words.new_zeros(1)]), 32 * n_words, sbits,
                 torch.from_numpy(consts).cuda(), torch.from_numpy(sorted_syms).cuda(), layout)
-        gb = device_ms([lambda: dh.encode_stream_device(planes[b], table, layout, n_words)],
-                       "huffman_group_bits_kernel")
-        pk = device_ms([lambda: dh.encode_stream_device(planes[b], table, layout, n_words)],
-                       "huffman_pack_kernel")
+        g = sbits.numel()
+        h2_bound = n + 2048 + 4 * g + 4 * n_words
+        pk = paired_row(f"huffman_encode (fpl plane {b}, {n} symbols, its memset and kernel)",
+                        lambda: dh.encode_stream_device(planes[b], table, layout, n_words),
+                        ("huffman_encode_kernel", "Memset"), None, "", h2_bound, card,
+                        pairs=K3_H3_PAIRS)[0]
         dc = paired_row(f"huffman_decode (fpl plane {b}, {n} symbols)",
                         lambda: dh.decode_stream_device(*args), "huffman_decode", None, "",
                         total / 8 + 2 * 4 * sbits.numel() + n, card, pairs=K3_H3_PAIRS)[0]
@@ -3451,10 +3645,10 @@ def fpl_kernel_times(tile, blob, index, card):
         scan_ms = (time.perf_counter() - t0) * 1e3
         require(np.array_equal(offs, sbits.cpu().numpy()), f"host scan != H2's sidecar, plane {b}")
         g4 = 4 * sbits.numel()
-        print(f"fpl Huffman plane {b} ({n} symbols, {total} bits): H2 group bits {gb:.4f} + pack "
-              f"{pk:.4f} ms, H3 {dc:.4f} ms per launch (bounds {(n + g4) / mb:.4f}, "
-              f"{(n + g4 + total / 8) / mb:.4f}, {(total / 8 + 2 * g4 + n) / mb:.4f} ms); host "
-              f"scan {scan_ms:.3f} ms [{card}]", flush=True)
+        print(f"fpl Huffman plane {b} ({n} symbols, {total} bits): H2 {pk:.4f} ms a call (its "
+              f"memset and kernel), H3 {dc:.4f} ms per launch (bounds {h2_bound / mb:.4f}, "
+              f"{(total / 8 + 2 * g4 + n) / mb:.4f} ms); host scan {scan_ms:.3f} ms [{card}]",
+              flush=True)
         break  # one plane is enough for the times
     return out
 
@@ -3690,8 +3884,7 @@ def f64_cell(label, tiles, mask, mze, card, plain_tile0=True, rounds=3):
         optional = ()
     else:  # F3 and the Huffman planes' H2/H3 where a tile takes fpl (checked below)
         required = ("fletcher32_parts", *FPL64[:3])
-        optional = ("huffman_group_bits", "huffman_pack", "huffman_decode", "huffman_scan",
-                    "fpl_restore_f64")
+        optional = ("huffman_encode", "huffman_decode", "huffman_scan", "fpl_restore_f64")
 
     def path():
         enc = [encode_band_device(t, mask, mze, return_index=True) for t in tiles]
@@ -4711,6 +4904,7 @@ def main():
     from lerc_tpu_torch import FusedResidentCodec
     from lerc_tpu_torch.constants import DataType
     from lerc_tpu_torch.kernels import build
+    from lerc_tpu_torch.ops import device_encode as enc
 
     # ---- 1. the card
     card = card_line()
@@ -4816,6 +5010,20 @@ def main():
           f"streams, shuffled and past-the-end starts, a record ending at the last byte "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # ---- 3d. the redesigned H2 and integer K1 at their tiles' and strips' edges
+    t0 = time.perf_counter()
+    n_h2 = h2_edge_check(dev, tiles[0])
+    n_k1 = k1int_edge_check(dev)
+    print(f"check: H2 (words, total bits, sbits) equal to its plain version and decoded back by "
+          f"H3 in {n_h2} cases (streams of 64, T-64, T, T+64 and 3T+64 symbols at T = {H2_TILE}; "
+          f"all-valid, masked direct with 0, 1 and a third live, masked delta with planes of 7 "
+          f"and 1,000 and zero gaps spanning whole tiles; 1-bit, random and 1..32-bit codes; the "
+          f"four fpl planes of a DEM tile); the integer K1 (rec_info, zrange, fits) equal to its "
+          f"plain version in {n_k1} strip cases (widths 8(S-1), 8S, 8S+8, 8(2S+1), 8S+3, one "
+          f"block row and column; depths 1, 2, 3, 5, 8 and deep chunks; every dtype at v4 and "
+          f"v6, lossless and lossy, int32 input; all-valid, empty, full and bench masks; raw, "
+          f"const and stuffed blocks; nb_cap 2) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # ---- 4, 5. the main paths, counted, then timed
     launches, results = main_path(tiles, None, card)
     m_launches, m_results = main_path(tiles, mask, card)
@@ -4874,6 +5082,11 @@ def main():
         k4 = int_name("decode_records", codec.dt)  # the strip kernels: paired windows
         times[k4] = (strip_pair(k4, records_calls(ins, codec, (h, w, d)), "decode_records_int",
                                 times[k4][2], card), *times[k4][1:])
+        k1 = int_name("encode_blocks", codec.dt)
+        p = ins[0]["p"]
+        times[k1] = (strip_pair(k1, [lambda t=t: enc.encode_blocks(t, p, codec.valid)
+                                     for t in ctiles], "encode_blocks_int", times[k1][2], card),
+                     *times[k1][1:])
         for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
             add_row(name, err[name], ms, plain_ms, bound_ms, bound_by)
         sets = [(k["stream"], k["total"], k["zmax"]) for k in ins]
@@ -4910,6 +5123,8 @@ def main():
     # ---- 28. the Pallas probes Q1-Q3
     probe_phase(card, add_row, launches)
     print(f"phases 27-28: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"profiler windows: {WINDOWS['taken']} taken, {WINDOWS['empty']} came back empty",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

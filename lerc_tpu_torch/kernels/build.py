@@ -63,13 +63,13 @@ LAUNCHES.update({f"{k}{m}{t}": 0 for k in ("encode_blocks", "write_records")
 LAUNCHES.update({f"decode_scanned{mb}{m}{sfx}": 0 for mb in ("", "16")
                  for m in ("", "_masked") for sfx in ("",) + INT_SUFFIXES if mb or m})
 LAUNCHES["tile_scan"] = 0
-# the 8-bit Huffman path: H1 (all-valid, masked), H2 (group bits, pack), H3,
+# the 8-bit Huffman path: H1 (all-valid, masked), H2 (a memset and one kernel), H3,
 # H4 (direct, column 0 + rows, masked direct, masked delta), the host scan.
 # huffman_restore_delta_masked is one entry point of four kernels and a
 # memset (huffman_restore_delta_masked_scan, _segments, _resolve, _apply),
 # counted once per call
 LAUNCHES.update({k: 0 for k in (
-    "huffman_symbols", "huffman_symbols_masked", "huffman_group_bits", "huffman_pack",
+    "huffman_symbols", "huffman_symbols_masked", "huffman_encode",
     "huffman_decode", "huffman_restore", "huffman_restore_col0", "huffman_restore_delta",
     "huffman_restore_masked", "huffman_restore_delta_masked", "huffman_scan")})
 # lossless float32 (fpl): F1 sampled histograms, F2 planes, F2b PackBits

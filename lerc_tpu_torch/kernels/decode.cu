@@ -190,9 +190,7 @@ __global__ void decode_records_masked_kernel(const uint8_t* __restrict__ s, long
 // ---------------------------------------------------------------------------
 
 constexpr int STRIP_THREADS = 256;
-constexpr int STRIP_PX = 2048;
-constexpr int STRIP_PPT = STRIP_PX / STRIP_THREADS;  // pixels a thread
-constexpr int STRIP_OUT = 8192;
+constexpr int STRIP_PPT = STRIP_PX / STRIP_THREADS;  // pixels a thread (STRIP_PX, STRIP_OUT: record.cuh)
 constexpr int STRIP_STAGE = 12288;  // the output stage: segments at 16-byte pitch
 constexpr int STRIP_IN = 8192;
 constexpr int STRIP_REC = 128;
@@ -208,20 +206,13 @@ struct StripGeom {
 };
 
 inline StripGeom strip_geometry(int mb, int w, int d, int size) {
-    const int bp = mb * mb, pb = d * size;
+    const StripShape sh = strip_shape(mb, w, d, size, 0);
     StripGeom g;
-    if ((long long)bp * pb <= STRIP_OUT) {
-        g.S = std::max(1, std::min(STRIP_PX, STRIP_OUT / pb) / bp);
-        g.dc = d;
-        g.px_seg = g.S * mb;
-    } else {  // deep: one block, Dc depths a chunk
-        g.S = 1;
-        g.dc = std::max(1, STRIP_OUT / (bp * size));
-        g.px_seg = 1;
-    }
+    g.S = sh.S;
+    g.dc = sh.dc;
+    g.px_seg = sh.dc == d ? sh.S * mb : 1;
     g.pitch = (g.px_seg * g.dc * size + 15) / 16 * 16 + 16;
-    const int nbh = (w + mb - 1) / mb;
-    g.spr = (nbh + g.S - 1) / g.S;
+    g.spr = sh.spr;
     return g;
 }
 

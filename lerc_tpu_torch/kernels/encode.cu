@@ -10,7 +10,8 @@
 // version routes bits with one-hot matmuls and static roll chains, and sorts
 // each block's values with jnp.sort, because XLA gathers and scatters are
 // slow there; on Hopper one warp owns one block: shuffles reduce it, and
-// shared-memory atomicOr assembles its record.
+// shared-memory atomicOr assembles its record. The integer K1 is a strip
+// kernel instead: a warp a strip of blocks, a thread a block (below).
 //
 // One warp, one block of MB x MB values, VPL = MB*MB/32 values per lane:
 // value j = 32k + lane (k < VPL) is block position j in row-major order.
@@ -69,12 +70,14 @@
 // one multiply-add the reference contracts (written as __fmaf_rn); the f64
 // quantization rounds each multiply and add apart (__dmul_rn, __dadd_rn).
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <type_traits>
 
+#include "block_scan.cuh"  // load16
 #include "record.cuh"
 
 namespace {
@@ -392,13 +395,15 @@ __device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS]
     }
 }
 
+// the float32 K1 (all-valid and masked); the integer instances are the
+// strip kernel below
 template <typename T, bool MASKED>
 __device__ __forceinline__ void encode_blocks_body(
         const T* __restrict__ data, const int2* __restrict__ valid, int w, int d, int nbh,
         int n_rec, const EncP& P, int* __restrict__ rec_info,
         typename ZOf<T>::type* __restrict__ zrange, int* __restrict__ fits) {
-    using Z = typename ZOf<T>::type;
-    constexpr bool IS_INT = !std::is_same<T, float>::value;
+    static_assert(std::is_same<T, float>::value, "the float32 K1");
+    using Z = float;
     __shared__ Z s_min[WARPS], s_max[WARPS];
     __shared__ int s_di[WARPS];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -420,127 +425,46 @@ __device__ __forceinline__ void encode_blocks_body(
         const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
         T x0, x1;
         load_pair<T, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
-        if constexpr (IS_INT) {
-            const int xi0 = (int)x0, xi1 = (int)x1, flip = order_flip(P);
-            lo = __reduce_min_sync(FULL, min(ok0 ? xi0 ^ flip : INT_MAX,
-                                             ok1 ? xi1 ^ flip : INT_MAX)) ^ flip;
-            hi = __reduce_max_sync(FULL, max(ok0 ? xi0 ^ flip : INT_MIN,
-                                             ok1 ? xi1 ^ flip : INT_MIN)) ^ flip;
-            float fmax = fmaxf(ok0 ? int_to_f32(xi0, flip) : -CUDART_INF_F,
-                               ok1 ? int_to_f32(xi1, flip) : -CUDART_INF_F);
-            for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(FULL, fmax, o));
-            int zmin = lo;
-            if (MASKED && cnt == 0) zmin = 0, fmax = 0.f;  // const-0 record
-            uint32_t max_q = __reduce_max_sync(
-                FULL, max(ok0 ? quantize_int(xi0, zmin, P.lossless, P.scale, P.inv_i) : 0u,
-                          ok1 ? quantize_int(xi1, zmin, P.lossless, P.scale, P.inv_i) : 0u));
-            // depth-diff candidate against slice di-1 of the same block
-            int dmin = 0, dmax = 0;
-            uint32_t max_qd = 0;
-            const bool cand = P.try_diff && di > 0;  // warp-uniform
-            if (cand) {
-                T p0, p1;
-                load_pair<T, MASKED>(data, w, d, nbh, b, di - 1, lane, ok0, ok1, p0, p1);
-                const int dv0 = wrap_sub(xi0, (int)p0), dv1 = wrap_sub(xi1, (int)p1);
-                dmin = __reduce_min_sync(FULL, min(ok0 ? dv0 : 1 << 30, ok1 ? dv1 : 1 << 30));
-                dmax = __reduce_max_sync(FULL,
-                                         max(ok0 ? dv0 : -(1 << 30), ok1 ? dv1 : -(1 << 30)));
-                if (MASKED && cnt == 0) dmin = dmax = 0;
-                max_qd = __reduce_max_sync(FULL, max(ok0 ? (uint32_t)wrap_sub(dv0, dmin) : 0u,
-                                                     ok1 ? (uint32_t)wrap_sub(dv1, dmin) : 0u));
-            }
-            if (lane == 0) {
-                const float zmin_f = int_to_f32(zmin, flip);
-                int nb = bit_len(max_q);
-                const float max_val = __fmul_rn(__fsub_rn(fmax, zmin_f), P.scale);
-                bool const0 = (MASKED && cnt == 0) || (zmin_f == 0.f && fmax == 0.f);
-                const bool force_raw = (P.mze == 0.f && fmax > zmin_f)
-                                       || (P.mze > 0.f && max_val > P.maxq_cap)
-                                       || wide_block(hi, zmin);
-                int tc, off_w;
-                reduce_offset_int(zmin, P.dt, tc, off_w);
-                uint32_t off_word = low_bytes((uint32_t)zmin, off_w);
-                // count byte width 1 (cnt < 256)
-                int stuff_len = 1 + off_w + (max_q ? 2 + ((cnt * nb + 7) >> 3) : 0);
-                const int raw_len = 1 + cnt * P.size;
-                int zq = zmin;  // what K2 subtracts: the block min, or the diff min
-                bool use_diff = false;
-                if (cand) {
-                    const int nbd = bit_len(max_qd);
-                    int tc_d, off_w_d;
-                    reduce_offset_int(dmin, lerc2::DT_INT, tc_d, off_w_d);
-                    const int stuff_len_d = 1 + off_w_d
-                                            + (max_qd ? 2 + ((cnt * nbd + 7) >> 3) : 0);
-                    const bool const0_d = dmin == 0 && dmax == 0;
-                    const int diff_len = const0_d ? 1 : stuff_len_d;
-                    use_diff = P.lossless && cnt > 0 && !const0 && diff_len < stuff_len
-                               && diff_len < raw_len;
-                    if (use_diff) {
-                        const0 = const0_d;
-                        stuff_len = stuff_len_d;
-                        nb = nbd;
-                        max_q = max_qd;
-                        tc = tc_d;
-                        off_w = off_w_d;
-                        off_word = low_bytes((uint32_t)dmin, off_w_d);
-                        zq = dmin;
-                    }
-                }
-                const bool use_stuff = !force_raw && stuff_len < raw_len;
-                const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
-                const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
-                const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
-                const int flag = integ | (use_diff ? 4 : 0) | mode
-                                 | ((mode == 1 || mode == 3) ? tc << 6 : 0);
-                int* info = rec_info + 4 * (size_t)r;
-                info[0] = length;
-                info[1] = flag | (mode << 8) | ((int)use_diff << 10) | (nb << 16) | (off_w << 24);
-                info[2] = (int)off_word;
-                info[3] = zq;
-                if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
-            }
-        } else {
-            float zmin = fminf(ok0 ? x0 : CUDART_INF_F, ok1 ? x1 : CUDART_INF_F);
-            float zmax = fmaxf(ok0 ? x0 : -CUDART_INF_F, ok1 ? x1 : -CUDART_INF_F);
-            for (int o = 16; o > 0; o >>= 1) {
-                zmin = fminf(zmin, __shfl_xor_sync(FULL, zmin, o));
-                zmax = fmaxf(zmax, __shfl_xor_sync(FULL, zmax, o));
-            }
-            if (MASKED && cnt == 0) zmin = zmax = 0.f;  // const-0 record
-            lo = zmin;
-            hi = zmax;
-            const uint32_t max_q = __reduce_max_sync(
-                FULL, max(ok0 ? quantize(x0, zmin, P.scale, P.inv) : 0u,
-                          ok1 ? quantize(x1, zmin, P.scale, P.inv) : 0u));
-            if (lane == 0) {
-                const int nb = bit_len(max_q);
-                const float max_val = __fmul_rn(__fsub_rn(zmax, zmin), P.scale);
-                const bool const0 = zmin == 0.f && zmax == 0.f;
-                const bool force_raw = (P.mze == 0.f && zmax > zmin)
-                                       || (P.mze > 0.f && max_val > 1073741823.f);
-                int tc, off_w;
-                uint32_t off_word;
-                reduce_offset_float(zmin, tc, off_w, off_word);
-                // count byte width 1 (cnt < 256); raw: 4 B a value
-                const int stuff_len = 1 + off_w
-                                      + (max_q ? 2 + (MASKED ? (cnt * nb + 7) >> 3 : 8 * nb) : 0);
-                const int raw_len = MASKED ? 1 + 4 * cnt : 1 + 64 * 4;
-                const bool use_stuff = !force_raw && stuff_len < raw_len;
-                const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
-                const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
-                const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
-                const int flag = integ | mode | ((mode == 1 || mode == 3) ? tc << 6 : 0);
-                int* info = rec_info + 4 * (size_t)r;
-                info[0] = length;
-                info[1] = flag | (mode << 8) | (nb << 16) | (off_w << 24);
-                info[2] = (int)off_word;
-                info[3] = __float_as_int(zmin);
-                if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
-            }
+        float zmin = fminf(ok0 ? x0 : CUDART_INF_F, ok1 ? x1 : CUDART_INF_F);
+        float zmax = fmaxf(ok0 ? x0 : -CUDART_INF_F, ok1 ? x1 : -CUDART_INF_F);
+        for (int o = 16; o > 0; o >>= 1) {
+            zmin = fminf(zmin, __shfl_xor_sync(FULL, zmin, o));
+            zmax = fmaxf(zmax, __shfl_xor_sync(FULL, zmax, o));
+        }
+        if (MASKED && cnt == 0) zmin = zmax = 0.f;  // const-0 record
+        lo = zmin;
+        hi = zmax;
+        const uint32_t max_q = __reduce_max_sync(
+            FULL, max(ok0 ? quantize(x0, zmin, P.scale, P.inv) : 0u,
+                      ok1 ? quantize(x1, zmin, P.scale, P.inv) : 0u));
+        if (lane == 0) {
+            const int nb = bit_len(max_q);
+            const float max_val = __fmul_rn(__fsub_rn(zmax, zmin), P.scale);
+            const bool const0 = zmin == 0.f && zmax == 0.f;
+            const bool force_raw = (P.mze == 0.f && zmax > zmin)
+                                   || (P.mze > 0.f && max_val > 1073741823.f);
+            int tc, off_w;
+            uint32_t off_word;
+            reduce_offset_float(zmin, tc, off_w, off_word);
+            // count byte width 1 (cnt < 256); raw: 4 B a value
+            const int stuff_len = 1 + off_w
+                                  + (max_q ? 2 + (MASKED ? (cnt * nb + 7) >> 3 : 8 * nb) : 0);
+            const int raw_len = MASKED ? 1 + 4 * cnt : 1 + 64 * 4;
+            const bool use_stuff = !force_raw && stuff_len < raw_len;
+            const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+            const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+            const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
+            const int flag = integ | mode | ((mode == 1 || mode == 3) ? tc << 6 : 0);
+            int* info = rec_info + 4 * (size_t)r;
+            info[0] = length;
+            info[1] = flag | (mode << 8) | (nb << 16) | (off_w << 24);
+            info[2] = (int)off_word;
+            info[3] = __float_as_int(zmin);
+            if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
         }
     }
     merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange, IS_INT ? order_flip(P) : 0);
+                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange);
 }
 
 __global__ void encode_blocks_kernel(const float* __restrict__ data, int w, int d, int nbh,
@@ -557,12 +481,322 @@ __global__ void encode_blocks_masked_kernel(const float* __restrict__ data,
     encode_blocks_body<float, true>(data, valid, w, d, nbh, n_rec, P, rec_info, zrange, fits);
 }
 
-template <typename T, bool MASKED>
-__global__ void encode_blocks_int_kernel(const T* __restrict__ data,
-                                         const int2* __restrict__ valid, int w, int d, int nbh,
-                                         int n_rec, EncP P, int* __restrict__ rec_info,
-                                         int* __restrict__ zrange, int* __restrict__ fits) {
-    encode_blocks_body<T, MASKED>(data, valid, w, d, nbh, n_rec, P, rec_info, zrange, fits);
+// ---------------------------------------------------------------------------
+// K1, integer instances (encode_tiles :591-614, :651-653, :677-722): strips.
+// A CTA of one warp owns a strip of S consecutive 8x8 blocks of one block
+// row with all their D records (records r = b*D + di of consecutive blocks
+// are consecutive), or, where one block's pixels at full depth pass the
+// stage, one block and its depths in chunks of dc, each staged with the
+// slice before it (the depth-diff candidate's): record.cuh's strip_shape
+// with lead 1, the strips of decode.cu's K4 and K6 (2,048 pixels and 8 KB
+// of image a strip; on uint8 x 3 S = 32: 6 KB). The strip's image rows
+// are staged in shared memory with 16-byte loads (any W, D and alignment;
+// rows and columns past the image are not read: their positions are
+// invalid in the validity words, and the all-valid instance takes aligned
+// images only). Then each record is decided by one thread, none waiting on
+// another: at D = 1 and 3 (DC) a thread takes a block and all its depths,
+// each block row read as 8-byte words (the D = 3 interleave costs no bank
+// conflict: a block's depths lie in the same words) and the values cut
+// from them at offsets known at compile time, the depth-diff candidate
+// from the same words; at other depths (DC 0) a thread takes a record and
+// reads its values and slice di-1 from the stage one at a time. The values
+// give the block min and max in the dtype's order (order_flip), the diff's
+// min and max, and, lossy, max_q by quantize_int in a second pass. Three
+// quantities need no pass of their own, the same values as the per-value
+// form: the f32 maximum is int_to_f32 of the max (the conversion is
+// monotone in the order); lossless, max_q is hi - zmin, and max_qd is
+// dmax - dmin (each value's distance from the min, as u32, is at most the
+// max's). The record (int_record, the decision as before, verbatim) goes
+// to a shared buffer, stored as 16-byte stores over the strip; the
+// per-depth ranges meet in shared atomics, one global atomicMin/atomicMax
+// per depth and CTA (unsigned for uint32); fits is stored once, when it
+// drops.
+// ---------------------------------------------------------------------------
+
+constexpr int K1S_PITCH = STRIP_OUT / 8 + 16;  // a staged row's bytes at most
+constexpr int K1S_REC = 128;                   // records a strip or chunk at most
+
+// the record of one integer block: lo, hi its min and max in the dtype's
+// order (sentinels without a valid value), fmax their f32 maximum, max_q
+// the widest quantum; the depth-diff candidate (cand) by dmin, dmax,
+// max_qd; bcol the block's column. bad: the record does not fit the cap.
+template <bool MASKED>
+__device__ __forceinline__ int4 int_record(const EncP& P, int flip, int cnt, int lo, int hi,
+                                           float fmax, uint32_t max_q, bool cand, int dmin,
+                                           int dmax, uint32_t max_qd, int bcol, bool& bad) {
+    int zmin = lo;
+    if (MASKED && cnt == 0) zmin = 0, fmax = 0.f;  // const-0 record
+    const float zmin_f = int_to_f32(zmin, flip);
+    int nb = bit_len(max_q);
+    const float max_val = __fmul_rn(__fsub_rn(fmax, zmin_f), P.scale);
+    bool const0 = (MASKED && cnt == 0) || (zmin_f == 0.f && fmax == 0.f);
+    const bool force_raw = (P.mze == 0.f && fmax > zmin_f)
+                           || (P.mze > 0.f && max_val > P.maxq_cap)
+                           || wide_block(hi, zmin);
+    int tc, off_w;
+    reduce_offset_int(zmin, P.dt, tc, off_w);
+    uint32_t off_word = low_bytes((uint32_t)zmin, off_w);
+    // count byte width 1 (cnt < 256)
+    int stuff_len = 1 + off_w + (max_q ? 2 + ((cnt * nb + 7) >> 3) : 0);
+    const int raw_len = 1 + cnt * P.size;
+    int zq = zmin;  // what K2 subtracts: the block min, or the diff min
+    bool use_diff = false;
+    if (cand) {
+        const int nbd = bit_len(max_qd);
+        int tc_d, off_w_d;
+        reduce_offset_int(dmin, lerc2::DT_INT, tc_d, off_w_d);
+        const int stuff_len_d = 1 + off_w_d + (max_qd ? 2 + ((cnt * nbd + 7) >> 3) : 0);
+        const bool const0_d = dmin == 0 && dmax == 0;
+        const int diff_len = const0_d ? 1 : stuff_len_d;
+        use_diff = P.lossless && cnt > 0 && !const0 && diff_len < stuff_len && diff_len < raw_len;
+        if (use_diff) {
+            const0 = const0_d;
+            stuff_len = stuff_len_d;
+            nb = nbd;
+            max_q = max_qd;
+            tc = tc_d;
+            off_w = off_w_d;
+            off_word = low_bytes((uint32_t)dmin, off_w_d);
+            zq = dmin;
+        }
+    }
+    const bool use_stuff = !force_raw && stuff_len < raw_len;
+    const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+    const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+    const int integ = ((bcol & 15) << 2) & P.integ_mask;
+    const int flag = integ | (use_diff ? 4 : 0) | mode | ((mode == 1 || mode == 3) ? tc << 6 : 0);
+    bad = (mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok);
+    const int desc = flag | (mode << 8) | ((int)use_diff << 10) | (nb << 16) | (off_w << 24);
+    return make_int4(length, desc, (int)off_word, zq);
+}
+
+// a staged value as int32 (the element type's sign)
+template <typename T>
+__device__ __forceinline__ int staged(const uint8_t* p) {
+    return (int)*reinterpret_cast<const T*>(p);
+}
+
+// element e (0..8*DC-1, pixel e / DC, depth e % DC) of a block row held in
+// u32 words, at an offset known at compile time
+template <typename T>
+__device__ __forceinline__ int cut(const uint32_t* wd, int e) {
+    const int b = e * (int)sizeof(T);
+    const uint32_t v = wd[b >> 2] >> (8 * (b & 3));
+    if constexpr (sizeof(T) == 4) return (int)v;
+    else if constexpr (sizeof(T) == 2) return (int)(T)(v & 0xFFFFu);
+    else return (int)(T)(v & 0xFFu);
+}
+
+// per-record sums of a thread: the range in the order's keys, the diff range
+struct IntAcc {
+    int lo, hi, dmin, dmax;
+    __device__ void init() { lo = INT_MAX, hi = INT_MIN, dmin = 1 << 30, dmax = -(1 << 30); }
+    __device__ void add(int x, int key_flip, bool ok) {
+        const int k = x ^ key_flip;
+        lo = min(lo, ok ? k : INT_MAX);
+        hi = max(hi, ok ? k : INT_MIN);
+    }
+    __device__ void add_diff(int dv, bool ok) {
+        dmin = min(dmin, ok ? dv : 1 << 30);
+        dmax = max(dmax, ok ? dv : -(1 << 30));
+    }
+};
+
+// the decision of one record from its sums (max_q of a lossy record from
+// the second pass, passed in; lossless it is hi - zmin): the record into
+// the shared buffer, the range into the shared per-depth words
+template <bool MASKED>
+__device__ __forceinline__ void int_decide(const EncP& P, int flip, int cnt, const IntAcc& a,
+                                           uint32_t lossy_q, bool cand, int bcol, int4* srec,
+                                           int q, int* s_lo, int* s_hi, int dd, bool& bad) {
+    const int lo = a.lo ^ flip, hi = a.hi ^ flip;
+    const bool has = !MASKED || cnt > 0;
+    const float fmax = has ? int_to_f32(hi, flip) : -CUDART_INF_F;
+    const uint32_t max_q = P.lossless ? (has ? (uint32_t)wrap_sub(hi, lo) : 0u) : lossy_q;
+    int dmin = a.dmin, dmax = a.dmax;
+    if (MASKED && cnt == 0) dmin = dmax = 0;
+    const uint32_t max_qd = has ? (uint32_t)wrap_sub(dmax, dmin) : 0u;
+    bool b = false;
+    srec[q] = int_record<MASKED>(P, flip, cnt, lo, hi, fmax, max_q, cand, dmin, dmax, max_qd,
+                                 bcol, b);
+    bad |= b;
+    if (has) {
+        atomicMin(s_lo + dd, a.lo);
+        atomicMax(s_hi + dd, a.hi);
+    }
+}
+
+// the block's validity as 64 bits (bit j: position j) and its count
+template <bool MASKED>
+__device__ __forceinline__ uint64_t block_bits(const int2* valid, long long b, int& cnt) {
+    if constexpr (!MASKED) {
+        cnt = 64;
+        return ~0ULL;
+    } else {
+        const int2 v = valid[b];
+        const uint64_t m = (uint64_t)(uint32_t)v.x | (uint64_t)(uint32_t)v.y << 32;
+        cnt = __popcll(m);
+        return m;
+    }
+}
+
+template <typename T, bool MASKED, int DC>
+__global__ void __launch_bounds__(32) encode_blocks_int_kernel(
+        const T* __restrict__ data, const int2* __restrict__ valid, int h, int w, int d, int nbh,
+        int S, int dc, int spr, EncP P, int* __restrict__ rec_info, int* __restrict__ zrange,
+        int* __restrict__ fits) {
+    constexpr int SZ = sizeof(T);
+    __shared__ __align__(16) uint8_t stage[8 * K1S_PITCH];
+    __shared__ int4 srec[K1S_REC];
+    __shared__ int s_lo[K1S_REC], s_hi[K1S_REC];
+    const int lane = threadIdx.x;
+    const int brow = blockIdx.x / spr, c0 = (blockIdx.x - brow * spr) * S;
+    const int nb = min(S, nbh - c0);               // blocks of the strip
+    const int row0 = 8 * brow, col0 = 8 * c0;
+    const int npx = min(8 * nb, w - col0);         // in-image pixels a row
+    const int rows = min(8, h - row0);
+    const int flip = order_flip(P);
+    const long long b0 = (long long)brow * nbh + c0;
+    bool bad = false;
+    for (int dlo = 0; dlo < d; dlo += dc) {
+        const int dn = min(dc, d - dlo);
+        const int sd0 = dn == d ? 0 : max(0, dlo - 1);  // the first staged depth
+        const int nsl = dn == d ? d : dlo + dn - sd0;   // staged depths a pixel
+        const int pitch = dn == d ? (8 * S * d * SZ + 15) / 16 * 16 : 8 * nsl * SZ;
+        for (int i = lane; i < dn; i += 32) s_lo[i] = INT_MAX, s_hi[i] = INT_MIN;
+        if (dn == d) {  // whole rows: the image's bytes, 16 a load
+            const int len = npx * d * SZ, nch = (len + 15) / 16;
+            for (int t = lane; t < rows * nch; t += 32) {
+                const int r = t / nch, m = t - r * nch;
+                const uint8_t* src = reinterpret_cast<const uint8_t*>(data)
+                                     + (((long long)(row0 + r) * w + col0) * d) * SZ + 16 * m;
+                *reinterpret_cast<uint4*>(stage + r * pitch + 16 * m) =
+                    load16(src, min(16, len - 16 * m));
+            }
+        } else {  // a chunk of depths: element by element
+            const int n = rows * npx * nsl;
+            for (int t = lane; t < n; t += 32) {
+                const int r = t / (npx * nsl), rem = t - r * npx * nsl;
+                const int px = rem / nsl, k = rem - px * nsl;
+                *reinterpret_cast<T*>(stage + r * pitch + (px * nsl + k) * SZ) =
+                    data[((long long)(row0 + r) * w + col0 + px) * d + sd0 + k];
+            }
+        }
+        __syncwarp();
+        const bool try_diff = P.try_diff != 0;
+        if constexpr (DC > 0) {  // a thread a block, all its depths (dn == d == DC)
+            if (lane < nb) {
+                int cnt;
+                const uint64_t vm = block_bits<MASKED>(valid, b0 + lane, cnt);
+                IntAcc a[DC];
+#pragma unroll
+                for (int k = 0; k < DC; ++k) a[k].init();
+                const uint8_t* blk = stage + lane * 8 * DC * SZ;
+#pragma unroll
+                for (int r = 0; r < 8; ++r) {
+                    uint32_t wd[2 * DC * SZ];
+#pragma unroll
+                    for (int k = 0; k < DC * SZ; ++k) {
+                        const uint2 v = reinterpret_cast<const uint2*>(blk + r * pitch)[k];
+                        wd[2 * k] = v.x, wd[2 * k + 1] = v.y;
+                    }
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const bool ok = !MASKED || (vm >> (8 * r + j) & 1u);
+#pragma unroll
+                        for (int k = 0; k < DC; ++k) {
+                            const int x = cut<T>(wd, j * DC + k);
+                            a[k].add(x, flip, ok);
+                            if (k > 0 && try_diff)
+                                a[k].add_diff(wrap_sub(x, cut<T>(wd, j * DC + k - 1)), ok);
+                        }
+                    }
+                }
+                uint32_t mq[DC];
+#pragma unroll
+                for (int k = 0; k < DC; ++k) mq[k] = 0;
+                if (!P.lossless) {  // lossy: the quanta against each depth's min
+                    int zm[DC];
+#pragma unroll
+                    for (int k = 0; k < DC; ++k) zm[k] = a[k].lo ^ flip;
+#pragma unroll 1
+                    for (int r = 0; r < 8; ++r) {  // a row at a time: the kernel's code stays small
+                        uint32_t wd[2 * DC * SZ];
+#pragma unroll
+                        for (int k = 0; k < DC * SZ; ++k) {
+                            const uint2 v = reinterpret_cast<const uint2*>(blk + r * pitch)[k];
+                            wd[2 * k] = v.x, wd[2 * k + 1] = v.y;
+                        }
+#pragma unroll
+                        for (int j = 0; j < 8; ++j) {
+                            const bool ok = !MASKED || (vm >> (8 * r + j) & 1u);
+#pragma unroll
+                            for (int k = 0; k < DC; ++k) {
+                                const uint32_t q = quantize_int(cut<T>(wd, j * DC + k), zm[k],
+                                                                P.lossless, P.scale, P.inv_i);
+                                mq[k] = max(mq[k], ok ? q : 0u);
+                            }
+                        }
+                    }
+                }
+#pragma unroll
+                for (int k = 0; k < DC; ++k)
+                    int_decide<MASKED>(P, flip, cnt, a[k], mq[k], try_diff && k > 0, c0 + lane,
+                                       srec, lane * DC + k, s_lo, s_hi, k, bad);
+            }
+        } else {  // a thread a record of the chunk
+            for (int q = lane; q < nb * dn; q += 32) {
+                const int bl = q / dn, di = dlo + q - bl * dn;
+                int cnt;
+                const uint64_t vm = block_bits<MASKED>(valid, b0 + bl, cnt);
+                const bool cand = try_diff && di > 0;
+                const int px_step = nsl * SZ;
+                const uint8_t* at = stage + (bl * 8 * nsl + di - sd0) * SZ;
+                IntAcc a;
+                a.init();
+                for (int r = 0; r < 8; ++r) {
+                    for (int j = 0; j < 8; ++j) {
+                        const bool ok = !MASKED || (vm >> (8 * r + j) & 1u);
+                        const uint8_t* v = at + r * pitch + j * px_step;
+                        const int x = staged<T>(v);
+                        a.add(x, flip, ok);
+                        if (cand) a.add_diff(wrap_sub(x, staged<T>(v - SZ)), ok);
+                    }
+                }
+                uint32_t mq = 0;
+                if (!P.lossless) {
+                    const int zm = a.lo ^ flip;
+                    for (int r = 0; r < 8; ++r) {
+                        for (int j = 0; j < 8; ++j) {
+                            const bool ok = !MASKED || (vm >> (8 * r + j) & 1u);
+                            const int x = staged<T>(at + r * pitch + j * px_step);
+                            const uint32_t qv = quantize_int(x, zm, P.lossless, P.scale, P.inv_i);
+                            mq = max(mq, ok ? qv : 0u);
+                        }
+                    }
+                }
+                int_decide<MASKED>(P, flip, cnt, a, mq, cand, c0 + bl, srec, q, s_lo, s_hi,
+                                   di - dlo, bad);
+            }
+        }
+        __syncwarp();
+        // the chunk's records: one contiguous span of rec_info
+        int4* dst = reinterpret_cast<int4*>(rec_info) + b0 * d + dlo;
+        for (int q = lane; q < nb * dn; q += 32) dst[q] = srec[q];
+        for (int i = lane; i < dn; i += 32) {
+            if (s_hi[i] < s_lo[i]) continue;  // no valid value at this depth
+            int* zr = zrange + dlo + i;
+            if (flip) {  // uint32: unsigned atomics on the values
+                atomicMin((unsigned*)zr, (unsigned)(s_lo[i] ^ flip));
+                atomicMax((unsigned*)(zr + d), (unsigned)(s_hi[i] ^ flip));
+            } else {
+                atomicMin(zr, s_lo[i]);
+                atomicMax(zr + d, s_hi[i]);
+            }
+        }
+        __syncwarp();  // the stage and buffers are the next chunk's
+    }
+    if (__any_sync(FULL, bad) && lane == 0) *fits = 0;
 }
 
 // ---- K1 with the LUT candidate (the band codec's), 8x8 or 16x16 blocks,
@@ -1202,31 +1436,53 @@ __global__ void write_records_f64_kernel(const double* __restrict__ data,
 
 // ---- launches
 
-// the LUT-free K1, 8x8 blocks; valid null for an aligned all-valid image
-template <typename T>
-int launch_k1(const void* data, const int* valid, int h, int w, int d, const EncP& P,
-              int* rec_info, void* zrange, int* fits, cudaStream_t st) {
+// the float32 K1, 8x8 blocks; valid null for an aligned all-valid image
+int launch_k1(const float* x, const int* valid, int h, int w, int d, const EncP& P,
+              int* rec_info, float* z, int* fits, cudaStream_t st) {
     const int nbh = (w + 7) / 8;
     const int n_rec = ((h + 7) / 8) * nbh * d;
     const int grid = (n_rec + WARPS - 1) / WARPS;
+    const int2* v = reinterpret_cast<const int2*>(valid);
+    if (valid)
+        encode_blocks_masked_kernel<<<grid, WARPS * 32, 0, st>>>(x, v, w, d, nbh, n_rec, P,
+                                                                 rec_info, z, fits);
+    else
+        encode_blocks_kernel<<<grid, WARPS * 32, 0, st>>>(x, w, d, nbh, n_rec, P, rec_info, z,
+                                                          fits);
+    return (int)cudaGetLastError();
+}
+
+// the integer K1 (strips), 8x8 blocks; valid null for an aligned all-valid image
+template <typename T, bool MASKED>
+void launch_k1_int_strips(const T* x, const int2* v, int h, int w, int d, const EncP& P,
+                          int* rec_info, int* z, int* fits, cudaStream_t st) {
+    const StripShape g = strip_shape(8, w, d, (int)sizeof(T), 1);
+    const int nbh = (w + 7) / 8;
+    const unsigned grid = (unsigned)((h + 7) / 8 * g.spr);  // a CTA (a warp) a strip
+    if (g.dc == d && d == 1)
+        encode_blocks_int_kernel<T, MASKED, 1><<<grid, 32, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, z, fits);
+    else if (g.dc == d && d == 3)
+        encode_blocks_int_kernel<T, MASKED, 3><<<grid, 32, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, z, fits);
+    else
+        encode_blocks_int_kernel<T, MASKED, 0><<<grid, 32, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, z, fits);
+}
+
+template <typename T>
+int launch_k1_int(const void* data, const int* valid, int h, int w, int d, const EncP& P,
+                  int* rec_info, void* zrange, int* fits, cudaStream_t st) {
+    if ((long long)(h + 7) / 8 * strip_shape(8, w, d, (int)sizeof(T), 1).spr > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    if ((long long)h * w * d == 0) return 0;
     const T* x = static_cast<const T*>(data);
     const int2* v = reinterpret_cast<const int2*>(valid);
-    auto* z = static_cast<typename ZOf<T>::type*>(zrange);
-    if constexpr (std::is_same<T, float>::value) {
-        if (valid)
-            encode_blocks_masked_kernel<<<grid, WARPS * 32, 0, st>>>(x, v, w, d, nbh, n_rec, P,
-                                                                     rec_info, z, fits);
-        else
-            encode_blocks_kernel<<<grid, WARPS * 32, 0, st>>>(x, w, d, nbh, n_rec, P, rec_info, z,
-                                                              fits);
-    } else {
-        if (valid)
-            encode_blocks_int_kernel<T, true><<<grid, WARPS * 32, 0, st>>>(
-                x, v, w, d, nbh, n_rec, P, rec_info, z, fits);
-        else
-            encode_blocks_int_kernel<T, false><<<grid, WARPS * 32, 0, st>>>(
-                x, nullptr, w, d, nbh, n_rec, P, rec_info, z, fits);
-    }
+    int* z = static_cast<int*>(zrange);
+    if (valid)
+        launch_k1_int_strips<T, true>(x, v, h, w, d, P, rec_info, z, fits, st);
+    else
+        launch_k1_int_strips<T, false>(x, v, h, w, d, P, rec_info, z, fits, st);
     return (int)cudaGetLastError();
 }
 
@@ -1311,8 +1567,7 @@ extern "C" int encode_blocks(const float* data, const int* valid, int h, int w, 
                              int raw_ok, int* rec_info, float* zrange, int* fits,
                              void* stream) {
     const EncP P = float_params(mze, scale, inv, integ_mask, cap_nb, raw_ok);
-    return launch_k1<float>(data, valid, h, w, d, P, rec_info, zrange, fits,
-                            (cudaStream_t)stream);
+    return launch_k1(data, valid, h, w, d, P, rec_info, zrange, fits, (cudaStream_t)stream);
 }
 
 extern "C" int write_records(const float* data, const int* valid, int h, int w, int d,
@@ -1332,7 +1587,7 @@ extern "C" int encode_blocks_int(const void* data, int in_type, const int* valid
                                  int* fits, void* stream) {
     const EncP P{mze, scale, 0.f, maxq_cap, inv_i, lossless, dt, size_t_, integ_mask, cap_nb,
                  raw_ok, try_diff};
-    DISPATCH_INT_INPUT(in_type, launch_k1, data, valid, h, w, d, P, rec_info, zrange, fits,
+    DISPATCH_INT_INPUT(in_type, launch_k1_int, data, valid, h, w, d, P, rec_info, zrange, fits,
                        (cudaStream_t)stream)
 }
 

@@ -9,6 +9,7 @@
 // selects by passing DT_INT.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 
 namespace lerc2 {
@@ -63,3 +64,35 @@ __device__ __forceinline__ int int_scale_back(int off, uint32_t q, int inv_i, in
 }
 
 }  // namespace lerc2
+
+// The strips of the integer K4 and K6 (decode.cu) and of the integer K1
+// (encode.cu): a CTA owns S consecutive mb x mb blocks of one block row with
+// all their depths, a strip at most STRIP_PX pixels and STRIP_OUT bytes of
+// image; on uint8 x 3 with 8x8 blocks S = 32 (6 KB). Where one block at
+// full depth passes STRIP_OUT it is a strip of its own, its depths in
+// chunks of dc, each chunk with `lead` slices before its own beside it (K1
+// stages the slice before a chunk for its depth-diff candidate: lead 1).
+// spr: strips a block row of width w. Mirrored for tests and chip_smoke.py
+// by lerc_tpu_torch/ops/device_decode.py strip_shape.
+constexpr int STRIP_PX = 2048;
+constexpr int STRIP_OUT = 8192;
+
+struct StripShape {
+    int S;    // blocks a strip
+    int dc;   // depths a chunk
+    int spr;  // strips a block row
+};
+
+inline StripShape strip_shape(int mb, int w, int d, int size, int lead) {
+    const int bp = mb * mb, pb = d * size;
+    StripShape g;
+    if ((long long)bp * pb <= STRIP_OUT) {
+        g.S = std::max(1, std::min(STRIP_PX, STRIP_OUT / pb) / bp);
+        g.dc = d;
+    } else {
+        g.S = 1;
+        g.dc = std::max(1, STRIP_OUT / (bp * size) - lead);
+    }
+    g.spr = ((w + mb - 1) / mb + g.S - 1) / g.S;
+    return g;
+}

@@ -117,14 +117,23 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
     return img, flags[0] != 0, flags[1] != 0
 
 
-def strip_blocks(mb: int, d: int, size: int) -> int:
-    """Blocks a CTA of the strip kernels (the integer K4 and K6) owns:
-    ``strip_geometry`` of kernels/decode.cu, whose strips hold at most 2,048
-    pixels and 8 KB of image (one block, its depths in chunks, when a block
-    passes that). The edge cases of tests and chip_smoke.py take their
-    widths from it."""
+def strip_shape(mb: int, d: int, size: int, lead: int = 0) -> tuple[int, int]:
+    """(blocks a strip, depths a chunk) of the strip kernels, the integer
+    K4 and K6 (lead 0) and the integer K1 (lead 1): ``strip_shape`` of
+    kernels/record.cuh, whose strips hold at most 2,048 pixels and 8 KB of
+    image; a block past that is a strip of its own, its depths in chunks,
+    each with ``lead`` slices before its own beside it (K1 stages the slice
+    before a chunk for its depth-diff candidate). The edge cases of tests
+    and chip_smoke.py take their widths from it."""
     bp, pb = mb * mb, d * size
-    return max(1, min(2048, 8192 // pb) // bp) if bp * pb <= 8192 else 1
+    if bp * pb <= 8192:
+        return max(1, min(2048, 8192 // pb) // bp), d
+    return 1, max(1, 8192 // (bp * size) - lead)
+
+
+def strip_blocks(mb: int, d: int, size: int) -> int:
+    """Blocks a CTA of the integer K4 and K6 owns (``strip_shape``)."""
+    return strip_shape(mb, d, size)[0]
 
 
 def _inv_i(max_z_error: float) -> int:

@@ -36,10 +36,11 @@ the JAX encoder.
 
 Integer dtypes (:591-614, :651-653, :677-722) run their own template
 instances of K1 and K2 (``encode_blocks_int``/``write_records_int``,
-counted as e.g. ``encode_blocks_i16``): int32 block minimum, f32 block
-maximum for the mode heuristics, lossless ``q = x - zmin`` at maxZError
-0.5, the lossy f32 ``q0`` with the sign-directed fixup against the exact
-integer reconstruction, offsets reduced per dtype (``_reduce_offset_int``
+counted as e.g. ``encode_blocks_i16``; K1's are strip kernels, a CTA a
+strip of blocks with all their records, ``device_decode.strip_shape``): int32 block
+minimum, f32 block maximum for the mode heuristics, lossless
+``q = x - zmin`` at maxZError 0.5, the lossy f32 ``q0`` with the
+sign-directed fixup against the exact integer reconstruction, offsets reduced per dtype (``_reduce_offset_int``
 :79), raw records of ``1 + cnt * size`` native bytes, and the depth-diff
 candidate of 8/16-bit lossless slices at version >= 5. The input is the
 codec's own dtype or int32 (as JAX's ``xb.astype(int32)`` takes either).

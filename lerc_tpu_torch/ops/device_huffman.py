@@ -11,10 +11,12 @@ functions' names:
      direct (pixel-major) and delta (depth-major) u8 symbols and both 256-bin
      histograms of the live symbols; all-valid one thread per pixel, masked
      one kernel over tiles in ticket order whose ranks come from a look-back;
-  H2 ``encode_stream_device`` (:160 with ``_map256`` :141): per 64-symbol
-     group, its bit count (``huffman_group_bits``), an exclusive scan over
-     the groups (the sidecar ``sbits``, ``torch.cumsum``), then the
-     MSB-first codes into LE u32 words (``huffman_pack``);
+  H2 ``encode_stream_device`` (:160 with ``_map256`` :141): a memset and
+     one kernel (``huffman_encode``): tiles of 8,192 symbols in ticket
+     order, each tile's bits summed, its first bit from a look-back over the
+     tiles before it (each group's start bit, the sidecar ``sbits``, and
+     the total), its MSB-first codes packed in shared memory and stored as
+     LE u32 words;
   H3 ``decode_stream_device`` (:278): a decode table of the code's 12-bit
      prefixes (one small kernel), then one thread per group decodes its 64
      symbols serially from ``sbits[g]`` through that table;
@@ -231,7 +233,9 @@ def encode_stream_device(sym: torch.Tensor, table: torch.Tensor, layout, cap_wor
     bitstream. Returns (words int32 [cap_words] of u32 bits, zero past the
     codes; total_bits 0-d int32; sbits int32 [n_groups], each group's first
     bit: the decode sidecar). cap_words must hold ceil(total_bits / 32)
-    words; the caller knows total_bits from the histogram."""
+    words; the caller knows total_bits from the histogram. On CUDA one
+    memset (of one buffer: the total, the words, the tiles' look-back words)
+    and one launch; words and total_bits are views of that buffer."""
     _check_stream_args(sym, layout)
     if table.dtype != torch.int32 or table.shape != (2, 256):
         raise TypeError("table must be a [2, 256] int32 tensor")
@@ -240,22 +244,16 @@ def encode_stream_device(sym: torch.Tensor, table: torch.Tensor, layout, cap_wor
     n_total, plane, n_live = layout
     g = sym.numel() // GROUP
     table = table.contiguous()
-    bits_fn = _ctypes_fn("huffman_group_bits", [_P, _P, _L, _L, _L, _I, _P, _P])
-    pack_fn = _ctypes_fn("huffman_pack", [_P, _P, _L, _L, _L, _I, _P, _P, _L, _P])
+    n_buf = _ctypes_fn("huffman_encode_scratch", [_L, _L], _L)(sym.numel(), cap_words)
+    fn = _ctypes_fn("huffman_encode", [_P, _L, _P, _L, _L, _L, _P, _L, _P, _L, _P])
     with torch.cuda.device(sym.device):
-        gbits = torch.empty(g, dtype=torch.int32, device=sym.device)
-        err = bits_fn(sym.data_ptr(), table.data_ptr(), n_total, plane, n_live, g,
-                      gbits.data_ptr(), build.launch_stream(sym))
-        build.check(err, "huffman_group_bits")
-        build.LAUNCHES["huffman_group_bits"] += 1
-        incl = torch.cumsum(gbits, 0, dtype=torch.int32)
-        sbits = (incl - gbits).contiguous()
-        words = torch.zeros(cap_words, dtype=torch.int32, device=sym.device)
-        err = pack_fn(sym.data_ptr(), table.data_ptr(), n_total, plane, n_live, g,
-                      sbits.data_ptr(), words.data_ptr(), cap_words, build.launch_stream(sym))
-        build.check(err, "huffman_pack")
-    build.LAUNCHES["huffman_pack"] += 1
-    return words, incl[-1], sbits
+        buf = torch.empty(n_buf, dtype=torch.uint8, device=sym.device)  # total, words, look-back
+        sbits = torch.empty(g, dtype=torch.int32, device=sym.device)
+        err = fn(sym.data_ptr(), sym.numel(), table.data_ptr(), n_total, plane, n_live,
+                 buf.data_ptr(), n_buf, sbits.data_ptr(), cap_words, build.launch_stream(sym))
+        build.check(err, "huffman_encode")
+    build.LAUNCHES["huffman_encode"] += 1
+    return buf[16:16 + 4 * cap_words].view(torch.int32), buf[:4].view(torch.int32)[0], sbits
 
 
 def _live_mask(numel: int, layout, device) -> torch.Tensor:
@@ -285,6 +283,56 @@ def encode_stream_device_ref(sym: torch.Tensor, table: torch.Tensor, layout, cap
     acc.index_add_(0, bp >> 5, lo)
     acc.index_add_(0, (bp >> 5) + 1, hi)
     return _as_i32(acc[:cap_words]), (sbits[-1] + gbits[-1]).to(torch.int32), sbits.to(torch.int32)
+
+
+def encode_stream_tiled_ref(sym: torch.Tensor, table: torch.Tensor, layout, cap_words: int,
+                            tile: int):
+    """H2's tile algebra in plain numpy at any tile of whole groups (tests
+    only; the kernel's tile is 8,192 symbols). Per tile: the sum of its
+    live symbols' lengths; its first bit P, the exclusive scan of the sums
+    before it (the look-back); each group's sbits, P plus the lengths before
+    it in the tile; the tile's codes packed MSB-first into words from the
+    tile's own bit 0; the words stored shifted by P mod 32 (each output word
+    from two neighbouring buffer words), the ones strictly inside the
+    tile's bits assigned, its first and last ORed into the zeroed output
+    (tiles before and after may share them). Returns encode_stream_device's
+    (words, total_bits, sbits)."""
+    if tile <= 0 or tile % GROUP:
+        raise ValueError("tile must be a positive number of whole 64-symbol groups")
+    n = sym.numel()
+    s = sym.cpu().numpy().astype(np.int64)
+    t = table.cpu().numpy().astype(np.int64)
+    live = _live_mask(n, layout, "cpu").numpy()
+    lens = np.where(live, t[0][s], 0)
+    top = np.where(lens > 0, (t[1][s] << (32 - np.clip(lens, 1, 32))) & 0xFFFFFFFF, 0)
+    out = np.zeros(cap_words, np.int64)
+    sbits = np.zeros(n // GROUP, np.int64)
+    p = 0  # the look-back: the bits of the tiles before
+    for t0 in range(0, n, tile):
+        ln, tp = lens[t0:t0 + tile], top[t0:t0 + tile]
+        off = np.cumsum(ln) - ln  # each code's first bit in the tile
+        sbits[t0 // GROUP:(t0 + ln.size) // GROUP] = p + off[::GROUP]
+        tot = int(ln.sum())
+        if tot:
+            nw = -(-tot // 32)
+            buf = np.zeros(nw + 3, np.int64)  # a zero word before the tile's words, two after
+            sh = off & 31
+            np.bitwise_or.at(buf, 1 + (off >> 5), tp >> sh)
+            np.bitwise_or.at(buf, 2 + (off >> 5), np.where(sh > 0, (tp << (32 - sh)) & 0xFFFFFFFF,
+                                                            0))
+            f, last, r = p >> 5, (p + tot - 1) >> 5, p & 31
+            k = np.arange(last - f + 1)
+            word = ((buf[k] << (32 - r)) & 0xFFFFFFFF) | (buf[k + 1] >> r) if r else buf[k + 1]
+            x = f + k
+            keep = x < cap_words
+            inner = keep & (x > f) & (x < last)
+            out[x[inner]] = word[inner]
+            for e in {f, last}:  # the edge words, shared with the tiles around
+                if e < cap_words:
+                    out[e] |= word[e - f]
+        p += tot
+    return (_as_i32(torch.from_numpy(out)), torch.tensor(p, dtype=torch.int32),
+            torch.from_numpy(sbits.astype(np.int32)))
 
 
 # ---------------------------------------------------------------------------

@@ -210,6 +210,15 @@ def _tables(hst):
     return lengths, codes, lens_codes
 
 
+def _tables_of(lengths, codes):
+    """_tables' JAX lens_codes for a given code."""
+    lens_codes = np.zeros((256, 5), np.float32)
+    lens_codes[:, 0] = lengths
+    for b in range(4):
+        lens_codes[:, 1 + b] = (codes >> (8 * b)) & 0xFF
+    return lengths, codes, lens_codes
+
+
 PACK_CASES = [  # (id, depth, mask, delta)
     ("all-valid-direct", 1, "none", False), ("all-valid-delta-d3", 3, "none", True),
     ("masked-direct", 1, "rand", False), ("masked-delta-d2", 2, "rand", True),
@@ -286,6 +295,80 @@ def test_h2_pack_and_h3_decode_match_jax(d, mname, delta):
     shifted = np.asarray(jsb) + 32  # every offset shifted: sbits[0] != 0
     assert not bool(dh.decode_stream_device(args[0], args[1], torch.from_numpy(shifted),
                                             *args[3:])[2])
+
+
+def h2_edge_codes():
+    """{label: code lengths} of the H2 tile-edge cases: a random 40-symbol
+    histogram's, two symbols (1-bit codes), lengths 1..31, 32, 32."""
+    rng = np.random.default_rng(16)
+    hst = np.zeros(256, np.int64)
+    hst[rng.choice(256, 40, replace=False)] = rng.integers(1, 5000, 40)
+    two = np.zeros(256, np.int32)
+    two[[3, 250]] = 1
+    deep = np.zeros(256, np.int32)
+    order = np.random.default_rng(3).permutation(256)[:33]
+    deep[order[:31]] = np.arange(1, 32)
+    deep[order[31:]] = 32
+    return {"random": huffman.compute_code_lengths(hst), "1-bit": two, "1..32-bit": deep}
+
+
+def h2_edge_layouts(n, tile):
+    """Live layouts of an n-symbol stream at the edges of H2's tiles:
+    all-valid, masked direct with 0, 1 and a third live, masked delta with
+    planes of 7 and 1,000 (n_total not whole groups) and with zero gaps
+    spanning whole tiles."""
+    return {"all-valid": (n, n, n), "none live": (n, n, 0), "one live": (n, n, 1),
+            "a third live": (n, n, n // 3 + 5), "planes of 7": (n - 3, 7, 3),
+            "planes of 1000": (n - 37, 1000, 300), "gaps of whole tiles": (n, 3 * tile + 100, 100)}
+
+
+@pytest.mark.parametrize("tile", [64, 128, 512])
+@pytest.mark.parametrize("cname", ["random", "1-bit", "1..32-bit"])
+def test_h2_tiled_ref_matches_plain_at_tile_edges(cname, tile):
+    """encode_stream_tiled_ref (H2's tile algebra: tile sums, look-back
+    prefixes, edge-word joins) equals the plain version on streams of 64,
+    T - 64, T, T + 64 and 3T + 64 symbols in every edge layout, the words
+    sized exactly ceil(bits / 32) + 1."""
+    lengths = h2_edge_codes()[cname]
+    table = dh.code_table(lengths, huffman.canonical_codes(lengths), "cpu")
+    rng = np.random.default_rng(tile)
+    for n in sorted({64, max(64, tile - 64), tile, tile + 64, 3 * tile + 64}):
+        sym = torch.from_numpy(rng.choice(np.flatnonzero(lengths), n).astype(np.uint8))
+        for lname, layout in h2_edge_layouts(n, tile).items():
+            live = dh._live_mask(n, layout, "cpu")
+            n_words = -(-int(table[0].long()[sym.long()][live].sum()) // 32) + 1
+            got = dh.encode_stream_tiled_ref(sym, table, layout, n_words, tile)
+            want = dh.encode_stream_device_ref(sym, table, layout, n_words)
+            assert torch.equal(got[0], want[0]), (n, lname)
+            assert int(got[1]) == int(want[1]), (n, lname)
+            assert torch.equal(got[2], want[2]), (n, lname)
+
+
+@pytest.mark.parametrize("cname", ["random", "1-bit"])
+def test_h2_tiled_ref_matches_jax(cname):
+    """encode_stream_tiled_ref at a 128-symbol tile equals JAX's
+    encode_stream_device (words, total bits, sbits) on 448 symbols (3T + 64)
+    all-valid, with one live symbol, in planes of 100 and with a zero gap
+    spanning whole tiles."""
+    lengths = h2_edge_codes()[cname]
+    codes = huffman.canonical_codes(lengths)
+    table = dh.code_table(lengths, codes, "cpu")
+    _l, _c, lens_codes = _tables_of(lengths, codes)
+    n = 448
+    sym = torch.from_numpy(np.random.default_rng(2).choice(np.flatnonzero(lengths), n)
+                           .astype(np.uint8))
+    pwh = next(p for p in (18, 34, 66) if p >= (G * int(lengths.max()) + 31) // 32 + 1)
+    for layout in ((n, n, n), (n, n, 1), (n - 37, 100, 30), (n, 484, 100)):
+        live = dh._live_mask(n, layout, "cpu")
+        n_words = -(-int(table[0].long()[sym.long()][live].sum()) // 32) + 1
+        cap = 1 << max(12, (4 * n_words + 511).bit_length())
+        js, jtb, jsb = jdh.encode_stream_device(
+            jnp.asarray(sym.numpy()), jnp.asarray(lens_codes), cap, pwh,
+            live=None if layout == (n, n, n) else jnp.asarray(live.numpy()))
+        words, tb, sbits = dh.encode_stream_tiled_ref(sym, table, layout, n_words, 128)
+        np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(js)[:n_words])
+        assert int(tb) == int(jtb)
+        np.testing.assert_array_equal(sbits.numpy(), np.asarray(jsb))
 
 
 def test_h3_decodes_codes_of_31_and_32_bits():

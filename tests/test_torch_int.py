@@ -294,3 +294,57 @@ def test_strip_edges_decode_records_int(npdt, d, version, masked, h, w):
     assert bool(idx_ok) and bool(jidx)
     np.testing.assert_array_equal(img.numpy(), np.asarray(jimg))
     np.testing.assert_array_equal(img.numpy(), np.where(host.mask[:, :, None], host.data, 0))
+
+
+@pytest.mark.parametrize("d,size,s,dc", [(1, 1, 32, 1), (3, 1, 32, 3), (5, 2, 12, 5), (8, 4, 4, 8),
+                                         (40, 2, 1, 40), (40, 4, 1, 31), (130, 1, 1, 127)])
+def test_k1_strip(d, size, s, dc):
+    """The integer K1's strips (record.cuh strip_shape with lead 1): the
+    strip kernels' S blocks (device_decode.strip_blocks); a block whose
+    pixels at full depth pass the 8 KB stage takes its depths in chunks
+    staged with the slice before them, so a chunk is one depth short of the
+    stage."""
+    assert device_decode.strip_shape(8, d, size, 1) == (s, dc)
+    assert s == device_decode.strip_blocks(8, d, size)
+    if dc < d:
+        assert (dc + 1) * 64 * size <= 8192 < (dc + 2) * 64 * size
+
+
+# one case of each depth, both dtypes, versions and mask kinds among them
+# (JAX's encode compiles for 3-8 s a shape, so not their cross product)
+K1_JAX_CASES = [c for c in STRIP_CASES
+                if (np.dtype(c[0]).name, c[1], c[2], c[3]) in
+                (("uint8", 1, 6, False), ("int16", 2, 4, True), ("uint8", 3, 6, True),
+                 ("int16", 5, 4, False))]
+
+
+@pytest.mark.parametrize("npdt,d,version,masked,h,w", K1_JAX_CASES,
+                         ids=[f"{np.dtype(c[0]).name}-d{c[1]}-v{c[2]}-"
+                              f"{'masked' if c[3] else 'valid'}-{c[4]}x{c[5]}" for c in K1_JAX_CASES])
+def test_strip_edges_encode_blocks_int(npdt, d, version, masked, h, w):
+    """encode_blocks_int_ref (the plain integer K1) at the edges of the
+    K1 strips (device_decode.strip_shape): its records written by the
+    resident codec give a stream, starts and ranges equal to JAX's
+    encode_tiles, and the blob decodes on the host to the tile
+    (strip_encoded)."""
+    data, mask, codec, _header, stream, meta, starts, _blob, _host = strip_encoded(
+        npdt, d, version, masked, h, w)
+    assert device_decode.strip_shape(8, d, np.dtype(npdt).itemsize, 1)[0] == \
+        device_decode.strip_blocks(8, d, np.dtype(npdt).itemsize)
+    dt = JDataType(int(NUMPY_TO_DT[np.dtype(npdt)]))
+    js, jtotal, jzmin, jzmax, jstarts, jfits = jax_encode.encode_tiles(
+        jnp.asarray(data), jnp.asarray(np.ones((h, w), bool) if mask is None else mask),
+        jnp.float32(0.5), h, w, d, dt, mask is None, version, codec.cap, out_u32=True)
+    assert bool(jfits) and int(meta[2])
+    total = int(jtotal)
+    assert int(meta[0]) == total
+    np.testing.assert_array_equal(starts.numpy(), np.asarray(jstarts))
+    assert stream.numpy().tobytes()[:total] == np.asarray(js).tobytes()[:total]
+    p = device_encode.encode_params(0.5, version, 0, NUMPY_TO_DT[np.dtype(npdt)])
+    rec_info, zrange, fits = device_encode.encode_blocks_ref(torch.from_numpy(data), p,
+                                                             codec.valid)
+    assert bool(fits)
+    np.testing.assert_array_equal(zrange[:d].numpy(), np.asarray(jzmin))
+    np.testing.assert_array_equal(zrange[d:].numpy(), np.asarray(jzmax))
+    flags = np.asarray(js).view(np.uint8)[np.asarray(jstarts)]
+    np.testing.assert_array_equal(rec_info[:, 1].numpy() & 0xFF, flags)

@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 
+from lerc_tpu.codec import device_codec as JC
 from lerc_tpu.codec import lerc2_decode
 from lerc_tpu.codec.lerc2_encode import BandEncoder
 from lerc_tpu.parallel import sharding as J
@@ -399,6 +400,35 @@ def test_uint32_band_above_2_31_repair():
     blob = BandEncoder(data, None, 0.5).encode()
     np.testing.assert_array_equal(lerc2_decode.decode_band(blob).data, data)
     np.testing.assert_array_equal(decode_band_device(blob, device="cpu").data.numpy(), data)
+
+
+@pytest.mark.parametrize("hole", [False, True], ids=["all-valid", "hole"])
+@pytest.mark.parametrize("base", [100, 2**31 - 600, 3_000_000_001])
+def test_jax_band_decode_uint32_fault(base, hole):
+    """JAX's decode_band_device reads an integer band's zMax and record
+    offsets through int32 (device_codec.py:972-973): on the host encoder's
+    48x41x1 uint32 band of base + [0, 1000) it is exact at base 100 and
+    wrong at 2^31 - 600 (values across 2^31) and 3,000,000,001, all-valid
+    and with a 15x27 hole; the port's decode_band_device and the host
+    decoder are exact on all six."""
+    data = (base + np.random.default_rng(0).integers(0, 1000, (48, 41, 1))).astype(np.uint32)
+    mask = None
+    if hole:
+        mask = np.ones((48, 41), bool)
+        mask[10:25, 7:34] = False
+    blob = BandEncoder(data, mask, 0.5).encode()
+    valid = np.ones((48, 41), bool) if mask is None else mask
+    host = lerc2_decode.decode_band(blob).data
+    port = decode_band_device(blob, device="cpu").data.numpy()
+    with np.errstate(invalid="ignore"):  # JAX's own casts of values past int32
+        jax_out = np.asarray(JC.decode_band_device(blob).data)
+    np.testing.assert_array_equal(host[valid], data[valid])
+    np.testing.assert_array_equal(port, host)
+    jax_err = int(np.abs(jax_out.astype(np.int64) - data.astype(np.int64))[valid].max())
+    if base == 100:
+        assert jax_err == 0
+    else:  # JAX: off by up to 600 across 2^31, by 852,517,352 above it
+        assert jax_err > 0, f"JAX's uint32 band decode is now exact at base {base}"
 
 
 # ---------------------------------------------------------------------------
