@@ -99,6 +99,23 @@ measured. MEASURE is one of:
        resident uint8 three-band encode (FusedResidentCodec.encode_fast of
        the four tiles): its device busy time, K1's share and its CUDA-event
        time.
+  k4lut  the mosaic's K4 (decode_records_lut) per launch on each micro-block
+       group of three of chip_smoke's mosaic cells, encoded by
+       MosaicEncoder (one rank, no mesh, 512^2 tiles): the uint8 three-band
+       4096^2 image (depth-diff units), the uint16 class grid and the
+       float32 DEM at maxZError 0.001, all-valid and with the bench mask on
+       each quarter: the device time of the kernel
+       (names holding "decode_records_lut"); then the uint8 three-band
+       cell's whole decode_mosaic_device on the host clock (best of 3, a
+       synchronize after it) and its device time in a torch.profiler window
+       of 3 decodes: busy (every device item), K4, K3 and K6 (the scanned
+       decode), copies.
+  k2int  the integer K2 (write_records) per call on the four tiles of
+       chip_smoke's uint8 three-band, int16 and int32 cells, and the float
+       K2 on the four float32 DEM tiles all-valid and with the bench mask
+       as a control (k1int's inputs; each tile's records from K1, starts
+       by cumsum), each set round-robin past the L2: the device time of
+       the kernel (names holding "write_records").
   instances  the tree's own chip_smoke phases 5b and 13b on one DEM tile:
        every integer instance of K1, K2, K4 and K6 no timed path takes and
        K6's masked, 16x16 and float64 instances, each held to its plain
@@ -605,6 +622,62 @@ def k1int_turn(cs, dev) -> dict:
     return out
 
 
+def k4lut_turn(cs, dev) -> dict:
+    import numpy as np
+
+    from lerc_tpu_torch.ops import device_decode as dec
+    from lerc_tpu_torch.parallel import sharding as S
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    t = cs.MOSAIC_TILE
+    dem = cs.raster_of(tiles)
+    cells = {"u8x3": (cs.raster_of(cs.int_cell_tiles(tiles, np.uint8, 3)), None, 0.5),
+             "grid": (cs.raster_of([cs.class_grid(x) for x in tiles]), None, 0.5),
+             "dem": (dem, None, 0.001),
+             "dem_mask": (dem, np.tile(cs.bench_mask(), (2, 2)), 0.001)}
+    out = {}
+    for label, (raster, mask, mze) in cells.items():
+        blob = S.MosaicEncoder(None, t, t, raster.dtype, n_depth=raster.shape[2]).encode(
+            raster, mask, mze)
+        for mb, units in sorted(cs.k4_groups(blob).items()):
+            args, kw, _hd, _ = cs.k4_inputs(blob, mb, units, dev)
+            out[f"{label}_mb{mb}_{len(units)}u"] = dev_ms(
+                cs, [lambda: dec.decode_tiles_fast(*args, **kw)], ("decode_records_lut",),
+                reps=10)
+        if label == "u8x3":
+            S.decode_mosaic_device(blob)
+            out["u8x3_decode_host"] = min(cs._wall_ms(lambda: S.decode_mosaic_device(blob))
+                                          for _ in range(3))
+            rows = cs.profiled_rows([lambda: S.decode_mosaic_device(blob)], 3, (None,))
+            if rows is None:
+                raise SystemExit("profiler shows no device time for the uint8 x 3 decode")
+            for key, pats in (("busy", ("",)), ("K4", ("decode_records_lut",)),
+                              ("K3_K6", ("fletcher32", "decode_scanned")),
+                              ("copies", ("Memcpy", "memcpy"))):
+                out[f"u8x3_round_{key}"] = sum(r[2] for r in rows if any(p in r[0] for p in pats)
+                                               ) / 1e3 / 3
+    return out
+
+
+def k2int_turn(cs, dev) -> dict:
+    import torch
+
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    out = {}
+    for label, sets in k1int_inputs(cs, dev).items():
+        calls = []
+        for x, p, valid in sets:
+            ri = enc.encode_blocks(x, p, valid)[0]
+            length = ri[:, 0]
+            starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+            cap_w = (int(length.sum()) + 4096) // 4
+            calls.append(lambda x=x, p=p, v=valid, ri=ri, s=starts, c=cap_w:
+                         enc.write_records(x, ri, s, c, p, v))
+        out[label] = dev_ms(cs, calls, ("write_records",), reps=10)
+    return out
+
+
 def windows_turn(cs, dev) -> dict:
     """The tree's whole chip_smoke.py (its main()) with every profiler
     window it reads counted: those taken, and those that came back with no
@@ -631,7 +704,8 @@ def windows_turn(cs, dev) -> dict:
 MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
             "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
             "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn,
-            "h2": h2_turn, "k1int": k1int_turn, "windows": windows_turn}
+            "h2": h2_turn, "k1int": k1int_turn, "k4lut": k4lut_turn, "k2int": k2int_turn,
+            "windows": windows_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

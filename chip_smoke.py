@@ -39,6 +39,14 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      1-8 and deep chunks, every dtype at v4 and v6, lossless and lossy,
      every mask kind, raw and const blocks, fits dropping), the case counts
      printed;
+  3e. the redesigned mosaic K4 (decode_records_lut: strips with the
+     depth-diff chain) and integer K2 (write_records_int: strips, a span a
+     strip) against their plain versions at the edges of their strips (K4:
+     every instance, 1, 2 and 64 units, tiles mb(S-1), mb S and mb(S+1)
+     wide, depths 1-8 and a deep unit, v4 and v6 units in one launch, LUT
+     records, every mask kind, hostile starts, images and per-unit flags;
+     K2: k1int_edge_check's shapes, its stream with the whole capacity and
+     with half of it), the case counts printed;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -166,7 +174,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      K1/K2 against their plain versions on the whole 64-tile stack of each
      raster (512^2 tiles) that MosaicEncoder hands encode_tiles_batched;
      the cells (the 4096^2 DEM all-valid and with the bench mask, the
-     uint16 class grid, the uint8 three-band image, the float64 DEM)
+     uint16 class grid, the uint8 three-band image -- its depth-diff units
+     decoded by K4's chain, none by the scanned decode -- the float64 DEM)
      encoded and decoded through decode_mosaic_device, counted (one K4
      launch per micro-block group), bit-equal to the per-tile
      decode_band_device; regions and decode_mosaic of four tiles; the
@@ -1220,13 +1229,8 @@ def strip_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
     from lerc_tpu_torch.ops import device_encode as enc
 
     rng = np.random.default_rng(15)
-    bench = bench_mask()
     n_cases = 0
-
-    def masks(kind, h, w):
-        return {"all-valid": None, "empty": np.zeros((h, w), bool),
-                "full": np.ones((h, w), bool),
-                "bench": np.ascontiguousarray(bench[296:296 + h, 480:480 + w])}[kind]
+    masks = bench_masks
 
     for npdt in dtypes or INT_DTYPES:
         size = np.dtype(npdt).itemsize
@@ -1468,7 +1472,179 @@ def k1int_case(dev, data, mask, mze, version, nb_cap, as_int32, tag):
     return bool(k[2])
 
 
-def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
+def k2int_case(dev, data, mask, mze, version, nb_cap, as_int32, tag):
+    """The integer K2's stream bit-equal to write_records_ref on one tile
+    (numpy [H, W, D]), on K1's records, with the capacity of the whole
+    stream and with half of it (records past it cut). Returns K1's fits."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    x = torch.from_numpy(data).to(dev)
+    if as_int32:
+        x = x.to(torch.int32)
+    if mask is None and (h % 8 or w % 8):
+        mask = np.ones((h, w), bool)
+    valid = None if mask is None else enc.block_valid_words(torch.from_numpy(mask).to(x.device))
+    p = enc.encode_params(mze, version, nb_cap, NUMPY_TO_DT[data.dtype])
+    ri, _zr, fits = enc.encode_blocks(x, p, valid)
+    length = ri[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    words = (int(length.sum()) + 3) // 4
+    r = enc.write_records_ref(x, ri, starts, words + 4, p, valid)
+    for cap_w in (words + 4, max(1, words // 2)):  # a cut stream is the whole one's head
+        k = enc.write_records(x, ri, starts, cap_w, p, valid)
+        require(torch.equal(k, r[:cap_w]), f"K2 integer != plain ({tag}, cap {cap_w} of {words} "
+                                           f"words)")
+    return bool(fits)
+
+
+def k4lut_units(dev, npdt, h, w, d, n, mb, versions, kinds, mze, rng, distinct=4):
+    """n units of strip_tile data of [h, w, d], unit i encoded by the LUT
+    encode at block size mb and version versions[i % len] under the mask
+    kind kinds[i % len] (bench_masks), back to back at 512-byte bases as the
+    mosaic's groups; past `distinct` encodes, units repeat the earlier ones.
+    Returns (stream words, absolute starts, zmax [n, D] as K4 takes it, the
+    units' validity words or None)."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    dt = NUMPY_TO_DT[np.dtype(npdt)]
+    parts, starts, zmaxs, masks, made = [], [], [], [], []
+    off = 0
+    for i in range(n):
+        if i < distinct:
+            data = strip_tile(npdt, h, w, d, False, rng)
+            m = bench_masks(kinds[i % len(kinds)], h, w)
+            stream, total, zmax, st, _v = strip_encode(data, m, mze, versions[i % len(versions)],
+                                                      dev, mb=mb, lut=True)
+            n_w = -(-max(int(total), 1) // 512) * 128
+            s = torch.zeros(n_w, dtype=torch.int32, device=dev)
+            used = min(n_w, stream.numel())
+            s[:used] = stream[:used]
+            if dt == DataType.UINT:
+                zmax = zmax.to(torch.int64) & 0xFFFFFFFF
+            made.append((s, st.to(torch.int64), zmax.to(torch.float32 if dt == DataType.FLOAT
+                                                        else torch.int64),
+                         np.ones((h, w), bool) if m is None else m))
+        s, st, zmax, m = made[i % distinct]
+        parts.append(s)
+        starts.append(st + 4 * off)
+        off += s.numel()
+        zmaxs.append(zmax)
+        masks.append(m)
+    zmax = torch.stack(zmaxs)
+    zmax = zmax if dt == DataType.FLOAT else zmax.to(torch.int32)  # uint32 wraps to its bits
+    valid = None
+    if not all(m.all() for m in masks):
+        valid = enc.block_valid_words(torch.from_numpy(np.concatenate(masks)).to(dev), mb)
+    return (torch.cat(parts), torch.cat(starts).to(torch.int32).contiguous(), zmax.contiguous(),
+            valid)
+
+
+def k4lut_case(args, tag):
+    """The mosaic's K4 against its plain version on one set of
+    decode_records_lut arguments: the image's bytes and the flags equal."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    stream, starts, zmax, mze, h, w, d, dt, version, mb, n, lut, cap_nb, valid = args
+    ik, fk = dec.decode_records_lut(stream, starts, zmax, mze, h, w, d, dt, version, mb, n, lut,
+                                    cap_nb, valid)
+    ir, fr = dec.decode_records_lut_ref(stream.cpu(), starts.cpu(), zmax.cpu(), 2.0 * float(mze),
+                                        dec._inv_i(mze), h, w, d, dt, version, mb, n, lut, cap_nb,
+                                        None if valid is None else valid.cpu())
+    require(torch.equal(ik.cpu().reshape(-1).view(torch.uint8), ir.reshape(-1).view(torch.uint8))
+            and torch.equal(fk.cpu(), fr), f"mosaic K4 != plain ({tag})")
+    return fk.cpu()
+
+
+_BENCH_MASK = []  # bench_mask(), made once for the strip checks' crops
+
+
+def bench_masks(kind, h, w):
+    """The strip checks' masks of [h, w]: None (all-valid), empty, full, or
+    a crop of the bench mask across its hole's corner."""
+    if kind != "bench":
+        return {"all-valid": None, "empty": np.zeros((h, w), bool),
+                "full": np.ones((h, w), bool)}[kind]
+    if not _BENCH_MASK:
+        _BENCH_MASK.append(bench_mask())
+    return np.ascontiguousarray(_BENCH_MASK[0][296:296 + h, 480:480 + w])
+
+
+def k4lut_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
+    """Phase 3e, the mosaic's K4 (every instance: float32 and the integer
+    dtypes, 8x8 and 16x16 blocks, all-valid and masked) bit-equal to its
+    plain version, images and per-unit flags, at the edges of its strips
+    (device_decode.strip_shape: S blocks a strip): 1, 2 and 64 units of
+    tiles mb(S-1), mb S and mb(S+1) wide, one or two block rows; depths 1,
+    2, 3, 5 and 8, and a deep uint8 unit at 130 (depths in chunks); units
+    encoded at v4 and v6 in one launch, decoded as v6 (the v4 units' bit 2
+    read as a diff flag) and as v4; LUT records (the LUT encode), raw and
+    const blocks; all-valid, empty, full and bench masks; the diff chain of
+    correlated slices, and the flag of a unit the chain refuses; then
+    hostile starts: shuffled within and across strips, a seventh past the
+    end, a truncated stream. Returns the number of cases."""
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    rng = np.random.default_rng(17)
+    n_cases = 0
+    for npdt in dtypes or (np.float32,) + INT_DTYPES:
+        dt = NUMPY_TO_DT[np.dtype(npdt)]
+        size = np.dtype(npdt).itemsize
+        mze = 0.01 if dt == DataType.FLOAT else 0.5
+        for mb in (8, 16):
+            for d in depths:
+                s = dec.strip_shape(mb, d, size)[0]
+                shapes = [(mb, mb * max(s - 1, 1)), (2 * mb, mb * s), (mb, mb * (s + 1))]
+                for si, (h, w) in enumerate(shapes):
+                    for n, kinds in ((1, ("all-valid",)), (2, ("bench", ("empty", "full")[si % 2]))):
+                        args = k4lut_units(dev, npdt, h, w, d, n, mb, (4, 6), kinds, mze, rng)
+                        for version in (6, 4):
+                            tag = (f"{np.dtype(npdt).name} mb {mb} {h}x{w}x{d} {n} units "
+                                   f"{'/'.join(kinds)} as v{version}")
+                            k4lut_case((*args[:3], mze, h, w, d, dt, version, mb, n, True, 32,
+                                        args[3]), tag)
+                            n_cases += 1
+                # 64 units of one strip at v6 (the chain where the slices are close)
+                h, w = mb, mb * s
+                args = k4lut_units(dev, npdt, h, w, d, 64, mb, (6,), ("all-valid",), mze, rng)
+                flags = k4lut_case((*args[:3], mze, h, w, d, dt, 6, mb, 64, True, 32, args[3]),
+                                   f"{np.dtype(npdt).name} mb {mb} {h}x{w}x{d} 64 units")
+                require(bool(flags[:, 0].all()) and not bool(flags[:, 2].any()),
+                        f"mosaic K4: 64 encoded units not decoded as they are "
+                        f"({np.dtype(npdt).name} mb {mb} d {d})")
+                n_cases += 1
+                if d == 3 and mb == 8:  # hostile starts, lut off, a cap
+                    stream, starts, zmax, valid = args
+                    within = torch.from_numpy(np.concatenate(
+                        [rng.permutation(s * d) + i for i in range(0, starts.numel(), s * d)]))
+                    past = starts.clone()
+                    past[::7] += 4 * stream.numel() + 100
+                    for what, st_, sw, lut, cap in (
+                            ("shuffled within strips", starts[within.to(dev)], stream, True, 32),
+                            ("shuffled across units",
+                             starts[torch.from_numpy(rng.permutation(starts.numel())).to(dev)],
+                             stream, True, 32),
+                            ("past the end", past, stream, True, 32),
+                            ("truncated", starts, stream[: max(1, stream.numel() // 8)], True, 32),
+                            ("lut off, cap 4", starts, stream, False, 4)):
+                        k4lut_case((sw.contiguous(), st_.contiguous(), zmax, mze, h, w, d, dt, 6,
+                                    mb, 64, lut, cap, valid),
+                                   f"{np.dtype(npdt).name} mb {mb} 64 units, {what}")
+                        n_cases += 1
+    if dtypes is None:  # a deep uint8 unit: depths in chunks, the chain across them
+        for mb in (8, 16):
+            for kinds in (("all-valid",), ("bench",)):
+                args = k4lut_units(dev, np.uint8, mb, mb, 130, 2, mb, (6, 4), kinds, 0.5, rng)
+                k4lut_case((*args[:3], 0.5, mb, mb, 130, DataType.BYTE, 6, mb, 2, True, 32,
+                            args[3]), f"uint8 deep {mb}x{mb}x130 {kinds[0]}")
+                n_cases += 1
+    return n_cases
+
+
+def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8), case=None):
     """Phase 3d, the integer K1: rec_info, zrange and fits bit-equal to
     encode_blocks_int_ref (k1int_case) at the edges of its strips (S blocks
     a strip, device_decode.strip_shape): widths 8(S-1), 8S, 8S+8, 8(2S+1) and
@@ -1479,17 +1655,15 @@ def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
     its dtype and, on one shape, as int32; all-valid, empty, full and bench
     masks; strip_tile's const-0, const-offset, stuffed and full-range blocks
     (raw: uint32 across 2^31, int32 blocks of range 2^31 or more), raw-only
-    tiles; nb_cap 2, which makes fits drop. Returns the number of cases."""
+    tiles; nb_cap 2, which makes fits drop. `case` (default k1int_case)
+    checks one tile: k2int_case holds the integer K2 on the same shapes
+    (k2int_edge_check). Returns the number of cases."""
     from lerc_tpu_torch.ops import device_decode as dec
-    from lerc_tpu_torch.ops import device_encode as enc
 
     rng = np.random.default_rng(16)
-    bench = bench_mask()
     n_cases = 0
-
-    def masks(kind, h, w):
-        return {"all-valid": None, "empty": np.zeros((h, w), bool), "full": np.ones((h, w), bool),
-                "bench": np.ascontiguousarray(bench[296:296 + h, 480:480 + w])}[kind]
+    k1int_case_ = case or k1int_case
+    masks = bench_masks
 
     for npdt in dtypes or INT_DTYPES:
         size = np.dtype(npdt).itemsize
@@ -1504,17 +1678,17 @@ def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
                         data = strip_tile(npdt, h, w, d, False, rng)
                         for mze in (0.5, 2.0):
                             tag = f"{name} {h}x{w}x{d} v{version} {kind} maxZError {mze}"
-                            k1int_case(dev, data, masks(kind, h, w), mze, version, 0, False, tag)
+                            k1int_case_(dev, data, masks(kind, h, w), mze, version, 0, False, tag)
                             n_cases += 1
                             if si == 2 and size < 4:
-                                k1int_case(dev, data, masks(kind, h, w), mze, version, 0, True,
+                                k1int_case_(dev, data, masks(kind, h, w), mze, version, 0, True,
                                            tag + ", int32 input")
                                 n_cases += 1
                     if si == 1:
                         raw = strip_tile(npdt, h, w, d, True, rng)
-                        k1int_case(dev, raw, None, 0.5, version, 0, False,
+                        k1int_case_(dev, raw, None, 0.5, version, 0, False,
                                    f"{name} raw {h}x{w}x{d}")
-                        fits = k1int_case(dev, data, None, 2.0, version, 2, False,
+                        fits = k1int_case_(dev, data, None, 2.0, version, 2, False,
                                           f"{name} {h}x{w}x{d} nb_cap 2")
                         require(not fits, f"nb_cap 2: fits kept ({name} {h}x{w}x{d} v{version})")
                         n_cases += 2
@@ -1524,10 +1698,17 @@ def k1int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
                 for kind in ("all-valid", "bench"):
                     data = strip_tile(npdt, h, w, d, False, rng)
                     for version, mze in ((6, 0.5), (4, 2.0)):
-                        k1int_case(dev, data, masks(kind, h, w), mze, version, 0, False,
+                        k1int_case_(dev, data, masks(kind, h, w), mze, version, 0, False,
                                    f"{np.dtype(npdt).name} deep {h}x{w}x{d} v{version} {kind}")
                         n_cases += 1
     return n_cases
+
+
+def k2int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
+    """Phase 3d, the integer K2: its stream bit-equal to write_records_ref
+    (k2int_case: the whole capacity and half of it) on k1int_edge_check's
+    shapes, masks, versions and dtypes. Returns the number of cases."""
+    return k1int_edge_check(dev, dtypes, depths, case=k2int_case)
 
 
 INT_CELLS = (  # (label, dtype, depth, maxZError)
@@ -4211,6 +4392,20 @@ def lut_records(blob):
     return n
 
 
+def diff_units(blob):
+    """Units of a container that hold a depth-diff record (flag bit 2 at
+    version >= 5), found through the record index."""
+    info, views, layouts, secs = mosaic_units(blob)
+    n = 0
+    for (t, b), sec in secs.items():
+        so = int(info["stream_offs"][t * info["n_bands"] + b])
+        if sec.kind != "tiling" or so < 0 or layouts[t][b][1].version < 5:
+            continue
+        st = info["starts"][t * info["n_bands"] + b]
+        n += any(views[t][so + s] & 4 for s in st if s >= 0)
+    return n
+
+
 def check_tiles_encode(raster, mask, mze, mb, tag):
     """The tile-batched K1 and K2 against their plain versions on the whole
     tile stack that MosaicEncoder (one rank) hands encode_tiles_batched:
@@ -4567,11 +4762,11 @@ def _mosaic_phases(mesh, tiles, mask, card, launches, add_row):
                                    try_16=False)
         require(lut_records(cells["lut"][1]) > 0, "no LUT records")
     cells["u8x3"] = mosaic_cell(f"uint8 three-band {2 * TILE}^2 (depth-diff), lossless", u8x3, None, 0.5,
-                                mesh, card, scanned_ok=True)
-    n_k6 = cells["u8x3"][0].get("decode_scanned_u8", 0)
-    require(n_k6 > 0, "the depth-diff cell sent no unit to the scanned decode")
-    print(f"mosaic: {n_k6} depth-diff units of the uint8 three-band cell went through K6 "
-          f"(decode_band_device), the others through K4", flush=True)
+                                mesh, card)
+    n_diff = diff_units(cells["u8x3"][1])
+    require(n_diff > 0, "the depth-diff cell holds no depth-diff records")
+    print(f"mosaic: the uint8 three-band cell's {n_diff} units with depth-diff records decoded "
+          f"by K4's chain, none through the scanned decode", flush=True)
     cells["f64"] = mosaic_cell(f"float64 DEM {2 * TILE}^2, maxZError {MAX_Z_ERROR}", dem64, None,
                                MAX_Z_ERROR, mesh, card, scanned_ok=True)
     for c in cells.values():
@@ -5024,6 +5219,19 @@ def main():
           f"v6, lossless and lossy, int32 input; all-valid, empty, full and bench masks; raw, "
           f"const and stuffed blocks; nb_cap 2) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # ---- 3e. the redesigned mosaic K4 and integer K2 at their strips' edges
+    t0 = time.perf_counter()
+    n_k4l = k4lut_edge_check(dev)
+    n_k2 = k2int_edge_check(dev)
+    print(f"check: the mosaic K4 (images, per-unit flags) equal to its plain version in {n_k4l} "
+          f"cases (every instance: float32 and the integer dtypes, 8x8 and 16x16, all-valid and "
+          f"masked; 1, 2 and 64 units of mb(S-1), mb S, mb(S+1) wide tiles; depths 1, 2, 3, 5, "
+          f"8 and a deep uint8 unit at 130; v4 and v6 units in one launch, decoded as v6 and v4; "
+          f"LUT records; empty, full and bench masks; shuffled, past-the-end starts, a truncated "
+          f"stream); the integer K2's stream equal to its plain version in {n_k2} cases "
+          f"(k1int_edge_check's shapes, the whole capacity and half of it) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # ---- 4, 5. the main paths, counted, then timed
     launches, results = main_path(tiles, None, card)
     m_launches, m_results = main_path(tiles, mask, card)
@@ -5087,6 +5295,11 @@ def main():
         times[k1] = (strip_pair(k1, [lambda t=t: enc.encode_blocks(t, p, codec.valid)
                                      for t in ctiles], "encode_blocks_int", times[k1][2], card),
                      *times[k1][1:])
+        k2 = int_name("write_records", codec.dt)
+        times[k2] = (strip_pair(k2, [lambda t=t, k=k: enc.write_records(
+            t, k["rec_info"], k["starts"], codec.cap // 4, p, codec.valid)
+            for t, k in zip(ctiles, ins)], "write_records_int", times[k2][2], card),
+            *times[k2][1:])
         for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
             add_row(name, err[name], ms, plain_ms, bound_ms, bound_by)
         sets = [(k["stream"], k["total"], k["zmax"]) for k in ins]

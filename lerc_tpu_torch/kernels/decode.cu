@@ -3,7 +3,8 @@
 // ScaleBack; its integer instances (decode_records_int), K6 decode_scanned
 // (the band decoder's, and the index-free resident decode's) and the
 // mosaic's K4 (decode_records_lut: LUT records, 16x16 blocks, n units a
-// launch) follow the float kernels and are described there.
+// launch, the depth-diff chain) follow the float kernels and are described
+// there.
 //
 // Replaces lerc_tpu/ops/device_decode.py::decode_tiles_fast (:64) and
 // _exact_f32_scale_back (:30, softfloat f64 in device_softf64.py), and for
@@ -538,11 +539,12 @@ int launch_decode_int(const uint8_t* words, long long n_bytes, const int* starts
 // ---------------------------------------------------------------------------
 
 // value i of `width` bits (LSB-first) in the bit stream at byte pos, bytes
-// read clamped into the stream
+// read clamped into the stream (K6) or, CLAMP false, 0 outside it (K4)
+template <bool CLAMP = true>
 __device__ __forceinline__ uint32_t extract(const uint8_t* s, long long n, const uint32_t* st,
                                             const Span& sp, long long pos, long long i, int width) {
     const long long bitpos = i * width;
-    const uint64_t v = bytes_at<true>(s, n, st, sp, pos + (bitpos >> 3), 5);
+    const uint64_t v = bytes_at<CLAMP>(s, n, st, sp, pos + (bitpos >> 3), 5);
     const uint32_t qmask = width >= 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
     return (uint32_t)(v >> (bitpos & 7)) & qmask;
 }
@@ -561,9 +563,12 @@ __device__ __forceinline__ V slice_value(int m8, bool dif, O off, O zm, uint32_t
           : m8 == 2 ? 0 : m8 == 3 ? off
           : std::is_same<Tout, uint32_t>::value  // uint32: the clamp in u32 order
               ? (int)min((uint32_t)a, (uint32_t)zm) : min(a, zm);
-        if (dif) {  // :621-622, :643-644
+        if (dif) {  // :621-622, :643-644; uint32 clamps in u32 order here too
             const int ad = m8 == 3 ? off : a;
-            z = m8 == 2 ? prev : min((int)((uint32_t)ad + (uint32_t)prev), zm);
+            const int t = (int)((uint32_t)ad + (uint32_t)prev);
+            z = m8 == 2 ? prev
+              : std::is_same<Tout, uint32_t>::value ? (int)min((uint32_t)t, (uint32_t)zm)
+                                                    : min(t, zm);
         }
     } else if constexpr (std::is_same<Tout, double>::value) {  // native f64: no narrowing
         const double a = __dadd_rn(off, __dmul_rn((double)q, inv));
@@ -834,13 +839,12 @@ int launch_scanned_of(int mb, const uint8_t* words, long long n_bytes, const int
 
 // ---------------------------------------------------------------------------
 // K4 for the mosaic (decode_records_lut, decode_records_lut16): the indexed
-// decode with LUT records, 8x8 or 16x16 blocks and n units (tiles, or a
-// tile's bands) in one record axis -- decode_tiles_fast with enable_lut
-// (:233-247, :325-341), mb = 16 (:118-123) and n_tiles (:92-95). Record r
-// belongs to unit u = r / unit_rec; starts are absolute byte offsets into
-// the one stream, zmax is [n_units, D] and the validity words are the
-// units' blocks in order. One warp owns one record; lane `lane` decodes
-// positions j = 32k + lane (k < VPL = MB*MB/32).
+// decode with LUT records, 8x8 or 16x16 blocks, n units (tiles, or a tile's
+// bands) in one record axis and the depth-diff chain -- decode_tiles_fast
+// with enable_lut (:233-247, :325-341), mb = 16 (:118-123) and n_tiles
+// (:92-95), with the chain of decode_tiles (:625-698). Record r of unit u is
+// at starts[u * unit_rec + r], an absolute byte offset into the one stream;
+// zmax is [n_units, D] and the validity words are the units' blocks in order.
 //
 // A LUT record (mode 1, numBits byte bit 5) is [header][count][nLut + 1]
 // [nLut entries at numBits][indices at bit_length(nLut) bits]
@@ -850,184 +854,255 @@ int launch_scanned_of(int mb, const uint8_t* words, long long n_bytes, const int
 // bits, :118-123); `fits` only means no record is wider than cap_nb.
 //
 // float32 dequantizes with the exact f64 ScaleBack of K4; integers as the
-// integer K4, uint32 with an unsigned zMax clamp. Per unit the kernel
-// reports {index_ok, fits, diff}: index_ok drops on a record whose parsed
-// length disagrees with the next index entry (each unit's last record is
-// exempt), a stuffed count other than the block's valid count, or a LUT
-// bit when lut is 0; diff is set by a depth-diff record (flag bit 2 at
-// version >= 5), kept apart from index errors -- its offset is reduced as
-// INT for integers, so its length is still checked -- and the caller
-// decodes such units with the previous slice, through K6.
+// integer K4, uint32 with an unsigned zMax clamp. A depth-diff record (flag
+// bit 2 at version >= 5; an integer's offset reduced as INT) adds the
+// previous slice as K6 does (slice_value). Per unit the kernel reports
+// {index_ok, fits, scanned}: index_ok drops on a record whose parsed length
+// disagrees with the next index entry (each unit's last record is exempt), a
+// stuffed count other than the block's valid count, or a LUT bit when lut is
+// 0; scanned is set by a diff record the chain cannot take -- on slice 0, or
+// raw, which the host decoder refuses -- and the caller sends that unit to
+// the scanned decode, which raises as the host decoder does.
+//
+// A strip kernel (above) on a grid of units x block rows x strips; a strip
+// never crosses a unit. As the integer K4: a chunk's starts in one read, its
+// records' bytes staged, one thread a record parses its header (two 8-byte
+// reads) and flags; then a thread owns pixels and walks their depths in
+// order, the previous slice in a register (across chunks too, as K6). LUT
+// records read their table and indices from the staged bytes; a read outside
+// them (a hostile start, an index past the table) goes to the stream, 0
+// outside it. Flags are reduced in the CTA and stored once, where one drops.
+// The launch bounds ask for 6 CTAs an SM (40 registers; at its own 64, 4 fit:
+// 0.1287 ms against 0.1130 on the uint8 x 3 group, chip_tune_k4k2.py).
 //
 // Bound: bytes (the units' stream bytes and 4 B of index per record read
 // once, 4*VPL B of validity words per masked block, the images written once).
 // ---------------------------------------------------------------------------
 
-// value i of `width` bits (LSB-first) at byte pos; bytes outside the stream
-// read 0, as K4's window
-__device__ __forceinline__ uint32_t extract_z(const uint8_t* s, long long n_bytes, long long pos,
-                                              long long i, int width) {
-    const long long bitpos = i * width;
-    const long long at = pos + (bitpos >> 3);
-    const int sh = (int)(bitpos & 7);
-    uint64_t v = 0;
-    for (int t = 0; t < 5; ++t) v |= (uint64_t)rd(s, at + t, n_bytes) << (8 * t);
-    const uint64_t qmask = width >= 32 ? 0xFFFFFFFFull : ((1ull << width) - 1);
-    return (uint32_t)((v >> sh) & qmask);
-}
-
 template <typename Tout, bool IS_INT, int MB, bool MASKED>
-__global__ void decode_records_lut_kernel(
+__global__ void __launch_bounds__(STRIP_THREADS, 6) decode_records_lut_kernel(
         const uint8_t* __restrict__ s, long long n_bytes, const int* __restrict__ starts,
         const uint32_t* __restrict__ valid, const int* __restrict__ zmax, double inv, int inv_i,
-        int h, int w, int d, int nbh, int unit_rec, int n_rec, int dt, int size_t_,
-        int is_signed, int version5, int lut, int cap_nb, Tout* __restrict__ img,
-        int* __restrict__ flags) {
-    constexpr int VPL = MB * MB / 32;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.x * WARPS + warp;
-    if (r >= n_rec) return;  // warp-uniform
-    const int u = r / unit_rec, rr = r - u * unit_rec;
-    const int b = rr / d, di = rr - b * d;
-    const long long p = starts[r];
-
-    const uint32_t flag = rd(s, p, n_bytes);
-    const int mode = flag & 3, b67 = flag >> 6;
-    const bool dif = version5 && (flag & 4u);
-    const int off_w = lerc2::offset_width(IS_INT && dif ? lerc2::DT_INT : dt, b67);
-    uint32_t acc = rd(s, p + 1, n_bytes) | rd(s, p + 2, n_bytes) << 8
-                 | rd(s, p + 3, n_bytes) << 16 | rd(s, p + 4, n_bytes) << 24;
-    acc &= off_w == 1 ? 0xFFu : (off_w == 2 ? 0xFFFFu : 0xFFFFFFFFu);
-    const uint32_t nbb = rd(s, p + 1 + off_w, n_bytes);
-    const int cw_code = nbb >> 6;
-    const int cw = cw_code == 0 ? 4 : 3 - cw_code;
-    const int nb = nbb & 31;
-    const bool is_lut = (nbb & 32) && mode == 1;
-    const int n_lut = is_lut ? (int)rd(s, p + 2 + off_w + cw, n_bytes) - 1 : 0;
-    const int nbits_lut = n_lut > 0 ? 32 - __clz(n_lut) : 0;
-    const int lut_bytes = (n_lut * nb + 7) >> 3;
-    const long long pay = mode == 0 ? p + 1 : p + 2 + off_w + cw + (is_lut ? 1 : 0);
-    const int width = mode == 0 ? 8 * size_t_ : nb;
-
-    const uint32_t lt = (1u << lane) - 1u;
-    uint32_t vw[VPL];
-    int cnt = MB * MB;
-    if constexpr (MASKED) {
-        cnt = 0;
-        const size_t blk = (size_t)u * (unit_rec / d) + b;
+        int h, int w, int d, int unit_rec, int strips_unit, int dt, int version5, int lut,
+        int cap_nb, StripGeom g, Tout* __restrict__ img, int* __restrict__ flags) {
+    constexpr int BP = MB * MB, VPL = BP / 32, SIZE = sizeof(Tout);
+    static_assert(STRIP_THREADS >= BP, "a deep unit's chunks carry one pixel a thread");
+    using V = typename std::conditional<IS_INT, int, Tout>::type;
+    // a record's kind: how its values are read (warp-uniform: a warp decodes one record)
+    enum { ZERO, CONST, STUFF, LUT, RAW, STREAM };
+    constexpr int DIF = 1 << 10, IS_LUT = 1 << 11;
+    __shared__ uint4 in_st[STRIP_IN / 16 + 1];
+    __shared__ uint4 out_st[STRIP_STAGE / 16];
+    __shared__ int sst[STRIP_REC + 1];
+    __shared__ int4 r4[STRIP_REC];  // width | mode << 8 | DIF | IS_LUT | kind << 16, staged
+                                    // payload, offset (float32: its bits), zMax (bits)
+    __shared__ int4 rl[STRIP_REC];  // LUT: n_lut, bit_length(n_lut), table bytes
+    __shared__ long long r_pay[STRIP_REC];
+    __shared__ uint32_t vws[STRIP_PX / 32];
+    __shared__ int pre[STRIP_PX / 32], cnts[STRIP_BLK];
+    __shared__ int bad_s, unfit_s, scan_s;
+    const uint32_t* st = reinterpret_cast<const uint32_t*>(in_st);
+    uint8_t* ost = reinterpret_cast<uint8_t*>(out_st);
+    const int tid = threadIdx.x;
+    const int nbh = w / MB;
+    const int u = blockIdx.x / strips_unit, su = blockIdx.x - u * strips_unit;
+    const int sr = su / g.spr, sc = su - sr * g.spr;
+    const int b0 = sr * nbh + sc * g.S, n_s = min(g.S, nbh - sc * g.S);
+    const int* ust = starts + (size_t)u * unit_rec;
+    if (tid == 0) bad_s = unfit_s = scan_s = 0;
+    if (tid < n_s) {  // the block's validity words and their prefix counts
+        int c = 0;
 #pragma unroll
         for (int k = 0; k < VPL; ++k) {
-            vw[k] = valid[blk * VPL + k];
-            cnt += __popc(vw[k]);
+            const uint32_t vw =
+                MASKED ? valid[((size_t)u * (unit_rec / d) + b0 + tid) * VPL + k] : FULL;
+            vws[tid * VPL + k] = vw;
+            pre[tid * VPL + k] = c;
+            c += __popc(vw);
         }
+        cnts[tid] = c;
     }
-    const int zm = zmax[u * d + di];
-    const size_t base = (size_t)u * h;
-    const int row0 = (b / nbh) * MB, col0 = (b % nbh) * MB;
-    int before = 0;  // valid positions before 32k
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        const unsigned j = 32 * k + lane;
-        int rank = (int)j;
-        bool v = true;
-        if constexpr (MASKED) {
-            rank = before + __popc(vw[k] & lt);
-            before += __popc(vw[k]);
-            v = (vw[k] >> lane) & 1u;
-        }
-        uint32_t q = 0;
-        if (v && (mode == 0 || mode == 1)) {
-            if (is_lut) {
-                const uint32_t idx = extract_z(s, n_bytes, pay + lut_bytes, rank, nbits_lut);
-                q = idx ? extract_z(s, n_bytes, pay, (long long)idx - 1, nb) : 0u;
-            } else {
-                q = extract_z(s, n_bytes, pay, rank, width);
-            }
-        }
-        Tout z;
-        if constexpr (IS_INT) {
-            const int off = lerc2::int_offset(acc, off_w, IS_INT && dif ? lerc2::DT_INT : dt, b67);
-            int zi;
-            if (mode == 0) {
-                zi = lerc2::raw_int(q, size_t_, is_signed);
-            } else if (mode == 2) {
-                zi = 0;
-            } else if (mode == 3) {
-                zi = off;
-            } else {
-                const uint32_t a = (uint32_t)off + q * (uint32_t)inv_i;
-                zi = dt == 5 ? (int)(a < (uint32_t)zm ? a : (uint32_t)zm) : min((int)a, zm);
-            }
-            z = (Tout)(v ? zi : 0);
-        } else {
-            const float offset = lerc2::float_offset(acc, b67);
-            float zf;
-            if (mode == 0) {
-                zf = __uint_as_float(q);
-            } else if (mode == 2) {
-                zf = 0.f;
-            } else if (mode == 3) {
-                zf = offset;
-            } else {
-                zf = __double2float_rn(__dadd_rn((double)offset, __dmul_rn((double)q, inv)));
-                const float zmf = __int_as_float(zm);
-                zf = zmf < zf ? zmf : zf;
-            }
-            z = v ? zf : 0.f;
-        }
-        const int row = row0 + (int)(j / MB), col = col0 + (int)(j % MB);
-        img[((base + row) * w + col) * d + di] = z;
-    }
+    OutStage os{reinterpret_cast<uint8_t*>(img + (size_t)u * h * w * d), h, w, d, SIZE, sr * MB,
+                sc * g.S * MB, 0, 0, g.px_seg, g.pitch, g.S * MB / g.px_seg};
+    V carry = 0;  // the previous slice across chunks: deep units have one pixel a thread
+    for (int dlo = 0; dlo < d; dlo += g.dc) {
+        const int dn = min(g.dc, d - dlo), n_r = n_s * dn;
+        const int ra = b0 * d + dlo, rb = ra + n_r;  // consecutive records of the unit
+        os.dlo = dlo;
+        os.dn = dn;
+        for (int t = tid; t <= n_r; t += STRIP_THREADS) sst[t] = ra + t < unit_rec ? ust[ra + t] : 0;
+        const long long lo = ust[ra];
+        const long long end = (rb < unit_rec ? (long long)ust[rb] : n_bytes) + 8;
+        const Span sp = stage_span(s, n_bytes, lo, end, in_st);
+        __syncthreads();
 
-    if (lane == 0) {
-        const uint32_t ne = rd(s, p + 2 + off_w, n_bytes)
-                          | (cw == 2 ? rd(s, p + 3 + off_w, n_bytes) << 8 : 0u);
-        const long long length =
-            mode == 2 ? 1
-            : mode == 3 ? 1 + off_w
-            : mode == 0 ? 1 + (long long)cnt * size_t_
-            : is_lut ? 1 + off_w + 1 + cw + 1 + lut_bytes + (((long long)ne * nbits_lut + 7) >> 3)
-                     : 1 + off_w + 1 + cw + (((long long)ne * nb + 7) >> 3);
-        bool bad = (mode == 1 && (int)ne != cnt) || (is_lut && !lut);
-        if (rr != unit_rec - 1) {
-            const int delta = (int)((uint32_t)starts[r + 1] - (uint32_t)starts[r]);
-            bad |= delta != length;
+        if (tid < n_r) {  // the record's header (Lerc2.cpp:1950-2021) and flags
+            const int bl = tid / dn, di = dlo + tid - bl * dn;
+            const long long p = sst[tid];
+            const uint64_t h0 = bytes_at<false>(s, n_bytes, st, sp, p, 8);
+            const uint64_t h1 = bytes_at<false>(s, n_bytes, st, sp, p + 8, 4);
+            auto hbyte = [&](int k) -> uint32_t {
+                return (uint32_t)((k < 8 ? h0 >> (8 * k) : h1 >> (8 * (k - 8))) & 0xFFu);
+            };
+            const uint32_t flag = hbyte(0);
+            const int mode = flag & 3, b67 = flag >> 6;
+            const bool dif = version5 && (flag & 4u);
+            const int odt = IS_INT && dif ? lerc2::DT_INT : dt;
+            const int off_w = lerc2::offset_width(odt, b67);
+            uint32_t acc = (uint32_t)(h0 >> 8);
+            acc &= off_w == 1 ? 0xFFu : (off_w == 2 ? 0xFFFFu : 0xFFFFFFFFu);
+            const uint32_t nbb = hbyte(1 + off_w);
+            const int cw_code = nbb >> 6;
+            const int cw = cw_code == 0 ? 4 : 3 - cw_code;
+            const int nb = nbb & 31;
+            const bool is_lut = (nbb & 32) && mode == 1;
+            const int n_lut = is_lut ? (int)hbyte(2 + off_w + cw) - 1 : 0;
+            const int nbl = n_lut > 0 ? 32 - __clz(n_lut) : 0;
+            const int lut_bytes = (n_lut * nb + 7) >> 3;
+            const long long pay = mode == 0 ? p + 1 : p + 2 + off_w + cw + (is_lut ? 1 : 0);
+            const int width = mode == 0 ? 8 * SIZE : nb;
+            const int cnt = cnts[bl];
+            // staged when every value's 5-byte window lies in the staged bytes (a LUT
+            // record: its indices; an entry within the table lies before them)
+            const long long last = is_lut ? pay + lut_bytes + ((max(cnt - 1, 0) * nbl) >> 3)
+                                          : pay + ((max(cnt - 1, 0) * width) >> 3);
+            const bool staged = pay >= sp.vlo && (!is_lut || lut_bytes >= 0) && last + 5 <= sp.vhi;
+            const int kind = mode == 2 ? ZERO : mode == 3 ? CONST : !staged ? STREAM
+                           : is_lut ? LUT : mode == 1 ? STUFF : RAW;
+            int off;
+            if constexpr (IS_INT) off = lerc2::int_offset(acc, off_w, odt, b67);
+            else off = __float_as_int(lerc2::float_offset(acc, b67));
+            r4[tid] = make_int4(width | mode << 8 | (dif ? DIF : 0) | (is_lut ? IS_LUT : 0)
+                                    | kind << 16,
+                                staged ? (int)(pay - sp.gb) : 0, off, zmax[(size_t)u * d + di]);
+            rl[tid] = make_int4(n_lut, nbl, lut_bytes, 0);
+            r_pay[tid] = pay;
+            const uint32_t ne = hbyte(2 + off_w) | (cw == 2 ? hbyte(3 + off_w) << 8 : 0u);
+            const long long length =
+                mode == 2 ? 1
+                : mode == 3 ? 1 + off_w
+                : mode == 0 ? 1 + (long long)cnt * SIZE
+                : is_lut ? 1 + off_w + 1 + cw + 1 + lut_bytes + (((long long)ne * nbl + 7) >> 3)
+                         : 1 + off_w + 1 + cw + (((long long)ne * nb + 7) >> 3);
+            bool bad = (mode == 1 && (int)ne != cnt) || (is_lut && !lut);
+            if (ra + tid != unit_rec - 1) {
+                const int delta = (int)((uint32_t)sst[tid + 1] - (uint32_t)sst[tid]);
+                bad |= delta != length;
+            }
+            if (bad) bad_s = 1;
+            if ((mode == 0 || mode == 1) && width > cap_nb) unfit_s = 1;
+            if (dif && (di == 0 || mode == 0)) scan_s = 1;
         }
-        if (bad) flags[3 * u] = 0;
-        if ((mode == 0 || mode == 1) && width > cap_nb) flags[3 * u + 1] = 0;
-        if (dif) flags[3 * u + 2] = 1;
+        __syncthreads();
+
+        // a thread's pixels: position j of blocks bl0, bl0 + KB, ...
+        constexpr int KB = STRIP_THREADS / BP;
+        const int j = tid % BP, bl0 = tid / BP;
+        uint8_t* const o0 = ost + os.offset(j / MB, bl0 * MB + j % MB);
+#pragma unroll 1
+        for (int k = 0; k < STRIP_PPT; ++k) {
+            const int bl = bl0 + k * KB;
+            if (bl >= n_s) break;
+            Tout* o = reinterpret_cast<Tout*>(o0 + k * KB * MB * dn * SIZE);
+            int rank = j;
+            if constexpr (MASKED) {
+                const uint32_t vw = vws[bl * VPL + (j >> 5)];
+                if (!((vw >> (j & 31)) & 1u)) {  // an invalid position decodes to 0
+                    for (int dd = 0; dd < dn; ++dd) o[dd] = Tout(0);
+                    continue;
+                }
+                rank = pre[bl * VPL + (j >> 5)] + __popc(vw & ((1u << (j & 31)) - 1u));
+            }
+            V prev = k == 0 ? carry : V(0);
+            const int4* rrow = r4 + bl * dn;
+            for (int dd = 0; dd < dn; ++dd) {
+                const int4 ri = rrow[dd];
+                const int kind = ri.x >> 16, width = ri.x & 63;
+                const bool dif = ri.x & DIF;
+                // slice_value, the record's mode a constant where the kind fixes it
+                auto value = [&](int m8, uint32_t q, uint32_t word) -> V {
+                    return dif ? slice_value<Tout, IS_INT, V, int>(m8, true, ri.z, ri.w, q, word,
+                                                                   prev, inv, inv_i)
+                               : slice_value<Tout, IS_INT, V, int>(m8, false, ri.z, ri.w, q, word,
+                                                                   prev, inv, inv_i);
+                };
+                V z;
+                if (kind == STUFF) {
+                    z = value(1, staged_bits(st, ri.y, rank * width, width), 0u);
+                } else if (kind == CONST) {
+                    z = value(3, 0u, 0u);
+                } else if (kind == ZERO) {
+                    z = dif ? prev : V(0);
+                } else if (kind == LUT) {
+                    const int4 L = rl[bl * dn + dd];
+                    const uint32_t idx = L.y ? staged_bits(st, ri.y + L.z, rank * L.y, L.y) : 0u;
+                    uint32_t q = 0;
+                    if (idx && (int)idx - 1 < L.x) q = staged_bits(st, ri.y, (idx - 1) * width, width);
+                    else if (idx)  // an index past the table
+                        q = extract<false>(s, n_bytes, st, sp, r_pay[bl * dn + dd], idx - 1, width);
+                    z = value(1, q, 0u);
+                } else if (kind == RAW) {
+                    z = value(0, 0u, staged_bits(st, ri.y, rank * 8 * SIZE, 8 * SIZE));
+                } else {  // STREAM: 5-byte windows from the stream, 0 past the end
+                    const int i = bl * dn + dd, m8 = (ri.x >> 8) & 3;
+                    uint32_t v;
+                    if (ri.x & IS_LUT) {
+                        const int4 L = rl[i];
+                        const uint32_t idx = extract<false>(s, n_bytes, st, sp, r_pay[i] + L.z,
+                                                            rank, L.y);
+                        v = idx ? extract<false>(s, n_bytes, st, sp, r_pay[i], idx - 1, width) : 0u;
+                    } else {
+                        v = extract<false>(s, n_bytes, st, sp, r_pay[i], rank, width);
+                    }
+                    z = value(m8, m8 == 0 ? 0u : v, m8 == 0 ? v : 0u);
+                }
+                prev = z;
+                o[dd] = (Tout)z;
+            }
+            if (k == 0) carry = prev;
+        }
+        __syncthreads();
+        os.write_out(ost, MB);
+        __syncthreads();
+    }
+    if (tid == 0) {
+        if (bad_s) flags[3 * u] = 0;
+        if (unfit_s) flags[3 * u + 1] = 0;
+        if (scan_s) flags[3 * u + 2] = 1;
     }
 }
 
 template <typename Tout, bool IS_INT, int MB>
 int launch_lut(const uint8_t* words, long long n_bytes, const int* starts, const int* valid,
                const int* zmax, double inv, int inv_i, int h, int w, int d, int n_units, int dt,
-               int size_t_, int is_signed, int version5, int lut, int cap_nb, void* img,
-               int* flags, cudaStream_t st) {
-    const int nbh = w / MB;
-    const int unit_rec = (h / MB) * nbh * d;
-    const int n_rec = unit_rec * n_units;
-    const int grid = (n_rec + WARPS - 1) / WARPS;
+               int version5, int lut, int cap_nb, void* img, int* flags, cudaStream_t st) {
+    const int nbv = h / MB;
+    const int unit_rec = nbv * (w / MB) * d;
+    const StripGeom g = strip_geometry(MB, w, d, (int)sizeof(Tout));
+    const long long strips_unit = (long long)nbv * g.spr;
+    const long long grid = strips_unit * n_units;
+    if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+    if (grid == 0) return 0;
     const uint32_t* v = reinterpret_cast<const uint32_t*>(valid);
     Tout* out = static_cast<Tout*>(img);
     if (valid)
-        decode_records_lut_kernel<Tout, IS_INT, MB, true><<<grid, WARPS * 32, 0, st>>>(
-            words, n_bytes, starts, v, zmax, inv, inv_i, h, w, d, nbh, unit_rec, n_rec, dt,
-            size_t_, is_signed, version5, lut, cap_nb, out, flags);
+        decode_records_lut_kernel<Tout, IS_INT, MB, true><<<(unsigned)grid, STRIP_THREADS, 0, st>>>(
+            words, n_bytes, starts, v, zmax, inv, inv_i, h, w, d, unit_rec, (int)strips_unit, dt,
+            version5, lut, cap_nb, g, out, flags);
     else
-        decode_records_lut_kernel<Tout, IS_INT, MB, false><<<grid, WARPS * 32, 0, st>>>(
-            words, n_bytes, starts, nullptr, zmax, inv, inv_i, h, w, d, nbh, unit_rec, n_rec, dt,
-            size_t_, is_signed, version5, lut, cap_nb, out, flags);
+        decode_records_lut_kernel<Tout, IS_INT, MB, false><<<(unsigned)grid, STRIP_THREADS, 0, st>>>(
+            words, n_bytes, starts, nullptr, zmax, inv, inv_i, h, w, d, unit_rec,
+            (int)strips_unit, dt, version5, lut, cap_nb, g, out, flags);
     return (int)cudaGetLastError();
 }
 
 template <typename Tout, bool IS_INT>
 int launch_lut_of(int mb, const uint8_t* words, long long n_bytes, const int* starts,
                   const int* valid, const int* zmax, double inv, int inv_i, int h, int w, int d,
-                  int n_units, int dt, int size_t_, int is_signed, int version5, int lut,
-                  int cap_nb, void* img, int* flags, cudaStream_t st) {
-#define K4L_ARGS words, n_bytes, starts, valid, zmax, inv, inv_i, h, w, d, n_units, dt, size_t_, \
-                 is_signed, version5, lut, cap_nb, img, flags, st
+                  int n_units, int dt, int version5, int lut, int cap_nb, void* img, int* flags,
+                  cudaStream_t st) {
+#define K4L_ARGS words, n_bytes, starts, valid, zmax, inv, inv_i, h, w, d, n_units, dt, version5, \
+                 lut, cap_nb, img, flags, st
     if (mb == 8) return launch_lut<Tout, IS_INT, 8>(K4L_ARGS);
     if (mb == 16) return launch_lut<Tout, IS_INT, 16>(K4L_ARGS);
 #undef K4L_ARGS
@@ -1116,9 +1191,10 @@ extern "C" int decode_records_lut(const uint8_t* words, long long n_bytes, const
                                   int h, int w, int d, int mb, int n_units, int dt, int size_t_,
                                   int is_signed, int version5, int lut, int cap_nb, void* img,
                                   int* flags, void* stream) {
+    (void)size_t_, (void)is_signed;  // the instance's Tout: dt's size and sign
     cudaStream_t st = (cudaStream_t)stream;
 #define K4L_ARGS mb, words, n_bytes, starts, valid, zmax, inv, inv_i, h, w, d, n_units, dt, \
-                 size_t_, is_signed, version5, lut, cap_nb, img, flags, st
+                 version5, lut, cap_nb, img, flags, st
     switch (dt) {
         case 0: return launch_lut_of<int8_t, true>(K4L_ARGS);
         case 1: return launch_lut_of<uint8_t, true>(K4L_ARGS);

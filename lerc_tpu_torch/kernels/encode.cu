@@ -10,8 +10,10 @@
 // version routes bits with one-hot matmuls and static roll chains, and sorts
 // each block's values with jnp.sort, because XLA gathers and scatters are
 // slow there; on Hopper one warp owns one block: shuffles reduce it, and
-// shared-memory atomicOr assembles its record. The integer K1 is a strip
-// kernel instead: a warp a strip of blocks, a thread a block (below).
+// shared-memory atomicOr assembles its record. The integer K1 and K2 are
+// strip kernels instead: K1 a warp a strip of blocks, a thread a block; K2
+// a CTA a strip, its records built as one span, a thread a header or a
+// record's payload row (below).
 //
 // One warp, one block of MB x MB values, VPL = MB*MB/32 values per lane:
 // value j = 32k + lane (k < VPL) is block position j in row-major order.
@@ -506,11 +508,11 @@ __global__ void encode_blocks_masked_kernel(const float* __restrict__ data,
 // form: the f32 maximum is int_to_f32 of the max (the conversion is
 // monotone in the order); lossless, max_q is hi - zmin, and max_qd is
 // dmax - dmin (each value's distance from the min, as u32, is at most the
-// max's). The record (int_record, the decision as before, verbatim) goes
-// to a shared buffer, stored as 16-byte stores over the strip; the
-// per-depth ranges meet in shared atomics, one global atomicMin/atomicMax
-// per depth and CTA (unsigned for uint32); fits is stored once, when it
-// drops.
+// max's). The record (int_record, the decision as before; a block forced
+// raw takes no diff) goes to a shared buffer, stored as 16-byte stores over
+// the strip; the per-depth ranges meet in shared atomics, one global
+// atomicMin/atomicMax per depth and CTA (unsigned for uint32); fits is
+// stored once, when it drops.
 // ---------------------------------------------------------------------------
 
 constexpr int K1S_PITCH = STRIP_OUT / 8 + 16;  // a staged row's bytes at most
@@ -548,7 +550,9 @@ __device__ __forceinline__ int4 int_record(const EncP& P, int flip, int cnt, int
         const int stuff_len_d = 1 + off_w_d + (max_qd ? 2 + ((cnt * nbd + 7) >> 3) : 0);
         const bool const0_d = dmin == 0 && dmax == 0;
         const int diff_len = const0_d ? 1 : stuff_len_d;
-        use_diff = P.lossless && cnt > 0 && !const0 && diff_len < stuff_len && diff_len < raw_len;
+        // a block forced raw stays absolute (the reference tries no diff for it)
+        use_diff = P.lossless && cnt > 0 && !const0 && !force_raw && diff_len < stuff_len
+                   && diff_len < raw_len;
         if (use_diff) {
             const0 = const0_d;
             stuff_len = stuff_len_d;
@@ -799,6 +803,180 @@ __global__ void __launch_bounds__(32) encode_blocks_int_kernel(
     if (__any_sync(FULL, bad) && lane == 0) *fits = 0;
 }
 
+// ---------------------------------------------------------------------------
+// K2, integer instances (encode_tiles :889-958 with the integer values
+// :591-614, :677-722): strips. A CTA of K2S_THREADS owns the strip of the
+// integer K1 (record.cuh strip_shape with lead 1: S consecutive 8x8 blocks
+// of one block row with all their D records, or one block and its depths in
+// chunks, each staged with the slice before it), whose image rows it stages
+// in shared memory with 16-byte loads as K1 does; the chunk's rec_info and
+// starts are one coalesced read each. Its records are consecutive, so their
+// bytes are one span [starts[ra], starts[rb]), built in a zeroed buffer in
+// shared memory by shared atomicOr: each header by one thread, each block
+// row of each record's payload by one thread, which packs the row's values
+// -- taken from the stage: quantize_int against the block min, the
+// difference to slice di-1 less the diff min, or the raw bytes, as the
+// warp-a-record body did -- LSB-first at the bit its rank gives (with a
+// mask, the valid positions before the row) and ORs the words it fills.
+// The CTA then writes the span with aligned 16-byte stores; only the
+// 16-byte chunks it shares with the neighbouring strips merge by atomicOr
+// into the zeroed stream (words past cap_w are not written). A stuffed
+// record is shorter than its raw form, so a span holds at most the strip's
+// image bytes plus a byte a record; where a chunk's starts are not the
+// running sum of its lengths, or its span passes the buffer, its records
+// go one at a time. At D = 1 and 3 (DC) the record's block is a constant
+// division away.
+// ---------------------------------------------------------------------------
+
+constexpr int K2S_THREADS = 128;  // 256 ran 8-25% slower (chip_tune_k4k2.py)
+constexpr int K2S_SPAN = STRIP_OUT + K1S_REC + 32;  // span bytes, with the head's misalignment
+
+// OR `v` into word wi of the span's buffer, its bits at or past bit `end` dropped
+__device__ __forceinline__ void k2_or(uint32_t* buf, int wi, uint32_t v, int end) {
+    const int lo = 32 * wi;
+    if (end <= lo) return;
+    if (end < lo + 32) v &= (1u << (end - lo)) - 1u;
+    if (v) atomicOr(buf + wi, v);
+}
+
+template <typename T, bool MASKED, int DC>
+__global__ void __launch_bounds__(K2S_THREADS) write_records_int_kernel(
+        const T* __restrict__ data, const int2* __restrict__ valid, int h, int w, int d, int nbh,
+        int S, int dc, int spr, EncP P, const int* __restrict__ rec_info,
+        const int* __restrict__ starts, uint32_t* __restrict__ stream, long long cap_w) {
+    constexpr int SZ = sizeof(T);
+    __shared__ __align__(16) uint8_t stage[8 * K1S_PITCH];
+    __shared__ uint4 span4[K2S_SPAN / 16];
+    __shared__ int4 srec[K1S_REC];
+    __shared__ int sst[K1S_REC];
+    __shared__ uint64_t bm[STRIP_PX / 64];  // the blocks' validity
+    uint32_t* buf = reinterpret_cast<uint32_t*>(span4);
+    const int tid = threadIdx.x;
+    const int brow = blockIdx.x / spr, c0 = (blockIdx.x - brow * spr) * S;
+    const int nb = min(S, nbh - c0);        // blocks of the strip
+    const int row0 = 8 * brow, col0 = 8 * c0;
+    const int npx = min(8 * nb, w - col0);  // in-image pixels a row
+    const int rows = min(8, h - row0);
+    const long long b0 = (long long)brow * nbh + c0;
+    if (tid < nb) {
+        int cnt;
+        bm[tid] = block_bits<MASKED>(valid, b0 + tid, cnt);
+    }
+    for (int dlo = 0; dlo < d; dlo += dc) {
+        const int dn = DC ? DC : min(dc, d - dlo);
+        const int sd0 = dn == d ? 0 : max(0, dlo - 1);  // the first staged depth
+        const int nsl = dn == d ? d : dlo + dn - sd0;   // staged depths a pixel
+        const int pitch = dn == d ? (8 * S * d * SZ + 15) / 16 * 16 : 8 * nsl * SZ;
+        const int n_r = nb * dn;
+        const long long ra = b0 * d + dlo;  // the chunk's records are consecutive
+        if (dn == d) {  // whole rows: the image's bytes, 16 a load
+            const int len = npx * d * SZ, nch = (len + 15) / 16;
+            for (int t = tid; t < rows * nch; t += K2S_THREADS) {
+                const int r = t / nch, m = t - r * nch;
+                const uint8_t* src = reinterpret_cast<const uint8_t*>(data)
+                                     + (((long long)(row0 + r) * w + col0) * d) * SZ + 16 * m;
+                *reinterpret_cast<uint4*>(stage + r * pitch + 16 * m) =
+                    load16(src, min(16, len - 16 * m));
+            }
+        } else {  // a chunk of depths: element by element
+            const int n = rows * npx * nsl;
+            for (int t = tid; t < n; t += K2S_THREADS) {
+                const int r = t / (npx * nsl), rem = t - r * npx * nsl;
+                const int px = rem / nsl, k = rem - px * nsl;
+                *reinterpret_cast<T*>(stage + r * pitch + (px * nsl + k) * SZ) =
+                    data[((long long)(row0 + r) * w + col0 + px) * d + sd0 + k];
+            }
+        }
+        bool contig = true;  // each start the running sum of the lengths before it
+        for (int t = tid; t < n_r; t += K2S_THREADS) {
+            srec[t] = reinterpret_cast<const int4*>(rec_info)[ra + t];
+            sst[t] = starts[ra + t];
+            if (t + 1 < n_r) contig &= starts[ra + t + 1] - sst[t] == srec[t].x;
+        }
+        contig = __syncthreads_and(contig);
+        const long long span_len = (long long)sst[n_r - 1] - sst[0] + srec[n_r - 1].x;
+        const bool one = contig && span_len > 0 && span_len + 16 <= K2S_SPAN;
+        for (int ga = 0; ga < n_r; ga = one ? n_r : ga + 1) {  // groups: the chunk, or a record
+            const int gb = one ? n_r : ga + 1;
+            const long long g0 = sst[ga];
+            const int mis = (int)(g0 & 15);
+            const int len = one ? (int)span_len : max(0, min(srec[ga].x, K2S_SPAN - 16));
+            for (int c = tid; c < (mis + len + 15) >> 4; c += K2S_THREADS)
+                span4[c] = make_uint4(0, 0, 0, 0);
+            __syncthreads();
+            for (int t = ga + tid; t < gb; t += K2S_THREADS) {  // headers (Lerc2 WriteTile)
+                const int4 ri = srec[t];
+                const int mode = (ri.y >> 8) & 3, off_w = ri.y >> 24;
+                const int at = mis + (sst[t] - (int)g0), bl = t / dn;
+                const int hl = min(mode == 1 ? 3 + off_w : mode == 3 ? 1 + off_w : 1, ri.x);
+                const int cnt = MASKED ? __popcll(bm[bl]) : 64;
+                for (int k = 0; k < hl; ++k) {  // flag, offset bytes, numBits byte, count
+                    const uint32_t b = (k == 0 ? (uint32_t)ri.y
+                                        : k <= off_w ? (uint32_t)ri.z >> (8 * (k - 1))
+                                        : k == 1 + off_w ? (uint32_t)((ri.y >> 16) | 0x80)
+                                                         : (uint32_t)cnt) & 0xFFu;
+                    if (at + k >= 0) k2_or(buf, (at + k) >> 2, b << (8 * ((at + k) & 3)),
+                                           8 * K2S_SPAN);
+                }
+            }
+            for (int it = tid; it < 8 * (gb - ga); it += K2S_THREADS) {  // payload rows
+                const int r = it / (gb - ga), t = ga + it - r * (gb - ga);
+                const int4 ri = srec[t];
+                const int mode = (ri.y >> 8) & 3, off_w = ri.y >> 24;
+                if (mode != 0 && mode != 1) continue;
+                const int bl = t / dn, di = dlo + t - bl * dn;
+                const uint64_t vm = bm[bl];
+                const int width = mode == 0 ? 8 * P.size : (ri.y >> 16) & 0xFF;
+                const int rank0 = MASKED ? __popcll(vm & ((1ull << (8 * r)) - 1)) : 8 * r;
+                const int hl = mode == 1 ? 3 + off_w : 1;
+                const int at = mis + (sst[t] - (int)g0);
+                if (at < 0) continue;
+                const int end = min(at + ri.x, K2S_SPAN) * 8;  // no bit past the record
+                const int bit = (at + hl) * 8 + rank0 * width;
+                const bool diff = (ri.y >> 10) & 1, prev_staged = di > sd0;
+                const uint8_t* rp = stage + r * pitch + ((bl * 8) * nsl + di - sd0) * SZ;
+                int wi = bit >> 5, nacc = bit & 31;
+                uint64_t acc = 0;
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                    if (MASKED && !((vm >> (8 * r + c)) & 1u)) continue;
+                    const uint8_t* v_at = rp + c * nsl * SZ;
+                    const int x = staged<T>(v_at);
+                    uint32_t v;
+                    if (mode == 0) v = low_bytes((uint32_t)x, P.size);
+                    else if (diff) v = (uint32_t)wrap_sub(
+                        wrap_sub(x, prev_staged ? staged<T>(v_at - SZ) : 0), ri.w);
+                    else v = quantize_int(x, ri.w, P.lossless, P.scale, P.inv_i);
+                    acc |= (uint64_t)v << nacc;
+                    nacc += width;
+                    if (nacc >= 32) {
+                        k2_or(buf, wi++, (uint32_t)acc, end);
+                        acc >>= 32;
+                        nacc -= 32;
+                    }
+                }
+                if (nacc > 0) k2_or(buf, wi, (uint32_t)acc, end);
+            }
+            __syncthreads();
+            // the span to the stream: whole chunks stored, the edge chunks' words ORed
+            const long long gw0 = (g0 - mis) >> 2;
+            for (int c = tid; c < (mis + len + 15) >> 4; c += K2S_THREADS) {
+                const long long gw = gw0 + 4 * c;
+                if (16 * c >= mis && 16 * c + 16 <= mis + len && gw >= 0 && gw + 4 <= cap_w) {
+                    *reinterpret_cast<uint4*>(stream + gw) = span4[c];
+                    continue;
+                }
+                for (int q = 0; q < 4; ++q) {
+                    const int a = 16 * c + 4 * q;  // the word's bytes [a, a + 4) meet the span
+                    if (gw + q < 0 || gw + q >= cap_w || a + 4 <= mis || a >= mis + len) continue;
+                    atomicOr(stream + gw + q, buf[4 * c + q]);
+                }
+            }
+            __syncthreads();  // the buffer is the next group's
+        }
+    }
+}
+
 // ---- K1 with the LUT candidate (the band codec's), 8x8 or 16x16 blocks,
 // validity words always (all set for an aligned all-valid image)
 
@@ -951,8 +1129,8 @@ __global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
                 lut_candidate(n_lut_d, nbd, cnt, off_w_d, cw, max_qd, stuff_len_d, use_lut_d);
                 const bool const0_d = dmin == 0 && dmax == 0;
                 const int diff_len = const0_d ? 1 : stuff_len_d;
-                use_diff = P.lossless && cnt > 0 && !const0 && diff_len < stuff_len
-                           && diff_len < raw_len;
+                use_diff = P.lossless && cnt > 0 && !const0 && !force_raw
+                           && diff_len < stuff_len && diff_len < raw_len;
                 if (use_diff) {
                     const0 = const0_d;
                     stuff_len = stuff_len_d;
@@ -1013,16 +1191,15 @@ __device__ __forceinline__ void flush_record(const uint32_t* buf, long long s, i
     }
 }
 
-// ---- K2 without the LUT candidate, 8x8 blocks: lane l holds block
-// positions l and l + 32, whose validity bits are bit l of the block's two
-// words
+// ---- K2 without the LUT candidate, float32, 8x8 blocks: lane l holds
+// block positions l and l + 32, whose validity bits are bit l of the
+// block's two words (the integer K2 is the strip kernel above)
 
-template <typename T, bool MASKED>
+template <bool MASKED>
 __device__ __forceinline__ void write_records_body(
-        const T* __restrict__ data, const int2* __restrict__ valid, int w, int d, int nbh,
+        const float* __restrict__ data, const int2* __restrict__ valid, int w, int d, int nbh,
         int n_rec, const EncP& P, const int* __restrict__ rec_info,
         const int* __restrict__ starts, uint32_t* __restrict__ stream, long long cap_w) {
-    constexpr bool IS_INT = !std::is_same<T, float>::value;
     constexpr int BUF_W = 72;  // record words: 3 + 257 bytes + spill
     __shared__ uint32_t buf_all[WARPS][BUF_W];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1063,40 +1240,24 @@ __device__ __forceinline__ void write_records_body(
     }
     __syncwarp();
 
-    // payload: LSB-first bit-stuffed quantized values (integers: or the
-    // differences to slice di-1 less the diff minimum), or the raw values
+    // payload: LSB-first bit-stuffed quantized values, or the raw values
     if (mode == 0 || mode == 1) {
         const bool ok0 = !MASKED || ((vw0 >> lane) & 1u);
         const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
-        T x0, x1;
-        load_pair<T, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
-        const int width = mode == 0 ? (IS_INT ? 8 * P.size : 32) : nb;
+        float x0, x1;
+        load_pair<float, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
+        const int width = mode == 0 ? 32 : nb;
         const int pay = 8 * (sh + (mode == 0 ? 1 : 3 + off_w));
         const int zq = info[3];
         uint32_t v[2];
-        if constexpr (IS_INT) {
-            if (mode == 0) {
-                v[0] = low_bytes((uint32_t)(int)x0, P.size);
-                v[1] = low_bytes((uint32_t)(int)x1, P.size);
-            } else if ((desc >> 10) & 1) {
-                T p0, p1;
-                load_pair<T, MASKED>(data, w, d, nbh, b, di - 1, lane, ok0, ok1, p0, p1);
-                v[0] = (uint32_t)wrap_sub(wrap_sub((int)x0, (int)p0), zq);
-                v[1] = (uint32_t)wrap_sub(wrap_sub((int)x1, (int)p1), zq);
-            } else {
-                v[0] = quantize_int((int)x0, zq, P.lossless, P.scale, P.inv_i);
-                v[1] = quantize_int((int)x1, zq, P.lossless, P.scale, P.inv_i);
-            }
+        if (mode == 0) {
+            v[0] = __float_as_uint(x0);
+            v[1] = __float_as_uint(x1);
         } else {
-            if (mode == 0) {
-                v[0] = __float_as_uint(x0);
-                v[1] = __float_as_uint(x1);
-            } else {
-                v[0] = quantize(x0, __int_as_float(zq), P.scale, P.inv);
-                v[1] = quantize(x1, __int_as_float(zq), P.scale, P.inv);
-            }
+            v[0] = quantize(x0, __int_as_float(zq), P.scale, P.inv);
+            v[1] = quantize(x1, __int_as_float(zq), P.scale, P.inv);
         }
-        const uint32_t lt = (1u << lane) - 1u;
+    const uint32_t lt = (1u << lane) - 1u;
         for (int k = 0; k < 2; ++k) {
             if (!(k ? ok1 : ok0)) continue;
             const int rank = !MASKED ? lane + 32 * k
@@ -1112,7 +1273,7 @@ __global__ void write_records_kernel(const float* __restrict__ data, int w, int 
                                      int n_rec, EncP P, const int* __restrict__ rec_info,
                                      const int* __restrict__ starts,
                                      uint32_t* __restrict__ stream, long long cap_w) {
-    write_records_body<float, false>(data, nullptr, w, d, nbh, n_rec, P, rec_info, starts,
+    write_records_body<false>(data, nullptr, w, d, nbh, n_rec, P, rec_info, starts,
                                      stream, cap_w);
 }
 
@@ -1122,18 +1283,8 @@ __global__ void write_records_masked_kernel(const float* __restrict__ data,
                                             const int* __restrict__ rec_info,
                                             const int* __restrict__ starts,
                                             uint32_t* __restrict__ stream, long long cap_w) {
-    write_records_body<float, true>(data, valid, w, d, nbh, n_rec, P, rec_info, starts, stream,
+    write_records_body<true>(data, valid, w, d, nbh, n_rec, P, rec_info, starts, stream,
                                     cap_w);
-}
-
-template <typename T, bool MASKED>
-__global__ void write_records_int_kernel(const T* __restrict__ data,
-                                         const int2* __restrict__ valid, int w, int d, int nbh,
-                                         int n_rec, EncP P, const int* __restrict__ rec_info,
-                                         const int* __restrict__ starts,
-                                         uint32_t* __restrict__ stream, long long cap_w) {
-    write_records_body<T, MASKED>(data, valid, w, d, nbh, n_rec, P, rec_info, starts, stream,
-                                  cap_w);
 }
 
 // ---- K2 with the LUT candidate (the band codec's), 8x8 or 16x16 blocks,
@@ -1499,6 +1650,23 @@ int launch_k1_lut(const void* data, const int* valid, int h, int w, int d, int t
     return (int)cudaGetLastError();
 }
 
+// the integer K2 (strips) of one mask instance: D = 1 and 3 as constants
+template <typename T, bool MASKED>
+void launch_k2_int_strips(const T* x, const int2* v, int h, int w, int d, int nbh,
+                          const StripShape& g, const EncP& P, const int* rec_info,
+                          const int* starts, uint32_t* out, long long cap_w, cudaStream_t st) {
+    const unsigned grid = (unsigned)((h + 7) / 8 * g.spr);
+    if (g.dc == d && d == 1)
+        write_records_int_kernel<T, MASKED, 1><<<grid, K2S_THREADS, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, starts, out, cap_w);
+    else if (g.dc == d && d == 3)
+        write_records_int_kernel<T, MASKED, 3><<<grid, K2S_THREADS, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, starts, out, cap_w);
+    else
+        write_records_int_kernel<T, MASKED, 0><<<grid, K2S_THREADS, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, starts, out, cap_w);
+}
+
 // the LUT-free K2, 8x8 blocks; valid null for an aligned all-valid image
 template <typename T>
 int launch_k2(const void* data, const int* valid, int h, int w, int d, const EncP& P,
@@ -1516,13 +1684,14 @@ int launch_k2(const void* data, const int* valid, int h, int w, int d, const Enc
         else
             write_records_kernel<<<grid, WARPS * 32, 0, st>>>(x, w, d, nbh, n_rec, P, rec_info,
                                                               starts, out, cap_w);
-    } else {
-        if (valid)
-            write_records_int_kernel<T, true><<<grid, WARPS * 32, 0, st>>>(
-                x, v, w, d, nbh, n_rec, P, rec_info, starts, out, cap_w);
-        else
-            write_records_int_kernel<T, false><<<grid, WARPS * 32, 0, st>>>(
-                x, nullptr, w, d, nbh, n_rec, P, rec_info, starts, out, cap_w);
+    } else {  // the integer K2 (strips): a CTA a strip of the integer K1
+        const StripShape g = strip_shape(8, w, d, (int)sizeof(T), 1);
+        if ((long long)(h + 7) / 8 * g.spr > INT_MAX) return (int)cudaErrorInvalidValue;
+        if ((long long)h * w * d == 0) return 0;
+        if (valid) launch_k2_int_strips<T, true>(x, v, h, w, d, nbh, g, P, rec_info, starts, out,
+                                                 cap_w, st);
+        else launch_k2_int_strips<T, false>(x, nullptr, h, w, d, nbh, g, P, rec_info, starts, out,
+                                            cap_w, st);
     }
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@ plain version).
 Port of ``lerc_tpu/ops/device_decode.py::decode_tiles_fast`` (:64): for the
 resident codec's path float32, 8x8 micro blocks, all-valid or masked, one
 tile, no LUT; for the mosaic's (``decode_records_lut``, below) LUT records,
-8x8 and 16x16 blocks, n units in one launch, per-unit flags. Each record is
+8x8 and 16x16 blocks, n units in one launch, the depth-diff chain of
+``decode_tiles`` (:625-698), per-unit flags. Each record is
 parsed at its entry of the encoder's ``starts`` index;
 values are extracted LSB-first and dequantized with the exact double
 ScaleBack of ``_exact_f32_scale_back`` (:30): ``(float)min(zMin +
@@ -53,7 +54,8 @@ suffix (``_f64`` for float64).
 Where it decodes a block the host decoder refuses (lerc2_decode.py
 :233-306, bitstuffer.py:191-222), ``ok`` drops: a stuffed count over the
 block's in-image area or under its valid count (and not the area), a LUT
-index past the LUT, a raw diff record, a diff record on slice 0.
+index past the LUT, a raw diff record, a diff record on slice 0. uint32's
+diff chain clamps in u32 order, as its plain values do.
 """
 from __future__ import annotations
 
@@ -80,8 +82,10 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
     False -- returns (img [H, W, D], index_ok 0-d bool, fits 0-d bool); a
     depth-diff record clears index_ok. The mosaic's form -- enable_lut,
     mb = 16 or n_tiles > 1 -- returns per unit (img [nTiles, H, W, D] for
-    every n_tiles, index_ok [nTiles], fits [nTiles], diff [nTiles]), the
-    depth-diff flag apart from index errors (``decode_records_lut``). Both
+    every n_tiles, index_ok [nTiles], fits [nTiles], scanned [nTiles]): it
+    adds the depth-diff chain, and `scanned` marks, apart from index errors,
+    a unit with a diff record the chain cannot take (on slice 0, or raw;
+    the host decoder refuses both) (``decode_records_lut``). Both
     on the stream's device, with no host synchronization; img is float32,
     or the native dtype of an integer `dt`.
 
@@ -333,8 +337,9 @@ def decode_records_lut(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.T
                        mb: int, n_units: int, lut: bool = True, cap_nb: int = 32,
                        valid: torch.Tensor | None = None):
     """(img [nUnits, H, W, D] in dt's dtype (float32 for FLOAT), flags
-    [nUnits, 3] int32 = {index_ok, fits, diff}) -- one launch over every
-    unit's records (kernels/decode.cu, ``decode_records_lut``).
+    [nUnits, 3] int32 = {index_ok, fits, scanned}) -- one launch over every
+    unit's records with the depth-diff chain (kernels/decode.cu,
+    ``decode_records_lut``); scanned: a diff record on slice 0 or a raw one.
 
     stream: [S] int32 u32 words; starts: [nUnits * nRec] int32 absolute byte
     offsets; zmax: [nUnits, D] float32, or int32 for integers (uint32 as its
@@ -376,7 +381,8 @@ def decode_records_lut_ref(stream, starts, zmax, inv: float, inv_i: int, h: int,
                            dt: DataType, version: int, mb: int, n_units: int, lut: bool,
                            cap_nb: int, valid: torch.Tensor | None = None):
     """Plain PyTorch version of the mosaic's K4 (int64 bit arithmetic; the
-    f64 ScaleBack as two separately rounded operations)."""
+    f64 ScaleBack as two separately rounded operations; the depth-diff
+    chain as a loop over depth, as ``decode_scanned_ref``)."""
     dev = stream.device
     bs = mb * mb
     sb = stream.view(torch.uint8).to(torch.int64)
@@ -418,28 +424,47 @@ def decode_records_lut_ref(stream, starts, zmax, inv: float, inv_i: int, h: int,
     idx = extract((pay + lut_bytes)[:, None], rank, nbits_lut[:, None])
     q_lut = torch.where(idx == 0, 0, extract(pay[:, None], (idx - 1).clamp(min=0), nb[:, None]))
     q = torch.where(is_lut[:, None], q_lut, q)
+    qs = torch.where((mode == 1)[:, None], q, 0)  # the quanta of stuffed and LUT records
 
     zm = zmax.to(torch.int64 if dt_is_int(dt) else torch.float32)[:, None, :].expand(
         n_units, n // (n_units * d), d).reshape(n)[:, None]
     m2 = mode[:, None]
     if dt_is_int(dt):
         off2 = int_offset_ref(acc, off_w, odt, b67)[:, None]
-        a = _i32(off2 + q * inv_i)
+        a = _i32(off2 + qs * inv_i)  # the pre-clamp sum (the offset for other modes)
         if dt == DataType.UINT:  # the clamp in u32 order
-            z_stuff = torch.minimum(a & 0xFFFFFFFF, zm & 0xFFFFFFFF)
+            def clamp(x, zm_d):
+                return torch.minimum(x & 0xFFFFFFFF, zm_d & 0xFFFFFFFF)
         else:
-            z_stuff = torch.minimum(a, zm)
+            def clamp(x, zm_d):
+                return torch.minimum(x, zm_d)
         z = torch.where(m2 == 0, raw_int_ref(q, size, dt_is_signed(dt)),
-                        torch.where(m2 == 2, 0, torch.where(m2 == 3, off2, z_stuff)))
-        z = torch.where(vb, z, 0)
+                        torch.where(m2 == 2, 0, torch.where(m2 == 3, off2, clamp(a, zm))))
+
+        def chain(prev, ad_d, zm_d, c0):  # decode_tiles :641-644
+            return torch.where(c0, prev, clamp(_i32(ad_d + prev), zm_d))
     else:
-        offset = float_offset_ref(acc, b67)
-        z_stuff = (offset.double()[:, None] + q.double() * inv).float()
+        offset = float_offset_ref(acc, b67)[:, None]
+        a = offset.double() + qs.double() * inv  # the pre-clamp f64 sum
+        z_stuff = a.float()
         z_stuff = torch.where(zm < z_stuff, zm, z_stuff)
         z_raw = _as_i32(q).view(torch.float32)
         z = torch.where(m2 == 0, z_raw,
-                        torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset[:, None], z_stuff)))
-        z = torch.where(vb, z, 0.0)
+                        torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset, z_stuff)))
+
+        def chain(prev, ad_d, zm_d, c0):  # (float)(a + (double)prev), then the clamp
+            t = (ad_d + prev.double()).float()
+            return torch.where(c0, prev, torch.where(zm_d < t, zm_d, t))
+    z = torch.where(vb, z, 0)
+    # the depth-diff chain, slice by slice (a diff record on slice 0 adds 0)
+    z, ad, zmd, vbd = (t.expand(n, bs).reshape(-1, d, bs) for t in (z, a, zm, vb))
+    m2d, difd = m2.reshape(-1, d, 1), dif.reshape(-1, d, 1)
+    slices, prev = [], torch.zeros_like(z[:, 0])
+    for di in range(d):
+        zd = chain(prev, ad[:, di], zmd[:, di], m2d[:, di] == 2)
+        prev = torch.where(difd[:, di], torch.where(vbd[:, di], zd, 0), z[:, di])
+        slices.append(prev)
+    z = torch.stack(slices, 1).reshape(n, bs)
     nbv, nbh = h // mb, w // mb
     img = (z.reshape(n_units, nbv, nbh, d, mb, mb).permute(0, 1, 4, 2, 5, 3)
            .reshape(n_units, h, w, d).to(DT_TO_TORCH[dt]).contiguous())
@@ -454,8 +479,10 @@ def decode_records_lut_ref(stream, starts, zmax, inv: float, inv_i: int, h: int,
     last = (torch.arange(n, device=dev) % (n // n_units)) == n // n_units - 1
     bad[:-1] |= (delta != length[:-1]) & ~last[:-1]
     unfit = ((mode == 0) | (mode == 1)) & (width > cap_nb)
+    di = torch.arange(n, device=dev) % d
+    scanned = dif & ((di == 0) | (mode == 0))  # the chain cannot take it: the host refuses it
     flags = torch.stack([~bad.view(n_units, -1).any(1), ~unfit.view(n_units, -1).any(1),
-                         dif.view(n_units, -1).any(1)], 1)
+                         scanned.view(n_units, -1).any(1)], 1)
     return img, flags.to(torch.int32)
 
 
@@ -635,8 +662,11 @@ def decode_scanned_ref(stream, mode, payload_pos, offset, num_bits, num_elements
                                     if dt == DataType.UINT else torch.minimum(a, zm))))
         ad = torch.where(m8 == 3, off, a)
 
-        def chain(prev, ad_d, zm_d, c0):  # :641-644
-            return torch.where(c0, prev, torch.minimum(_i32(ad_d + prev), zm_d))
+        def chain(prev, ad_d, zm_d, c0):  # :641-644; uint32 clamps in u32 order
+            t = _i32(ad_d + prev)
+            if dt == DataType.UINT:
+                return torch.where(c0, prev, torch.minimum(t & 0xFFFFFFFF, zm_d & 0xFFFFFFFF))
+            return torch.where(c0, prev, torch.minimum(t, zm_d))
     elif dt == DataType.DOUBLE:
         off = offset[:, None]
         a = off + q.double() * inv  # the pre-clamp sum

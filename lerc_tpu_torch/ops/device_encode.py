@@ -706,8 +706,10 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
                                                         stuff_len_d)
         const0_d = (dmin == 0) & (dmax == 0)
         diff_len = torch.where(const0_d, 1, stuff_len_d)
+        # a block forced raw stays absolute: the reference tries no diff for
+        # it (lerc2_encode.py), where JAX writes it raw with the diff bit
         use_diff = ((torch.arange(n, device=dev) % d > 0) & p.lossless & has & ~const0
-                    & (diff_len < stuff_len) & (diff_len < raw_len))
+                    & ~force_raw & (diff_len < stuff_len) & (diff_len < raw_len))
         const0 = const0 | (use_diff & const0_d)
         stuff_len = torch.where(use_diff, stuff_len_d, stuff_len)
         nb = torch.where(use_diff, nbd, nb)

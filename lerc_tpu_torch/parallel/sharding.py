@@ -23,10 +23,12 @@ Decode: ``decode_mosaic_device`` flattens the (tile, band) units of each
 micro-block size into one record axis and decodes them in one K4 launch
 (``device_decode.decode_tiles_fast(...)``); with N ranks each
 rank decodes its whole units and the images are all-gathered, so every
-rank returns the raster. Units leave K4 for the scanned decode (the tile's
-band blobs through ``decode_band_device``, K6) for a named reason only:
-float64 records, depth-diff records (K4 reports them apart from index
-errors), no index entry (constant or empty units are filled on the host),
+rank returns the raster. K4 adds the depth-diff chain. Units leave K4 for
+the scanned decode (the tile's band blobs through ``decode_band_device``,
+K6) for a named reason only: float64 records, a depth-diff record the chain
+cannot take (on slice 0, or raw: K4 reports the unit apart from index
+errors, and the host decoder refuses it), no index entry (constant or empty
+units are filled on the host),
 a layout K4 has no instance for (blocks other than 8 or 16, a tile not a
 multiple of the block, codec parameters that differ from the first unit's),
 or a mask that disagrees with the header's valid count. A record index that
@@ -570,17 +572,17 @@ def _decode_tiles_device_batched(info, views, layouts, wanted, ranks: _Ranks):
         valid = None if masks_np is None else device_encode.block_valid_words(
             torch.from_numpy(masks_np).to(dev), mb)
         hd = layouts[group[0][0]][group[0][1]][1]
-        img, ok, _fits, diff = device_decode.decode_tiles_fast(
+        img, ok, _fits, scanned = device_decode.decode_tiles_fast(
             stream, starts, hd.max_z_error, zmax, tile_h, tile_w, d, hd.dt, hd.version,
             mask=valid, mb=mb, n_tiles=n_local, enable_lut=True)
-        flags = torch.stack([ok, diff], 1).to(torch.uint8)
+        flags = torch.stack([ok, scanned], 1).to(torch.uint8)
         imgs_h = ranks.gather(img).cpu().numpy()  # one fetch per group
         flags_h = ranks.gather(flags).cpu().numpy()
         for i, u in enumerate(group):
             if not flags_h[i, 0]:
                 raise ValueError("mosaic: record-offset index inconsistent with stream "
                                  f"(micro-block {mb} group, tile {u[0]} band {u[1]})")
-            if not flags_h[i, 1]:  # depth-diff records: the scanned decode adds the previous slice
+            if not flags_h[i, 1]:  # else a diff record the host refuses: the scanned decode raises
                 out[u] = imgs_h[i]
     return out
 

@@ -316,7 +316,8 @@ def test_jax_mosaic_wide_16x16_fault():
 @pytest.mark.parametrize("np_dt", [np.uint8, np.int16])
 def test_jax_mosaic_depth_diff_fault(np_dt):
     """Depth-diff integer tiles: JAX's batched decode has no diff chain and
-    raises; the port's K4 flags the units and decodes them through K6."""
+    raises; the port's K4 adds the chain and decodes the units itself
+    (test_depth_diff_units_stay_on_k4)."""
     data = _correlated(np_dt)
     blob = P.MosaicEncoder(None, 32, 32, np_dt, n_depth=3, device="cpu").encode(data, None, 0.5)
     if np_dt == np.uint8:  # JAX's encoder writes the same container
@@ -324,6 +325,22 @@ def test_jax_mosaic_depth_diff_fault(np_dt):
     with pytest.raises(ValueError, match="index inconsistent"):
         J.decode_mosaic_device(blob)
     np.testing.assert_array_equal(_assert_decodes_like_the_host(blob), data)
+
+
+@pytest.mark.parametrize("np_dt", [np.uint8, np.int16])
+def test_depth_diff_units_stay_on_k4(np_dt, monkeypatch):
+    """The correlated three-band rasters: every unit holds depth-diff records
+    and K4's chain decodes them; no unit goes to the scanned decode, and the
+    decode equals the host's."""
+    data = _correlated(np_dt)
+    blob = P.MosaicEncoder(None, 32, 32, np_dt, n_depth=3, device="cpu").encode(data, None, 0.5)
+    info, views = P.read_mosaic(blob)
+    so, st = int(info["stream_offs"][0]), info["starts"][0]
+    assert sum(views[0][so + s] & 4 != 0 for s in st if s >= 0) > 10  # diff records
+    monkeypatch.setattr(P, "_decode_tile_blob", lambda *a, **k: pytest.fail("scanned decode"))
+    out = P.decode_mosaic_device(blob, device="cpu")
+    np.testing.assert_array_equal(out, J.decode_mosaic(blob))
+    np.testing.assert_array_equal(out, data)
 
 
 @pytest.mark.parametrize("np_dt,lo", [(np.int32, 2**25 + 1), (np.uint32, 3_000_000_001)])

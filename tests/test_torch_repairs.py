@@ -14,8 +14,19 @@ P6: ``encode_band_device`` of uint32 bands with values of 2^31 and more
     took block minima in signed order (a block across 2^31, or holding
     values near 0 and near 2^32, quantized against the wrong offset). K1
     orders uint32 as unsigned now, blocks and ranges alike. JAX's blobs of
-    the same bands decode wrong (recorded).
+    the same bands decode wrong (recorded);
+P7: K6's depth-diff chain clamped uint32 to zMax in signed order, so a
+    host-encoded uint32 band across 2^31 (zMax of 2^31 or more, diff
+    records on values below it) decoded to zMax there; the chain clamps in
+    u32 order now, as the non-diff records do, equal to the host decoder;
+P8: the device encoder (the integer K1 and its LUT instance, and their
+    plain versions) wrote a block whose own range passes maxValToQuantize
+    (32767 for 16-bit data) raw and still set its diff bit where the diff
+    candidate was shorter: a raw diff record, which the host decoder (and
+    the reference) refuses. A block forced raw takes no diff now, as the
+    host encoder does; JAX's encode_tiles keeps the bit (recorded).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +35,8 @@ from lerc_tpu.codec import device_codec as jax_codec
 from lerc_tpu.codec import lerc2_decode
 from lerc_tpu_torch.codec import lerc2_decode as port_lerc2_decode
 from lerc_tpu.codec.lerc2_encode import BandEncoder
+from lerc_tpu.constants import DataType as JDT
+from lerc_tpu.ops import device_encode as jenc
 from lerc_tpu.codec.resident import ResidentCodec as JaxResident
 from lerc_tpu_torch import ResidentCodec, decode_band_device, encode_band_device
 from lerc_tpu_torch.codec.device_codec import band_sections
@@ -172,3 +185,50 @@ def test_p6_int32_wide_blocks_written_raw():
     assert _host_error(blob, a) == [0, 0]
     np.testing.assert_array_equal(decode_band_device(blob, device="cpu").data.numpy(), a)
     assert _host_error(jax_codec.encode_band_device(a, None, 4.0), a)[1] == "corrupt LUT block"
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all-valid", "masked"])
+def test_p7_uint32_diff_chain_across_2_31(masked):
+    rng = np.random.default_rng(17)
+    base = 2**31 - 200 + rng.integers(0, 400, (40, 37))
+    bands = [base]
+    for _ in range(2):
+        bands.append(bands[-1] + rng.integers(-2, 3, (40, 37)))
+    data = np.stack(bands, -1).astype(np.uint32)
+    mask = rng.random((40, 37)) > 0.25 if masked else None
+    blob = BandEncoder(data, mask, 0.0).encode()  # lossless v6: depth-diff records
+    host = lerc2_decode.decode_band(blob)
+    port = decode_band_device(blob, device="cpu")
+    np.testing.assert_array_equal(port.data.cpu().numpy(), np.asarray(host.data))
+    sel = np.ones((40, 37), bool) if mask is None else mask
+    np.testing.assert_array_equal(np.asarray(host.data)[sel], data[sel])
+
+
+def _cliff_bands(npdt, h=16, w=48):
+    """Three close slices of small values but for the first block column,
+    whose 8x8 blocks span more than 32767 (a cliff): lossless 16-bit blocks
+    forced raw, whose slice-to-slice differences are small."""
+    rng = np.random.default_rng(19)
+    lo, hi = (-20000, 20000) if npdt == np.int16 else (100, 60000)
+    s0 = rng.integers(0, 50, (h, w))
+    s0[:, :8] += np.where(np.arange(8)[None, :] < 4, lo, hi)
+    s = [s0]
+    for _ in range(2):
+        s.append(s[-1] + rng.integers(0, 3, (h, w)))
+    return np.stack(s, -1).astype(npdt)
+
+
+@pytest.mark.parametrize("npdt", [np.int16, np.uint16])
+def test_p8_wide_16bit_blocks_raw_without_diff(npdt):
+    data = _cliff_bands(npdt)
+    blob = encode_band_device(data, None, 0.5, device="cpu")
+    assert band_sections(memoryview(blob)).kind == "tiling"
+    np.testing.assert_array_equal(np.asarray(lerc2_decode.decode_band(blob).data), data)
+    np.testing.assert_array_equal(decode_band_device(blob, device="cpu").data.numpy(), data)
+    if npdt == np.int16:  # JAX's encoder: raw records with the diff bit
+        h, w, d = data.shape
+        s, tot, _zmn, _zmx, st, _f = jenc.encode_tiles(
+            jnp.asarray(data.astype(np.int32)), jnp.ones((h, w), bool), jnp.float32(0.5), h, w,
+            d, JDT.SHORT, True, 6, 1 << 14)
+        flags = np.asarray(s).view(np.uint8)[np.asarray(st)]
+        assert ((flags & 3 == 0) & (flags & 4 != 0)).sum() > 0
