@@ -116,6 +116,20 @@ measured. MEASURE is one of:
        as a control (k1int's inputs; each tile's records from K1, starts
        by cumsum), each set round-robin past the L2: the device time of
        the kernel (names holding "write_records").
+  k1lut  every instance of the LUT K1 (encode_blocks_lut_kernel) that a path
+       launches, on the inputs the path gives it, through the path's own
+       call (the kernel's rows alone counted): the band codec's encode_tiles
+       on the four float32 DEM tiles at maxZError 0.001, all-valid and with
+       the bench mask, and on their uint16 class grids (maxZError 0.5, int32
+       input), each round-robin past the L2, 8x8 and 16x16 blocks; the
+       mosaic's encode_tiles_batched on the 64-tile stacks of 512^2 that
+       MosaicEncoder (one rank) hands it -- the DEM all-valid and with the
+       bench mask on each quarter, the class grid and the uint8 three-band
+       image -- at both block sizes (the tree's own all-valid hint where it
+       takes one), each also in one cold-L2 window (a 256 MB fill before
+       every call, the fill not counted); a sha256 of every call's whole
+       outputs (the streams, starts, ranges and fits), equal in every turn
+       where the blobs are byte-equal.
   instances  the tree's own chip_smoke phases 5b and 13b on one DEM tile:
        every integer instance of K1, K2, K4 and K6 no timed path takes and
        K6's masked, 16x16 and float64 instances, each held to its plain
@@ -678,6 +692,79 @@ def k2int_turn(cs, dev) -> dict:
     return out
 
 
+K1LUT = ("encode_blocks_lut_kernel",)
+
+
+def k1lut_sets(cs, dev) -> dict:
+    """{label: [calls]}: each LUT K1 instance a path launches, through the
+    path's own call (the band codec's encode_tiles on four tiles, the
+    mosaic's encode_tiles_batched on one 64-tile stack). The calls also
+    launch K2 and glue; only K1's rows are to be counted."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch.constants import NUMPY_TO_DT, DataType
+    from lerc_tpu_torch.ops import device_encode as enc
+    from lerc_tpu_torch.parallel import sharding as S
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    mask = cs.bench_mask()
+    mask_t = torch.from_numpy(mask).to(dev)
+    grids = [cs.class_grid(t).to(torch.int32).contiguous() for t in tiles]
+    h, w, _ = tiles[0].shape
+    out = {}
+    for label, xs, dt, mze, m in (("band_dem", tiles, DataType.FLOAT, 0.001, None),
+                                  ("band_dem_mask", tiles, DataType.FLOAT, 0.001, mask),
+                                  ("band_grid", grids, DataType.USHORT, 0.5, None)):
+        n_valid = int(m.sum()) if m is not None else h * w
+        cap = -(-(n_valid * 4 + (h * w // 64) * 12 + 4096) // 4) * 4
+        for mb in (8, 16):
+            valid = None if m is None else enc.block_valid_words(mask_t, mb)
+            out[f"{label}_mb{mb}"] = [
+                lambda x=x, v=valid, mb=mb, dt=dt, mze=mze, cap=cap: enc.encode_tiles(
+                    x, v, mze, h, w, 1, dt, v is None, 6, cap, enable_lut=True, mb=mb)
+                for x in xs]
+    takes_hint = "all_valid" in inspect.signature(enc.encode_tiles_batched).parameters
+    dem = cs.raster_of(tiles)
+    for label, raster, m, mze in (
+            ("mosaic_dem", dem, None, 0.001),
+            ("mosaic_dem_mask", dem, np.tile(mask, (2, 2)), 0.001),
+            ("mosaic_grid", cs.raster_of([cs.class_grid(x) for x in tiles]), None, 0.5),
+            ("mosaic_u8x3", cs.raster_of(cs.int_cell_tiles(tiles, np.uint8, 3)), None, 0.5)):
+        dt = NUMPY_TO_DT[raster.dtype]
+        ts, ms, _ = S.split_into_tiles(raster, m, cs.MOSAIC_TILE, cs.MOSAIC_TILE)
+        t = torch.from_numpy(np.ascontiguousarray(ts)).to(dev)
+        mk = torch.from_numpy(np.ascontiguousarray(ms)).to(dev)
+        kw = {"all_valid": bool(ms.all())} if takes_hint else {}
+        for mb in (8, 16):
+            out[f"{label}_mb{mb}"] = [lambda t=t, mk=mk, mb=mb, dt=dt, mze=mze, kw=kw:
+                                      enc.encode_tiles_batched(t, mk, mze, dt, 6, mb, **kw)]
+    return out
+
+
+def k1lut_turn(cs, dev) -> dict:
+    import hashlib
+
+    import torch
+
+    out = {}
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB, past the 50 MB L2
+    digest = hashlib.sha256()
+    for label, calls in k1lut_sets(cs, dev).items():
+        for c in calls:  # every output of the path's call: streams, starts, ranges, fits
+            for t in c():
+                raw = t.reshape(-1).contiguous().view(torch.uint8)
+                digest.update(raw.cpu().numpy().tobytes())
+        out[label] = dev_ms(cs, calls, K1LUT, reps=10)
+        if label.startswith("mosaic"):
+            out[f"{label}_cold"] = dev_ms(cs, [lambda: (flush.zero_(), calls[0]())], K1LUT,
+                                          reps=5)
+    print(f"outputs sha256 {digest.hexdigest()}", flush=True)
+    return out
+
+
 def windows_turn(cs, dev) -> dict:
     """The tree's whole chip_smoke.py (its main()) with every profiler
     window it reads counted: those taken, and those that came back with no
@@ -705,7 +792,7 @@ MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_tu
             "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
             "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn,
             "h2": h2_turn, "k1int": k1int_turn, "k4lut": k4lut_turn, "k2int": k2int_turn,
-            "windows": windows_turn}
+            "k1lut": k1lut_turn, "windows": windows_turn}
 
 
 def turn(measure: str, tree: str, label: str) -> None:

@@ -46,7 +46,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      wide, depths 1-8 and a deep unit, v4 and v6 units in one launch, LUT
      records, every mask kind, hostile starts, images and per-unit flags;
      K2: k1int_edge_check's shapes, its stream with the whole capacity and
-     with half of it), the case counts printed;
+     with half of it); the redesigned LUT K1 (encode_blocks_lut: a distinct
+     count, no sort) against its plain version on crafted blocks
+     (k1lut_edge_check: n_lut at the LUT/stuffed tie, set collisions,
+     masks, the diff candidate, uint32, stacks), the case counts printed;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -1711,6 +1714,194 @@ def k2int_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
     return k1int_edge_check(dev, dtypes, depths, case=k2int_case)
 
 
+# ---- phase 3e: the LUT K1 (encode_blocks_lut: a distinct count, no sort) on
+# crafted blocks; the generator also feeds tests/test_torch_k1lut.py
+
+def lut_tie(nb, cnt):
+    """The largest n_lut (1..254) whose LUT record is shorter than the
+    stuffed one of cnt nb-bit values (lut_candidate's lengths; the header
+    bytes cancel), or 0 where none is."""
+    best = 0
+    for n in range(1, 255):
+        if 1 + (n * nb + 7) // 8 + (cnt * n.bit_length() + 7) // 8 < (cnt * nb + 7) // 8:
+            best = n
+    return best
+
+
+def lut_block(mb, nb, n, rng, cnt=None):
+    """An mb x mb block of quanta (int64): a 0, n distinct non-zero values
+    of at most nb bits (2^nb - 1 among them), the rest of its cnt positions
+    (default all) repeating them at random; positions past cnt hold 0."""
+    cnt = mb * mb if cnt is None else cnt
+    top = (1 << nb) - 1
+    vals = {top} if n else set()
+    while len(vals) < n:
+        vals.add(int(rng.integers(1, top, endpoint=True)))
+    cells = [0] + sorted(vals)
+    cells += list(rng.choice(cells, cnt - len(cells)))
+    out = np.zeros(mb * mb, np.int64)
+    out[:cnt] = rng.permutation(np.array(cells[:cnt], np.int64))
+    return out.reshape(mb, mb)
+
+
+def lut_image(blocks, mb, per_row=8):
+    """Blocks [mb, mb] (or [mb, mb, D]) laid out per_row to a block row ->
+    [H, W, D], the last row's missing blocks 0."""
+    n = len(blocks)
+    rows = -(-n // per_row)
+    d = blocks[0].shape[2] if blocks[0].ndim == 3 else 1
+    img = np.zeros((rows * mb, min(n, per_row) * mb, d), np.int64)
+    for i, b in enumerate(blocks):
+        r, c = divmod(i, per_row)
+        img[r * mb:(r + 1) * mb, c * mb:(c + 1) * mb] = b.reshape(mb, mb, d)
+    return img
+
+
+def k1lut_cases(mb, seed=18, nb_max=16):
+    """Crafted inputs of the LUT K1 at block size mb: [(tag, data [H, W, D]
+    int32 or float32, dtype, maxZError, mask or None, version, tiles)] --
+    tiles > 1: a stack of that many tiles of equal height (tile_rec). The
+    blocks: n_lut on both sides of the LUT/stuffed tie for each nb from 1 to
+    16 (full blocks, and at mb 16 blocks of 254, 255 and 256 distinct values:
+    count width 2); all-equal non-zero blocks and all-zero quanta; values
+    that collide in the count's set (multiples of its 2*mb*mb words, of 32,
+    max_q on both sides of the bitmap's 32 * 2*mb*mb); masked blocks with 0,
+    1, 63 (and 255) valid values and their ties; a 61 x 47 edge crop of the
+    bench mask; depth 3 where only the diff candidate's LUT wins and where
+    only the absolute one does; uint32 across 2^31 (and a block of range
+    past 2^31: raw); lossy int32; a stack of tiles whose ranges differ, one
+    of them empty. All but the lossy ones as lossless quanta (maxZError 0.5:
+    float32 values are the quanta plus an offset). nb_max < 16 leaves out
+    the blocks of more bits (JAX's 16x16 records stop at 11)."""
+    from lerc_tpu_torch.constants import DataType
+
+    rng = np.random.default_rng(seed + mb)
+    full = mb * mb
+    slots = 2 * full
+    ties = []
+    for nb in range(1, nb_max + 1):
+        t = lut_tie(nb, full)
+        for n in sorted({max(t, 1), t + 1}):
+            if n <= min((1 << nb) - 1, full - 1):
+                ties.append(lut_block(mb, nb, n, rng))
+    if mb == 16:
+        ties += [lut_block(16, 11, n, rng) for n in (253, 254, 255)]
+    ties += [np.full((mb, mb), 7), np.zeros((mb, mb), np.int64), np.full((mb, mb), 3)]
+    collide = []
+    cap = 1 << (31 if nb_max >= 16 else nb_max)
+    for step in (slots, 32, 1):
+        for k in (1, 3, lut_tie(12, full), lut_tie(12, full) + 1, full - 1):
+            v = np.arange(k + 1, dtype=np.int64) * step
+            if v[-1] < cap:
+                collide.append(rng.permutation(np.resize(v, full)).reshape(mb, mb))
+    for top in (32 * slots - 1, 32 * slots):  # the bitmap's last max_q, the hash set's first
+        if top < cap:
+            b = lut_block(mb, 16, 3, rng)
+            b[b == b.max()] = top
+            collide.append(b)
+    out = []
+    for kind, off in (("int32", 40000), ("float32", -250.5)):
+        blocks = [b + o for b, o in zip(ties + collide, np.resize([off, 0, 200, -3], 999))]
+        img = lut_image(blocks, mb)
+        if kind == "int32":
+            out.append((f"mb {mb} ties, equal, colliding, int32", img.astype(np.int32),
+                        DataType.INT, 0.5, None, 6, 1))
+        else:
+            out.append((f"mb {mb} ties, equal, colliding, float32", img.astype(np.float32),
+                        DataType.FLOAT, 0.5, None, 6, 1))
+    # masked blocks: 0, 1, 63 (255) valid values, and ties at those counts
+    counts = (0, 1, 63) + ((255,) if mb == 16 else ())
+    blocks, masks = [], []
+    for c in counts:
+        for nb in (3, 6, 11):
+            t = lut_tie(nb, c) if c else 0
+            for n in sorted({max(t, 1), t + 1}):
+                if c and n <= min((1 << nb) - 1, c - 1):
+                    blocks.append(lut_block(mb, nb, n, rng, c) + 100)
+                    m = np.zeros(full, bool)
+                    m[rng.permutation(full)[:c]] = True
+                    masks.append(m.reshape(mb, mb))
+        m = np.zeros(full, bool)
+        m[rng.permutation(full)[:c]] = True
+        blocks.append(lut_block(mb, 4, min(3, max(c - 1, 0)), rng))
+        masks.append(m.reshape(mb, mb))
+    img = lut_image(blocks, mb)
+    mask = lut_image([m.astype(np.int64) for m in masks], mb)[:, :, 0] != 0
+    out.append((f"mb {mb} masked blocks of {counts} values", img.astype(np.int32),
+                DataType.USHORT, 0.5, mask, 6, 1))
+    crop = bench_masks("bench", 61, 47)
+    cols = -(-47 // mb)
+    z = lut_image([lut_block(mb, 5, 6, rng) for _ in range(-(-61 // mb) * cols)], mb, cols)
+    out.append((f"mb {mb} 61x47 bench crop", (z[:61, :47] + 9).astype(np.float32),
+                DataType.FLOAT, 0.5, crop, 6, 1))
+    # depth 3: slice 1 = slice 0 + few values (the diff's LUT), slice 2 few values alone
+    s0 = [rng.integers(1000, 2500, (mb, mb)) for _ in range(8)]
+    d3 = [np.stack([a, a + lut_block(mb, 4, 3, rng), lut_block(mb, 9, 4, rng) + 600], -1)
+          for a in s0]
+    out.append((f"mb {mb} depth 3, diff LUT and absolute LUT", lut_image(d3, mb).astype(
+        np.int32), DataType.SHORT, 0.5, None, 6, 1))
+    # uint32 across 2^31 (as int32 bits) and a block past 2^31 in range: raw
+    u = [lut_block(mb, 6, 5, rng) + (2**31 - 20), lut_block(mb, 8, 9, rng) + (2**32 - 300),
+         np.where(lut_block(mb, 2, 2, rng) > 1, 2**32 - 2, 5)]
+    out.append((f"mb {mb} uint32 across 2^31", lut_image(u, mb).astype(np.uint32).view(np.int32),
+                DataType.UINT, 0.5, None, 6, 1))
+    lossy = [4 * lut_block(mb, 7, n, rng) + rng.integers(0, 2, (mb, mb)) - 50
+             for n in (3, 12, 40)]
+    out.append((f"mb {mb} lossy int32", lut_image(lossy, mb).astype(np.int32), DataType.INT,
+                2.0, None, 6, 1))
+    # a stack of 3 tiles of 2 x 2 blocks, ranges apart, the last one empty
+    tiles = [lut_image([lut_block(mb, 6, 7, rng) + 1000 * t for _ in range(4)], mb, 2)
+             for t in range(3)]
+    tmask = np.ones((6 * mb, 2 * mb), bool)
+    tmask[4 * mb:] = False
+    out.append((f"mb {mb} stack of 3 tiles", np.concatenate(tiles, 0).astype(np.int32),
+                DataType.INT, 0.5, tmask, 6, 3))
+    return out
+
+
+def k1lut_case(dev, data, dt, mze, mb, mask, version, tiles, tag):
+    """The LUT K1 (rec_info, zrange, fits) bit-equal to encode_blocks_ref on
+    one input: the masked instance (validity words; all set where there is
+    no mask) and, for an aligned image with no mask, the all-valid one.
+    Returns the LUT records taken, absolute and depth-diff."""
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    x = torch.from_numpy(data).to(dev)
+    p = enc.encode_params(mze, version, 0, dt, mb)
+    m = np.ones((h, w), bool) if mask is None else mask
+    variants = [enc.block_valid_words(torch.from_numpy(m).to(dev), mb)]
+    if mask is None and h % mb == 0 and w % mb == 0:
+        variants.append(None)
+    tile_rec = (-(-h // mb) * -(-w // mb) * d) // tiles if tiles > 1 else 0
+    for valid in variants:
+        k = enc.encode_blocks(x, p, valid, mb, True, tile_rec)
+        r = enc.encode_blocks_ref(x, p, valid, mb, True, tile_rec)
+        require(all(torch.equal(a, b) for a, b in zip(k, r)),
+                f"LUT K1 != plain ({tag}, {'all-valid' if valid is None else 'validity words'})")
+    lut, diff = (k[0][:, 1] >> 11) & 1, (k[0][:, 1] >> 10) & 1
+    return int((lut & (1 - diff)).sum()), int((lut & diff).sum())
+
+
+def k1lut_edge_check(dev):
+    """Phase 3e, the LUT K1 (every instance: float32 and int32 input, 8x8
+    and 16x16 blocks, all-valid and masked, one tile and a tile stack)
+    bit-equal to its plain version on k1lut_cases' crafted blocks, each also
+    at version 4 where it is at 6 (no diff candidate). Requires absolute LUT
+    records in every tile of ties and both kinds in the depth-3 tile at v6.
+    Returns the number of cases."""
+    n_cases = 0
+    for mb in (8, 16):
+        for tag, data, dt, mze, mask, version, tiles in k1lut_cases(mb):
+            for v in (version, 4):
+                n_abs, n_diff = k1lut_case(dev, data, dt, mze, mb, mask, v, tiles, f"{tag}, v{v}")
+                n_cases += 1
+                require(n_abs > 0 or "ties" not in tag, f"LUT K1: no LUT record ({tag}, v{v})")
+                require((n_abs > 0 and n_diff > 0) or "depth 3" not in tag or v != 6,
+                        f"LUT K1: not both LUT kinds ({tag}, v{v}: {n_abs}, {n_diff})")
+    return n_cases
+
+
 INT_CELLS = (  # (label, dtype, depth, maxZError)
     ("int16 DEM in whole metres", np.int16, 1, 0.5),
     ("int32 DEM", np.int32, 1, 2.0),
@@ -2167,17 +2358,25 @@ def band_inputs(data, mask, mze, mb, version=6):
     return x, enc.encode_params(mze, version, 0, dt, mb), enc.block_valid_words(m, mb), dt
 
 
+def k1_valid(valid, mask, data, mb):
+    """The LUT K1's validity words as the band codec passes them: none for
+    an aligned band with no mask."""
+    h, w = data.shape[:2]
+    return None if mask is None and h % mb == 0 and w % mb == 0 else valid
+
+
 def check_lut_kernels(data, mask, mze, mb, tag):
     """The LUT instances of K1 and K2 at block size mb against their plain
-    versions on the same CUDA tensors. Returns ({kernel: max_abs_err},
-    LUT records, records)."""
+    versions on the same CUDA tensors (K1's validity words as the band codec
+    passes them). Returns ({kernel: max_abs_err}, LUT records, records)."""
     from lerc_tpu_torch.constants import dt_is_int
     from lerc_tpu_torch.ops import device_encode as enc
 
     x, p, valid, dt = band_inputs(data, mask, mze, mb)
     k1, k2 = (lut_name(b, mb, dt_is_int(dt)) for b in ("encode_blocks", "write_records"))
-    rk, zk, fk = enc.encode_blocks(x, p, valid, mb, True)
-    rr, zr, fr = enc.encode_blocks_ref(x, p, valid, mb, True)
+    kv = k1_valid(valid, mask, x, mb)
+    rk, zk, fk = enc.encode_blocks(x, p, kv, mb, True)
+    rr, zr, fr = enc.encode_blocks_ref(x, p, kv, mb, True)
     require(torch.equal(rk, rr) and torch.equal(zk, zr) and torch.equal(fk, fr),
             f"K1 {k1} != plain ({tag})")
     length = rk[:, 0]
@@ -2414,7 +2613,8 @@ def lut_kernel_times(data, mask, mze, mb, is_int):
 
     x, p, valid, dt = band_inputs(data, mask, mze, mb)
     k1, k2 = (lut_name(b, mb, is_int) for b in ("encode_blocks", "write_records"))
-    rk, _, _ = enc.encode_blocks(x, p, valid, mb, True)
+    kv = k1_valid(valid, mask, x, mb)
+    rk, _, _ = enc.encode_blocks(x, p, kv, mb, True)
     length = rk[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     total = int(length.sum())
@@ -2428,15 +2628,16 @@ def lut_kernel_times(data, mask, mze, mb, is_int):
     coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
     v_bytes = valid.numel() * 4
     s = int(np.log2(bs))
-    sort_ops = (bs // 2) * s * (s + 1) // 2 * 2  # bitonic compare-exchanges, min + max
-    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d + 4
-    k1_o = 20 * n_val + n_rec * sort_ops * (2 if (p.diff_ok and d > 1) else 1)
+    sort_ops = (bs // 2) * s * (s + 1) // 2 * 2  # K2's bitonic compare-exchanges, min + max
+    # K1: a distinct count is O(1) a value; its validity words only where it reads them
+    k1_b = size * n_val + (0 if kv is None else v_bytes) + 16 * n_rec + 8 * d + 4
+    k1_o = 20 * n_val
     k2_b = size * coded + v_bytes + 20 * n_rec + total
     k2_o = 12 * coded + n_lut_rec * sort_ops
     rows = {}
     for name, kf, rf, b, o, match in (
-            (k1, lambda: enc.encode_blocks(x, p, valid, mb, True),
-             lambda: enc.encode_blocks_ref(x, p, valid, mb, True), k1_b, k1_o,
+            (k1, lambda: enc.encode_blocks(x, p, kv, mb, True),
+             lambda: enc.encode_blocks_ref(x, p, kv, mb, True), k1_b, k1_o,
              "encode_blocks_lut_kernel"),
             (k2, lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True),
              lambda: enc.write_records_ref(x, rk, starts, cap_w, p, valid, mb, True), k2_b, k2_o,
@@ -4421,8 +4622,9 @@ def check_tiles_encode(raster, mask, mze, mb, tag):
         tiles = tiles.view(np.int32)
     t = torch.from_numpy(np.ascontiguousarray(tiles)).to(CARD)
     m = torch.from_numpy(np.ascontiguousarray(masks)).to(CARD)
-    k = enc.encode_tiles_batched(t, m, mze, dt, 6, mb)
-    r = enc.encode_tiles_batched(t.cpu(), m.cpu(), mze, dt, 6, mb)
+    av = bool(masks.all())  # the mosaic's hint (no mask, whole tiles)
+    k = enc.encode_tiles_batched(t, m, mze, dt, 6, mb, av)
+    r = enc.encode_tiles_batched(t.cpu(), m.cpu(), mze, dt, 6, mb, av)
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(k, r)):
         require(torch.equal(a.cpu(), b), f"tile-batched K1/K2 output {i} != plain ({tag}, mb {mb})")
@@ -4554,13 +4756,15 @@ def tiles_encode_times(t, m, mze, dt, mb):
              else torch.int32).reshape(n_t * hp, wp, d).contiguous()
     valid = enc.block_valid_words(m.reshape(n_t * hp, wp), mb)
     tile_rec = (hp // mb) * (wp // mb) * d
+    kv = valid  # K1's validity words as encode_tiles_batched passes them
     if f64:
         p = enc.encode_params_f64(mze, 6)
         k1 = lambda: enc.encode_blocks_f64(x, p, valid, tile_rec)  # noqa: E731
         rk = k1()[0]
     else:
         p = enc.encode_params(mze, 6, 0, dt, mb)
-        k1 = lambda: enc.encode_blocks(x, p, valid, mb, True, tile_rec)  # noqa: E731
+        kv = None if bool(m.all()) and hp % mb == 0 and wp % mb == 0 else valid
+        k1 = lambda: enc.encode_blocks(x, p, kv, mb, True, tile_rec)  # noqa: E731
         rk = k1()[0]
     length = rk[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
@@ -4571,17 +4775,18 @@ def tiles_encode_times(t, m, mze, dt, mb):
         k1r = lambda: enc.encode_blocks_f64_ref(x.cpu(), p, valid.cpu(), tile_rec)  # noqa: E731
     else:
         k2 = lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True)  # noqa: E731
-        k1r = lambda: enc.encode_blocks_ref(x.cpu(), p, valid.cpu(), mb, True,  # noqa: E731
-                                            tile_rec)
+        k1r = lambda: enc.encode_blocks_ref(  # noqa: E731
+            x.cpu(), p, None if kv is None else kv.cpu(), mb, True, tile_rec)
     bs, n_rec, size = mb * mb, rk.shape[0], DT_SIZE[dt]
     n_val = int(m.sum()) * d
     mode = (rk[:, 1] >> 8) & 3
     coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
     v_bytes = valid.numel() * 4
     s = int(np.log2(bs))
-    sort_ops = 0 if f64 else (bs // 2) * s * (s + 1) // 2 * 2
-    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d * n_t
-    k1_o = 20 * n_val + n_rec * sort_ops * (2 if (p.diff_ok and d > 1) else 1)
+    sort_ops = 0 if f64 else (bs // 2) * s * (s + 1) // 2 * 2  # K2's LUT records
+    # K1: a distinct count is O(1) a value; its validity words only where it reads them
+    k1_b = size * n_val + (0 if kv is None else v_bytes) + 16 * n_rec + 8 * d * n_t
+    k1_o = 20 * n_val
     k2_b = size * coded + v_bytes + 20 * n_rec + total
     k2_o = 12 * coded + int(((rk[:, 1] >> 11) & 1).sum()) * sort_ops
     ops_rate = F64_OPS_PER_S if f64 else F32_OPS_PER_S
@@ -5219,7 +5424,16 @@ def main():
           f"v6, lossless and lossy, int32 input; all-valid, empty, full and bench masks; raw, "
           f"const and stuffed blocks; nb_cap 2) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # ---- 3e. the redesigned mosaic K4 and integer K2 at their strips' edges
+    # ---- 3e. the redesigned mosaic K4, integer K2 and LUT K1 at their edges
+    t0 = time.perf_counter()
+    n_k1l = k1lut_edge_check(dev)
+    print(f"check: the LUT K1 (rec_info, zrange, fits) equal to its plain version in {n_k1l} "
+          f"cases (every instance: float32 and int32 input, 8x8 and 16x16, all-valid and "
+          f"masked, one tile and a stack; n_lut on both sides of the LUT/stuffed tie for nb "
+          f"1-16, 254-256 distinct values, equal and zero blocks, values colliding in the "
+          f"count's set and on both sides of its bitmap, masked blocks of 0, 1, 63 and 255 "
+          f"values, a 61x47 edge crop, depth 3 with the diff's and the absolute LUT, uint32 "
+          f"across 2^31, lossy int32, v6 and v4) ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     n_k4l = k4lut_edge_check(dev)
     n_k2 = k2int_edge_check(dev)

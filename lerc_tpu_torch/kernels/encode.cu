@@ -29,23 +29,23 @@
 // write value j at its rank among the valid positions: the stable left
 // compaction, with no separate pass.
 //
-// LUT (the band codec's instances, BitStuffer2::EncodeLut): the warp sorts the block's
-// quantized values (invalid positions as 0) with a bitonic network --
-// shuffles across lanes, register swaps within a lane -- and one more
-// shuffle compare marks the first of each run of equal values. n_lut is the
-// count of distinct non-zero values, and a value's index is the inclusive
-// count of distinct non-zero values up to it in sorted order: a rank, with no
-// one-hot matrix. K1 takes the LUT record when max_q > 0, 1 <= n_lut < 255
-// and it is shorter than the plain stuffed one (device_encode.py:662-671,
-// inside the integer depth-diff candidate too, :691-698); K2 sorts (value,
-// position) keys and writes [n_lut + 1][LUT at numBits][indices at
-// bitlen(n_lut)].
+// LUT (the band codec's and the mosaic's instances, BitStuffer2::EncodeLut):
+// n_lut is the count of the block's distinct non-zero quantized values, and
+// a value's index is the inclusive count of distinct non-zero values up to
+// it in sorted order. K1 takes the LUT record when max_q > 0, 1 <= n_lut <
+// 255 and it is shorter than the plain stuffed one (device_encode.py:662-671,
+// inside the integer depth-diff candidate too, :691-698); it counts n_lut in
+// a set in shared memory, and only where the LUT can win (below). K2 sorts
+// (value, position) keys with a warp bitonic network -- shuffles across
+// lanes, register swaps within a lane -- marks the first of each run of
+// equal values, and writes [n_lut + 1][LUT at numBits][indices at
+// bitlen(n_lut)], each index a rank, with no one-hot matrix.
 //
 // Bound: bytes. K1 reads the image once (size*H*W*D B) and writes 16 B per
 // record; K2 reads the image again and writes the stream (`total` B); the
 // masked ones also read 4*VPL B of validity words per record. Both do a
-// few dozen operations per value (a few hundred with the LUT sort), under
-// the f32 rate's share of the bytes' time.
+// few dozen operations per value (K2 a few hundred more for a LUT record's
+// sort), under the f32 rate's share of the bytes' time.
 //
 // Record r = b*D + di (block-major, depth inner). rec_info[r] holds
 // {length, desc, offset word, zq}, desc = flag | mode << 8 | diff << 10 |
@@ -304,21 +304,6 @@ __device__ __forceinline__ void first_nonzero(const K (&v)[VPL], int lane, bool 
         const uint32_t prev = lane > 0 ? up : last;
         first[k] = cur > 0 && (!has_prev || cur != prev);
     }
-}
-
-// n_lut: the block's count of distinct non-zero quantized values
-template <int VPL>
-__device__ __forceinline__ int lut_count(const uint32_t (&q)[VPL], int lane) {
-    uint32_t s[VPL];
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) s[k] = q[k];
-    warp_sort(s, lane);
-    bool first[VPL];
-    first_nonzero(s, lane, first);
-    int n = 0;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) n += __popc(__ballot_sync(FULL, first[k]));
-    return n;
 }
 
 // the LUT record's length, taken when shorter (device_encode.py:662-671)
@@ -977,191 +962,349 @@ __global__ void __launch_bounds__(K2S_THREADS) write_records_int_kernel(
     }
 }
 
-// ---- K1 with the LUT candidate (the band codec's), 8x8 or 16x16 blocks,
-// validity words always (all set for an aligned all-valid image)
+// ---- K1 with the LUT candidate (the band codec's and the mosaic's), 8x8
+// or 16x16 blocks: G lanes a record (K1L_LANES8 / K1L_LANES16), 32 / G
+// records a warp, lane gl of a record holding its positions j = G*k + gl
+// (k < MB*MB/G: for G = MB, lane gl holds column gl and k is the row). The
+// group reduces by xor shuffles within its lanes; every lane of a group
+// computes the record's decision (the groups of a warp decide side by side)
+// and lane 0 of the group stores it. Validity words are read only by the
+// masked instances (masks, edge blocks); an aligned all-valid image passes
+// none.
+//
+// The LUT record needs n_lut, the count of the block's distinct non-zero
+// quanta, and needs it only where it can be shorter than the stuffed one:
+// its length grows with n_lut, so where lut_possible fails at n_lut = 1
+// (and where max_q is 0, or the record is const-0 or forced raw) no count
+// is made, and a count stops at the first k (16x16: the first odd k) where
+// the values so far make the LUT the longer record (lut_shorter). The group
+// counts in a set of its own in shared memory (SLOTS = 2 * MB*MB words,
+// cleared by the group before each count): where max_q < 32 * SLOTS a
+// bitmap of the quanta over W = 2^w words, quantum v at bit v >> w of word
+// v & (W - 1) (neighbouring values in other words and banks), else an
+// open-addressing hash set of the values (0 is the empty slot: the value 0
+// is never counted); inserts by atomicOr / atomicCAS, n_lut the group's sum
+// of the ballots of its fresh inserts. A value equal to the one before it
+// in the same lane (k - 1) is not inserted again. The depth-diff candidate
+// counts in the same set after a clear. K2 sorts each LUT record's values
+// itself.
 
-template <typename T, int MB>
-__global__ void encode_blocks_lut_kernel(const T* __restrict__ data,
-                                         const uint32_t* __restrict__ valid, int w, int d,
-                                         int nbh, int n_rec, int tile_rec, EncP P,
-                                         int* __restrict__ rec_info,
-                                         typename ZOf<T>::type* __restrict__ zrange,
-                                         int* __restrict__ fits) {
-    using Z = typename ZOf<T>::type;
-    constexpr bool IS_INT = !std::is_same<T, float>::value;
-    constexpr int VPL = MB * MB / 32;
-    __shared__ Z s_min[WARPS], s_max[WARPS];
-    __shared__ int s_di[WARPS];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.x * WARPS + warp;
-    const bool live = r < n_rec;  // warp-uniform
-    Z lo, hi;  // the block's range over its valid values, for the per-depth range
-    if constexpr (IS_INT) {
-        lo = INT_MAX;
-        hi = INT_MIN;
-    } else {
-        lo = CUDART_INF_F;
-        hi = -CUDART_INF_F;
+constexpr int K1L_WARPS = 4;    // warps a CTA (chip_tune_k1lut.py: 8 ran up to 18% slower)
+constexpr int K1L_LANES8 = 8;   // lanes a record, 8x8 blocks
+constexpr int K1L_LANES16 = 16; // lanes a record, 16x16 blocks
+
+template <int MB>
+struct K1L {
+    static constexpr int G = MB == 8 ? K1L_LANES8 : K1L_LANES16;  // lanes a record
+    static constexpr int VPL = MB * MB / G;                       // values a lane
+    static constexpr int RPW = 32 / G;                            // records a warp
+    static constexpr int RPC = RPW * K1L_WARPS;                   // records a CTA
+    static constexpr int SLOTS = 2 * MB * MB;                     // set words a record
+    static constexpr int LOG_SLOTS = MB == 8 ? 7 : 9;
+    static constexpr int VW = MB * MB / 32;                       // validity words a block
+};
+
+// v reduced over the G lanes of each group (xor shuffles stay in the group)
+template <int G, typename V, typename F>
+__device__ __forceinline__ V group_reduce(V v, F op) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(FULL, v, o));
+    return v;
+}
+
+// is a LUT record of n entries of nb bits over cnt values shorter than the
+// stuffed one (lut_candidate's lengths less the header bytes both share)?
+__device__ __forceinline__ bool lut_shorter(int n, int nb, int cnt) {
+    return n < 255 && 1 + ((n * nb + 7) >> 3) + ((cnt * bit_len((uint32_t)n) + 7) >> 3)
+                      < ((cnt * nb + 7) >> 3);
+}
+
+// can a LUT record of n_lut >= 1 entries be the shorter one? Where it is
+// weakest: at n_lut = 1 (both LUT terms grow with n_lut)
+__device__ __forceinline__ bool lut_possible(int nb, int cnt) { return lut_shorter(1, nb, cnt); }
+
+// n_lut of the group's record: its distinct non-zero quanta q (0 where
+// invalid, nb bits at most), counted where `need` (group-uniform) until the
+// LUT is the longer record -- the count so far then stands for every larger
+// one -- else 0. Every lane of the warp calls it (warp-wide collectives);
+// `set` is the group's SLOTS words.
+template <int MB>
+__device__ __forceinline__ int distinct_count(uint32_t* set, const uint32_t (&q)[K1L<MB>::VPL],
+                                              bool need, uint32_t max_q, int nb, int cnt,
+                                              int lane) {
+    using C = K1L<MB>;
+    const int gl = lane % C::G;
+    const unsigned gmask = C::G == 32 ? FULL : ((1u << C::G) - 1u) << (lane - gl);
+    const bool bitmap = max_q < 32u * C::SLOTS;
+    const int lw = bitmap ? bit_len(max_q >> 5) : 0;  // W = 2^lw words hold the bitmap
+    __syncwarp();  // the set's last count is over
+    if (need) {
+        const int nw = bitmap ? 1 << lw : C::SLOTS;  // 16-byte stores where 4 words or more
+        for (int i = gl; i < nw >> 2; i += C::G) reinterpret_cast<uint4*>(set)[i] = uint4{};
+        if (nw < 4 && gl < nw) set[gl] = 0;
     }
-    int cnt = 0;
-    if (live) {
-        const int b = r / d, di = r % d;
-        uint32_t vw[VPL];
-        cnt = block_valid<VPL>(valid, b, vw);
-        bool ok[VPL];
-        T x[VPL];
+    __syncwarp();
+    int n = 0;
+    bool done = !need;
+#pragma unroll
+    for (int k = 0; k < C::VPL; ++k) {
+        const uint32_t v = q[k];
+        bool fresh = false;
+        if (!done && v != 0 && (k == 0 || v != q[k - 1])) {
+            if (bitmap) {
+                const uint32_t bit = 1u << (v >> lw);
+                fresh = (atomicOr(set + (v & ((1u << lw) - 1u)), bit) & bit) == 0;
+            } else {
+                uint32_t h = (v * 2654435761u) >> (32 - C::LOG_SLOTS);
+                for (;;) {
+                    const uint32_t old = atomicCAS(set + h, 0u, v);
+                    if (old == 0u || old == v) {
+                        fresh = old == 0u;
+                        break;
+                    }
+                    h = (h + 1) & (C::SLOTS - 1);
+                }
+            }
+        }
+        n += __popc(__ballot_sync(FULL, fresh) & gmask);
+        if (C::VPL <= 8 || k % 2 == 1)  // 16x16: at every 2nd k, which ran faster
+            done = done || !lut_shorter(n, nb, cnt);
+    }
+    return n;
+}
+
+template <typename T, int MB, bool MASKED>
+__global__ void __launch_bounds__(K1L_WARPS * 32) encode_blocks_lut_kernel(
+        const T* __restrict__ data, const uint32_t* __restrict__ valid, int w, int d, int nbh,
+        int n_rec, int tile_rec, EncP P, int* __restrict__ rec_info,
+        typename ZOf<T>::type* __restrict__ zrange, int* __restrict__ fits) {
+    using Z = typename ZOf<T>::type;
+    using C = K1L<MB>;
+    constexpr bool IS_INT = !std::is_same<T, float>::value;
+    constexpr int G = C::G, VPL = C::VPL;
+    __shared__ __align__(16) uint32_t s_set[C::RPC * C::SLOTS];
+    __shared__ Z s_lo[C::RPC], s_hi[C::RPC];
+    __shared__ int s_has[C::RPC];
+    const int lane = threadIdx.x & 31, gl = lane % G;
+    const int slot = (threadIdx.x >> 5) * C::RPW + lane / G;  // the record's place in the CTA
+    const int r0 = blockIdx.x * C::RPC;
+    const bool live = r0 + slot < n_rec;              // group-uniform
+    const int r = live ? r0 + slot : n_rec - 1;       // a dead group repeats the last record
+    const int b = d == 1 ? r : r / d, di = r - b * d;
+    const int brow = b / nbh, bcol = b - brow * nbh;
+    const int flip = IS_INT ? order_flip(P) : 0;
+    uint32_t* set = s_set + slot * C::SLOTS;
+
+    // the block's values and validity: value k at position j = G*k + gl
+    uint32_t vw[C::VW];
+    int cnt = MB * MB;
+    if constexpr (MASKED) {
+        cnt = 0;
+#pragma unroll
+        for (int i = 0; i < C::VW; ++i) {
+            vw[i] = valid[(size_t)b * C::VW + i];
+            cnt += __popc(vw[i]);
+        }
+    }
+    const T* at = data + ((size_t)brow * MB * w + (size_t)bcol * MB) * d + di;
+    bool ok[VPL];
+    T x[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+        const int j = G * k + gl;
+        ok[k] = !MASKED || ((vw[(G * k) >> 5] >> (((G * k) & 31) + gl)) & 1u);
+        x[k] = ok[k] ? at[((size_t)(j / MB) * w + j % MB) * d] : (T)0;
+    }
+
+    // the range, the quanta and their widest
+    uint32_t q[VPL];
+    float fmax = -CUDART_INF_F, zmin_f = 0.f;
+    int zmin_i = 0;
+    Z lo, hi;  // the block's range over its valid values (flipped order for uint32)
+    if constexpr (IS_INT) {
+        int l = INT_MAX, h = INT_MIN;
 #pragma unroll
         for (int k = 0; k < VPL; ++k) {
-            ok[k] = (vw[k] >> lane) & 1u;
-            x[k] = load_value<T, MB>(data, w, d, nbh, b, di, lane, k, ok[k]);
+            if (ok[k]) {
+                l = min(l, (int)x[k] ^ flip);
+                h = max(h, (int)x[k] ^ flip);
+                fmax = fmaxf(fmax, int_to_f32((int)x[k], flip));
+            }
         }
-        uint32_t q[VPL];
-        uint32_t max_q = 0;
-        float fmax = -CUDART_INF_F, zmin_f = 0.f;
-        int zmin_i = 0;
-        if constexpr (IS_INT) {
-            const int flip = order_flip(P);
-            int l = INT_MAX, h = INT_MIN;
+        lo = group_reduce<G>(l, [](int a, int c) { return min(a, c); });
+        hi = group_reduce<G>(h, [](int a, int c) { return max(a, c); });
+        fmax = group_reduce<G>(fmax, [](float a, float c) { return fmaxf(a, c); });
+        zmin_i = lo ^ flip;
+        if (cnt == 0) zmin_i = 0, fmax = 0.f;  // const-0 record
 #pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                if (ok[k]) {
-                    l = min(l, (int)x[k] ^ flip);
-                    h = max(h, (int)x[k] ^ flip);
-                    fmax = fmaxf(fmax, int_to_f32((int)x[k], flip));
-                }
-            }
-            lo = __reduce_min_sync(FULL, l) ^ flip;
-            hi = __reduce_max_sync(FULL, h) ^ flip;
-            for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(FULL, fmax, o));
-            zmin_i = lo;
-            if (cnt == 0) zmin_i = 0, fmax = 0.f;  // const-0 record
+        for (int k = 0; k < VPL; ++k)
+            q[k] = ok[k] ? quantize_int((int)x[k], zmin_i, P.lossless, P.scale, P.inv_i) : 0u;
+    } else {
+        float l = CUDART_INF_F, h = -CUDART_INF_F;
 #pragma unroll
-            for (int k = 0; k < VPL; ++k)
-                q[k] = ok[k] ? quantize_int((int)x[k], zmin_i, P.lossless, P.scale, P.inv_i) : 0u;
-        } else {
-            float l = CUDART_INF_F, h = -CUDART_INF_F;
-#pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                l = fminf(l, ok[k] ? (float)x[k] : CUDART_INF_F);
-                h = fmaxf(h, ok[k] ? (float)x[k] : -CUDART_INF_F);
-            }
-            for (int o = 16; o > 0; o >>= 1) {
-                l = fminf(l, __shfl_xor_sync(FULL, l, o));
-                h = fmaxf(h, __shfl_xor_sync(FULL, h, o));
-            }
-            if (cnt == 0) l = h = 0.f;  // const-0 record
-            lo = l;
-            hi = h;
-            zmin_f = l;
-            fmax = h;
-#pragma unroll
-            for (int k = 0; k < VPL; ++k)
-                q[k] = ok[k] ? quantize((float)x[k], zmin_f, P.scale, P.inv) : 0u;
+        for (int k = 0; k < VPL; ++k) {
+            l = fminf(l, ok[k] ? (float)x[k] : CUDART_INF_F);
+            h = fmaxf(h, ok[k] ? (float)x[k] : -CUDART_INF_F);
         }
+        l = group_reduce<G>(l, [](float a, float c) { return fminf(a, c); });
+        h = group_reduce<G>(h, [](float a, float c) { return fmaxf(a, c); });
+        lo = l;
+        hi = h;
+        if (cnt == 0) l = h = 0.f;  // const-0 record
+        zmin_f = l;
+        fmax = h;
 #pragma unroll
-        for (int k = 0; k < VPL; ++k) max_q = max(max_q, q[k]);
-        max_q = __reduce_max_sync(FULL, max_q);
-        const int n_lut = lut_count(q, lane);
+        for (int k = 0; k < VPL; ++k)
+            q[k] = ok[k] ? quantize((float)x[k], zmin_f, P.scale, P.inv) : 0u;
+    }
+    uint32_t max_q = 0;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) max_q = max(max_q, q[k]);
+    max_q = group_reduce<G>(max_q, [](uint32_t a, uint32_t c) { return max(a, c); });
 
-        // depth-diff candidate against slice di-1 of the same block
-        int dmin = 0, dmax = 0, n_lut_d = 0;
+    // the absolute record (every lane of the group alike)
+    const int cw = MB == 8 || cnt < 256 ? 1 : 2;  // count bytes: 2 only for a full 16x16 block
+    int nb = bit_len(max_q), tc, off_w;
+    uint32_t off_word;
+    bool const0, force_raw;
+    int zq;  // rec_info[3]: the float zmin's bits, or what integer K2 subtracts
+    if constexpr (IS_INT) {
+        const float zf = int_to_f32(zmin_i, flip);
+        const float max_val = __fmul_rn(__fsub_rn(fmax, zf), P.scale);
+        const0 = cnt == 0 || (zf == 0.f && fmax == 0.f);
+        force_raw = (P.mze == 0.f && fmax > zf) || (P.mze > 0.f && max_val > P.maxq_cap)
+                    || wide_block(hi ^ flip, zmin_i);
+        reduce_offset_int(zmin_i, P.dt, tc, off_w);
+        off_word = low_bytes((uint32_t)zmin_i, off_w);
+        zq = zmin_i;
+    } else {
+        const float max_val = __fmul_rn(__fsub_rn(fmax, zmin_f), P.scale);
+        const0 = zmin_f == 0.f && fmax == 0.f;
+        force_raw = (P.mze == 0.f && fmax > zmin_f) || (P.mze > 0.f && max_val > P.maxq_cap);
+        reduce_offset_float(zmin_f, tc, off_w, off_word);
+        zq = __float_as_int(zmin_f);
+    }
+    const int n_lut = distinct_count<MB>(
+        set, q, max_q > 0 && !const0 && !force_raw && lut_possible(nb, cnt), max_q, nb, cnt, lane);
+    int stuff_len = 1 + off_w + (max_q ? 1 + cw + ((cnt * nb + 7) >> 3) : 0);
+    const int raw_len = 1 + cnt * P.size;
+    bool use_lut = false, use_diff = false;
+    lut_candidate(n_lut, nb, cnt, off_w, cw, max_q, stuff_len, use_lut);
+
+    // the depth-diff candidate against slice di-1 of the same block (every
+    // group of the launch computes it, the loads of slice 0 from itself; it
+    // counts for di > 0 only)
+    if constexpr (IS_INT) if (P.try_diff && d > 1) {
+        const bool cand = di > 0;
+        const int dp = cand ? -1 : 0;
+        int l = 1 << 30, h = -(1 << 30);
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) {
+            const int j = G * k + gl;
+            const T p = ok[k] ? at[((size_t)(j / MB) * w + j % MB) * d + dp] : (T)0;
+            const int dv = wrap_sub((int)x[k], (int)p);
+            q[k] = (uint32_t)dv;
+            if (ok[k]) {
+                l = min(l, dv);
+                h = max(h, dv);
+            }
+        }
+        int dmin = group_reduce<G>(l, [](int a, int c) { return min(a, c); });
+        int dmax = group_reduce<G>(h, [](int a, int c) { return max(a, c); });
+        if (cnt == 0) dmin = dmax = 0;
         uint32_t max_qd = 0;
-        const bool cand = IS_INT && P.try_diff && di > 0;  // warp-uniform
-        if (cand) {
-            int dv[VPL];
-            int l = 1 << 30, h = -(1 << 30);
 #pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                const T p = load_value<T, MB>(data, w, d, nbh, b, di - 1, lane, k, ok[k]);
-                dv[k] = wrap_sub((int)x[k], (int)p);
-                if (ok[k]) {
-                    l = min(l, dv[k]);
-                    h = max(h, dv[k]);
-                }
-            }
-            dmin = __reduce_min_sync(FULL, l);
-            dmax = __reduce_max_sync(FULL, h);
-            if (cnt == 0) dmin = dmax = 0;
-            uint32_t qd[VPL];
-            uint32_t m = 0;
-#pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                qd[k] = ok[k] ? (uint32_t)wrap_sub(dv[k], dmin) : 0u;
-                m = max(m, qd[k]);
-            }
-            max_qd = __reduce_max_sync(FULL, m);
-            n_lut_d = lut_count(qd, lane);
+        for (int k = 0; k < VPL; ++k) {
+            q[k] = ok[k] ? (uint32_t)wrap_sub((int)q[k], dmin) : 0u;
+            max_qd = max(max_qd, q[k]);
         }
-
-        if (lane == 0) {
-            // count byte width: 2 only for a full 16x16 block (an 8x8 block holds < 256)
-            const int cw = MB == 8 || cnt < 256 ? 1 : 2;
-            int nb = bit_len(max_q), tc, off_w;
-            uint32_t off_word;
-            bool const0, force_raw;
-            int zq;  // rec_info[3]: the float zmin's bits, or what integer K2 subtracts
-            if constexpr (IS_INT) {
-                const float zf = int_to_f32(zmin_i, order_flip(P));
-                const float max_val = __fmul_rn(__fsub_rn(fmax, zf), P.scale);
-                const0 = cnt == 0 || (zf == 0.f && fmax == 0.f);
-                force_raw = (P.mze == 0.f && fmax > zf) || (P.mze > 0.f && max_val > P.maxq_cap)
-                            || wide_block(hi, zmin_i);
-                reduce_offset_int(zmin_i, P.dt, tc, off_w);
-                off_word = low_bytes((uint32_t)zmin_i, off_w);
-                zq = zmin_i;
-            } else {
-                const float max_val = __fmul_rn(__fsub_rn(fmax, zmin_f), P.scale);
-                const0 = zmin_f == 0.f && fmax == 0.f;
-                force_raw = (P.mze == 0.f && fmax > zmin_f) || (P.mze > 0.f && max_val > P.maxq_cap);
-                reduce_offset_float(zmin_f, tc, off_w, off_word);
-                zq = __float_as_int(zmin_f);
-            }
-            int stuff_len = 1 + off_w + (max_q ? 1 + cw + ((cnt * nb + 7) >> 3) : 0);
-            const int raw_len = 1 + cnt * P.size;
-            bool use_lut = false, use_diff = false;
-            lut_candidate(n_lut, nb, cnt, off_w, cw, max_q, stuff_len, use_lut);
-            if (cand) {
-                const int nbd = bit_len(max_qd);
-                int tc_d, off_w_d;
-                reduce_offset_int(dmin, lerc2::DT_INT, tc_d, off_w_d);
-                int stuff_len_d = 1 + off_w_d + (max_qd ? 1 + cw + ((cnt * nbd + 7) >> 3) : 0);
-                bool use_lut_d = false;
-                lut_candidate(n_lut_d, nbd, cnt, off_w_d, cw, max_qd, stuff_len_d, use_lut_d);
-                const bool const0_d = dmin == 0 && dmax == 0;
-                const int diff_len = const0_d ? 1 : stuff_len_d;
-                use_diff = P.lossless && cnt > 0 && !const0 && !force_raw
-                           && diff_len < stuff_len && diff_len < raw_len;
-                if (use_diff) {
-                    const0 = const0_d;
-                    stuff_len = stuff_len_d;
-                    nb = nbd;
-                    max_q = max_qd;
-                    tc = tc_d;
-                    off_w = off_w_d;
-                    off_word = low_bytes((uint32_t)dmin, off_w_d);
-                    zq = dmin;
-                    use_lut = use_lut_d;
-                }
-            }
-            const bool use_stuff = !force_raw && stuff_len < raw_len;
-            const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
-            const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
-            const int j0 = (b % nbh) * MB;
-            const int integ = (((j0 >> 3) & 15) << 2) & P.integ_mask;
-            const int flag = integ | (use_diff ? 4 : 0) | mode
-                             | ((mode == 1 || mode == 3) ? tc << 6 : 0);
-            int* info = rec_info + 4 * (size_t)r;
-            info[0] = length;
-            info[1] = flag | (mode << 8) | ((int)use_diff << 10) | ((int)(use_lut && mode == 1) << 11)
-                      | (nb << 16) | (off_w << 24);
-            info[2] = (int)off_word;
-            info[3] = zq;
-            if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
+        max_qd = group_reduce<G>(max_qd, [](uint32_t a, uint32_t c) { return max(a, c); });
+        const int nbd = bit_len(max_qd);
+        // the diff is taken only over a lossless, valued, absolute record
+        // that is neither const-0 nor forced raw
+        const bool diff_ok = cand && P.lossless && cnt > 0 && !const0 && !force_raw;
+        const int n_lut_d = distinct_count<MB>(
+            set, q, diff_ok && max_qd > 0 && lut_possible(nbd, cnt), max_qd, nbd, cnt, lane);
+        int tc_d, off_w_d;
+        reduce_offset_int(dmin, lerc2::DT_INT, tc_d, off_w_d);
+        int stuff_len_d = 1 + off_w_d + (max_qd ? 1 + cw + ((cnt * nbd + 7) >> 3) : 0);
+        bool use_lut_d = false;
+        lut_candidate(n_lut_d, nbd, cnt, off_w_d, cw, max_qd, stuff_len_d, use_lut_d);
+        const bool const0_d = dmin == 0 && dmax == 0;
+        const int diff_len = const0_d ? 1 : stuff_len_d;
+        use_diff = diff_ok && diff_len < stuff_len && diff_len < raw_len;
+        if (use_diff) {
+            const0 = const0_d;
+            stuff_len = stuff_len_d;
+            nb = nbd;
+            max_q = max_qd;
+            tc = tc_d;
+            off_w = off_w_d;
+            off_word = low_bytes((uint32_t)dmin, off_w_d);
+            zq = dmin;
+            use_lut = use_lut_d;
         }
     }
-    merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && cnt > 0 ? r % d + d * (r / tile_rec) : -1, d, zrange,
-                IS_INT ? order_flip(P) : 0);
+
+    const bool use_stuff = !force_raw && stuff_len < raw_len;
+    const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+    if (live && gl == 0) {
+        const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+        const int integ = ((((bcol * MB) >> 3) & 15) << 2) & P.integ_mask;
+        const int flag = integ | (use_diff ? 4 : 0) | mode
+                         | ((mode == 1 || mode == 3) ? tc << 6 : 0);
+        reinterpret_cast<int4*>(rec_info)[r] = make_int4(
+            length, flag | (mode << 8) | ((int)use_diff << 10)
+                    | ((int)(use_lut && mode == 1) << 11) | (nb << 16) | (off_w << 24),
+            (int)off_word, zq);
+        if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
+        s_lo[slot] = lo;
+        s_hi[slot] = hi;
+        s_has[slot] = cnt > 0;
+    }
+    if (!live && gl == 0) s_has[slot] = 0;
+    __syncthreads();
+    // the per-depth ranges of each tile: the records of one depth and tile
+    // are every d-th of the CTA's; the first of each run merges it and takes
+    // one global atomic pair (a record with no valid value takes no part)
+    const int t = threadIdx.x;
+    if (t < C::RPC && r0 + t < n_rec) {
+        const int rt = r0 + t, tile = rt / tile_rec;
+        const int end = min(r0 + C::RPC, min(n_rec, (tile + 1) * tile_rec)) - r0;
+        if (t < d || (rt - d) / tile_rec != tile) {
+            bool any = false;
+            Z l = lo, h = hi;
+            for (int i = t; i < end; i += d) {
+                if (!s_has[i]) continue;
+                if (!any) {
+                    l = s_lo[i];
+                    h = s_hi[i];
+                    any = true;
+                } else if constexpr (IS_INT) {
+                    l = min(l, s_lo[i]);
+                    h = max(h, s_hi[i]);
+                } else {
+                    l = fminf(l, s_lo[i]);
+                    h = fmaxf(h, s_hi[i]);
+                }
+            }
+            if (any) {
+                Z* zr = zrange + (size_t)tile * 2 * d + rt % d;
+                if constexpr (IS_INT) {
+                    if (flip) {  // uint32: unsigned atomics on the values
+                        atomicMin((unsigned*)zr, (unsigned)(l ^ flip));
+                        atomicMax((unsigned*)(zr + d), (unsigned)(h ^ flip));
+                    } else {
+                        atomicMin(zr, l);
+                        atomicMax(zr + d, h);
+                    }
+                } else {
+                    atomic_min_z(zr, l);
+                    atomic_max_z(zr + d, h);
+                }
+            }
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1637,16 +1780,25 @@ int launch_k1_int(const void* data, const int* valid, int h, int w, int d, const
     return (int)cudaGetLastError();
 }
 
+// valid null: an aligned all-valid image (the instance reads no validity words)
 template <typename T, int MB>
 int launch_k1_lut(const void* data, const int* valid, int h, int w, int d, int tile_rec,
                   const EncP& P, int* rec_info, void* zrange, int* fits, cudaStream_t st) {
     const int nbh = (w + MB - 1) / MB;
-    const int n_rec = ((h + MB - 1) / MB) * nbh * d;
-    const int grid = (n_rec + WARPS - 1) / WARPS;
-    encode_blocks_lut_kernel<T, MB><<<grid, WARPS * 32, 0, st>>>(
-        static_cast<const T*>(data), reinterpret_cast<const uint32_t*>(valid), w, d, nbh, n_rec,
-        tile_rec > 0 ? tile_rec : n_rec, P, rec_info,
-        static_cast<typename ZOf<T>::type*>(zrange), fits);
+    const long long n_rec = (long long)((h + MB - 1) / MB) * nbh * d;
+    if (n_rec > INT_MAX || (!valid && (h % MB || w % MB))) return (int)cudaErrorInvalidValue;
+    if (n_rec == 0) return 0;
+    const int grid = (int)((n_rec + K1L<MB>::RPC - 1) / K1L<MB>::RPC);
+    const T* x = static_cast<const T*>(data);
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(valid);
+    const int tr = tile_rec > 0 ? tile_rec : (int)n_rec;
+    auto* z = static_cast<typename ZOf<T>::type*>(zrange);
+    if (valid)
+        encode_blocks_lut_kernel<T, MB, true><<<grid, K1L_WARPS * 32, 0, st>>>(
+            x, v, w, d, nbh, (int)n_rec, tr, P, rec_info, z, fits);
+    else
+        encode_blocks_lut_kernel<T, MB, false><<<grid, K1L_WARPS * 32, 0, st>>>(
+            x, v, w, d, nbh, (int)n_rec, tr, P, rec_info, z, fits);
     return (int)cudaGetLastError();
 }
 
@@ -1770,7 +1922,7 @@ extern "C" int write_records_int(const void* data, int in_type, const int* valid
 }
 
 // The LUT instances (the band codec's and the mosaic's): mb 8 or 16,
-// validity words always (all set for an aligned all-valid image); data
+// validity words, or null for an aligned all-valid image; data
 // float32 (is_int 0) or int32 (is_int 1, any integer dtype `dt`); zrange f32
 // or int32 to match. tile_rec > 0: the image is a stack of tiles of
 // tile_rec records each (tile height a multiple of mb), and zrange holds
@@ -1784,7 +1936,7 @@ extern "C" int encode_blocks_lut(const void* data, int is_int, const int* valid,
     const EncP P{mze, scale, inv, maxq_cap, inv_i, lossless, dt, size_t_, integ_mask, cap_nb,
                  raw_ok, try_diff};
     cudaStream_t st = (cudaStream_t)stream;
-    if (!valid || (mb != 8 && mb != 16)) return (int)cudaErrorInvalidValue;
+    if (mb != 8 && mb != 16) return (int)cudaErrorInvalidValue;
     if (is_int)
         return mb == 8 ? launch_k1_lut<int32_t, 8>(data, valid, h, w, d, tile_rec, P, rec_info,
                                                    zrange, fits, st)

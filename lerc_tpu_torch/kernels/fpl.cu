@@ -376,7 +376,9 @@ __global__ void __launch_bounds__(NB) fpl_packbits_size_kernel(
     const int cnt = max(0, min(PB_BYTES, n - a));
     if (tid == 0) sh_flags = 0;
 
-    // the 64 bytes as 16 words (zero past n), and the byte before a
+    // the 64 bytes as 16 words (zero past n), and the byte before a; a
+    // 16-byte chunk is loaded only where it holds a byte of [a, a + cnt)
+    // (where cnt is 0, no chunk: it could lie past the planes' allocation)
     unsigned wd[16];
     {
         const uintptr_t addr = reinterpret_cast<uintptr_t>(p + a);
@@ -385,7 +387,7 @@ __global__ void __launch_bounds__(NB) fpl_packbits_size_kernel(
         uint4 v[5];
 #pragma unroll
         for (int k = 0; k < 5; ++k)
-            v[k] = 16 * k - s < cnt ? __ldg(q + k) : make_uint4(0, 0, 0, 0);
+            v[k] = cnt > 0 && 16 * k - s < cnt ? __ldg(q + k) : make_uint4(0, 0, 0, 0);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
             const uint4 x = s ? shift16(v[k], v[k + 1], s) : v[k];

@@ -59,9 +59,14 @@ index = the number of distinct non-zero values <= it (0 for 0), and the
 record ``[n_lut + 1][LUT at numBits][indices at bitlen(n_lut)]``, taken when
 ``max_q > 0``, ``1 <= n_lut < 255`` and it is shorter than the plain
 stuffed record (:662-671), also inside the integer depth-diff candidate
-(:691-698). The LUT instances always read validity words (all set for an
-aligned all-valid image). A 16x16 block holds 256 values; its count takes
-two bytes only at 256 values (``cw``, :561).
+(:691-698). K1 counts the distinct values without sorting (a set in shared
+memory), and only where the LUT record can be the shorter one
+(``lut_possible``: its length grows with n_lut, so a block where the LUT
+loses at n_lut = 1, or whose max_q is 0, or which is const-0 or forced raw,
+takes no count); the plain version counts exactly there too. K2's LUT
+instances read validity words (all set for an aligned all-valid image);
+K1's read none for an aligned all-valid image. A 16x16 block holds 256
+values; its count takes two bytes only at 256 values (``cw``, :561).
 """
 from __future__ import annotations
 
@@ -164,14 +169,17 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     _check_data(data, h, w, d, dt)
     if not all_valid and mask is None:
         raise ValueError("a masked encode needs the block validity words")
-    valid = None if all_valid else mask
+    valid = k1_valid = None if all_valid else mask
     if valid is None and (enable_lut or h % mb or w % mb):
-        # edge blocks and the LUT instances read the in-image area's words
+        # edge blocks and the LUT K2 read the in-image area's words; the LUT
+        # K1 reads none for an aligned all-valid image
         valid = block_valid_words(torch.ones(h, w, dtype=torch.bool, device=data.device), mb)
+        if h % mb or w % mb:
+            k1_valid = valid
     if enable_lut and dt_is_int(dt):
         data = data.to(torch.int32)
     p = encode_params(max_z_error, version, nb_cap, dt, mb)
-    rec_info, zrange, fits = encode_blocks(data, p, valid, mb, enable_lut)
+    rec_info, zrange, fits = encode_blocks(data, p, k1_valid, mb, enable_lut)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     total = starts[-1] + length[-1]
@@ -180,7 +188,7 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
 
 
 def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: float,
-                         dt: DataType, version: int, mb: int = 8):
+                         dt: DataType, version: int, mb: int = 8, all_valid: bool = False):
     """The tile-batched encode (``_encode_tiles_sharded``'s ``vmap(encode_one)``,
     lerc_tpu/parallel/sharding.py:79-125, one micro-block size; and
     ``_encode_tiles_f64_sharded`` :137-163): every tile of a [T, tileH,
@@ -199,7 +207,9 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
     z_min [T, D], z_max [T, D] (float32, int32, int64 in unsigned order for
     uint32, or float64, over each tile's valid values; the type's max and
     min for a tile with none), fits [1] int32). The stream stays under 2^31 bytes: the
-    caller splits larger stacks."""
+    caller splits larger stacks. all_valid: the caller's word that every
+    mask is all set; with tiles of whole blocks the LUT K1 then reads no
+    validity words."""
     if version < 3:
         raise NotImplementedError(
             "versions < 3 (legacy bit order) are the host codec's: codec/lerc2_encode.BandEncoder "
@@ -229,7 +239,8 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
         fits = torch.ones(1, dtype=torch.int32, device=data.device)
     else:
         p = encode_params(max_z_error, version, 0, dt, mb)
-        rec_info, zrange, fits = encode_blocks(data, p, valid, mb, True, tile_rec)
+        k1_valid = None if all_valid and (hp, wp) == (th, tw) else valid
+        rec_info, zrange, fits = encode_blocks(data, p, k1_valid, mb, True, tile_rec)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     cap_w = -(-cap // 4)
@@ -343,15 +354,19 @@ def _valid_args(valid, h: int, w: int, mb: int = 8):
     return (valid,), "_masked", valid.data_ptr()
 
 
-def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool):
+def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool, k1: bool = False):
     """Checks the block size and the LUT flag against the inputs; the LUT
-    instances' kernel name (``..._lut``/``_lut16``, ``_int`` for integers)."""
+    instances' kernel name (``..._lut``/``_lut16``, ``_int`` for integers).
+    k1: K1's instance, which takes no validity words for an aligned
+    all-valid image."""
     if mb not in (8, 16) or (mb == 16 and not lut):
         raise ValueError("blocks are 8x8, or 16x16 with the LUT candidate")
     if not lut:
         return None
-    if valid is None:
-        raise ValueError("the LUT instances read validity words (all set for an all-valid image)")
+    h, w, _ = data.shape
+    if valid is None and (not k1 or h % mb or w % mb):
+        raise ValueError("the LUT instances read validity words (all set for an all-valid "
+                         "image; K1 takes none for an aligned all-valid image)")
     if dt_is_int(p.dt) and data.dtype != torch.int32:
         raise ValueError("the integer LUT instances take int32 data")
     return ("_lut16" if mb == 16 else "_lut") + ("_int" if dt_is_int(p.dt) else "")
@@ -363,13 +378,13 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | Non
     offset word, zq}, desc = flag | mode<<8 | diff<<10 | lut<<11 |
     numBits<<16 | offset width<<24; zrange [2D] = per-depth min then max
     over the valid values, f32 or int32; fits [1] int32). valid: block
-    validity words, or None when every pixel is valid (aligned, no LUT).
+    validity words, or None when every pixel of an aligned image is valid.
 
     tile_rec > 0 (the LUT instances): data is a stack of tiles of tile_rec
     records each, and zrange is [nTiles * 2D], each tile's ranges in turn
     (counted as ``encode_tiles_lut...``)."""
     h, w, d = data.shape
-    lut_sfx = _lut_args(data, p, valid, mb, lut)
+    lut_sfx = _lut_args(data, p, valid, mb, lut, k1=True)
     vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
     _check_tile_rec(tile_rec, _n_rec(data, mb), d, lut)
     if not build.on_cuda(data, *vt):
@@ -527,13 +542,28 @@ def _first_nonzero(srt: torch.Tensor) -> torch.Tensor:
     return first & (srt > 0)
 
 
-def _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len):
+def lut_possible(nb, cnt):
+    """Whether a LUT record of nb-bit entries over cnt values can be
+    shorter than the stuffed record for some n_lut >= 1: lut_len <
+    stuff_len at n_lut = 1, where it is weakest (both of the LUT's terms
+    grow with n_lut; the header bytes cancel). Elementwise on tensors or
+    numpy arrays."""
+    return 1 + (nb + 7) // 8 + (cnt + 7) // 8 < (cnt * nb + 7) // 8
+
+
+def _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len, skip):
     """The LUT record against the stuffed one (device_encode.py:662-671):
-    q [n, bs] position-space quantized values, 0 where invalid. Returns
+    q [n, bs] position-space quantized values, 0 where invalid. n_lut (the
+    distinct non-zero values) is counted only for the rows K1 counts: not
+    where `skip` (const-0, forced raw, no diff taken), max_q is 0 or the
+    LUT cannot win (lut_possible); elsewhere the LUT is not taken. Returns
     (the shorter length, LUT taken)."""
-    n_lut = _first_nonzero(q.sort(1).values).sum(1)
+    need = ~skip & (max_q > 0) & lut_possible(nb, cnt)
+    n_lut = torch.zeros_like(max_q)
+    if bool(need.any()):
+        n_lut[need] = _first_nonzero(q[need].sort(1).values).sum(1)
     lut_len = 2 + cw + off_w + 1 + (n_lut * nb + 7) // 8 + (cnt * _bit_len(n_lut) + 7) // 8
-    use = (max_q > 0) & (n_lut >= 1) & (n_lut < 255) & (lut_len < stuff_len)
+    use = need & (n_lut >= 1) & (n_lut < 255) & (lut_len < stuff_len)
     return torch.where(use, lut_len, stuff_len), use
 
 
@@ -578,7 +608,8 @@ def encode_blocks_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor |
     raw_len = 1 + 4 * cnt
     use_lut = torch.zeros_like(has)
     if lut:
-        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len)
+        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len,
+                                                const0 | force_raw)
     use_stuff = ~force_raw & (stuff_len < raw_len)
     mode = torch.where(const0, 2, torch.where(use_stuff, torch.where(max_q > 0, 1, 3), 0))
     length = torch.where(mode == 2, 1, torch.where(mode == 0, raw_len, stuff_len))
@@ -687,7 +718,8 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
     raw_len = 1 + cnt * DT_SIZE[p.dt]
     use_lut = torch.zeros_like(has)
     if lut:
-        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len)
+        stuff_len, use_lut = _lut_candidate_ref(q, cnt, nb, max_q, off_w, cw, stuff_len,
+                                                const0 | force_raw)
     zq = zmin
     use_diff = torch.zeros(n, dtype=torch.bool, device=dev)
     if p.diff_ok and d > 1:
@@ -700,16 +732,18 @@ def encode_blocks_int_ref(data: torch.Tensor, p: EncodeParams, valid: torch.Tens
         nbd = _bit_len(max_qd)
         tc_d, off_w_d = reduce_offset_int_ref(dmin, DataType.INT)
         stuff_len_d = 1 + off_w_d + torch.where(max_qd > 0, 1 + cw + (cnt * nbd + 7) // 8, 0)
+        # the diff is taken only over a lossless, valued absolute record that
+        # is neither const-0 nor forced raw: a block forced raw stays
+        # absolute, as the reference tries no diff for it (lerc2_encode.py),
+        # where JAX writes it raw with the diff bit
+        diff_ok = (torch.arange(n, device=dev) % d > 0) & p.lossless & has & ~const0 & ~force_raw
         use_lut_d = torch.zeros_like(has)
         if lut:
             stuff_len_d, use_lut_d = _lut_candidate_ref(qd, cnt, nbd, max_qd, off_w_d, cw,
-                                                        stuff_len_d)
+                                                        stuff_len_d, ~diff_ok)
         const0_d = (dmin == 0) & (dmax == 0)
         diff_len = torch.where(const0_d, 1, stuff_len_d)
-        # a block forced raw stays absolute: the reference tries no diff for
-        # it (lerc2_encode.py), where JAX writes it raw with the diff bit
-        use_diff = ((torch.arange(n, device=dev) % d > 0) & p.lossless & has & ~const0
-                    & ~force_raw & (diff_len < stuff_len) & (diff_len < raw_len))
+        use_diff = diff_ok & (diff_len < stuff_len) & (diff_len < raw_len)
         const0 = const0 | (use_diff & const0_d)
         stuff_len = torch.where(use_diff, stuff_len_d, stuff_len)
         nb = torch.where(use_diff, nbd, nb)

@@ -245,8 +245,11 @@ class MosaicEncoder:
             masks = np.concatenate([masks, np.zeros((t_pad - t_total,) + masks.shape[1:], bool)])
         n_local = t_pad // ranks.size
         lo = ranks.rank * n_local
+        # no mask, whole tiles, no padding tiles: every tile mask is all set
+        all_valid = (mask is None and t_pad == t_total and data.shape[0] % self.tile_h == 0
+                     and data.shape[1] % self.tile_w == 0)
         sizes, mbs, zmins, zmaxs, rows, starts, gmin, gmax = self._encode_local(
-            tiles[lo : lo + n_local], masks[lo : lo + n_local], mze)
+            tiles[lo : lo + n_local], masks[lo : lo + n_local], mze, all_valid)
 
         blobs, stream_offs, starts_rows = [], [], []
         for t in range(t_total):
@@ -259,12 +262,13 @@ class MosaicEncoder:
             starts_rows.append(starts[t])
         return blobs, stream_offs, starts_rows, gmin, gmax, (ty, tx), masks[:t_total]
 
-    def _encode_local(self, tiles: np.ndarray, masks: np.ndarray, mze: float):
-        """This rank's tiles through the tile-batched encode, then the
-        collectives. Returns host arrays over all ranks' tiles: (sizes [T],
-        mbs [T], zmins [T, D], zmaxs [T, D] (float32, int64 or float64),
-        payload rows [T, maxTotal] uint8, starts [T, nRec8] int32) and the
-        global per-depth (gmin, gmax) as float64."""
+    def _encode_local(self, tiles: np.ndarray, masks: np.ndarray, mze: float,
+                      all_valid: bool):
+        """This rank's tiles through the tile-batched encode (all_valid: every
+        mask is all set), then the collectives. Returns host arrays over all
+        ranks' tiles: (sizes [T], mbs [T], zmins [T, D], zmaxs [T, D]
+        (float32, int64 or float64), payload rows [T, maxTotal] uint8, starts
+        [T, nRec8] int32) and the global per-depth (gmin, gmax) as float64."""
         ranks, dev, dt, d = self._ranks, self._ranks.device, self.dt, self.d
         th, tw = self.tile_h, self.tile_w
         if dt == DataType.UINT:  # the integer instances take int32: the same bits
@@ -283,7 +287,7 @@ class MosaicEncoder:
             for k, mb in enumerate((8, 16) if try_16 else (8,)):
                 variants[k].append(device_encode.encode_tiles_batched(
                     tiles_t[c0 : c0 + chunk], masks_t[c0 : c0 + chunk], mze, dt, self.version,
-                    mb))
+                    mb, all_valid))
 
         def cat(k, i):
             return torch.cat([o[i] for o in variants[k]])

@@ -24,7 +24,11 @@ P8: the device encoder (the integer K1 and its LUT instance, and their
     (32767 for 16-bit data) raw and still set its diff bit where the diff
     candidate was shorter: a raw diff record, which the host decoder (and
     the reference) refuses. A block forced raw takes no diff now, as the
-    host encoder does; JAX's encode_tiles keeps the bit (recorded).
+    host encoder does; JAX's encode_tiles keeps the bit (recorded);
+P9: F2b's kernel read up to a 16 KB tile past its planes where they lay off
+    a 16-byte boundary (threads with no byte of the plane still loaded a
+    chunk); run on the CPU stand-in of the CUDA runtime against planes that
+    end at a page with no access.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -232,3 +236,50 @@ def test_p8_wide_16bit_blocks_raw_without_diff(npdt):
             d, JDT.SHORT, True, 6, 1 << 14)
         flags = np.asarray(s).view(np.uint8)[np.asarray(st)]
         assert ((flags & 3 == 0) & (flags & 4 != 0)).sum() > 0
+
+
+P9_RUN = r"""
+import ctypes, mmap, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tools/cuda_standin")
+import standin
+from lerc_tpu_torch.ops import device_fpl as F
+
+standin.install(standin.build(["fpl"]), ["fpl_packbits_size"])
+page = mmap.PAGESIZE
+pages = -(-4 * 16389 // page) + 1
+buf = mmap.mmap(-1, (pages + 1) * page)
+base = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+libc = ctypes.CDLL(None, use_errno=True)
+libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+assert libc.mprotect(base + pages * page, page, 0) == 0  # the page after the planes: no access
+end = np.frombuffer(buf, np.uint8, count=pages * page)
+rng = np.random.default_rng(9)
+for n, stride in ((5000, 5001), (4093, 4095), (16389, 16389)):
+    planes = torch.from_numpy(end[pages * page - 4 * stride:]).view(4, stride)
+    planes.copy_(torch.from_numpy(rng.integers(0, 3, (4, stride), dtype=np.uint8)))
+    got = F.fpl_packbits_size(planes, n)
+    assert torch.equal(got, F.fpl_packbits_size_ref(planes, n)), (n, got)
+    print("ok", n, planes.data_ptr() % 16, flush=True)
+"""
+
+
+def test_p9_f2b_reads_no_byte_past_its_planes():
+    """P9: F2b (``fpl_packbits_size_kernel``) loaded the 16-byte chunk at
+    each thread's first byte even where the thread had no byte of the plane
+    (a >= n) and the planes lay off a 16-byte boundary: up to a tile, 16 KB,
+    past the last plane's end -- an illegal address on the card where the
+    allocation ends a mapped range. Run by the CPU stand-in of the CUDA
+    runtime (tools/cuda_standin) on planes that end at a page with no
+    access, at odd strides and offsets, in a process of its own: a read
+    past the planes kills it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    r = subprocess.run([sys.executable, "-c", P9_RUN, root], capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, (r.returncode, r.stdout[-2000:], r.stderr[-4000:])
+    assert r.stdout.count("ok") == 3

@@ -29,9 +29,14 @@ struct dim3 {
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3_ { unsigned x, y, z; };
+#define __constant__
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t = nullptr) {
+    std::memset(p, v, n);
+    return cudaSuccess;
+}
 
 struct alignas(8) int2 { int x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
@@ -169,6 +174,16 @@ template <class T> inline T atomicMax(T* a, T v) {
 
 // integer and bit intrinsics
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return __atomic_load_n(p, __ATOMIC_SEQ_CST); }
+inline int4 __ldcg(const int4* p) {  // a 16-byte load another CTA may have just stored
+    std::atomic_thread_fence(std::memory_order_seq_cst);
+    return *p;
+}
+inline unsigned __vcmpne4(unsigned a, unsigned b) {  // 0xFF in each byte where a's and b's differ
+    unsigned r = 0;
+    for (int i = 0; i < 4; ++i) r |= ((a >> (8 * i)) & 0xFFu) != ((b >> (8 * i)) & 0xFFu) ? 0xFFu << (8 * i) : 0u;
+    return r;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }

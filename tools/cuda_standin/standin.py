@@ -79,7 +79,7 @@ def install(libs, kernels):
     import torch
 
     from lerc_tpu_torch.kernels import build as B
-    from lerc_tpu_torch.ops import device_decode, device_encode
+    from lerc_tpu_torch.ops import device_decode, device_encode, device_fpl
 
     for name, lib in libs.items():
         B._libs[name] = ctypes.CDLL(str(lib))
@@ -88,7 +88,7 @@ def install(libs, kernels):
     B.on_cuda = lambda *t: (on[0] and all(x.device.type == "cpu" for x in t)) or real_on_cuda(*t)
     B.launch_stream = lambda t: ctypes.c_void_p(0)
     torch.cuda.device = lambda d: contextlib.nullcontext()
-    for mod in (device_decode, device_encode):
+    for mod in (device_decode, device_encode, device_fpl):
         for k in kernels:
             if hasattr(mod, k):
                 real = getattr(mod, k)
