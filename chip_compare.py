@@ -130,6 +130,23 @@ measured. MEASURE is one of:
        every call, the fill not counted); a sha256 of every call's whole
        outputs (the streams, starts, ranges and fits), equal in every turn
        where the blobs are byte-equal.
+  k2lut  every instance of the LUT K2 (write_records_lut_kernel) that a path
+       launches, through the same path calls as k1lut (the band codec's
+       encode_tiles, the mosaic's encode_tiles_batched), only K2's rows
+       counted, the mosaic stacks also in one cold-L2 window; the same
+       sha256 of every call's whole outputs.
+  f2   F2 (fpl_finalize) per call on the four float32 tiles (predictor 1,
+       levels (2, 1, 0, 0), as fpl; and predictor 2, levels (1, 1, 0, 0))
+       and the four float64 tiles (the lossless DEM cell's choice,
+       predictor 0, levels (0, 1, 1, 3, 3, 2, 1, 1); and predictor 2,
+       levels (2, 2, 1, 1, 1, 1, 1, 1)), each set round-robin past the L2,
+       and on the first tile of each alone at the choice (its words in the
+       L2: `_l2`),
+       every output (planes with their zero tail, histograms) first held to
+       fpl_finalize_ref: the device time of the kernel (names holding
+       "fpl_finalize"), and of all the call's device work (a tree that
+       zeroes the planes first counts the fill there); a sha256 of every
+       output.
   instances  the tree's own chip_smoke phases 5b and 13b on one DEM tile:
        every integer instance of K1, K2, K4 and K6 no timed path takes and
        K6's masked, 16x16 and float64 instances, each held to its plain
@@ -693,6 +710,7 @@ def k2int_turn(cs, dev) -> dict:
 
 
 K1LUT = ("encode_blocks_lut_kernel",)
+K2LUT = ("write_records_lut_kernel",)
 
 
 def k1lut_sets(cs, dev) -> dict:
@@ -744,7 +762,7 @@ def k1lut_sets(cs, dev) -> dict:
     return out
 
 
-def k1lut_turn(cs, dev) -> dict:
+def k1lut_turn(cs, dev, pats=K1LUT) -> dict:
     import hashlib
 
     import torch
@@ -757,10 +775,51 @@ def k1lut_turn(cs, dev) -> dict:
             for t in c():
                 raw = t.reshape(-1).contiguous().view(torch.uint8)
                 digest.update(raw.cpu().numpy().tobytes())
-        out[label] = dev_ms(cs, calls, K1LUT, reps=10)
+        out[label] = dev_ms(cs, calls, pats, reps=10)
         if label.startswith("mosaic"):
-            out[f"{label}_cold"] = dev_ms(cs, [lambda: (flush.zero_(), calls[0]())], K1LUT,
+            out[f"{label}_cold"] = dev_ms(cs, [lambda: (flush.zero_(), calls[0]())], pats,
                                           reps=5)
+    print(f"outputs sha256 {digest.hexdigest()}", flush=True)
+    return out
+
+
+def k2lut_turn(cs, dev) -> dict:
+    return k1lut_turn(cs, dev, K2LUT)
+
+
+def f2_sets(cs, dev) -> dict:
+    """{label: (tiles, predictor, levels)}: the four float32 and the four
+    float64 DEM tiles, each at the fpl cells' choice and at predictor 2,
+    round-robin past the L2; and the first tile alone at the choice, again
+    and again (in the L2, as chip_smoke.py times F2 and as the band codec
+    calls it on a tile just copied in)."""
+    t32, t64 = cs.make_tiles(4, 2048, dev), cs.make_tiles64(4, 2048, dev)
+    l32, l64 = (2, 1, 0, 0), (0, 1, 1, 3, 3, 2, 1, 1)
+    return {"f32": (t32, 1, l32), "f32_p2": (t32, 2, (1, 1, 0, 0)), "f32_l2": (t32[:1], 1, l32),
+            "f64": (t64, 0, l64), "f64_p2": (t64, 2, (2, 2, 1, 1, 1, 1, 1, 1)),
+            "f64_l2": (t64[:1], 0, l64)}
+
+
+def f2_turn(cs, dev) -> dict:
+    import hashlib
+
+    import torch
+
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    out = {}
+    digest = hashlib.sha256()
+    for label, (tiles, pred, levels) in f2_sets(cs, dev).items():
+        for t in tiles:
+            got, ref = F.fpl_finalize(t, pred, levels), F.fpl_finalize_ref(t, pred, levels)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise SystemExit(f"F2 != its plain version ({label})")
+            for a in got:
+                digest.update(a.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        calls = [lambda t=t, pred=pred, levels=levels: F.fpl_finalize(t, pred, levels)
+                 for t in tiles]
+        out[f"{label}_kernel"] = dev_ms(cs, calls, ("fpl_finalize",), reps=10)
+        out[f"{label}_all"] = dev_ms(cs, calls, (None,), reps=10)
     print(f"outputs sha256 {digest.hexdigest()}", flush=True)
     return out
 
@@ -792,7 +851,10 @@ MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_tu
             "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
             "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn,
             "h2": h2_turn, "k1int": k1int_turn, "k4lut": k4lut_turn, "k2int": k2int_turn,
-            "k1lut": k1lut_turn, "windows": windows_turn}
+            "k1lut": k1lut_turn, "k2lut": k2lut_turn, "f2": f2_turn, "windows": windows_turn}
+
+
+LAZY = ("k2lut", "f2")  # measures of one source each (encode.cu, fpl.cu)
 
 
 def turn(measure: str, tree: str, label: str) -> None:
@@ -804,7 +866,8 @@ def turn(measure: str, tree: str, label: str) -> None:
 
     if not build.__file__.startswith(tree) or not cs.__file__.startswith(tree):
         raise SystemExit(f"imported {build.__file__}, not the tree {tree}")
-    build.build_all()
+    if measure not in LAZY:  # else each source builds at its first call
+        build.build_all()
     out = MEASURES[measure](cs, torch.device("cuda"))
     print(label, " ".join(f"{k}={v:.4f}" for k, v in out.items()), "ms", flush=True)
 

@@ -49,7 +49,11 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      with half of it); the redesigned LUT K1 (encode_blocks_lut: a distinct
      count, no sort) against its plain version on crafted blocks
      (k1lut_edge_check: n_lut at the LUT/stuffed tie, set collisions,
-     masks, the diff candidate, uint32, stacks), the case counts printed;
+     masks, the diff candidate, uint32, stacks); the redesigned LUT K2
+     (write_records_lut: strips, no sort) against its plain version on the
+     same blocks (k2lut_edge_check: the bitmap and the ordered path, with
+     validity words and with none, one span, a record at a time, a cut
+     capacity), the case counts printed;
   4. the paths, each run with every launch count at 0 before it and read
      after it -- a kernel of the path launched no time, or a kernel of
      another path launched, fails:
@@ -378,16 +382,20 @@ def _kernel_rows(prof):
     return rows
 
 
-WINDOWS = {"taken": 0, "empty": 0}  # profiled_rows' windows, and those with no kernel row
+# profiled_rows' windows, those with no kernel row, and those short of launches
+WINDOWS = {"taken": 0, "empty": 0, "short": 0}
 
 
-def profiled_rows(fns, reps, matches=(None,), tries=5):
+def profiled_rows(fns, reps, matches=(None,), tries=5, launches=None):
     """The CUDA kernel rows of a torch.profiler window over `reps` rounds of
     fns (after a warm-up pass). The profiler's trace has come back empty
-    now and then on the card; the window is taken again, up to `tries`
-    times, until every pattern of `matches` (None: any kernel) has a row.
-    Each window that comes back without a kernel row is said and counted
-    in WINDOWS. Returns the rows, or None when it never does."""
+    now and then on the card, and with some of a window's launches missing;
+    the window is taken again, up to `tries` times, until every pattern of
+    `matches` (None: any kernel) has a row -- and, where `launches` (the
+    launches of the first pattern's kernels a call) is given, until its
+    rows count every launch. Each window that comes back without a kernel
+    row, or short of launches, is said and counted in WINDOWS. Returns the
+    rows, or None when it never does."""
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
@@ -405,18 +413,27 @@ def profiled_rows(fns, reps, matches=(None,), tries=5):
             WINDOWS["empty"] += 1
             print(f"profiler window {k + 1} of {tries} came back empty (wanted {matches})",
                   flush=True)
-        if all(any(m is None or m in r[0] for r in rows) for m in matches):
-            return rows
+        if not all(any(m is None or m in r[0] for r in rows) for m in matches):
+            continue
+        if launches is not None:
+            got = sum(r[1] for r in rows if matches[0] is None or matches[0] in r[0])
+            if got < launches * reps * len(fns):
+                WINDOWS["short"] += 1
+                print(f"profiler window {k + 1} of {tries} counted {got} of "
+                      f"{launches * reps * len(fns)} launches of {matches[0]}", flush=True)
+                continue
+        return rows
     return None
 
 
-def device_ms(fns, match=None, reps=5):
+def device_ms(fns, match=None, reps=5, launches=None):
     """Mean device ms per call of fns from torch.profiler: the time of the
     kernels whose name contains `match` (all kernels when None), free of the
-    host's launch overhead. Calls round-robin as cuda_ms. Where the profiler
-    shows no device time, the CUDA-event time of the calls stands in (and
-    says so)."""
-    rows = profiled_rows(fns, reps, (match,))
+    host's launch overhead; `launches`: their launches a call, where a
+    window must count them all (profiled_rows). Calls round-robin as
+    cuda_ms. Where the profiler shows no device time, the CUDA-event time
+    of the calls stands in (and says so)."""
+    rows = profiled_rows(fns, reps, (match,), launches=launches)
     if rows is None:
         print(f"profiler shows no device time for {match or 'the calls'}: CUDA events instead",
               flush=True)
@@ -1902,6 +1919,107 @@ def k1lut_edge_check(dev):
     return n_cases
 
 
+def lut_ties(mb, nbs, rng, cnt=None):
+    """Blocks with n_lut at the LUT/stuffed tie and one past it, for each nb."""
+    full = mb * mb if cnt is None else cnt
+    out = []
+    for nb in nbs:
+        t = lut_tie(nb, full)
+        for n in sorted({max(t, 1), t + 1}):
+            if n <= min((1 << nb) - 1, full - 1):
+                out.append(lut_block(mb, nb, n, rng, cnt))
+    return out
+
+
+def k2lut_tiles():
+    """Three small tiles whose LUT records take both of the LUT K2's paths
+    (tests/test_torch_k2lut.py holds them to JAX): [(tag, data [H, W, D]
+    int32, dtype, mask or None, mb, tiles)]."""
+    from lerc_tpu_torch.constants import DataType
+
+    rng = np.random.default_rng(19)
+    # 8x8, all-valid and aligned: ties at nb 2-16, and a few values spread
+    # up to 2^9, 2^14 and 2^21 (the last two wide LUT records)
+    wide = [rng.permutation(np.resize(np.arange(k + 1) * step, 64)).reshape(8, 8)
+            for k, step in ((3, 128), (5, 2048), (9, 131072))]
+    a = lut_image(lut_ties(8, range(2, 17, 2), rng) + wide, 8) + 40000
+    # 16x16 masked: blocks of 63, 255 and 256 valid values at their ties
+    blocks, masks = [], []
+    for c in (63, 255, 256):
+        for b in lut_ties(16, (3, 7, 11), rng, c)[:2]:
+            m = np.zeros(256, bool)
+            m[rng.permutation(256)[:c]] = True
+            blocks.append(b + 100)
+            masks.append(m.reshape(16, 16))
+    b = lut_image(blocks, 16, 3)
+    bm = lut_image([m.astype(np.int64) for m in masks], 16, 3)[:, :, 0] != 0
+    # depth 2, a stack of two tiles of 1 x 4 blocks, a fifth of the pixels
+    # masked: slice 1 = slice 0 plus few values
+    s0 = [rng.integers(1000, 2500, (8, 8)) for _ in range(8)]
+    c = lut_image([np.stack([x, x + lut_block(8, 4, 3, rng)], -1) for x in s0], 8, 4)
+    cm = rng.random(c.shape[:2]) < 0.8
+    return [("mb8 ties nb 2-16, wide values, no validity words", a.astype(np.int32), DataType.INT,
+             None, 8, 1),
+            ("mb16 masked 63, 255, 256 values", b.astype(np.int32), DataType.USHORT, bm, 16, 1),
+            ("mb8 depth 2 diff LUT, masked, a stack of 2 tiles", c.astype(np.int32),
+             DataType.SHORT, cm, 8, 2)]
+
+
+K2L_BITMAP_NB = 12  # kernels/encode.cu: the widest nb whose LUT set is a bitmap
+
+
+def k2lut_case(dev, data, dt, mze, mb, mask, version, tiles, tag):
+    """The LUT K2's stream equal to write_records_ref's on one input, from
+    K1's records (tile_rec for a stack): with the validity words (all set
+    where there is no mask) and, for an aligned image with no mask, with
+    none; each with the starts as K1's lengths give them (one span a
+    strip), with 3-byte gaps between the records (a record at a time) and
+    with half the capacity (records cut). Returns (LUT records, those of
+    nb past K2L_BITMAP_NB: the ordered path)."""
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    x = torch.from_numpy(data).to(dev)
+    p = enc.encode_params(mze, version, 0, dt, mb)
+    m = np.ones((h, w), bool) if mask is None else mask
+    variants = [enc.block_valid_words(torch.from_numpy(m).to(dev), mb)]
+    if mask is None and h % mb == 0 and w % mb == 0:
+        variants.append(None)
+    tile_rec = (-(-h // mb) * -(-w // mb) * d) // tiles if tiles > 1 else 0
+    rk = enc.encode_blocks(x, p, variants[-1], mb, True, tile_rec)[0]
+    length = rk[:, 0]
+    starts = torch.cumsum(length, 0, dtype=torch.int32) - length
+    total = int(length.sum())
+    gaps = starts + 3 * torch.arange(rk.shape[0], dtype=torch.int32, device=dev)
+    for valid in variants:
+        for st, cap_w in ((starts, (total + 64) // 4), (gaps, (total + 3 * rk.shape[0] + 64) // 4),
+                          (starts, max(1, total // 8))):
+            sk = enc.write_records(x, rk, st, cap_w, p, valid, mb, True)
+            sr = enc.write_records_ref(x, rk, st, cap_w, p, valid, mb, True)
+            require(torch.equal(sk, sr), f"LUT K2 != plain ({tag}, cap_w {cap_w}, "
+                    f"{'all-valid' if valid is None else 'validity words'})")
+    lut = ((rk[:, 1] >> 11) & 1) == 1
+    return int(lut.sum()), int((lut & (((rk[:, 1] >> 16) & 0xFF) > K2L_BITMAP_NB)).sum())
+
+
+def k2lut_edge_check(dev):
+    """Phase 3e, the LUT K2 (every instance: float32 and int32 input, 8x8
+    and 16x16 blocks, with validity words and with none) equal to its plain
+    version on k1lut_cases' crafted blocks at v6 and v4 (k2lut_case).
+    Requires LUT records on both of the kernel's paths, the bitmap and the
+    ordered one, at each block size. Returns the number of cases."""
+    n_cases = 0
+    for mb in (8, 16):
+        n_lut = n_wide = 0
+        for tag, data, dt, mze, mask, version, tiles in k1lut_cases(mb):
+            for v in (version, 4):
+                a, b = k2lut_case(dev, data, dt, mze, mb, mask, v, tiles, f"{tag}, v{v}")
+                n_lut, n_wide, n_cases = n_lut + a, n_wide + b, n_cases + 1
+        require(n_wide > 0 and n_lut > n_wide,
+                f"LUT K2: not both paths at mb {mb} ({n_lut} LUT records, {n_wide} wide)")
+    return n_cases
+
+
 INT_CELLS = (  # (label, dtype, depth, maxZError)
     ("int16 DEM in whole metres", np.int16, 1, 0.5),
     ("int32 DEM", np.int32, 1, 2.0),
@@ -2359,16 +2477,17 @@ def band_inputs(data, mask, mze, mb, version=6):
 
 
 def k1_valid(valid, mask, data, mb):
-    """The LUT K1's validity words as the band codec passes them: none for
-    an aligned band with no mask."""
+    """The LUT K1's and K2's validity words as the band codec passes them:
+    none for an aligned band with no mask."""
     h, w = data.shape[:2]
     return None if mask is None and h % mb == 0 and w % mb == 0 else valid
 
 
 def check_lut_kernels(data, mask, mze, mb, tag):
     """The LUT instances of K1 and K2 at block size mb against their plain
-    versions on the same CUDA tensors (K1's validity words as the band codec
-    passes them). Returns ({kernel: max_abs_err}, LUT records, records)."""
+    versions on the same CUDA tensors (the validity words as the band codec
+    passes them; K2 also with the words where the codec passes none).
+    Returns ({kernel: max_abs_err}, LUT records, records)."""
     from lerc_tpu_torch.constants import dt_is_int
     from lerc_tpu_torch.ops import device_encode as enc
 
@@ -2382,11 +2501,14 @@ def check_lut_kernels(data, mask, mze, mb, tag):
     length = rk[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     cap_w = (int(length.sum()) + 4096) // 4
-    sk = enc.write_records(x, rk, starts, cap_w, p, valid, mb, True)
-    sr = enc.write_records_ref(x, rk, starts, cap_w, p, valid, mb, True)
-    require(torch.equal(sk, sr), f"K2 {k2} != plain ({tag})")
+    err = 0.0
+    for v in dict.fromkeys((kv, valid), None):  # as the band codec calls it, and with words
+        sk = enc.write_records(x, rk, starts, cap_w, p, v, mb, True)
+        sr = enc.write_records_ref(x, rk, starts, cap_w, p, v, mb, True)
+        require(torch.equal(sk, sr), f"K2 {k2} != plain ({tag})")
+        err = max(err, max_abs(sk, sr))
     n_lut = int(((rk[:, 1] >> 11) & 1).sum())
-    return {k1: max(max_abs(rk, rr), max_abs(zk, zr)), k2: max_abs(sk, sr)}, n_lut, rk.shape[0]
+    return {k1: max(max_abs(rk, rr), max_abs(zk, zr)), k2: err}, n_lut, rk.shape[0]
 
 
 def band_z_max(blob, head, pos):
@@ -2626,24 +2748,24 @@ def lut_kernel_times(data, mask, mze, mb, is_int):
     mode = (rk[:, 1] >> 8) & 3
     n_lut_rec = int(((rk[:, 1] >> 11) & 1).sum())
     coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
-    v_bytes = valid.numel() * 4
-    s = int(np.log2(bs))
-    sort_ops = (bs // 2) * s * (s + 1) // 2 * 2  # K2's bitonic compare-exchanges, min + max
-    # K1: a distinct count is O(1) a value; its validity words only where it reads them
-    k1_b = size * n_val + (0 if kv is None else v_bytes) + 16 * n_rec + 8 * d + 4
+    # K1 and K2: a distinct count (K1) or a LUT record's set (K2) is O(1) a
+    # value; validity words only where the band codec passes them (none for
+    # an aligned band with no mask); K2 reads the coded records' values
+    v_bytes = 0 if kv is None else valid.numel() * 4
+    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d + 4
     k1_o = 20 * n_val
     k2_b = size * coded + v_bytes + 20 * n_rec + total
-    k2_o = 12 * coded + n_lut_rec * sort_ops
+    k2_o = 12 * coded
     rows = {}
     for name, kf, rf, b, o, match in (
             (k1, lambda: enc.encode_blocks(x, p, kv, mb, True),
              lambda: enc.encode_blocks_ref(x, p, kv, mb, True), k1_b, k1_o,
              "encode_blocks_lut_kernel"),
-            (k2, lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True),
-             lambda: enc.write_records_ref(x, rk, starts, cap_w, p, valid, mb, True), k2_b, k2_o,
+            (k2, lambda: enc.write_records(x, rk, starts, cap_w, p, kv, mb, True),
+             lambda: enc.write_records_ref(x, rk, starts, cap_w, p, kv, mb, True), k2_b, k2_o,
              "write_records_lut_kernel")):
         bms, oms = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
-        rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), max(bms, oms),
+        rows[name] = (device_ms([kf], match, launches=1), cuda_ms([rf], reps=1), max(bms, oms),
                       "bytes" if bms >= oms else "operations")
     return rows, n_lut_rec, n_rec
 
@@ -3743,6 +3865,47 @@ def fpl_check(data, tag, level_sets=FPL_LEVELS):
     return dict.fromkeys(FPL64 if data.dtype == torch.float64 else FPL, 0.0)
 
 
+F2_TILE = 2048  # F2's positions a tile (kernels/fpl.cu FIN_TILE)
+F2_SHAPES = ((1, 1, 1), (1, 5, 1), (3, 2, 1), (1, 1, 3), (7, 3, 1), (17, 1, 1), (5, 3, 2),
+             (13, 11, 3), (64, 32, 1), (1, 2049, 1), (683, 3, 1), (45, 46, 1), (41, 50, 2),
+             (129, 33, 1))  # n 1 .. 4257: odd n, tiles' edges, one to five columns
+
+
+def f2_edge_check(dev, shapes=F2_SHAPES):
+    """F2 (fpl_finalize: every plane byte, the zero tail to the padded
+    length included, and the histograms) equal to its plain version on
+    float32 and float64 bands of n from 1 past two tiles (F2_SHAPES: odd n,
+    n at a tile's edge, rows of one to five columns, depths 1-3), each a
+    smooth surface, a constant (the one-value planes of a warp) and noise
+    with both signs, for predictors 0-2 and level sets that give every
+    plane every level 0-5; the planes' memory is dirtied before each call.
+    Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_fpl as F
+
+    rng = np.random.default_rng(19)
+    n_cases = 0
+    for kind, level_sets in ((np.float32, FPL_LEVELS + ((5, 5, 5, 5),)),
+                             (np.float64, FPL_LEVELS64 + ((5,) * 8,))):
+        for h, w, d in shapes:
+            n = h * w * d
+            surf = 100.0 + np.cumsum(rng.normal(0, 0.01, n)).reshape(h, w, d)
+            for label, vals in (("smooth", surf), ("constant", np.full((h, w, d), 7.25)),
+                                ("noise", rng.normal(0, 1e3, (h, w, d)))):
+                x = torch.from_numpy(vals.astype(kind)).to(dev)
+                for pred in (0, 1, 2):
+                    for levels in level_sets:
+                        torch.full((F.padded(n) * len(levels) + 4096,), 0xA5, dtype=torch.uint8,
+                                   device=dev)  # freed: the planes may take its memory
+                        pk, hk = F.fpl_finalize(x, pred, levels)
+                        pr, hr = F.fpl_finalize_ref(x, pred, levels)
+                        tag = (f"{np.dtype(kind).name} {h}x{w}x{d} {label}, predictor {pred}, "
+                               f"levels {levels}")
+                        require(torch.equal(pk, pr) and torch.equal(hk, hr), f"F2 != plain ({tag})")
+                        require(not pk[:, n:].any(), f"F2: the tail past n is not 0 ({tag})")
+                        n_cases += 1
+    return n_cases
+
+
 F2B_TILE = 16384  # F2b's tile of bytes a plane (kernels/fpl.cu PB_TILE)
 
 
@@ -3968,9 +4131,12 @@ def fpl_kernel_times(tile, blob, index, card):
             cuda_ms([lambda: F.fpl_sample_histograms_ref(tile)], reps=1),
             (4 * m + 4 * 3 * 4 * 6 * 256) / mb, None),
         "fpl_finalize": (
-            device_ms([lambda: F.fpl_finalize(tile, pred, levels)], "fpl_finalize_kernel"),
+            device_ms([lambda: F.fpl_finalize(tile, pred, levels)], "fpl_finalize_kernel",
+                      launches=1),
             cuda_ms([lambda: F.fpl_finalize_ref(tile, pred, levels)], reps=1),
-            (8 * n + 4 * 4 * 256) / mb, None),
+            # the words read, every plane byte to the padded length written,
+            # the histograms written by the wrapper's fill and by the kernel
+            (4 * n + 4 * F.padded(n) + 2 * 4 * 4 * 256) / mb, None),
     }
     km, _lm, bound = paired_row(
         "fpl_packbits_size (the four planes of a float32 tile)",
@@ -4049,6 +4215,11 @@ def fpl_phases(tiles, mask, card, launches, add_row):
             err.update(fpl_check(data, f"{ch}x{cw}x{d} DEM crop"))
         print(f"check: F1-F3 equal to their plain versions on the {ch}x{cw} DEM crops (depth 1 "
               f"and 3, predictors 0-2, levels 0-5)", flush=True)
+    n_cases = f2_edge_check(tiles[0].device)
+    print(f"check: F2 (planes, their zero tail, histograms) equal to its plain version in "
+          f"{n_cases} cases, float32 and float64 (n 1-{max(h * w * d for h, w, d in F2_SHAPES)}: "
+          f"odd, at the tiles' edges, one to five columns; smooth, constant and noisy bands; "
+          f"predictors 0-2, levels 0-5 on every plane; dirtied planes' memory)", flush=True)
     n_cases = f2b_edge_check(tiles[0].device)
     print(f"check: F2b equal to its plain version in {n_cases} cases at 4 and 8 planes (constant "
           f"and alternating planes, runs of 129-259 across tile edges, literals chained across "
@@ -4398,9 +4569,9 @@ def f64_kernel_times(tiles, mask, lossy_blobs, lossless_blob, card):
         (8 * m + 4 * 3 * 8 * 6 * 256) / mb)
     out["fpl_finalize_f64"] = (
         device_ms([lambda t=t: F.fpl_finalize(t, pred, levels) for t in tiles],
-                  "fpl_finalize_kernel"),
+                  "fpl_finalize_kernel", launches=1),
         cuda_ms([lambda: F.fpl_finalize_ref(tiles[0], pred, levels)], reps=1),
-        (16 * n + 8 * 4 * 256) / mb)
+        (8 * n + 8 * F.padded(n) + 2 * 8 * 4 * 256) / mb)  # as fpl_finalize's row
     turn = itertools.cycle(planes)  # round-robin: 134 MB of planes, past the L2
     km, _ym, bound = paired_row(
         "fpl_restore_f64", lambda: F.fpl_restore(next(turn), h, w, d, pred, levels),
@@ -4773,26 +4944,25 @@ def tiles_encode_times(t, m, mze, dt, mb):
     if f64:
         k2 = lambda: enc.write_records_f64(x, rk, starts, cap_w, p, valid)  # noqa: E731
         k1r = lambda: enc.encode_blocks_f64_ref(x.cpu(), p, valid.cpu(), tile_rec)  # noqa: E731
-    else:
-        k2 = lambda: enc.write_records(x, rk, starts, cap_w, p, valid, mb, True)  # noqa: E731
+    else:  # K2 takes K1's validity words (none for an aligned all-valid stack)
+        k2 = lambda: enc.write_records(x, rk, starts, cap_w, p, kv, mb, True)  # noqa: E731
         k1r = lambda: enc.encode_blocks_ref(  # noqa: E731
             x.cpu(), p, None if kv is None else kv.cpu(), mb, True, tile_rec)
     bs, n_rec, size = mb * mb, rk.shape[0], DT_SIZE[dt]
     n_val = int(m.sum()) * d
     mode = (rk[:, 1] >> 8) & 3
     coded = int((((mode == 0) | (mode == 1)).sum()) * bs)
-    v_bytes = valid.numel() * 4
-    s = int(np.log2(bs))
-    sort_ops = 0 if f64 else (bs // 2) * s * (s + 1) // 2 * 2  # K2's LUT records
-    # K1: a distinct count is O(1) a value; its validity words only where it reads them
-    k1_b = size * n_val + (0 if kv is None else v_bytes) + 16 * n_rec + 8 * d * n_t
+    # a distinct count (K1) or a LUT record's set (K2) is O(1) a value; the
+    # validity words only where the kernels read them
+    v_bytes = 0 if kv is None else valid.numel() * 4
+    k1_b = size * n_val + v_bytes + 16 * n_rec + 8 * d * n_t
     k1_o = 20 * n_val
     k2_b = size * coded + v_bytes + 20 * n_rec + total
-    k2_o = 12 * coded + int(((rk[:, 1] >> 11) & 1).sum()) * sort_ops
+    k2_o = 12 * coded
     ops_rate = F64_OPS_PER_S if f64 else F32_OPS_PER_S
     k1n, k2n = k1_tiles_names(dt, mb)
     xc, rkc, stc = x.cpu(), rk.cpu(), starts.cpu()
-    vc = valid.cpu()
+    vc = None if kv is None else kv.cpu()
     k2r = ((lambda: enc.write_records_f64_ref(xc, rkc, stc, cap_w, p, vc)) if f64 else
            (lambda: enc.write_records_ref(xc, rkc, stc, cap_w, p, vc, mb, True)))
     rows = {}
@@ -4802,7 +4972,7 @@ def tiles_encode_times(t, m, mze, dt, mb):
             (k2n, k2, k2r, k2_b, k2_o, "write_records_f64_kernel" if f64
              else "write_records_lut_kernel")):
         bms, oms = b / HBM_BYTES_PER_S * 1e3, o / ops_rate * 1e3
-        rows[name] = (device_ms([kf], match), cuda_ms([rf], reps=1), max(bms, oms),
+        rows[name] = (device_ms([kf], match, launches=1), cuda_ms([rf], reps=1), max(bms, oms),
                       "bytes" if bms >= oms else "operations")
     return rows
 
@@ -5435,6 +5605,13 @@ def main():
           f"values, a 61x47 edge crop, depth 3 with the diff's and the absolute LUT, uint32 "
           f"across 2^31, lossy int32, v6 and v4) ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    n_k2l = k2lut_edge_check(dev)
+    print(f"check: the LUT K2's stream equal to its plain version in {n_k2l} cases (every "
+          f"instance on k1lut_edge_check's blocks, v6 and v4, with validity words and, aligned "
+          f"and unmasked, with none; LUT records of nb up to {K2L_BITMAP_NB} on the bitmap and "
+          f"wider on the ordered path; starts as one span, with gaps, half the capacity) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     n_k4l = k4lut_edge_check(dev)
     n_k2 = k2int_edge_check(dev)
     print(f"check: the mosaic K4 (images, per-unit flags) equal to its plain version in {n_k4l} "
@@ -5550,7 +5727,8 @@ def main():
     # ---- 28. the Pallas probes Q1-Q3
     probe_phase(card, add_row, launches)
     print(f"phases 27-28: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"profiler windows: {WINDOWS['taken']} taken, {WINDOWS['empty']} came back empty",
+    print(f"profiler windows: {WINDOWS['taken']} taken, {WINDOWS['empty']} came back empty, "
+          f"{WINDOWS['short']} short of launches",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

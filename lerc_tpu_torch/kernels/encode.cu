@@ -35,17 +35,16 @@
 // it in sorted order. K1 takes the LUT record when max_q > 0, 1 <= n_lut <
 // 255 and it is shorter than the plain stuffed one (device_encode.py:662-671,
 // inside the integer depth-diff candidate too, :691-698); it counts n_lut in
-// a set in shared memory, and only where the LUT can win (below). K2 sorts
-// (value, position) keys with a warp bitonic network -- shuffles across
-// lanes, register swaps within a lane -- marks the first of each run of
-// equal values, and writes [n_lut + 1][LUT at numBits][indices at
-// bitlen(n_lut)], each index a rank, with no one-hot matrix.
+// a set in shared memory, and only where the LUT can win (below). K2 needs
+// no sort either: it writes [n_lut + 1][LUT at numBits][indices at
+// bitlen(n_lut)] from the set of each LUT record's distinct values, a
+// bitmap where nb is narrow (below), with no one-hot matrix.
 //
 // Bound: bytes. K1 reads the image once (size*H*W*D B) and writes 16 B per
-// record; K2 reads the image again and writes the stream (`total` B); the
-// masked ones also read 4*VPL B of validity words per record. Both do a
-// few dozen operations per value (K2 a few hundred more for a LUT record's
-// sort), under the f32 rate's share of the bytes' time.
+// record; K2 reads the coded records' values again and writes the stream
+// (`total` B); the masked ones also read 4*VPL B of validity words per
+// record. Both do a few dozen operations per value, under the f32 rate's
+// share of the bytes' time.
 //
 // Record r = b*D + di (block-major, depth inner). rec_info[r] holds
 // {length, desc, offset word, zq}, desc = flag | mode << 8 | diff << 10 |
@@ -202,51 +201,6 @@ __device__ __forceinline__ int bit_len(uint32_t v) { return v ? 32 - __clz(v) : 
 
 // ---- the block's values and validity
 
-// block b's VPL validity words and its value count
-template <int VPL>
-__device__ __forceinline__ int block_valid(const uint32_t* valid, int b, uint32_t (&vw)[VPL]) {
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        vw[k] = valid[(size_t)b * VPL + k];
-        cnt += __popc(vw[k]);
-    }
-    return cnt;
-}
-
-// the rank of valid position j among the block's valid positions
-template <int VPL>
-__device__ __forceinline__ int valid_rank(const uint32_t (&vw)[VPL], int j) {
-    int r = 0;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        const int kk = j >> 5;
-        if (k < kk) r += __popc(vw[k]);
-        else if (k == kk) r += __popc(vw[k] & ((1u << (j & 31)) - 1u));
-    }
-    return r;
-}
-
-// the rank of this lane's position 32k + lane (k known at compile time)
-template <int VPL>
-__device__ __forceinline__ int lane_rank(const uint32_t (&vw)[VPL], int k, uint32_t lt) {
-    int r = __popc(vw[k] & lt);
-#pragma unroll
-    for (int i = 0; i < VPL; ++i)
-        if (i < k) r += __popc(vw[i]);
-    return r;
-}
-
-// value k of this lane (block position 32k + lane), 0 where invalid
-template <typename T, int MB>
-__device__ __forceinline__ T load_value(const T* data, int w, int d, int nbh, int b, int di,
-                                        int lane, int k, bool ok) {
-    const unsigned j = 32 * k + lane;  // unsigned: j / MB and j % MB are a shift and a mask
-    const int row = (b / nbh) * MB + (int)(j / MB);
-    const int col = (b % nbh) * MB + (int)(j % MB);
-    return ok ? data[((size_t)row * w + col) * d + di] : (T)0;
-}
-
 // the two values of lane `lane` of block b, depth di; a position that a
 // mask or the image's edge makes invalid is not read
 template <typename T, bool MASKED>
@@ -256,54 +210,6 @@ __device__ __forceinline__ void load_pair(const T* data, int w, int d, int nbh, 
     const int col = (b % nbh) * 8 + (lane & 7);
     x0 = !MASKED || ok0 ? data[((size_t)row * w + col) * d + di] : (T)0;
     x1 = !MASKED || ok1 ? data[((size_t)(row + 4) * w + col) * d + di] : (T)0;
-}
-
-// ---- the warp's bitonic sort (ascending) of the 32*VPL keys v[k] of lane
-// `lane` in element order i = 32k + lane: partners within a lane swap
-// registers, partners across lanes exchange through shuffles
-template <typename K, int VPL>
-__device__ __forceinline__ void warp_sort(K (&v)[VPL], int lane) {
-    constexpr int N = 32 * VPL;
-#pragma unroll
-    for (int size = 2; size <= N; size <<= 1) {
-#pragma unroll
-        for (int j = size >> 1; j > 0; j >>= 1) {
-#pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                const bool up = ((32 * k + lane) & size) == 0;
-                if (j >= 32) {
-                    const int kk = k ^ (j >> 5);
-                    if (kk > k) {
-                        const K a = v[k], c = v[kk];
-                        if (up ? a > c : a < c) {
-                            v[k] = c;
-                            v[kk] = a;
-                        }
-                    }
-                } else {
-                    const K o = __shfl_xor_sync(FULL, v[k], j);
-                    const bool lower = (lane & j) == 0;
-                    v[k] = (lower == up) ? (v[k] < o ? v[k] : o) : (v[k] < o ? o : v[k]);
-                }
-            }
-        }
-    }
-}
-
-// after warp_sort on values (or keys whose high word is the value): first[k]
-// marks element 32k + lane that starts a run of equal non-zero values
-template <typename K, int VPL>
-__device__ __forceinline__ void first_nonzero(const K (&v)[VPL], int lane, bool (&first)[VPL]) {
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        const uint32_t cur = (uint32_t)(v[k] >> (8 * (sizeof(K) - 4)));
-        const uint32_t up = __shfl_up_sync(FULL, cur, 1);
-        uint32_t last = 0;
-        if (k > 0) last = __shfl_sync(FULL, (uint32_t)(v[k - 1] >> (8 * (sizeof(K) - 4))), 31);
-        const bool has_prev = lane > 0 || k > 0;
-        const uint32_t prev = lane > 0 ? up : last;
-        first[k] = cur > 0 && (!has_prev || cur != prev);
-    }
 }
 
 // the LUT record's length, taken when shorter (device_encode.py:662-671)
@@ -986,8 +892,7 @@ __global__ void __launch_bounds__(K2S_THREADS) write_records_int_kernel(
 // is never counted); inserts by atomicOr / atomicCAS, n_lut the group's sum
 // of the ballots of its fresh inserts. A value equal to the one before it
 // in the same lane (k - 1) is not inserted again. The depth-diff candidate
-// counts in the same set after a clear. K2 sorts each LUT record's values
-// itself.
+// counts in the same set after a clear.
 
 constexpr int K1L_WARPS = 4;    // warps a CTA (chip_tune_k1lut.py: 8 ran up to 18% slower)
 constexpr int K1L_LANES8 = 8;   // lanes a record, 8x8 blocks
@@ -1430,136 +1335,414 @@ __global__ void write_records_masked_kernel(const float* __restrict__ data,
                                     cap_w);
 }
 
-// ---- K2 with the LUT candidate (the band codec's), 8x8 or 16x16 blocks,
-// validity words always (all set for an aligned all-valid image)
+// ---- K2 with the LUT candidate (the band codec's and the mosaic's), 8x8
+// or 16x16 blocks, float32 or int32 input: strips on the integer K2's
+// machinery. A CTA of K2L_THREADS owns a strip of record.cuh's
+// strip_shape(MB, w, d, 4, 1): S consecutive MB x MB blocks of one block
+// row with all their D records, or one block and its depths in chunks,
+// each staged with the slice before it (rows an odd number of 16-byte
+// chunks apart: a record's rows, read side by side, meet different banks).
+// The chunk's rec_info and starts are one coalesced read each. The
+// records' bytes are one span [starts[ra], starts[rb]), built in a zeroed
+// buffer in shared memory: each header by one thread, each block row of a
+// record that is not a LUT record by one thread (at depth 1 its values in
+// 16-byte loads; packed LSB-first at the bit its valid rank gives, ORed a
+// word at a time), each LUT record by one warp, with no sort. Staging only
+// the blocks with a coded record ran slower on three of five path inputs
+// (chip_tune_k2lut_f2.py): the test cost more than the loads it saved.
+//
+// K1 has fixed nb and the LUT bit, so the warp needs only the set of the
+// record's distinct non-zero quanta. Where nb <= K2L_BITMAP_NB it is a
+// bitmap over [0, 2^nb) in shared memory (value v at bit v & 31 of word v
+// >> 5): n_lut is its popcount, the LUT entries are its set bits in order, and a
+// value's index is 1 + the set bits below it (a warp scan of the words'
+// popcounts gives each word the count below it). Wider, it is a hash set
+// of the values and their list: each entry's rank is the count of smaller
+// entries, and a value's index comes from a binary search of the ordered
+// list. Lane l holds the record's positions l*VPL .. l*VPL + VPL - 1, so a
+// lane's indices, like its share of the LUT entries, are consecutive
+// fields. The span leaves as the integer K2's does: aligned 16-byte
+// stores, only the edge chunks ORed into the zeroed stream. Validity words
+// are read only by the masked instances (masks, edge blocks); an aligned
+// all-valid image passes none.
 
-// the LUT record's payload at bit `pay` of buf: sort (value, position)
-// keys; the runs of equal values give the LUT entries (the first of each
-// non-zero run, at its rank) and each position's index (the inclusive count
-// of non-zero runs up to it): [n_lut + 1][LUT at nb bits][indices at
-// bitlen(n_lut) bits, in valid-rank order]
-template <int VPL>
-__device__ __forceinline__ void write_lut_payload(uint32_t* buf, const uint32_t (&v)[VPL],
-                                                  const bool (&ok)[VPL],
-                                                  const uint32_t (&vw)[VPL], int lane, int pay,
-                                                  int nb) {
-    unsigned long long key[VPL];  // invalid positions sort as value 0
-#pragma unroll
-    for (int k = 0; k < VPL; ++k)
-        key[k] = ((unsigned long long)(ok[k] ? v[k] : 0u) << 32) | (unsigned)(32 * k + lane);
-    warp_sort(key, lane);
-    bool first[VPL];
-    first_nonzero(key, lane, first);
-    int excl[VPL], n_lut = 0;
-    const uint32_t lt = (1u << lane) - 1u;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        const uint32_t ball = __ballot_sync(FULL, first[k]);
-        excl[k] = n_lut + __popc(ball & lt);
-        n_lut += __popc(ball);
-    }
-    const int nbits_lut = bit_len((uint32_t)n_lut);
-    const int lut_base = pay + 8;
-    const int idx_base = lut_base + 8 * ((n_lut * nb + 7) >> 3);
-    if (lane == 0) put_bits(buf, pay, (uint32_t)(n_lut + 1), 8);
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-        const uint32_t val = (uint32_t)(key[k] >> 32);
-        if (first[k]) put_bits(buf, lut_base + excl[k] * nb, val, nb);
-        if (val) {  // a non-zero value lies at a valid position
-            const int j = (int)(key[k] & 0xFFFFFFFFu);
-            const int idx = excl[k] + (first[k] ? 1 : 0);
-            put_bits(buf, idx_base + valid_rank(vw, j) * nbits_lut, (uint32_t)idx, nbits_lut);
+constexpr int K2L_THREADS = 128;
+constexpr int K2L_WARPS = K2L_THREADS / 32;
+constexpr int K2L_BITMAP_NB = 12;  // the widest nb whose LUT set is a bitmap (512 B)
+
+template <int MB>
+struct K2L {
+    static constexpr int BP = MB * MB;                 // positions a block
+    static constexpr int VPL = BP / 32;                // consecutive positions a lane
+    static constexpr int VW = BP / 32;                 // validity words a block
+    static constexpr int PITCH = STRIP_OUT / MB + 16;  // a staged row's bytes at most
+    static constexpr int NBLK = STRIP_PX / BP;         // blocks a strip at most
+    static constexpr int SLOTS = 2 * BP;               // the wide set's hash slots
+    static constexpr int LOG_SLOTS = MB == 8 ? 7 : 9;
+    static constexpr int WS = SLOTS + 512;             // a warp's set words (>= 2 * 128)
+};
+
+// LSB-first fields from bit `bit` of the span's words on, ORed a word at a
+// time (bits at or past `end` dropped)
+struct BitOut {
+    uint32_t* buf;
+    int wi, nacc, end;
+    uint64_t acc;
+    __device__ BitOut(uint32_t* b, int bit, int e)
+        : buf(b), wi(bit >> 5), nacc(bit & 31), end(e), acc(0) {}
+    __device__ void put(uint32_t v, int width) {
+        acc |= (uint64_t)v << nacc;
+        nacc += width;
+        if (nacc >= 32) {
+            k2_or(buf, wi++, (uint32_t)acc, end);
+            acc >>= 32;
+            nacc -= 32;
         }
+    }
+    __device__ void flush() {
+        if (nacc > 0) k2_or(buf, wi, (uint32_t)acc, end);
+    }
+};
+
+// the valid positions of a block before position j
+template <int VW>
+__device__ __forceinline__ int rank_below(const uint32_t* vw, int j) {
+    int r = __popc(vw[j >> 5] & ((1u << (j & 31)) - 1u));
+#pragma unroll
+    for (int k = 0; k < VW; ++k)
+        if (k < (j >> 5)) r += __popc(vw[k]);
+    return r;
+}
+
+// the field of a value x (bits of T) of a record: the raw native bits (mode
+// 0), or the quantum against zq (integers: or x less the value of slice
+// di-1 at its position, prev, less zq: a diff record)
+template <typename T>
+__device__ __forceinline__ uint32_t k2l_field(uint32_t x, uint32_t prev, int mode, bool diff,
+                                              int zq, const EncP& P) {
+    if constexpr (std::is_same<T, float>::value) {
+        return mode == 0 ? x : quantize(__uint_as_float(x), __int_as_float(zq), P.scale, P.inv);
+    } else {
+        if (mode == 0) return low_bytes(x, P.size);
+        if (diff) return (uint32_t)wrap_sub(wrap_sub((int)x, (int)prev), zq);
+        return quantize_int((int)x, zq, P.lossless, P.scale, P.inv_i);
     }
 }
 
+// the staged element of position j of record (block bl, depth di), and the
+// one of slice di-1 beside it where it is staged
+template <int MB>
+__device__ __forceinline__ uint32_t k2l_at(const uint8_t* stage, int pitch, int nsl, int sd0,
+                                           int bl, int di, int j, uint32_t& prev) {
+    const uint8_t* at = stage + (j / MB) * pitch + ((bl * MB + j % MB) * nsl + di - sd0) * 4;
+    prev = di > sd0 ? *reinterpret_cast<const uint32_t*>(at - 4) : 0u;
+    return *reinterpret_cast<const uint32_t*>(at);
+}
+
+// one LUT record by one warp at byte `at` of the span: [n_lut + 1][LUT at
+// nb bits][indices at bitlen(n_lut) bits, in valid-rank order]; ws: the
+// warp's K2L<MB>::WS set words
 template <typename T, int MB>
-__global__ void write_records_lut_kernel(const T* __restrict__ data,
-                                         const uint32_t* __restrict__ valid, int w, int d,
-                                         int nbh, int n_rec, EncP P,
-                                         const int* __restrict__ rec_info,
-                                         const int* __restrict__ starts,
-                                         uint32_t* __restrict__ stream, long long cap_w) {
-    constexpr bool IS_INT = !std::is_same<T, float>::value;
-    constexpr int VPL = MB * MB / 32;
-    constexpr int BUF_W = MB * MB + 8;  // record words: header + 4 B a value + phase + spill
-    __shared__ uint32_t buf_all[WARPS][BUF_W];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.x * WARPS + warp;
-    if (r >= n_rec) return;  // warp-uniform
-    uint32_t* buf = buf_all[warp];
-    for (int i = lane; i < BUF_W; i += 32) buf[i] = 0;
-    __syncwarp();
-
-    const int* info = rec_info + 4 * (size_t)r;
-    const int length = info[0], desc = info[1];
-    const uint32_t off_word = (uint32_t)info[2];
-    const int flag = desc & 0xFF, mode = (desc >> 8) & 3;
-    const bool use_diff = (desc >> 10) & 1, lut_rec = (desc >> 11) & 1;  // warp-uniform
-    const int nb = (desc >> 16) & 0xFF, off_w = desc >> 24;
-    const long long s = starts[r];
-    const int sh = (int)(s & 3);
-    const int b = r / d, di = r % d;
-    uint32_t vw[VPL];
-    const int cnt = block_valid<VPL>(valid, b, vw);
+__device__ void lut_record(uint32_t* buf, uint32_t* ws, const uint8_t* stage, int pitch, int nsl,
+                           int sd0, int bl, int di, int4 ri, int at, const uint32_t* vw, int cnt,
+                           const EncP& P, int lane) {
+    using C = K2L<MB>;
+    constexpr int VPL = C::VPL;
+    const int nb = (ri.y >> 16) & 0xFF, off_w = ri.y >> 24;
+    const bool diff = (ri.y >> 10) & 1;
     const int cw = MB == 8 || cnt < 256 ? 1 : 2;
-
-    // record header (Lerc2 WriteTile): flag, offset bytes, numBits byte
-    // (LUT bit 5, count-width code 3 - cw in bits 6-7), count
-    if (lane == 0) {
-        unsigned char* bytes = reinterpret_cast<unsigned char*>(buf) + sh;
-        bytes[0] = (unsigned char)flag;
-        if (mode == 1 || mode == 3)
-            for (int k = 0; k < off_w; ++k) bytes[1 + k] = (unsigned char)(off_word >> (8 * k));
-        if (mode == 1) {
-            bytes[1 + off_w] = (unsigned char)(nb | (lut_rec ? 0x20 : 0) | ((3 - cw) << 6));
-            bytes[2 + off_w] = (unsigned char)cnt;
-            if (cw == 2) bytes[3 + off_w] = (unsigned char)(cnt >> 8);
-        }
-    }
-    __syncwarp();
-
-    // payload: LSB-first bit-stuffed quantized values (integers: or the
-    // differences to slice di-1 less the diff minimum), the LUT record's
-    // parts, or the raw native values
-    if (mode == 0 || mode == 1) {
-        const int zq = info[3];
-        const int width = mode == 0 ? 8 * P.size : nb;
-        const int pay = 8 * (sh + (mode == 0 ? 1 : 2 + off_w + cw));
-        uint32_t v[VPL];
-        bool ok[VPL];
+    const int end = min(at + ri.x, K2S_SPAN) * 8;
+    const int pay = 8 * (at + 2 + off_w + cw);
+    const int j0 = lane * VPL;  // VPL divides 32: the lane's positions lie in one word
+    const uint32_t vb = (vw[j0 >> 5] >> (j0 & 31)) & ((1u << VPL) - 1u);
+    uint32_t q[VPL];
 #pragma unroll
-        for (int k = 0; k < VPL; ++k) {
-            ok[k] = (vw[k] >> lane) & 1u;
-            const T x = load_value<T, MB>(data, w, d, nbh, b, di, lane, k, ok[k]);
-            if constexpr (IS_INT) {
-                if (mode == 0) {
-                    v[k] = low_bytes((uint32_t)(int)x, P.size);
-                } else if (use_diff) {
-                    const T p = load_value<T, MB>(data, w, d, nbh, b, di - 1, lane, k, ok[k]);
-                    v[k] = (uint32_t)wrap_sub(wrap_sub((int)x, (int)p), zq);
-                } else {
-                    v[k] = quantize_int((int)x, zq, P.lossless, P.scale, P.inv_i);
+    for (int i = 0; i < VPL; ++i) {
+        uint32_t prev;
+        const uint32_t x = k2l_at<MB>(stage, pitch, nsl, sd0, bl, di, j0 + i, prev);
+        q[i] = (vb >> i) & 1u ? k2l_field<T>(x, prev, 1, diff, ri.w, P) : 0u;
+    }
+    int n_lut;
+    const bool bitmap = nb <= K2L_BITMAP_NB;
+    __syncwarp();  // the set's last record is written
+    uint32_t* bm = ws;                             // bitmap: 2^(nb-5) words (1 at least),
+    int* below = reinterpret_cast<int*>(ws + 128); // each word's set bits below it
+    uint32_t* srt = ws + C::SLOTS + 256;           // wide: the ordered entries
+    if (bitmap) {
+        const int nw = nb > 5 ? 1 << (nb - 5) : 1;
+        for (int i = lane; i < nw; i += 32) bm[i] = 0;
+        __syncwarp();
+        uint32_t last = 0;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i)
+            if (q[i] && q[i] != last) {
+                atomicOr(bm + (q[i] >> 5), 1u << (q[i] & 31));
+                last = q[i];
+            }
+        __syncwarp();
+        const int wpl = nw > 32 ? nw >> 5 : 1;  // words a lane: 1, 2 or 4
+        const int w0 = lane * wpl;
+        int c = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (k < wpl && w0 + k < nw) c += __popc(bm[w0 + k]);
+        int incl = c;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += v;
+        }
+        n_lut = __shfl_sync(FULL, incl, 31);
+        int run = incl - c;  // this lane's set bits are LUT entries run, run + 1, ...
+        BitOut e(buf, pay + 8 + run * nb, end);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (k >= wpl || w0 + k >= nw) break;
+            uint32_t m = bm[w0 + k];
+            below[w0 + k] = run;
+            run += __popc(m);
+            while (m) {
+                e.put((uint32_t)(((w0 + k) << 5) | (__ffs((int)m) - 1)), nb);
+                m &= m - 1u;
+            }
+        }
+        e.flush();
+    } else {
+        uint32_t* hs = ws;                     // open addressing, 0 the empty slot
+        uint32_t* list = ws + C::SLOTS;        // the entries in insertion order
+        uint32_t* n_in = srt + 255;            // their count
+        for (int i = lane; i < C::SLOTS; i += 32) hs[i] = 0;
+        if (lane == 0) *n_in = 0;
+        __syncwarp();
+        uint32_t last = 0;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+            const uint32_t v = q[i];
+            if (!v || v == last) continue;
+            last = v;
+            uint32_t hh = (v * 2654435761u) >> (32 - C::LOG_SLOTS);
+            for (int probe = 0; probe < C::SLOTS; ++probe) {
+                const uint32_t old = atomicCAS(hs + hh, 0u, v);
+                if (old == 0u) {
+                    const uint32_t k = atomicAdd(n_in, 1u);
+                    if (k < 255u) list[k] = v;
+                    break;
                 }
-            } else {
-                v[k] = mode == 0 ? __float_as_uint((float)x)
-                                 : quantize((float)x, __int_as_float(zq), P.scale, P.inv);
+                if (old == v) break;
+                hh = (hh + 1) & (C::SLOTS - 1);
             }
         }
-        if (lut_rec) {
-            write_lut_payload(buf, v, ok, vw, lane, pay, nb);
-        } else {
-            const uint32_t lt = (1u << lane) - 1u;
+        __syncwarp();
+        n_lut = (int)min(*n_in, 255u);
+        for (int k = lane; k < n_lut; k += 32) {
+            const uint32_t v = list[k];
+            int r = 0;
+            for (int i = 0; i < n_lut; ++i) r += list[i] < v;
+            srt[r] = v;
+        }
+        __syncwarp();
+        const int per = (n_lut + 31) >> 5, r0 = lane * per;
+        BitOut e(buf, pay + 8 + r0 * nb, end);
+        for (int k = r0; k < min(r0 + per, n_lut); ++k) e.put(srt[k], nb);
+        e.flush();
+    }
+    if (lane == 0) {
+        BitOut hd(buf, pay, end);
+        hd.put((uint32_t)(n_lut + 1), 8);
+        hd.flush();
+    }
+    __syncwarp();  // below / srt complete
+    const int nbits = bit_len((uint32_t)n_lut);
+    BitOut o(buf, pay + 8 + 8 * ((n_lut * nb + 7) >> 3) + rank_below<C::VW>(vw, j0) * nbits, end);
 #pragma unroll
-            for (int k = 0; k < VPL; ++k) {
-                if (!ok[k]) continue;
-                put_bits(buf, pay + lane_rank(vw, k, lt) * width, v[k], width);
+    for (int i = 0; i < VPL; ++i) {
+        if (!((vb >> i) & 1u)) continue;
+        const uint32_t v = q[i];
+        uint32_t idx = 0;
+        if (v && bitmap) {
+            idx = 1 + below[v >> 5] + __popc(bm[v >> 5] & ((1u << (v & 31)) - 1u));
+        } else if (v) {  // the first ordered entry not below v
+            int lo = 0, hi = n_lut;
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (srt[mid] < v) lo = mid + 1;
+                else hi = mid;
             }
+            idx = 1 + lo;
+        }
+        o.put(idx, nbits);
+    }
+    o.flush();
+}
+
+template <typename T, int MB, bool MASKED>
+__global__ void __launch_bounds__(K2L_THREADS) write_records_lut_kernel(
+        const T* __restrict__ data, const uint32_t* __restrict__ valid, int h, int w, int d,
+        int nbh, int S, int dc, int spr, EncP P, const int* __restrict__ rec_info,
+        const int* __restrict__ starts, uint32_t* __restrict__ stream, long long cap_w) {
+    using C = K2L<MB>;
+    constexpr bool IS_INT = !std::is_same<T, float>::value;
+    __shared__ __align__(16) uint8_t stage[MB * C::PITCH];
+    __shared__ uint4 span4[K2S_SPAN / 16];
+    __shared__ int4 srec[K1S_REC];
+    __shared__ int sst[K1S_REC], s_lut[K1S_REC];
+    __shared__ uint32_t s_vw[C::NBLK * C::VW];  // the strip's validity words
+    __shared__ int s_nlut;                      // the chunk's LUT records (s_lut)
+    __shared__ uint32_t s_ws[K2L_WARPS][C::WS];
+    uint32_t* buf = reinterpret_cast<uint32_t*>(span4);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int brow = blockIdx.x / spr, c0 = (blockIdx.x - brow * spr) * S;
+    const int nb = min(S, nbh - c0);        // blocks of the strip
+    const int row0 = MB * brow, col0 = MB * c0;
+    const int npx = min(MB * nb, w - col0);  // in-image pixels a row
+    const int rows = min(MB, h - row0);
+    const long long b0 = (long long)brow * nbh + c0;
+    for (int i = tid; i < nb * C::VW; i += K2L_THREADS)
+        s_vw[i] = MASKED ? valid[b0 * C::VW + i] : FULL;
+    for (int dlo = 0; dlo < d; dlo += dc) {
+        const int dn = min(dc, d - dlo);
+        const int sd0 = dn == d ? 0 : max(0, dlo - 1);  // the first staged depth
+        const int nsl = dn == d ? d : dlo + dn - sd0;   // staged depths a pixel
+        // a staged row's bytes: an odd number of 16-byte chunks (whole rows) or of
+        // words (depth chunks), so that a block's rows, read side by side, meet
+        // different banks
+        const int pitch = dn == d ? ((MB * S * d * 4 + 15) / 16 | 1) * 16 : MB * nsl * 4 + 4;
+        const int n_r = nb * dn;
+        const long long ra = b0 * d + dlo;  // the chunk's records are consecutive
+        if (tid == 0) s_nlut = 0;
+        __syncthreads();
+        bool contig = true;  // each start the running sum of the lengths before it
+        for (int t = tid; t < n_r; t += K2L_THREADS) {
+            const int4 ri = reinterpret_cast<const int4*>(rec_info)[ra + t];
+            srec[t] = ri;
+            sst[t] = starts[ra + t];
+            if (t + 1 < n_r) contig &= starts[ra + t + 1] - sst[t] == ri.x;
+            if (((ri.y >> 8) & 3) == 1 && ((ri.y >> 11) & 1)) s_lut[atomicAdd(&s_nlut, 1)] = t;
+        }
+        contig = __syncthreads_and(contig);
+        if (dn == d) {  // whole rows: the image's bytes, 16 a load
+            const int len = npx * d * 4, nch = (len + 15) / 16;
+            for (int t = tid; t < rows * nch; t += K2L_THREADS) {
+                const int r = t / nch, m = t - r * nch;
+                const uint8_t* src = reinterpret_cast<const uint8_t*>(data)
+                                     + (((long long)(row0 + r) * w + col0) * d) * 4 + 16 * m;
+                *reinterpret_cast<uint4*>(stage + r * pitch + 16 * m) =
+                    load16(src, min(16, len - 16 * m));
+            }
+        } else {  // a chunk of depths of one block: element by element
+            const int n = rows * npx * nsl;
+            for (int t = tid; t < n; t += K2L_THREADS) {
+                const int r = t / (npx * nsl), rem = t - r * npx * nsl;
+                const int px = rem / nsl, k = rem - px * nsl;
+                *reinterpret_cast<T*>(stage + r * pitch + (px * nsl + k) * 4) =
+                    data[((long long)(row0 + r) * w + col0 + px) * d + sd0 + k];
+            }
+        }
+        const long long span_len = (long long)sst[n_r - 1] - sst[0] + srec[n_r - 1].x;
+        const bool one = contig && span_len > 0 && span_len + 16 <= K2S_SPAN;
+        for (int ga = 0; ga < n_r; ga = one ? n_r : ga + 1) {  // groups: the chunk, or a record
+            const int gb = one ? n_r : ga + 1;
+            const long long g0 = sst[ga];
+            const int mis = (int)(g0 & 15);
+            const int len = one ? (int)span_len : max(0, min(srec[ga].x, K2S_SPAN - 16));
+            for (int c = tid; c < (mis + len + 15) >> 4; c += K2L_THREADS)
+                span4[c] = make_uint4(0, 0, 0, 0);
+            __syncthreads();  // (also the stage)
+            for (int t = ga + tid; t < gb; t += K2L_THREADS) {  // headers (Lerc2 WriteTile)
+                const int4 ri = srec[t];
+                const int mode = (ri.y >> 8) & 3, off_w = ri.y >> 24;
+                const int bl = t / dn;
+                int cnt = 0;
+#pragma unroll
+                for (int k = 0; k < C::VW; ++k) cnt += __popc(s_vw[bl * C::VW + k]);
+                const int cw = MB == 8 || cnt < 256 ? 1 : 2;
+                const int at = mis + (sst[t] - (int)g0);
+                const int hl = min(mode == 1 ? 2 + off_w + cw : mode == 3 ? 1 + off_w : 1, ri.x);
+                const uint32_t nbb = ((ri.y >> 16) & 0xFF) | (((ri.y >> 11) & 1) << 5)
+                                     | ((3 - cw) << 6);
+                for (int k = 0; k < hl; ++k) {  // flag, offset bytes, numBits byte, count
+                    const uint32_t b = (k == 0 ? (uint32_t)ri.y
+                                        : k <= off_w ? (uint32_t)ri.z >> (8 * (k - 1))
+                                        : k == 1 + off_w ? nbb
+                                        : k == 2 + off_w ? (uint32_t)cnt
+                                                         : (uint32_t)cnt >> 8) & 0xFFu;
+                    if (at + k >= 0) k2_or(buf, (at + k) >> 2, b << (8 * ((at + k) & 3)),
+                                           8 * K2S_SPAN);
+                }
+            }
+            for (int it = tid; it < MB * (gb - ga); it += K2L_THREADS) {  // plain payload rows
+                const int t = ga + it / MB, r = it % MB;  // a record's rows side by side
+                const int4 ri = srec[t];
+                const int mode = (ri.y >> 8) & 3, off_w = ri.y >> 24;
+                if ((mode != 0 && mode != 1) || (mode == 1 && ((ri.y >> 11) & 1))) continue;
+                const int bl = t / dn, di = dlo + t - bl * dn;
+                const uint32_t* vw = s_vw + bl * C::VW;
+                int cnt = 0;
+#pragma unroll
+                for (int k = 0; k < C::VW; ++k) cnt += __popc(vw[k]);
+                const int cw = MB == 8 || cnt < 256 ? 1 : 2;
+                const int width = mode == 0 ? (IS_INT ? 8 * P.size : 32) : (ri.y >> 16) & 0xFF;
+                const int at = mis + (sst[t] - (int)g0);
+                if (at < 0) continue;
+                const int j0 = r * MB;
+                const uint32_t rb = (vw[j0 >> 5] >> (j0 & 31)) & (MB == 8 ? 0xFFu : 0xFFFFu);
+                BitOut o(buf, (at + (mode == 1 ? 2 + off_w + cw : 1)) * 8
+                                  + rank_below<C::VW>(vw, j0) * width,
+                         min(at + ri.x, K2S_SPAN) * 8);
+                const bool diff = (ri.y >> 10) & 1;
+                uint32_t x[MB], prev[MB];
+                if (dn == d && d == 1) {  // one depth: the row's values, 16 bytes a load
+                    const uint4* v =
+                        reinterpret_cast<const uint4*>(stage + r * pitch + bl * MB * 4);
+#pragma unroll
+                    for (int c = 0; c < MB / 4; ++c) {
+                        const uint4 q4 = v[c];
+                        x[4 * c] = q4.x, x[4 * c + 1] = q4.y;
+                        x[4 * c + 2] = q4.z, x[4 * c + 3] = q4.w;
+                    }
+#pragma unroll
+                    for (int c = 0; c < MB; ++c) prev[c] = 0;
+                } else {
+#pragma unroll
+                    for (int c = 0; c < MB; ++c)
+                        x[c] = k2l_at<MB>(stage, pitch, nsl, sd0, bl, di, j0 + c, prev[c]);
+                }
+#pragma unroll
+                for (int c = 0; c < MB; ++c)
+                    if ((rb >> c) & 1u)
+                        o.put(k2l_field<T>(x[c], prev[c], mode, diff, ri.w, P), width);
+                o.flush();
+            }
+            for (int i = warp; i < s_nlut; i += K2L_WARPS) {  // LUT records: a warp each
+                const int t = s_lut[i];
+                const int at = mis + (sst[t] - (int)g0);
+                if (t < ga || t >= gb || at < 0) continue;  // warp-uniform
+                const int bl = t / dn;
+                const uint32_t* vw = s_vw + bl * C::VW;
+                int cnt = 0;
+#pragma unroll
+                for (int k = 0; k < C::VW; ++k) cnt += __popc(vw[k]);
+                lut_record<T, MB>(buf, s_ws[warp], stage, pitch, nsl, sd0, bl, dlo + t - bl * dn,
+                                  srec[t], at, vw, cnt, P, lane);
+            }
+            __syncthreads();
+            // the span to the stream: whole chunks stored, the edge chunks' words ORed
+            const long long gw0 = (g0 - mis) >> 2;
+            for (int c = tid; c < (mis + len + 15) >> 4; c += K2L_THREADS) {
+                const long long gw = gw0 + 4 * c;
+                if (16 * c >= mis && 16 * c + 16 <= mis + len && gw >= 0 && gw + 4 <= cap_w) {
+                    *reinterpret_cast<uint4*>(stream + gw) = span4[c];
+                    continue;
+                }
+                for (int q = 0; q < 4; ++q) {
+                    const int a = 16 * c + 4 * q;  // the word's bytes [a, a + 4) meet the span
+                    if (gw + q < 0 || gw + q >= cap_w || a + 4 <= mis || a >= mis + len) continue;
+                    atomicOr(stream + gw + q, buf[4 * c + q]);
+                }
+            }
+            __syncthreads();  // the buffer is the next group's
         }
     }
-    __syncwarp();
-    flush_record(buf, s, length, lane, stream, cap_w);
 }
 
 // ---------------------------------------------------------------------------
@@ -1848,16 +2031,25 @@ int launch_k2(const void* data, const int* valid, int h, int w, int d, const Enc
     return (int)cudaGetLastError();
 }
 
+// valid null: an aligned all-valid image (the instance reads no validity words)
 template <typename T, int MB>
 int launch_k2_lut(const void* data, const int* valid, int h, int w, int d, const EncP& P,
                   const int* rec_info, const int* starts, uint32_t* out, long long cap_w,
                   cudaStream_t st) {
+    if (!valid && (h % MB || w % MB)) return (int)cudaErrorInvalidValue;
+    if ((long long)h * w * d == 0) return 0;
     const int nbh = (w + MB - 1) / MB;
-    const int n_rec = ((h + MB - 1) / MB) * nbh * d;
-    const int grid = (n_rec + WARPS - 1) / WARPS;
-    write_records_lut_kernel<T, MB><<<grid, WARPS * 32, 0, st>>>(
-        static_cast<const T*>(data), reinterpret_cast<const uint32_t*>(valid), w, d, nbh, n_rec,
-        P, rec_info, starts, out, cap_w);
+    const StripShape g = strip_shape(MB, w, d, 4, 1);
+    const long long grid = (long long)((h + MB - 1) / MB) * g.spr;
+    if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+    const T* x = static_cast<const T*>(data);
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(valid);
+    if (valid)
+        write_records_lut_kernel<T, MB, true><<<(unsigned)grid, K2L_THREADS, 0, st>>>(
+            x, v, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, starts, out, cap_w);
+    else
+        write_records_lut_kernel<T, MB, false><<<(unsigned)grid, K2L_THREADS, 0, st>>>(
+            x, nullptr, h, w, d, nbh, g.S, g.dc, g.spr, P, rec_info, starts, out, cap_w);
     return (int)cudaGetLastError();
 }
 
@@ -1954,7 +2146,7 @@ extern "C" int write_records_lut(const void* data, int is_int, const int* valid,
                                  uint32_t* out, long long cap_w, void* stream) {
     const EncP P{0.f, scale, inv, 0.f, inv_i, lossless, 0, size_t_, 0, 32, 1, 0};
     cudaStream_t st = (cudaStream_t)stream;
-    if (!valid || (mb != 8 && mb != 16)) return (int)cudaErrorInvalidValue;
+    if (mb != 8 && mb != 16) return (int)cudaErrorInvalidValue;
     if (is_int)
         return mb == 8 ? launch_k2_lut<int32_t, 8>(data, valid, h, w, d, P, rec_info, starts,
                                                    out, cap_w, st)

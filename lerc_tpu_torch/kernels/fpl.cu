@@ -27,10 +27,14 @@
 //                              then for each plane and level k the byte
 //                              Delta^min(q,k) x[q], counted in shared bins (24 KB a
 //                              CTA), one global add per bin.
-//   F2 fpl_finalize            fpl_finalize_device :168 / _f64 :344: a CTA stages the
-//                              predicted words of 1024 positions and the 5 before
-//                              them in shared memory; each position writes its
-//                              plane bytes at their levels and counts them.
+//   F2 fpl_finalize            fpl_finalize_device :168 / _f64 :344: a thread 16
+//                              positions, their words in 16-byte loads, the byte
+//                              levels as whole-word byte differences, each
+//                              plane's 16 bytes one store, the zero tail written,
+//                              counts merged over runs of equal bytes (below).
+//                              One byte a position and a shared atomic a byte
+//                              over a staged tile ran at 31% of the float64
+//                              bound (0.0638 ms on a 2048^2 tile, H100 SXM).
 //   F2b fpl_packbits_size      packbits_size_device :88, over 4 or 8 planes. Bound:
 //                              bytes, the planes read once (4n or 8n: 0.0050 and
 //                              0.0100 ms for a 2048^2 tile at 3.35 TB/s, H100 SXM).
@@ -99,7 +103,7 @@ constexpr int NB = 256;                   // threads per CTA
 constexpr int WARPS = NB / 32;
 constexpr int MAX_GRID = 1056;            // 8 CTAs on each of 132 SMs (grid-stride beyond)
 constexpr int HIST = 4 * (MAX_DELTA + 1) * 256;  // one CTA's bins: 4 planes x 6 levels
-constexpr int FIN_ITEMS = 4, FIN_TILE = NB * FIN_ITEMS;
+constexpr int FIN_NT = 128, FIN_RUN = 16, FIN_TILE = FIN_NT * FIN_RUN;  // F2: positions a tile
 constexpr int PB_BYTES = 64, PB_TILE = NB * PB_BYTES;  // F2b: 16 KB a tile
 constexpr int COL_TILE = 256, COL_ROWS = COL_TILE / WARPS;
 
@@ -128,10 +132,10 @@ struct Word32 {
     using W = unsigned;
     static constexpr int PLANES = 4, MBITS = 23;
     static constexpr W MANT = 0x7FFFFFu, HI = 0x1FFu;
-    __device__ static W load(const W* data, long long i) {
-        const W u = data[i];
+    __device__ static W tf(W u) {
         return (u & MANT) | (((u >> 23) & 0xFFu) << 24) | ((u >> 31) << 23);
     }
+    __device__ static W load(const W* data, long long i) { return tf(data[i]); }
     __device__ static W store(W u) {
         return (u & MANT) | (((u >> 24) & 0xFFu) << 23) | (((u >> 23) & 1u) << 31);
     }
@@ -143,6 +147,7 @@ struct Word64 {
     using W = unsigned long long;
     static constexpr int PLANES = 8, MBITS = 52;
     static constexpr W MANT = (1ull << 52) - 1ull, HI = 0xFFFull;
+    __device__ static W tf(W u) { return u; }
     __device__ static W load(const W* data, long long i) { return data[i]; }
     __device__ static W store(W u) { return u; }
 };
@@ -259,43 +264,175 @@ __global__ void __launch_bounds__(NB) fpl_sample_histograms_kernel(
 // F2
 // ---------------------------------------------------------------------------
 
+// A CTA of FIN_NT threads owns tiles of FIN_TILE positions (grid-stride,
+// as many CTAs as the card holds at once), a thread FIN_RUN = 16
+// consecutive positions p .. p + 15. The thread loads its words p - 8 ..
+// p + 15 and, under predictor 2, the row above them in 16-byte chunks
+// (load16: any alignment; the neighbours' overlap comes from the L1; words
+// outside [0, n) are 0) and predicts the 21 positions p - 5 .. p + 15, its
+// row and column one division from p. The byte levels are then whole-word
+// byte differences (every plane at once, level k from level k - 1 where
+// the position is >= k), and each plane's bytes are taken from the level
+// it was given. A 4 x 4 byte transpose turns the 16 positions' words into
+// each plane's 16 bytes, which leave as one aligned 16-byte store;
+// positions from n to the planes' padded length are written 0 (the
+// wrapper does not clear them). No shared memory but the bins, and no
+// barrier inside the tile loop: warps overlap one another's loads. The
+// histograms: a plane whose 16 bytes are one value in every lane of a warp
+// (the exponent and top mantissa planes of smooth data) adds 512 to its
+// bin from one lane, one whose 16 bytes are one value in a thread adds 16;
+// otherwise each byte adds 1, the adds independent of one another (a
+// count merged over each run of equal bytes chained them, and ran slower:
+// chip_tune_k2lut_f2.py). The CTA's bins meet the global ones once, at its
+// end.
+
+// bytes side by side, each subtracted mod 256 (no borrow crosses a byte)
+template <class W>
+__device__ __forceinline__ W subb(W a, W b) {
+    constexpr W LO7 = W(0x7F7F7F7F7F7F7F7Full), HI1 = W(0x8080808080808080ull);
+    return ((a | HI1) - (b & LO7)) ^ ((a ^ ~b) & HI1);
+}
+
+// the words [i, i + 16 / sizeof(W)) into w (0 outside [0, n)): one 16-byte
+// load where they all lie inside (two where off a 16-byte boundary)
+template <class W>
+__device__ __forceinline__ void fin_chunk(const W* __restrict__ data, long long i, long long n,
+                                          W (&w)[16 / sizeof(W)]) {
+    constexpr int PER = 16 / sizeof(W);
+    if (i >= 0 && i + PER <= n) {
+        const uint4 c = load16(reinterpret_cast<const uint8_t*>(data + i), 16);
+        if constexpr (sizeof(W) == 4) {
+            w[0] = c.x, w[1] = c.y, w[2] = c.z, w[3] = c.w;
+        } else {
+            w[0] = (W)c.x | (W)c.y << 32, w[1] = (W)c.z | (W)c.w << 32;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < PER; ++k) w[k] = i + k >= 0 && i + k < n ? data[i + k] : W(0);
+    }
+}
+
+// bytes 4j .. 4j + 3 of plane b of 16 position words (W = u32: planes 0-3;
+// u64: the low word planes 0-3, the high word 4-7)
+template <class W>
+__device__ __forceinline__ void to_planes(const W (&o)[FIN_RUN], unsigned (&pl)[8][4]) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+        unsigned x[4];
+        transpose4((unsigned)o[4 * g], (unsigned)o[4 * g + 1], (unsigned)o[4 * g + 2],
+                   (unsigned)o[4 * g + 3], x);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) pl[b][g] = x[b];
+        if constexpr (sizeof(W) == 8) {
+            transpose4((unsigned)(o[4 * g] >> 32), (unsigned)(o[4 * g + 1] >> 32),
+                       (unsigned)(o[4 * g + 2] >> 32), (unsigned)(o[4 * g + 3] >> 32), x);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) pl[4 + b][g] = x[b];
+        }
+    }
+}
+
 template <class P>
-__global__ void __launch_bounds__(NB) fpl_finalize_kernel(
+__global__ void __launch_bounds__(FIN_NT) fpl_finalize_kernel(
         const typename P::W* __restrict__ data, long long n, int cols, int pred, Levels lv,
         uint8_t* __restrict__ planes, long long pstride, int* __restrict__ histos) {
     using W = typename P::W;
-    __shared__ W pw[FIN_TILE + MAX_DELTA];
     __shared__ unsigned bins[P::PLANES * 256];
-    for (int i = threadIdx.x; i < P::PLANES * 256; i += NB) bins[i] = 0;
-    for (long long base = (long long)blockIdx.x * FIN_TILE; base < n;
+    const int tid = threadIdx.x, lane = tid & 31;
+    W mk[MAX_DELTA + 1];  // the planes taken from each level, as byte masks
+    int top = 0;
+#pragma unroll
+    for (int l = 0; l <= MAX_DELTA; ++l) {
+        mk[l] = 0;
+#pragma unroll
+        for (int b = 0; b < P::PLANES; ++b)
+            if (lv.v[b] == l) mk[l] |= W(0xFF) << (8 * b);
+    }
+#pragma unroll
+    for (int b = 0; b < P::PLANES; ++b) top = max(top, lv.v[b]);
+    for (int i = tid; i < P::PLANES * 256; i += FIN_NT) bins[i] = 0;
+    __syncthreads();
+    for (long long base = (long long)blockIdx.x * FIN_TILE; base < pstride;
          base += (long long)gridDim.x * FIN_TILE) {
-        __syncthreads();  // the last tile's words are read
-        for (int k = threadIdx.x; k < FIN_TILE + MAX_DELTA; k += NB) {
-            const long long i = base - MAX_DELTA + k;
-            if (i >= 0 && i < n) {
-                const long long r = i / cols;
-                pw[k] = predicted<P>(data, cols, r, r - 1, (int)(i - r * cols), pred);
+        const long long p = base + FIN_RUN * tid;
+        const bool act = p < pstride;
+        const int live = (int)max(0LL, min((long long)FIN_RUN, n - p));  // positions below n
+        W o[FIN_RUN];
+        if (live > 0) {
+            // the row and column of position p - 5 (p = 0: row -1 or below)
+            const bool head = p < MAX_DELTA;  // (p = 0) positions below 0 and below a level
+            const long long q5 = p - 5;
+            long long r = q5 >= 0 ? q5 / cols : -((cols - 1 - q5) / cols);
+            int c = (int)(q5 - r * cols);
+            W d[21];  // positions p - 5 .. p + 15: predicted, then the byte levels
+            W px = 0, pu = 0;  // the words before: at k - 1 and above it
+            constexpr int PER = 16 / sizeof(W);
+#pragma unroll
+            for (int j = 0; j < 24 / PER; ++j) {  // the words p - 8 .. p + 15, a chunk at a time
+                W xs[PER], us[PER];
+                fin_chunk(data, p - 8 + j * PER, n, xs);
+                if (pred == 2) fin_chunk(data, p - 8 - cols + j * PER, n, us);
+#pragma unroll
+                for (int i = 0; i < PER; ++i) {
+                    const int k = j * PER + i;
+                    const W x = P::tf(xs[i]), u = pred == 2 ? P::tf(us[i]) : W(0);
+                    if (k >= 3) {
+                        const int m = k - 3;
+                        const W d1 = c > 0 ? ssub<P>(x, px) : x;
+                        W v = pred == 0 ? x : d1;
+                        if (pred == 2 && r > 0) v = ssub<P>(d1, c > 0 ? ssub<P>(u, pu) : u);
+                        d[m] = !head || p - 5 + m >= 0 ? v : W(0);
+                        if (++c == cols) c = 0, ++r;
+                    }
+                    px = x, pu = u;
+                }
             }
+#pragma unroll
+            for (int m = 0; m < FIN_RUN; ++m) o[m] = d[m + 5] & mk[0];
+#pragma unroll
+            for (int l = 1; l <= MAX_DELTA; ++l) {  // a position below level l keeps l - 1
+                if (l > top) break;
+#pragma unroll
+                for (int m = 20; m >= l; --m)
+                    if (!head || p - 5 + m >= l) d[m] = subb<W>(d[m], d[m - 1]);
+#pragma unroll
+                for (int m = 0; m < FIN_RUN; ++m) o[m] |= d[m + 5] & mk[l];
+            }
+#pragma unroll
+            for (int m = 0; m < FIN_RUN; ++m)
+                if (m >= live) o[m] = 0;
+        } else {
+#pragma unroll
+            for (int m = 0; m < FIN_RUN; ++m) o[m] = 0;
         }
-        __syncthreads();
-        for (int it = 0; it < FIN_ITEMS; ++it) {
-            const int k = it * NB + threadIdx.x;
-            const long long i = base + k;
-            if (i >= n) break;
-            W w[MAX_DELTA + 1];
+        unsigned pl[8][4];
+        to_planes<W>(o, pl);
 #pragma unroll
-            for (int j = 0; j <= MAX_DELTA; ++j) w[j] = j <= i ? pw[k + MAX_DELTA - j] : W(0);
+        for (int b = 0; b < P::PLANES; ++b) {
+            if (act)
+                *reinterpret_cast<uint4*>(planes + b * pstride + p) =
+                    make_uint4(pl[b][0], pl[b][1], pl[b][2], pl[b][3]);
+            // the counts of the plane's live bytes: one add where they are one
+            // value (in the warp, or in the thread), else one a byte, none
+            // waiting on another
+            const unsigned v0 = pl[b][0] & 0xFFu, lane0 = __shfl_sync(FULL, v0, 0);
+            const bool one = live == FIN_RUN && pl[b][0] == v0 * 0x01010101u
+                             && pl[b][1] == pl[b][0] && pl[b][2] == pl[b][0]
+                             && pl[b][3] == pl[b][0];
+            if (__all_sync(FULL, one && v0 == lane0)) {
+                if (lane == 0) atomicAdd(&bins[b * 256 + v0], 32u * FIN_RUN);
+            } else if (one) {
+                atomicAdd(&bins[b * 256 + v0], (unsigned)FIN_RUN);
+            } else {
 #pragma unroll
-            for (int b = 0; b < P::PLANES; ++b) {
-                const int kk = (long long)lv.v[b] < i ? lv.v[b] : (int)i;
-                const unsigned v = level_byte(w, b, kk);
-                planes[b * pstride + i] = (uint8_t)v;
-                atomicAdd(&bins[b * 256 + v], 1u);
+                for (int m = 0; m < FIN_RUN; ++m)
+                    if (m < live)
+                        atomicAdd(&bins[b * 256 + ((pl[b][m >> 2] >> (8 * (m & 3))) & 0xFFu)], 1u);
             }
         }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < P::PLANES * 256; i += NB)
+    for (int i = tid; i < P::PLANES * 256; i += FIN_NT)
         if (bins[i]) atomicAdd(&histos[i], (int)bins[i]);
 }
 
@@ -1024,8 +1161,21 @@ template <class P>
 int launch_finalize(const typename P::W* data, long long n, int cols, int pred, const Levels& lv,
                     uint8_t* planes, long long pstride, int* histos, cudaStream_t st) {
     if (n == 0) return 0;
-    fpl_finalize_kernel<P><<<grid_of(n, FIN_TILE), NB, 0, st>>>(data, n, cols, pred, lv, planes,
-                                                                  pstride, histos);
+    if (cols < 1 || pstride < n || pred < 0 || pred > 2) return (int)cudaErrorInvalidValue;
+    for (int b = 0; b < P::PLANES; ++b)
+        if (lv.v[b] < 0 || lv.v[b] > MAX_DELTA) return (int)cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(planes) | (uintptr_t)pstride) & 15)
+        return (int)cudaErrorMisalignedAddress;
+    // as many CTAs as the card holds at once (each merges its bins once)
+    int per_sm = 0, sms = 0, dev = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fpl_finalize_kernel<P>, FIN_NT, 0);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = chunks(pstride, FIN_TILE), resident = (long long)max(per_sm, 1) * sms;
+    fpl_finalize_kernel<P><<<(unsigned)(tiles < resident ? tiles : resident), FIN_NT, 0, st>>>(
+        data, n, cols, pred, lv, planes, pstride, histos);
     return (int)cudaGetLastError();
 }
 
@@ -1073,7 +1223,8 @@ extern "C" int fpl_sample_histograms_f64(const unsigned long long* data, long lo
                                             (cudaStream_t)stream);
 }
 
-// levels [4] on the host; planes u8 [4, pstride], zeroed; histos int32 [4, 256], zeroed
+// levels [4] on the host; planes u8 [4, pstride] (16-aligned, pstride >= n
+// a multiple of 16: every byte written, 0 from n on); histos int32 [4, 256], zeroed
 extern "C" int fpl_finalize(const unsigned* data, long long n, int cols, int pred,
                             const int* levels, uint8_t* planes, long long pstride, int* histos,
                             void* stream) {
@@ -1081,8 +1232,8 @@ extern "C" int fpl_finalize(const unsigned* data, long long n, int cols, int pre
                                    histos, (cudaStream_t)stream);
 }
 
-// float64: levels [8] on the host; planes u8 [8, pstride], zeroed; histos
-// int32 [8, 256], zeroed
+// float64: levels [8] on the host; planes u8 [8, pstride] as fpl_finalize's;
+// histos int32 [8, 256], zeroed
 extern "C" int fpl_finalize_f64(const unsigned long long* data, long long n, int cols, int pred,
                                 const int* levels, uint8_t* planes, long long pstride,
                                 int* histos, void* stream) {

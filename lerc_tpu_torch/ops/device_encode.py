@@ -63,9 +63,9 @@ stuffed record (:662-671), also inside the integer depth-diff candidate
 memory), and only where the LUT record can be the shorter one
 (``lut_possible``: its length grows with n_lut, so a block where the LUT
 loses at n_lut = 1, or whose max_q is 0, or which is const-0 or forced raw,
-takes no count); the plain version counts exactly there too. K2's LUT
-instances read validity words (all set for an aligned all-valid image);
-K1's read none for an aligned all-valid image. A 16x16 block holds 256
+takes no count); the plain version counts exactly there too. K2 writes a
+LUT record from the set of its distinct values, with no sort either. Both
+read no validity words for an aligned all-valid image. A 16x16 block holds 256
 values; its count takes two bytes only at 256 values (``cw``, :561).
 """
 from __future__ import annotations
@@ -169,17 +169,13 @@ def encode_tiles(data: torch.Tensor, mask, max_z_error: float, h: int, w: int, d
     _check_data(data, h, w, d, dt)
     if not all_valid and mask is None:
         raise ValueError("a masked encode needs the block validity words")
-    valid = k1_valid = None if all_valid else mask
-    if valid is None and (enable_lut or h % mb or w % mb):
-        # edge blocks and the LUT K2 read the in-image area's words; the LUT
-        # K1 reads none for an aligned all-valid image
+    valid = None if all_valid else mask
+    if valid is None and (h % mb or w % mb):  # edge blocks read the in-image area's words
         valid = block_valid_words(torch.ones(h, w, dtype=torch.bool, device=data.device), mb)
-        if h % mb or w % mb:
-            k1_valid = valid
     if enable_lut and dt_is_int(dt):
         data = data.to(torch.int32)
     p = encode_params(max_z_error, version, nb_cap, dt, mb)
-    rec_info, zrange, fits = encode_blocks(data, p, k1_valid, mb, enable_lut)
+    rec_info, zrange, fits = encode_blocks(data, p, valid, mb, enable_lut)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     total = starts[-1] + length[-1]
@@ -208,8 +204,8 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
     uint32, or float64, over each tile's valid values; the type's max and
     min for a tile with none), fits [1] int32). The stream stays under 2^31 bytes: the
     caller splits larger stacks. all_valid: the caller's word that every
-    mask is all set; with tiles of whole blocks the LUT K1 then reads no
-    validity words."""
+    mask is all set; with tiles of whole blocks the LUT K1 and K2 then read
+    no validity words."""
     if version < 3:
         raise NotImplementedError(
             "versions < 3 (legacy bit order) are the host codec's: codec/lerc2_encode.BandEncoder "
@@ -239,8 +235,9 @@ def encode_tiles_batched(tiles: torch.Tensor, masks: torch.Tensor, max_z_error: 
         fits = torch.ones(1, dtype=torch.int32, device=data.device)
     else:
         p = encode_params(max_z_error, version, 0, dt, mb)
-        k1_valid = None if all_valid and (hp, wp) == (th, tw) else valid
-        rec_info, zrange, fits = encode_blocks(data, p, k1_valid, mb, True, tile_rec)
+        if all_valid and (hp, wp) == (th, tw):  # K1 and K2 then read no validity words
+            valid = None
+        rec_info, zrange, fits = encode_blocks(data, p, valid, mb, True, tile_rec)
     length = rec_info[:, 0]
     starts = torch.cumsum(length, 0, dtype=torch.int32) - length
     cap_w = -(-cap // 4)
@@ -354,19 +351,18 @@ def _valid_args(valid, h: int, w: int, mb: int = 8):
     return (valid,), "_masked", valid.data_ptr()
 
 
-def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool, k1: bool = False):
+def _lut_args(data, p: EncodeParams, valid, mb: int, lut: bool):
     """Checks the block size and the LUT flag against the inputs; the LUT
     instances' kernel name (``..._lut``/``_lut16``, ``_int`` for integers).
-    k1: K1's instance, which takes no validity words for an aligned
-    all-valid image."""
+    They take no validity words for an aligned all-valid image."""
     if mb not in (8, 16) or (mb == 16 and not lut):
         raise ValueError("blocks are 8x8, or 16x16 with the LUT candidate")
     if not lut:
         return None
     h, w, _ = data.shape
-    if valid is None and (not k1 or h % mb or w % mb):
-        raise ValueError("the LUT instances read validity words (all set for an all-valid "
-                         "image; K1 takes none for an aligned all-valid image)")
+    if valid is None and (h % mb or w % mb):
+        raise ValueError("the LUT instances read validity words where the image ends inside "
+                         "its blocks (all set for an all-valid image)")
     if dt_is_int(p.dt) and data.dtype != torch.int32:
         raise ValueError("the integer LUT instances take int32 data")
     return ("_lut16" if mb == 16 else "_lut") + ("_int" if dt_is_int(p.dt) else "")
@@ -384,7 +380,7 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | Non
     records each, and zrange is [nTiles * 2D], each tile's ranges in turn
     (counted as ``encode_tiles_lut...``)."""
     h, w, d = data.shape
-    lut_sfx = _lut_args(data, p, valid, mb, lut, k1=True)
+    lut_sfx = _lut_args(data, p, valid, mb, lut)
     vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
     _check_tile_rec(tile_rec, _n_rec(data, mb), d, lut)
     if not build.on_cuda(data, *vt):

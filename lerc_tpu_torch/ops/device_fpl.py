@@ -333,7 +333,8 @@ def fpl_finalize(data: torch.Tensor, pred: int, levels):
     name = "fpl_finalize" + _sfx(data.dtype)
     fn = _ctypes_fn(name, [_P, _L, _I, _I, _P, _P, _L, _P, _P])
     with torch.cuda.device(data.device):
-        planes = torch.zeros(n_pl, padded(n), dtype=torch.uint8, device=data.device)
+        # every byte of the planes is the kernel's, the zero tail too
+        planes = torch.empty(n_pl, padded(n), dtype=torch.uint8, device=data.device)
         histos = torch.zeros(n_pl, 256, dtype=torch.int32, device=data.device)
         err = fn(data.data_ptr(), n, cols, pred, _levels_arg(levels), planes.data_ptr(),
                  planes.shape[1], histos.data_ptr(), build.launch_stream(data))

@@ -391,6 +391,22 @@ def test_f64_finalize_packbits_and_restore_match_jax(shape, pred):
         np.testing.assert_array_equal(got.numpy().reshape(-1).view(np.uint64), jbits)
 
 
+def test_f64_finalize_past_a_tile_odd_n_matches_jax():
+    """F2 over u64 words at n = 2,049 in one row (one past the card kernel's
+    2,048-position tile; an odd n, a 63-byte zero tail), predictor 1: the
+    eight planes, their zero tail and histograms against JAX."""
+    h, w, d, pred, lv = 1, 2049, 1, 1, (4, 4, 3, 2, 1, 0, 1, 2)
+    data = fband(h, w, d, "rows", seed=12)
+    n = h * w * d
+    planes, histos = F.fpl_finalize(torch.from_numpy(data), pred, lv)
+    assert planes.shape == (8, F.padded(n)) and F.padded(n) - n == 63
+    assert not planes[:, n:].any()
+    jh, jp, _jpb = J.fpl_finalize_device_f64(*limbs(data), jnp.asarray(lv, jnp.int32), h, w, d,
+                                             pred)
+    np.testing.assert_array_equal(planes[:, :n].numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(histos.numpy(), np.asarray(jh))
+
+
 F64_TILE_EDGE_SHAPES = [(1, 5000, 1), (3, 4500, 1)]  # n past one 4,096-position tile
 
 

@@ -139,6 +139,22 @@ def test_restore_matches_jax_and_the_input(shape, pred):
             np.testing.assert_array_equal(np.asarray(want).view(np.uint32), got.view(np.uint32))
 
 
+def test_finalize_past_a_tile_odd_n_matches_jax():
+    """F2 at n = 2,049 with three columns (one past the card kernel's
+    2,048-position tile; an odd n, so the planes' zero tail is 63 bytes),
+    predictor 2: planes, their zero tail and histograms against JAX."""
+    shape, pred, levels = (683, 1, 3), 2, (5, 3, 1, 0)
+    data = band(*shape, "rows", seed=11)
+    n = int(np.prod(shape))
+    planes, histos = F.fpl_finalize(torch.from_numpy(data), pred, levels)
+    assert planes.shape == (4, F.padded(n)) and F.padded(n) - n == 63
+    assert not planes[:, n:].any()
+    jh, jp, _jpb = J.fpl_finalize_device(jnp.asarray(data), jnp.asarray(np.array(levels)),
+                                         *shape, pred)
+    np.testing.assert_array_equal(planes[:, :n].numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(histos.numpy(), np.asarray(jh))
+
+
 TILE_EDGE_SHAPES = [(1, 5000, 1), (3, 4500, 1), (37, 121, 3)]  # n: 5000, 13500, 13431
 
 

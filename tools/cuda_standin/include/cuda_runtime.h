@@ -33,6 +33,17 @@ struct uint3_ { unsigned x, y, z; };
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {  // one SM
+    *v = 1;
+    return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+    *n = 1;  // one CTA: a persistent grid then walks every tile
+    return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t = nullptr) {
     std::memset(p, v, n);
     return cudaSuccess;
