@@ -63,6 +63,18 @@ measured. MEASURE is one of:
        symbol_streams_device_ref: the device time of its kernel and memsets
        (names holding "huffman_symbols"), and of all the call's device work
        (a tree with rank-chunk glue counts its torch ops there).
+  k4f32  the float32 K4 (decode_records, decode_records_masked) per call on
+       the four DEM tiles encoded by FusedResidentCodec at maxZError 0.001,
+       nb_cap 0 and 16, all-valid and with the bench mask, as the resident
+       decode_fast passes them (the codec's starts, zMax and validity words;
+       nb_cap 16 with lut_unfit), each set round-robin past the L2, every
+       output (image, flags) first held to decode_records_ref: the device
+       time of the kernel (names holding "decode_records") and a sha256 of
+       each set's outputs, equal in every turn where they are byte-equal;
+       then the resident all-valid round (encode_fast and the indexed
+       decode_fast of the four tiles, nb_cap 0): its device busy time, K4's
+       share and its CUDA-event time, and the four decode_fast calls alone
+       on CUDA events (each the median of 9 timings of 3 rounds).
   k4int  the integer K4 (decode_records_int) per call on the four uint8
        three-band tiles of chip_smoke's int cell (FusedResidentCodec at
        maxZError 0.5), encoded at v6 (depth-diff records: index_ok drops,
@@ -453,6 +465,65 @@ def int_sets(cs, dev):
     return out
 
 
+def k4f32_turn(cs, dev) -> dict:
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    out = {}
+    for masked in (False, True):
+        for nb_cap in (0, 16):
+            label = f"{'masked' if masked else 'all_valid'}_cap{nb_cap}"
+            codec = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001, nb_cap=nb_cap,
+                                       mask=cs.bench_mask() if masked else None)
+            args = []
+            for t in tiles:
+                header, stream, _meta, starts = codec.encode_fast(t)
+                args.append((stream, starts, codec._zmax_vec(header), 2.0 * codec.mze, 2048,
+                             2048, 1, 32 if nb_cap <= 0 else nb_cap, 0 < nb_cap <= 16,
+                             codec.valid))
+            digest = hashlib.sha256()
+            for a in args:
+                (ik, fk), (ir, fr) = dec.decode_records(*a), dec.decode_records_ref(*a)
+                if not (torch.equal(ik.view(torch.int32), ir.view(torch.int32))
+                        and torch.equal(fk, fr) and int(fk[0]) == 1):
+                    raise SystemExit(f"the float32 K4 != its plain version ({label})")
+                for x in (ik, fk):
+                    digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            print(f"outputs sha256 {label} {digest.hexdigest()}", flush=True)
+            out[label] = dev_ms(cs, [lambda a=a: dec.decode_records(*a) for a in args],
+                                ("decode_records",), reps=10)
+            if masked or nb_cap:
+                continue
+
+            outs = [codec.encode_fast(t) for t in tiles]
+
+            def round_():
+                for t in tiles:
+                    o = codec.encode_fast(t)
+                    codec.decode_fast(o[0], o[1], o[3])
+
+            def decodes():
+                for o in outs:
+                    codec.decode_fast(o[0], o[1], o[3])
+
+            rows = cs.profiled_rows([round_], 3, ("decode_records",))
+            if rows is None:
+                raise SystemExit("profiler shows no device time for the resident round")
+            out["round_busy"] = sum(r[2] for r in rows) / 1e3 / 3
+            out["round_K4"] = sum(r[2] for r in rows if "decode_records" in r[0]) / 1e3 / 3
+            out["round_events"] = float(np.median([cs.cuda_ms([round_], reps=3)
+                                                   for _ in range(9)]))
+            out["decodes_events"] = float(np.median([cs.cuda_ms([decodes], reps=3)
+                                                     for _ in range(9)]))
+    return out
+
+
 def k4int_turn(cs, dev) -> dict:
     import torch
 
@@ -467,7 +538,7 @@ def k4int_turn(cs, dev) -> dict:
             if not (torch.equal(ik, ir) and torch.equal(fk, fr)):
                 raise SystemExit(f"the integer K4 != its plain version ({label})")
         out[label] = dev_ms(cs, [lambda a=a: dec.decode_records_int(*a) for a in args],
-                            ("decode_records_int",), reps=10)
+                            ("decode_records",), reps=10)
         if label == "u8x3_v6":
             def round_():
                 for t in tiles:
@@ -475,10 +546,10 @@ def k4int_turn(cs, dev) -> dict:
                     codec.decode_fast(o[0], o[1], o[3])
                     codec.decode_fast(o[0], o[1])
 
-            rows = cs.profiled_rows([round_], 3, ("decode_records_int",))
+            rows = cs.profiled_rows([round_], 3, ("decode_records",))
             if rows is None:
                 raise SystemExit("profiler shows no device time for the uint8 round")
-            for key, pats in (("round_busy", (None,)), ("round_K4", ("decode_records_int",)),
+            for key, pats in (("round_busy", (None,)), ("round_K4", ("decode_records",)),
                               ("round_K5", ("scan_records",)), ("round_K6", ("decode_scanned",))):
                 out[key] = sum(r[2] for r in rows if any(p is None or p in r[0] for p in pats)
                                ) / 1e3 / 3
@@ -849,7 +920,8 @@ def windows_turn(cs, dev) -> dict:
 
 MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_turn,
             "k3": k3_turn, "h3": h3_turn, "f2b": f2b_turn, "h1m": h1m_turn,
-            "k4int": k4int_turn, "k6int": k6int_turn, "instances": instances_turn,
+            "k4f32": k4f32_turn, "k4int": k4int_turn, "k6int": k6int_turn,
+            "instances": instances_turn,
             "h2": h2_turn, "k1int": k1int_turn, "k4lut": k4lut_turn, "k2int": k2int_turn,
             "k1lut": k1lut_turn, "k2lut": k2lut_turn, "f2": f2_turn, "windows": windows_turn}
 

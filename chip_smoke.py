@@ -523,9 +523,12 @@ def check_kernels(codec, tiles, timed):
         k4: ([lambda k=k: dec.decode_records(*dargs(k)) for k in ins],
              [lambda k=k: dec.decode_records_ref(*dargs(k)) for k in ins]),
     }
-    k3_fns = fns.pop(k3)
+    k3_fns, k4_fns = fns.pop(k3), fns.pop(k4)
     times = {name: (device_ms(kf, f"{name}_kernel"), cuda_ms(rf, reps=1))
              for name, (kf, rf) in fns.items()}
+    # K4, a strip kernel: windows over the four tiles, as the integer K4's
+    times[k4] = (strip_pair(k4, k4_fns[0], "decode_records_strip", bounds(codec, ins)[k4][0],
+                            card_line()), cuda_ms(k4_fns[1], reps=1))
     if v is None:  # K3 on tile 0's stream beside torch.sum of its bytes, paired windows
         k0 = ins[0]
         n_msg = k0["header"].numel() - sk + int(k0["total"])
@@ -1143,11 +1146,16 @@ def strip_encode(data, mask, mze, version, dev, mb=8, lut=False):
 
 
 def strip_k4_case(args, tag):
-    """K4 (integer) against its plain version on one set of arguments:
-    the image and both flags equal."""
+    """K4 against its plain version on one set of arguments (float32's:
+    decode_records' arguments, zmax float32; else decode_records_int's):
+    the image's bits and both flags equal."""
     from lerc_tpu_torch.ops import device_decode as dec
 
-    (i_k, f_k), (i_r, f_r) = dec.decode_records_int(*args), dec.decode_records_int_ref(*args)
+    if args[2].dtype == torch.float32:
+        (i_k, f_k), (i_r, f_r) = dec.decode_records(*args), dec.decode_records_ref(*args)
+        i_k, i_r = i_k.view(torch.int32), i_r.view(torch.int32)
+    else:
+        (i_k, f_k), (i_r, f_r) = dec.decode_records_int(*args), dec.decode_records_int_ref(*args)
     require(torch.equal(i_k, i_r) and torch.equal(f_k, f_r), f"K4 strip case != plain ({tag})")
 
 
@@ -1229,7 +1237,8 @@ def strip_k4_hostile(args, total, span, rng, tag):
 
 
 def strip_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
-    """Phase 3c: the integer K4 (every dtype, all-valid and masked) and K6
+    """Phase 3c: K4 (float32 and every integer dtype, all-valid and masked;
+    float32's cases in strip_k4f32_cases) and K6
     (every dtype, 8x8 and 16x16, all-valid and masked) bit-equal to their
     plain versions, flags and ok included, at the edges of the strips their
     CTAs own (decode.cu strip_geometry: S blocks a strip): widths 8(S-1),
@@ -1252,7 +1261,7 @@ def strip_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
     n_cases = 0
     masks = bench_masks
 
-    for npdt in dtypes or INT_DTYPES:
+    for npdt in [t for t in dtypes or INT_DTYPES if np.issubdtype(t, np.integer)]:
         size = np.dtype(npdt).itemsize
         dt = NUMPY_TO_DT[np.dtype(npdt)]
         for d in depths:
@@ -1301,6 +1310,60 @@ def strip_edge_check(dev, dtypes=None, depths=(1, 2, 3, 5, 8)):
                         n_cases += 1
     if dtypes is None:
         n_cases += strip_k6_more(dev, rng, masks)
+    if dtypes is None or np.float32 in dtypes:
+        n_cases += strip_k4f32_cases(dev, depths)
+    return n_cases
+
+
+def strip_k4f32_cases(dev, depths=(1, 2, 3, 5, 8)):
+    """Phase 3c's float32 K4 (decode_records, decode_records_masked)
+    bit-equal to decode_records_ref, image and both flags, at the strips'
+    edges: widths 8(S-1), 8S, 8S+8 and 8(2S+1) and one block column at
+    `depths` and 33 (a block past the output stage: depths in chunks of
+    32); all-valid, empty, full and bench masks; a raw-only strip (32 x 257
+    B at depth 1, past the 8 KB stage); const-0, const-offset and raw
+    blocks; nb_cap 16 with lut_unfit (records over 16 bits clear fits); the
+    hostile indexes of strip_k4_hostile; LUT records (the LUT encode: they
+    clear index_ok, and fits under lut_unfit). Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    rng = np.random.default_rng(20)
+    mze, n_cases = 0.001, 0
+    for d in (*depths, 33):
+        s = dec.strip_blocks(8, d, 4)
+        shapes = [(8, 8 * (s - 1) or 8), (8, 8 * s), (16, 8 * s + 8), (8, 8 * (2 * s + 1)),
+                  (40, 8)]
+        for si, (h, w) in enumerate(shapes):
+            for kind in ("all-valid", ("empty", "full", "bench")[si % 3]):
+                for raw in ((False, True) if si == 1 and kind == "all-valid" else (False,)):
+                    data = strip_tile(np.float32, h, w, d, raw, rng)
+                    m = bench_masks(kind, h, w)
+                    tag = f"float32 {h}x{w}x{d} {kind}{' raw' if raw else ''}"
+                    stream, total, zmax, starts, valid = strip_encode(data, m, mze, 6, dev)
+                    require(not raw or d != 1 or int(total) > 8192,
+                            f"K4 strip case {tag}: within the stage")
+                    args = (stream, starts, zmax, 2.0 * mze, h, w, d, 32, False, valid)
+                    strip_k4_case(args, tag)
+                    n_cases += 1
+                    if si == 3 and kind == "all-valid":
+                        n_cases += strip_k4_hostile(args, total, s * d, rng, tag)
+                    if si == 2:
+                        strip_k4_case((*args[:7], 16, True, valid), f"{tag}, nb_cap 16")
+                        n_cases += 1
+    for d in (1, 3):
+        s = dec.strip_blocks(8, d, 4)
+        for h, w in ((8, 8 * s), (16, 8 * s + 8)):
+            zone = (np.arange(h)[:, None] // 5 + np.arange(w)[None, :] // 7) % 12
+            data = (np.repeat((zone * 20 + 3)[:, :, None], d, 2) + np.arange(d)).astype(np.float32)
+            for kind in ("all-valid", "bench"):
+                m = bench_masks(kind, h, w)
+                tag = f"float32 {h}x{w}x{d} {kind} LUT"
+                stream, total, zmax, starts, valid = strip_encode(data, m, 0.5, 6, dev, lut=True)
+                args = (stream, starts, zmax, 1.0, h, w, d, 32, False, valid)
+                require(not bool(dec.decode_records_ref(*args)[1][0]), f"{tag}: no LUT record")
+                strip_k4_case(args, tag)
+                strip_k4_case((*args[:7], 16, True, valid), f"{tag}, nb_cap 16, lut_unfit")
+                n_cases += 2
     return n_cases
 
 
@@ -2324,7 +2387,7 @@ def int_kernel_times(codec, tiles, ins):
               for t, k in zip(tiles, ins)], "write_records_int_kernel"),
         k4: ([lambda k=k: dec.decode_records_int(*dargs(k)) for k in ins],
              [lambda k=k: dec.decode_records_int_ref(*dargs(k)) for k in ins],
-             "decode_records_int_kernel"),
+             "decode_records_strip_kernel"),
     }
     n_rec, n_px = codec.n_rec, h * w * d
     bnd = {}
@@ -3580,7 +3643,7 @@ def k4_v4_tiles(dem_tiles, card):
         n_bytes.append(int(meta[0]) + 4 * codec.n_rec + 12 + t.numel() + 8)
     bound = float(np.mean(n_bytes)) / HBM_BYTES_PER_S * 1e3
     ms = strip_pair("decode_records_u8 (the four uint8 x 3 tiles at v4)",
-                    [lambda a=a: dec.decode_records_int(*a) for a in args], "decode_records_int",
+                    [lambda a=a: dec.decode_records_int(*a) for a in args], "decode_records_strip",
                     bound, card)
     return ms, bound
 
@@ -5573,11 +5636,12 @@ def main():
     # ---- 3c. the strip kernels at their strips' edges and on hostile inputs
     t0 = time.perf_counter()
     n_strip = strip_edge_check(dev)
-    print(f"check: the integer K4 and K6 equal to their plain versions (images, flags, ok) in "
-          f"{n_strip} strip cases: widths 8(S-1), 8S, 8S+8, 8(2S+1), one block row, one block "
-          f"column, edge blocks; depths 1, 2, 3, 5, 8 at v4 and v6; all-valid, empty, full and "
-          f"bench masks; raw-only, const, LUT, 16x16, float32, float64 and deep tiles; truncated "
-          f"streams, shuffled and past-the-end starts, a record ending at the last byte "
+    print(f"check: K4 (float32 and integer) and K6 equal to their plain versions (images, "
+          f"flags, ok) in {n_strip} strip cases: widths 8(S-1), 8S, 8S+8, 8(2S+1), one block "
+          f"row, one block column, edge blocks; depths 1, 2, 3, 5, 8 at v4 and v6 (float32 K4 "
+          f"also 33); all-valid, empty, full and bench masks; raw-only, const, LUT, 16x16, "
+          f"float32, float64 and deep tiles; nb_cap 16 with lut_unfit; truncated streams, "
+          f"shuffled and past-the-end starts, a record ending at the last byte "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- 3d. the redesigned H2 and integer K1 at their tiles' and strips' edges
@@ -5679,7 +5743,7 @@ def main():
         h, w, d = ctiles[0].shape
         times = int_kernel_times(codec, ctiles, ins)
         k4 = int_name("decode_records", codec.dt)  # the strip kernels: paired windows
-        times[k4] = (strip_pair(k4, records_calls(ins, codec, (h, w, d)), "decode_records_int",
+        times[k4] = (strip_pair(k4, records_calls(ins, codec, (h, w, d)), "decode_records_strip",
                                 times[k4][2], card), *times[k4][1:])
         k1 = int_name("encode_blocks", codec.dt)
         p = ins[0]["p"]

@@ -54,8 +54,8 @@ EDITS = {  # name: text edits of decode.cu (none: the kernels as they are)
                             "#pragma unroll\n        for (int k = 0; k < STRIP_PPT; ++k) {\n"
                             "            const int bl = bl0 + k * KB;\n            if (bl >= n_s) break;\n"
                             "            V prev")],
-    "K4 at 8 CTAs an SM": [("__launch_bounds__(STRIP_THREADS) decode_records_int_kernel(",
-                            "__launch_bounds__(STRIP_THREADS, 8) decode_records_int_kernel(")],
+    "K4 at 8 CTAs an SM": [("__launch_bounds__(STRIP_THREADS) decode_records_strip_kernel(",
+                            "__launch_bounds__(STRIP_THREADS, 8) decode_records_strip_kernel(")],
     "K6 at 6 CTAs an SM": [("__launch_bounds__(STRIP_THREADS) decode_scanned_kernel(",
                             "__launch_bounds__(STRIP_THREADS, 6) decode_scanned_kernel(")],
     "no staging": [("const long long len = end > lo ? min((long long)STRIP_IN, end - sp.gb) : 0;",
@@ -68,15 +68,18 @@ OUT = Path(".tree_check/k4k6_variants")
 P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 
 
-def build_variants():
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_variants(variants=EDITS, out=OUT,
+                   show=("decode_records_strip_kernelIhLb0E", "decode_scanned_kernelIhLb1ELi8ELb0")):
+    """{name: the loaded library} of each variant of decode.cu; prints the
+    ptxas lines of the kernels whose mangled names hold a string of `show`."""
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(EDITS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         src = SRC
         for old, new in edits:
             assert old in src, f"decode.cu no longer has {old!r}"
             src = src.replace(old, new)
-        cu, so = OUT / f"v{i}.cu", OUT / f"v{i}.so"
+        cu, so = out / f"v{i}.cu", out / f"v{i}.so"
         cu.write_text(src)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.SRC_DIR), "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -88,11 +91,11 @@ def build_variants():
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling" in line and ("decode_records_int_kernelIhLb0" in line
-                                        or "decode_scanned_kernelIhLb1ELi8ELb0" in line):
+            if "Compiling" in line and any(s in line for s in show):
                 print(f"{name}: ptxas: {line.split(chr(39))[1][35:80]}: "
-                      f"{' '.join(x.strip() for x in lines[i + 1:i + 3])}", flush=True)
+                      f"{' '.join(x.strip() for x in lines[i + 2:i + 4])}", flush=True)
         lib = ctypes.CDLL(str(so))
+        lib.decode_records.argtypes = [P, L, P, P, P, D] + [I] * 5 + [P] * 3
         lib.decode_records_int.argtypes = [P, L, P, P, P] + [I] * 10 + [P] * 3
         lib.decode_scanned.argtypes = [P, L] + [P] * 10 + [D] + [I] * 8 + [P] * 3
         libs[name] = lib
@@ -154,7 +157,7 @@ def main():
     n_rec, n_px = codec.n_rec, 2048 * 2048 * 3
     bounds = {"K4": (total + 4 * n_rec + 12 + n_px + 8) / cs.HBM_BYTES_PER_S * 1e3,
               "K6": (total + 16 * n_rec + 12 + n_px) / cs.HBM_BYTES_PER_S * 1e3}
-    for label, fn, args, match in (("K4", k4, a4, "decode_records_int"),
+    for label, fn, args, match in (("K4", k4, a4, "decode_records_strip"),
                                    ("K6", k6, a6, "decode_scanned")):
         times = {name: [] for name in libs}
         for rnd in range(5):

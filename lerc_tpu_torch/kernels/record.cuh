@@ -65,7 +65,7 @@ __device__ __forceinline__ int int_scale_back(int off, uint32_t q, int inv_i, in
 
 }  // namespace lerc2
 
-// The strips of the integer K4 and K6 (decode.cu) and of the integer K1
+// The strips of K4 and K6 (decode.cu) and of the integer K1
 // (encode.cu): a CTA owns S consecutive mb x mb blocks of one block row with
 // all their depths, a strip at most STRIP_PX pixels and STRIP_OUT bytes of
 // image; on uint8 x 3 with 8x8 blocks S = 32 (6 KB). Where one block at

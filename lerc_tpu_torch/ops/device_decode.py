@@ -2,17 +2,28 @@
 plain version).
 
 Port of ``lerc_tpu/ops/device_decode.py::decode_tiles_fast`` (:64): for the
-resident codec's path float32, 8x8 micro blocks, all-valid or masked, one
-tile, no LUT; for the mosaic's (``decode_records_lut``, below) LUT records,
-8x8 and 16x16 blocks, n units in one launch, the depth-diff chain of
-``decode_tiles`` (:625-698), per-unit flags. Each record is
-parsed at its entry of the encoder's ``starts`` index;
-values are extracted LSB-first and dequantized with the exact double
-ScaleBack of ``_exact_f32_scale_back`` (:30): ``(float)min(zMin +
-q*invScale, zMax)``, one rounding per operation, narrowed to f32 and then
-clamped with std::min's pick. ``invScale`` is the f64 ``2*maxZError`` of the
-header's double, as the reference decoder uses it. On Hopper this is native
-f64; the TPU's softfloat modules have no port.
+resident codec's path float32 and the integer dtypes, 8x8 micro blocks,
+all-valid or masked, one tile, no LUT; for the mosaic's
+(``decode_records_lut``, below) LUT records, 8x8 and 16x16 blocks, n units
+in one launch, the depth-diff chain of ``decode_tiles`` (:625-698),
+per-unit flags. Each record is parsed at its entry of the encoder's
+``starts`` index; values are extracted LSB-first and float32 dequantizes
+with the exact double ScaleBack of ``_exact_f32_scale_back`` (:30):
+``(float)min(zMin + q*invScale, zMax)``, one rounding per operation,
+narrowed to f32 and then clamped with std::min's pick. ``invScale`` is the
+f64 ``2*maxZError`` of the header's double, as the reference decoder uses
+it. On Hopper this is native f64; the TPU's softfloat modules have no port.
+
+The resident K4 (float32 ``decode_records``, the integer
+``decode_records_int``) is one strip kernel (kernels/decode.cu
+``decode_records_strip_kernel``): a CTA owns ``strip_blocks(8, D, size)``
+consecutive blocks of a block row, stages their records' bytes (from the
+first record's start to the next strip's) and their image in shared
+memory, parses each record once and decodes a pixel a thread; a read
+outside the staged bytes (a hostile index, a record past the stage) goes
+to the stream in the same kernel, 0 outside it. Its plain version is
+``decode_records_ref`` (``decode_records_int_ref``), which the CPU path
+runs.
 
 With a mask (the block validity words of ``device_encode.block_valid_words``)
 a record holds its block's valid values in position order: valid position
@@ -32,7 +43,8 @@ instances of K4 (``decode_records_int``, counted as e.g.
 1, 2 or 4 bytes, exact ``min(offset + q * round(2 mze), zMax)`` in int32,
 the image in the native dtype. A depth-diff record (flag bit 2 at version
 >= 5) clears ``index_ok``: it needs the previous slice, which only the
-scanned decode adds.
+scanned decode adds. The float32 instance has no such rule (JAX's
+decode_tiles_fast checks no diff bit for any dtype).
 
 Kernel K6 ``decode_scanned`` decodes from record descriptors without any
 index -- those of the device record scan (``device_scan.scan_records``, K5)
