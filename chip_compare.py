@@ -163,6 +163,28 @@ measured. MEASURE is one of:
        every integer instance of K1, K2, K4 and K6 no timed path takes and
        K6's masked, 16x16 and float64 instances, each held to its plain
        version and timed once (one `instance` line each).
+  k1f32  the float32 K1 (encode_blocks, encode_blocks_masked) per call on the
+       four DEM tiles at maxZError 0.001 (FusedResidentCodec's parameters),
+       all-valid and with the bench mask, and on two of them made to show
+       the picks among -0.0/+0.0 and NaN (k1_quirk_tiles: zero minima of
+       both signs within and across strips, all-NaN and half-NaN blocks,
+       +-inf), each set round-robin past the L2, every output but the
+       quirks' first held to encode_blocks_ref: the device time of the
+       kernel (names holding "encode_blocks") and a sha256 of each set's
+       outputs (rec_info, ranges, fits), equal in every turn where they
+       are bit-equal; then the resident all-valid round (encode_fast and the
+       indexed decode_fast of the four tiles, nb_cap 0): its device busy
+       time, K1's share, and its CUDA-event time (the median of 9 timings of
+       3 rounds).
+  k1f64  the float64 K1 (encode_blocks_f64, _masked_f64, and the mosaic's
+       encode_tiles_f64) per call on the four float64 DEM tiles at maxZError
+       0.001, all-valid and with the bench mask, on the 4096^2 float64 DEM
+       as the mosaic's stack of 64 tiles of 512^2 (validity words all set,
+       per-tile ranges), and on k1_quirk_tiles of the float64 tiles; as
+       k1f32 (device time, sha256 of each set's outputs); then the float64
+       lossy band round (encode_band_device with the index and
+       decode_band_device of the four tiles): its device busy time, K1's
+       share and its CUDA-event time.
   windows  the parent's whole chip_smoke.py, one turn only, its profiler
        windows counted: those taken and those that came back with no
        kernel row (this tree's chip_smoke.py prints its own count).
@@ -485,8 +507,8 @@ def k4f32_turn(cs, dev) -> dict:
             for t in tiles:
                 header, stream, _meta, starts = codec.encode_fast(t)
                 args.append((stream, starts, codec._zmax_vec(header), 2.0 * codec.mze, 2048,
-                             2048, 1, 32 if nb_cap <= 0 else nb_cap, 0 < nb_cap <= 16,
-                             codec.valid))
+                             2048, 1, codec.version, 32 if nb_cap <= 0 else nb_cap,
+                             0 < nb_cap <= 16, codec.valid))
             digest = hashlib.sha256()
             for a in args:
                 (ik, fk), (ir, fr) = dec.decode_records(*a), dec.decode_records_ref(*a)
@@ -521,6 +543,124 @@ def k4f32_turn(cs, dev) -> dict:
                                                    for _ in range(9)]))
             out["decodes_events"] = float(np.median([cs.cuda_ms([decodes], reps=3)
                                                      for _ in range(9)]))
+    return out
+
+
+def k1_quirk_tiles(tiles):
+    """Two of the DEM tiles (float32 or float64, 2048^2 x 1) made to show
+    the float K1's picks among -0.0/+0.0 and NaN: tile 0 as |x| with, in
+    block rows 0-3, blocks whose minimum is a zero -- +0.0 then -0.0, -0.0
+    then +0.0, all -0.0, all +0.0, in turn -- so that the tile's range meets
+    zeros of both signs in one strip and across strips; tile 1 with, in
+    block row 10, blocks all NaN, blocks whose rows 0-3 are NaN, and
+    blocks holding +inf and -inf, in turn."""
+    a = tiles[0].abs()
+    v = a.view(256, 8, 256, 8)  # block row, row, block column, column
+    for c in range(256):
+        blk = v[:4, :, c, :]
+        if c % 4 == 0:
+            blk[:, 0, 0], blk[:, 0, 5] = 0.0, -0.0
+        elif c % 4 == 1:
+            blk[:, 0, 0], blk[:, 4, 1] = -0.0, 0.0
+        else:
+            blk.fill_(-0.0 if c % 4 == 2 else 0.0)
+    b = tiles[1].clone()
+    u = b.view(256, 8, 256, 8)
+    for c in range(256):
+        blk = u[10, :, c, :]
+        if c % 3 == 0:
+            blk.fill_(float("nan"))
+        elif c % 3 == 1:
+            blk[:4] = float("nan")
+        else:
+            blk[2, 3], blk[6, 6] = float("inf"), float("-inf")
+    return [a.contiguous(), b.contiguous()]
+
+
+def k1_sets_turn(cs, sets, plain) -> dict:
+    """Each set's K1 outputs first held to plain, the plain version on the
+    same device (except the quirk sets),
+    a sha256 of each set's outputs (rec_info, ranges, fits), and the device
+    time of the kernel per call (names holding "encode_blocks"), round-robin
+    past the L2."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for label, (fn, args) in sets.items():
+        digest = hashlib.sha256()
+        for a in args:
+            k = fn(*a)
+            if not label.endswith("quirks"):
+                r = plain(*a)
+                if not all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                       y.view(torch.int32) if y.dtype == torch.float32 else y)
+                           for x, y in zip(k, r)):
+                    raise SystemExit(f"the float K1 != its plain version ({label})")
+            for x in k:
+                digest.update(x.reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        print(f"outputs sha256 {label} {digest.hexdigest()}", flush=True)
+        out[label] = dev_ms(cs, [lambda a=a: fn(*a) for a in args], ("encode_blocks",), reps=10)
+    return out
+
+
+def k1f32_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import FusedResidentCodec
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    tiles = cs.make_tiles(4, 2048, dev)
+    p = enc.encode_params(0.001, 6, 0)
+    valid = enc.block_valid_words(torch.from_numpy(cs.bench_mask()).to(dev))
+    out = k1_sets_turn(cs, {"all_valid": (enc.encode_blocks, [(t, p, None) for t in tiles]),
+                            "masked": (enc.encode_blocks, [(t, p, valid) for t in tiles]),
+                            "quirks": (enc.encode_blocks,
+                                       [(t, p, None) for t in k1_quirk_tiles(tiles)])},
+                       enc.encode_blocks_ref)
+    codec = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001)
+
+    def round_():
+        for t in tiles:
+            o = codec.encode_fast(t)
+            codec.decode_fast(o[0], o[1], o[3])
+
+    r = round_ms(cs, round_, ("encode_blocks",))
+    out.update(round_busy=r["round_busy"], round_K1=r["round_part"])
+    out["round_events"] = float(np.median([cs.cuda_ms([round_], reps=3) for _ in range(9)]))
+    return out
+
+
+def k1f64_turn(cs, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from lerc_tpu_torch import decode_band_device, encode_band_device
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    tiles = cs.make_tiles64(4, 2048, dev)
+    p = enc.encode_params_f64(0.001, 6)
+    valid = enc.block_valid_words(torch.from_numpy(cs.bench_mask()).to(dev))
+    raster = torch.cat([torch.cat(tiles[:2], 1), torch.cat(tiles[2:], 1)], 0)
+    stack = raster.reshape(8, 512, 8, 512, 1).permute(0, 2, 1, 3, 4).reshape(64 * 512, 512, 1)
+    stack = stack.contiguous()
+    ones = enc.block_valid_words(torch.ones(64 * 512, 512, dtype=torch.bool, device=dev))
+    out = k1_sets_turn(cs, {
+        "all_valid": (enc.encode_blocks_f64, [(t, p, None) for t in tiles]),
+        "masked": (enc.encode_blocks_f64, [(t, p, valid) for t in tiles]),
+        "mosaic": (enc.encode_blocks_f64, [(stack, p, ones, 4096)]),
+        "quirks": (enc.encode_blocks_f64, [(t, p, None) for t in k1_quirk_tiles(tiles)])},
+        enc.encode_blocks_f64_ref)
+
+    def round_():
+        enc_ = [encode_band_device(t, None, 0.001, return_index=True) for t in tiles]
+        return [decode_band_device(b, index=i) for b, i in enc_]
+
+    r = round_ms(cs, round_, ("encode_blocks",))
+    out.update(band_round_busy=r["round_busy"], band_round_K1=r["round_part"],
+               band_round_events=r["round_events"])
     return out
 
 
@@ -923,7 +1063,8 @@ MEASURES = {"fpl": fpl_turn, "k5": k5_turn, "undelta": undelta_turn, "f3": f3_tu
             "k4f32": k4f32_turn, "k4int": k4int_turn, "k6int": k6int_turn,
             "instances": instances_turn,
             "h2": h2_turn, "k1int": k1int_turn, "k4lut": k4lut_turn, "k2int": k2int_turn,
-            "k1lut": k1lut_turn, "k2lut": k2lut_turn, "f2": f2_turn, "windows": windows_turn}
+            "k1lut": k1lut_turn, "k2lut": k2lut_turn, "f2": f2_turn, "k1f32": k1f32_turn,
+            "k1f64": k1f64_turn, "windows": windows_turn}
 
 
 LAZY = ("k2lut", "f2")  # measures of one source each (encode.cu, fpl.cu)

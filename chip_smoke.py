@@ -29,7 +29,12 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      empty, full and bench masks; raw-only, const, LUT, 16x16, float32,
      float64 and deep tiles) and on hostile inputs (truncated streams,
      starts shuffled within and across strips or past the end, a record
-     ending at the stream's last byte), the case count printed;
+     ending at the stream's last byte), the case count printed; then the
+     float32 and float64 K1 (strips) at their strips' edges
+     (strip_k1f32_cases, strip_k1f64_cases: rec_info, ranges and fits;
+     depths 1-8 and in chunks, every mask kind, const, stuffed and raw
+     blocks, float64 tile stacks, quantized ranges beside powers of two,
+     float64 zero minima of both signs), the case counts printed;
   3d. the redesigned H2 (huffman_encode, one look-back kernel) and integer
      K1 (strips) against their plain versions at the edges of their tiles
      and strips (H2: streams of 64 to 3T+64 symbols, every layout, n_live 0
@@ -80,8 +85,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      kernel's device time per launch (torch.profiler) beside its plain
      version's time (CUDA events), its launches and its bound (K3 on tile
      0's stream in paired profiler windows beside torch.sum of its bytes,
-     a yardstick; the integer K1, K4 and K6 in windows over the four
-     tiles, K4 _u8 also on the tiles encoded at v4); then the
+     a yardstick; the float32 and integer K1, K4 and K6 in windows over
+     the four tiles, K4 _u8 also on the tiles encoded at v4); then the
      integer instances no timed path takes (K1, K2, K4, K6 _i8, _u16,
      _u32; the masked K1m, K2m, K4m of every integer dtype), each held to
      its plain version and timed once on a 2048^2 tile beside its bound;
@@ -175,7 +180,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      index, bit-equal to the input; tile 0's predictor, levels, methods and
      size; K3 on their four blobs as the tail (as phase 18); then the
      float64 kernels' device ms per launch beside their plain ms and
-     bounds, K3 on those tails in paired windows, the cells' MB/s (best of
+     bounds (K1 f64 in windows over the four tiles), K3 on those tails in
+     paired windows, the cells' MB/s (best of
      3) and the device's busy share over a lossy and a lossless round;
   23-26. the tile mosaic on a one-rank NCCL DeviceMesh: the tile-batched
      K1/K2 against their plain versions on the whole 64-tile stack of each
@@ -492,8 +498,8 @@ def check_kernels(codec, tiles, timed):
         c_k, c_r = scan.fletcher32_parts(*args), scan.fletcher32_parts_ref(*args)
         require(int(c_k) == int(c_r) == int(k["meta"][1]), f"K3 {k3} != plain at {h}x{w}x{d}")
         err[k3] = max(err.get(k3, 0.0), max_abs(c_k, c_r))
-        dargs = (k["stream"], k["starts"], k["zrange"][d:], 2.0 * codec.mze, h, w, d, cap_nb,
-                 lut, v)
+        dargs = (k["stream"], k["starts"], k["zrange"][d:], 2.0 * codec.mze, h, w, d,
+                 codec.version, cap_nb, lut, v)
         (i_k, f_k), (i_r, f_r) = dec.decode_records(*dargs), dec.decode_records_ref(*dargs)
         require(torch.equal(i_k.view(torch.int32), i_r.view(torch.int32)) and torch.equal(f_k, f_r)
                 and int(f_k[0]) == 1 and int(f_k[1]) == int(k["meta"][2]),
@@ -505,8 +511,8 @@ def check_kernels(codec, tiles, timed):
     cw = codec.cap // 4
 
     def dargs(k):
-        return (k["stream"], k["starts"], k["zrange"][d:], 2.0 * codec.mze, h, w, d, cap_nb,
-                lut, v)
+        return (k["stream"], k["starts"], k["zrange"][d:], 2.0 * codec.mze, h, w, d,
+                codec.version, cap_nb, lut, v)
 
     def fargs(k):
         return (k["header"][sk:hl], codec._static_ab, k["header"][hl:], k["stream"], k["total"])
@@ -523,12 +529,15 @@ def check_kernels(codec, tiles, timed):
         k4: ([lambda k=k: dec.decode_records(*dargs(k)) for k in ins],
              [lambda k=k: dec.decode_records_ref(*dargs(k)) for k in ins]),
     }
-    k3_fns, k4_fns = fns.pop(k3), fns.pop(k4)
-    times = {name: (device_ms(kf, f"{name}_kernel"), cuda_ms(rf, reps=1))
-             for name, (kf, rf) in fns.items()}
-    # K4, a strip kernel: windows over the four tiles, as the integer K4's
-    times[k4] = (strip_pair(k4, k4_fns[0], "decode_records_strip", bounds(codec, ins)[k4][0],
-                            card_line()), cuda_ms(k4_fns[1], reps=1))
+    k1_fns, k3_fns, k4_fns = fns.pop(k1), fns.pop(k3), fns.pop(k4)
+    bnd = bounds(codec, ins)
+    # K1 and K4, strip kernels: windows over the four tiles, as the integer ones'
+    times = {k1: (strip_pair(k1, k1_fns[0], "encode_blocks_float", bnd[k1][0], card_line()),
+                  cuda_ms(k1_fns[1], reps=1))}
+    times.update({name: (device_ms(kf, f"{name}_kernel"), cuda_ms(rf, reps=1))
+                  for name, (kf, rf) in fns.items()})
+    times[k4] = (strip_pair(k4, k4_fns[0], "decode_records_strip", bnd[k4][0], card_line()),
+                 cuda_ms(k4_fns[1], reps=1))
     if v is None:  # K3 on tile 0's stream beside torch.sum of its bytes, paired windows
         k0 = ins[0]
         n_msg = k0["header"].numel() - sk + int(k0["total"])
@@ -685,6 +694,15 @@ def small_dem(rng):
     y = np.linspace(0, 5, 64)[:, None, None]
     return (900 * np.exp(-((x - 4) ** 2 + (y - 2) ** 2) / 9) + 40 * np.sin(x + y)
             + 0.3 * rng.standard_normal((64, 64, 1))).astype(np.float32)
+
+
+def dem_patch(h, w, npdt, seed=3):
+    """An [h, w, 1] DEM patch of small_dem's kind (hill, sinusoid, noise)."""
+    x = np.linspace(0, 8 * w / 64, w)[None, :, None]
+    y = np.linspace(0, 5 * h / 64, h)[:, None, None]
+    rng = np.random.default_rng(seed)
+    return (900 * np.exp(-((x - 4) ** 2 + (y - 2) ** 2) / 9) + 40 * np.sin(x + y)
+            + 0.3 * rng.standard_normal((h, w, 1))).astype(npdt)
 
 
 def bench_mask():
@@ -1342,13 +1360,13 @@ def strip_k4f32_cases(dev, depths=(1, 2, 3, 5, 8)):
                     stream, total, zmax, starts, valid = strip_encode(data, m, mze, 6, dev)
                     require(not raw or d != 1 or int(total) > 8192,
                             f"K4 strip case {tag}: within the stage")
-                    args = (stream, starts, zmax, 2.0 * mze, h, w, d, 32, False, valid)
+                    args = (stream, starts, zmax, 2.0 * mze, h, w, d, 6, 32, False, valid)
                     strip_k4_case(args, tag)
                     n_cases += 1
                     if si == 3 and kind == "all-valid":
                         n_cases += strip_k4_hostile(args, total, s * d, rng, tag)
                     if si == 2:
-                        strip_k4_case((*args[:7], 16, True, valid), f"{tag}, nb_cap 16")
+                        strip_k4_case((*args[:8], 16, True, valid), f"{tag}, nb_cap 16")
                         n_cases += 1
     for d in (1, 3):
         s = dec.strip_blocks(8, d, 4)
@@ -1359,12 +1377,188 @@ def strip_k4f32_cases(dev, depths=(1, 2, 3, 5, 8)):
                 m = bench_masks(kind, h, w)
                 tag = f"float32 {h}x{w}x{d} {kind} LUT"
                 stream, total, zmax, starts, valid = strip_encode(data, m, 0.5, 6, dev, lut=True)
-                args = (stream, starts, zmax, 1.0, h, w, d, 32, False, valid)
+                args = (stream, starts, zmax, 1.0, h, w, d, 6, 32, False, valid)
                 require(not bool(dec.decode_records_ref(*args)[1][0]), f"{tag}: no LUT record")
                 strip_k4_case(args, tag)
-                strip_k4_case((*args[:7], 16, True, valid), f"{tag}, nb_cap 16, lut_unfit")
+                strip_k4_case((*args[:8], 16, True, valid), f"{tag}, nb_cap 16, lut_unfit")
                 n_cases += 2
     return n_cases
+
+
+def k1float_case(dev, data, mask, mze, tag, nb_cap=0, tile_rec=0):
+    """The float32 K1 (encode_blocks, encode_blocks_masked) or, for float64
+    data, the float64 K1 (encode_blocks_f64, _masked_f64; tile_rec > 0:
+    encode_tiles_f64, the tiles' ranges) bit-equal to its plain version on
+    one tile (numpy [H, W, D]): rec_info, zrange and (float32) fits;
+    validity words for a mask or edge blocks. Returns fits (float32)."""
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    h, w, d = data.shape
+    x = torch.from_numpy(data).to(dev)
+    if mask is None and (h % 8 or w % 8 or tile_rec):
+        mask = np.ones((h, w), bool)
+    valid = None if mask is None else enc.block_valid_words(torch.from_numpy(mask).to(dev))
+    if data.dtype == np.float64:
+        p = enc.encode_params_f64(mze, 6)
+    else:
+        p = enc.encode_params(mze, 6, nb_cap)
+    return k1float_check(x, valid, p, tile_rec, tag)
+
+
+def k1float_check(x, valid, p, tile_rec, tag):
+    """k1float_case's comparison on its tensors. Returns fits (float32)."""
+    from lerc_tpu_torch.ops import device_encode as enc
+
+    if x.dtype == torch.float64:
+        k = enc.encode_blocks_f64(x, p, valid, tile_rec)
+        r = enc.encode_blocks_f64_ref(x, p, valid, tile_rec)
+    else:
+        k, r = enc.encode_blocks(x, p, valid), enc.encode_blocks_ref(x, p, valid)
+    require(all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                            b.view(torch.int32) if b.dtype == torch.float32 else b)
+                for a, b in zip(k, r)), f"K1 float != plain ({tag})")
+    return len(k) < 3 or bool(k[2])
+
+
+def strip_k1float_cases(dev, npdt, depths, deep):
+    """The float K1 at its strips' edges (S blocks a strip,
+    device_decode.strip_shape with lead 0): widths 8(S-1), 8S, 8S+8,
+    8(2S+1), 8S+3 (edge blocks) and one block column at `depths` and at
+    `deep` (one block a strip, its depths in chunks); all-valid, empty, full
+    and bench masks; strip_tile's const-0, const-offset, stuffed and
+    full-range blocks, raw-only tiles. Returns the number of cases."""
+    from lerc_tpu_torch.ops import device_decode as dec
+
+    size = np.dtype(npdt).itemsize
+    rng = np.random.default_rng(21 + size)
+    n = 0
+    for d in (*depths, deep):
+        s = dec.strip_shape(8, d, size)[0]
+        shapes = [(8, 8 * (s - 1) or 8), (8, 8 * s), (16, 8 * s + 8), (8, 8 * (2 * s + 1)),
+                  (13, 8 * s + 3), (40, 8)]
+        for si, (h, w) in enumerate(shapes):
+            for kind in ("all-valid", ("empty", "full", "bench")[si % 3]):
+                data = strip_tile(npdt, h, w, d, False, rng)
+                m = bench_masks(kind, h, w)
+                for mze in (0.001, 1e-6):
+                    k1float_case(dev, data, m, mze, f"{npdt.__name__} {h}x{w}x{d} {kind} "
+                                 f"maxZError {mze}")
+                    n += 1
+            if si == 1:
+                raw = strip_tile(npdt, h, w, d, True, rng)
+                k1float_case(dev, raw, None, 0.001, f"{npdt.__name__} raw {h}x{w}x{d}")
+                n += 1
+    return n
+
+
+def settle_tile(npdt, mze, rng):
+    """An 8 x 8n x 1 tile for the float K1's settled maximum (encode.cu
+    settled_q): block by block, quantized ranges t = (zMax - zMin) / (2
+    maxZError) at, beside and half a step from each power of two from 1 to
+    2^21, and 0, 1/4, 1/2 and 3e7 (float32: past 2^24), over minima of
+    either zero, small, large and coarse magnitude (1e6: a float32 step of
+    1/16); the min and the max each at a random position, the other values
+    between."""
+    inv = 2.0 * mze
+    ts = [2.0**k + dt for k in range(22) for dt in (-1.0, -0.5, 0.0, 0.5, 1.0)]
+    ts += [0.0, 0.25, 0.5, 3e7]
+    zmins = (0.0, -0.0, 0.37, -1234.5, 1e6, -3e4)
+    blocks = []
+    for i, t in enumerate(ts):
+        z0 = zmins[i % len(zmins)]
+        b = z0 + rng.random(64) * t * inv
+        lo, hi = rng.choice(64, 2, replace=False)
+        b[lo], b[hi] = z0, z0 + t * inv
+        blocks.append(b.reshape(8, 8))
+    return np.ascontiguousarray(np.concatenate(blocks, 1)[:, :, None].astype(npdt))
+
+
+def signed_zero_tile(npdt):
+    """A 16 x 80 x 1 DEM patch over positive values whose blocks' minima are
+    zeros of both signs, in turn: +0.0 then -0.0, -0.0 then +0.0 (row-major
+    order), all -0.0, all +0.0: the float64 offset is the first zero's bits."""
+    z = np.abs(dem_patch(16, 80, np.float64, seed=5)) + 1
+    for b in range(20):
+        blk = z[8 * (b // 10):8 * (b // 10) + 8, 8 * (b % 10):8 * (b % 10) + 8, 0]
+        if b % 4 == 0:
+            blk[0, 0], blk[2, 5] = 0.0, -0.0
+        elif b % 4 == 1:
+            blk[0, 3], blk[5, 1] = -0.0, 0.0
+        else:
+            blk[:] = -0.0 if b % 4 == 2 else 0.0
+    return np.ascontiguousarray(z.astype(npdt))
+
+
+def settle_cases(dev, npdt):
+    """k1float_case on settle_tile at maxZError 0.001 and 0.5, all-valid
+    and under a crop of the bench mask; float64 also on signed_zero_tile
+    (the float32 K1 keeps fminf's pick between zeros in its zq and ranges,
+    which torch's amin in its plain version does not share: chip_compare's
+    quirk sets hold that pick to the parent's kernel). Returns the number
+    of cases."""
+    rng = np.random.default_rng(213)
+    n = 0
+    if npdt == np.float64:
+        k1float_case(dev, signed_zero_tile(npdt), None, 0.001, "float64 signed zero minima")
+        n += 1
+    for mze in (0.001, 0.5):
+        data = settle_tile(npdt, mze, rng)
+        for kind in ("all-valid", "bench"):
+            k1float_case(dev, data, bench_masks(kind, *data.shape[:2]), mze,
+                         f"{npdt.__name__} settle {kind} maxZError {mze}")
+            n += 1
+    return n
+
+
+def strip_k1f32_cases(dev, depths=(1, 2, 3, 5, 8)):
+    """Phase 3c's float32 K1 (k1float_case, strip_k1float_cases) at depths
+    `depths` and 33 (chunks of 32 depths), plus maxZError 0 (every
+    non-constant block raw), nb_cap 16 on wide quanta (fits drops), a
+    DEM crop (stuffed records of 8-17 bits) and settle_cases. Returns the
+    number of cases."""
+    n = strip_k1float_cases(dev, np.float32, depths, 33)
+    rng = np.random.default_rng(211)
+    s = 32
+    for d in (1, 3):
+        data = strip_tile(np.float32, 16, 8 * s + 8, d, False, rng)
+        for kind in ("all-valid", "bench"):
+            m = bench_masks(kind, 16, 8 * s + 8)
+            k1float_case(dev, data, m, 0.0, f"float32 16x{8 * s + 8}x{d} {kind} maxZError 0")
+            fits = k1float_case(dev, data, m, 1e-4, f"float32 {kind} nb_cap 16", nb_cap=16)
+            require(not fits, f"nb_cap 16: fits kept (float32 d{d} {kind})")
+            n += 2
+    dem = dem_patch(48, 264, np.float32)
+    for kind in ("all-valid", "bench"):
+        k1float_case(dev, dem, bench_masks(kind, 48, 264), 0.001, f"float32 DEM patch {kind}")
+        n += 1
+    return n + settle_cases(dev, np.float32)
+
+
+def strip_k1f64_cases(dev, depths=(1, 2, 3, 5, 8)):
+    """Phase 3c's float64 K1 (k1float_case, strip_k1float_cases) at depths
+    `depths` and 17 (chunks of 16 depths), plus tile stacks (tile_rec > 0:
+    encode_tiles_f64's per-tile ranges) of 3 tiles at the strips' edge
+    widths, each tile with its own range, at depths 1 and 3, and a DEM
+    crop and settle_cases. Returns the number of cases."""
+    n = strip_k1float_cases(dev, np.float64, depths, 17)
+    rng = np.random.default_rng(212)
+    for d in (1, 3):
+        s = 16 if d == 1 else 5
+        for w in (8 * s, 8 * s + 8, 8 * (2 * s + 1)):
+            tiles = [strip_tile(np.float64, 16, w, d, False, rng) * (t + 1) + 100 * t
+                     for t in range(3)]
+            data = np.ascontiguousarray(np.concatenate(tiles, 0))
+            tile_rec = 2 * (w // 8) * d
+            for kind in ("full", "bench"):
+                m = np.concatenate([bench_masks(kind, 16, w)] * 3, 0)
+                k1float_case(dev, data, m, 0.001, f"float64 stack 3 x 16x{w}x{d} {kind}",
+                             tile_rec=tile_rec)
+                n += 1
+    dem = dem_patch(48, 264, np.float64)
+    for kind in ("all-valid", "bench"):
+        k1float_case(dev, dem, bench_masks(kind, 48, 264), 0.001, f"float64 DEM patch {kind}")
+        n += 1
+    return n + settle_cases(dev, np.float64)
 
 
 def strip_k6_hostile(stream, total, recs, data, mze, zmax, span, rng, tag):
@@ -4600,11 +4794,12 @@ def f64_kernel_times(tiles, mask, lossy_blobs, lossless_blob, card):
         starts = [torch.cumsum(r[:, 0], 0, dtype=torch.int32) - r[:, 0] for r in recs]
         totals = [int(r[:, 0].sum()) for r in recs]
         caps = [(t + 4096) // 4 for t in totals]
-        out[f"encode_blocks{sfx}_f64"] = (
-            device_ms([lambda t=t: E.encode_blocks_f64(t, p, valid) for t in tiles],
-                      "encode_blocks_f64_kernel"),
-            cuda_ms([lambda: E.encode_blocks_f64_ref(tiles[0], p, valid)], reps=1),
-            (8 * n + vbytes + 16 * n_rec + 16 * d) / mb)
+        k1_bound = (8 * n + vbytes + 16 * n_rec + 16 * d) / mb
+        out[f"encode_blocks{sfx}_f64"] = (  # a strip kernel: windows over the four tiles
+            strip_pair(f"encode_blocks{sfx}_f64", [lambda t=t: E.encode_blocks_f64(t, p, valid)
+                                                   for t in tiles], "encode_blocks_float",
+                       k1_bound, card),
+            cuda_ms([lambda: E.encode_blocks_f64_ref(tiles[0], p, valid)], reps=1), k1_bound)
         out[f"write_records{sfx}_f64"] = (
             device_ms([lambda a=a: E.write_records_f64(*a, p, valid)
                        for a in zip(tiles, recs, starts, caps)], "write_records_f64_kernel"),
@@ -5030,7 +5225,7 @@ def tiles_encode_times(t, m, mze, dt, mb):
            (lambda: enc.write_records_ref(xc, rkc, stc, cap_w, p, vc, mb, True)))
     rows = {}
     for name, kf, rf, b, o, match in (
-            (k1n, k1, k1r, k1_b, k1_o, "encode_blocks_f64_kernel" if f64
+            (k1n, k1, k1r, k1_b, k1_o, "encode_blocks_float" if f64
              else "encode_blocks_lut_kernel"),
             (k2n, k2, k2r, k2_b, k2_o, "write_records_f64_kernel" if f64
              else "write_records_lut_kernel")):
@@ -5643,6 +5838,16 @@ def main():
           f"float32, float64 and deep tiles; nb_cap 16 with lut_unfit; truncated streams, "
           f"shuffled and past-the-end starts, a record ending at the last byte "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    n_f32, n_f64 = strip_k1f32_cases(dev), strip_k1f64_cases(dev)
+    print(f"check: the float32 K1 (rec_info, zrange, fits) equal to its plain version in {n_f32} "
+          f"strip cases and the float64 K1 (rec_info, zrange) in {n_f64}: widths 8(S-1), 8S, "
+          f"8S+8, 8(2S+1), 8S+3 and one block column at depths 1, 2, 3, 5, 8 and 33 (float64 "
+          f"17), depths in chunks; all-valid, empty, full and bench masks; const, stuffed and raw "
+          f"blocks, maxZError 0.001 and 1e-6 (float32 also 0, nb_cap 16); float64 tile stacks "
+          f"with per-tile ranges; DEM patches; quantized ranges beside powers of two; float64 "
+          f"zero minima of both signs ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- 3d. the redesigned H2 and integer K1 at their tiles' and strips' edges
     t0 = time.perf_counter()

@@ -61,13 +61,13 @@ OUT = Path(".tree_check/k4f32_variants")
 def k4(lib, a):
     """The wrapper's float32 K4 launch (all-valid, or masked with validity
     words) with a variant."""
-    stream, starts, zmax, inv, h, w, d, cap_nb, lut_unfit, valid = a
+    stream, starts, zmax, inv, h, w, d, version, cap_nb, lut_unfit, valid = a
     img = torch.empty(h, w, d, dtype=torch.float32, device=stream.device)
     flags = torch.ones(2, dtype=torch.int32, device=stream.device)
     err = lib.decode_records(stream.data_ptr(), 4 * stream.numel(), starts.data_ptr(),
                              None if valid is None else valid.data_ptr(), zmax.data_ptr(), inv,
-                             h, w, d, cap_nb, int(lut_unfit), img.data_ptr(), flags.data_ptr(),
-                             build.launch_stream(stream))
+                             h, w, d, int(version >= 5), cap_nb, int(lut_unfit), img.data_ptr(),
+                             flags.data_ptr(), build.launch_stream(stream))
     cs.require(err == 0, f"decode_records launch failed: cudaError {err}")
     return img, flags
 
@@ -82,8 +82,8 @@ def main():
     for label, m in (("K4", None), ("K4m", cs.bench_mask())):
         codec = FusedResidentCodec(2048, 2048, 1, np.float32, 0.001, mask=m)
         outs = [codec.encode_fast(t) for t in tiles]
-        args = [(o[1], o[3], codec._zmax_vec(o[0]), 0.002, 2048, 2048, 1, 32, False, codec.valid)
-                for o in outs]
+        args = [(o[1], o[3], codec._zmax_vec(o[0]), 0.002, 2048, 2048, 1, codec.version, 32, False,
+                 codec.valid) for o in outs]
         v_bytes = 0 if codec.valid is None else 4 * codec.valid.numel()
         n_bytes = float(np.mean([int(o[2][0]) for o in outs])) + 4 * codec.n_rec + 4 + v_bytes \
             + 4 * 2048 * 2048 + 8

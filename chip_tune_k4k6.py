@@ -95,7 +95,7 @@ def build_variants(variants=EDITS, out=OUT,
                 print(f"{name}: ptxas: {line.split(chr(39))[1][35:80]}: "
                       f"{' '.join(x.strip() for x in lines[i + 2:i + 4])}", flush=True)
         lib = ctypes.CDLL(str(so))
-        lib.decode_records.argtypes = [P, L, P, P, P, D] + [I] * 5 + [P] * 3
+        lib.decode_records.argtypes = [P, L, P, P, P, D] + [I] * 6 + [P] * 3
         lib.decode_records_int.argtypes = [P, L, P, P, P] + [I] * 10 + [P] * 3
         lib.decode_scanned.argtypes = [P, L] + [P] * 10 + [D] + [I] * 8 + [P] * 3
         libs[name] = lib

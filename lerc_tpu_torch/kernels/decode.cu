@@ -231,10 +231,11 @@ __device__ __forceinline__ uint32_t extract(const uint8_t* s, long long n, const
 // width with sign or zero extension (record.cuh), raw values of 1, 2 or 4
 // bytes, exact int32 min(offset + q * round(2 mze), zMax), the image in the
 // native dtype. A diff record (flag bit 2 at version >= 5, diff_v5) clears
-// index_ok: this decoder has no previous slice to add, and its offset is
-// reduced as INT, so its length would be misread -- the image is still the
-// records' parse, written in full. The float32 instance takes no such rule
-// (decode_records_ref does not apply it; diff_v5 is 0).
+// index_ok, for every dtype: this decoder has no previous slice to add (an
+// integer diff record's offset is also reduced as INT, so its length would
+// be misread) -- the image is still the records' parse, written in full. The
+// host decoder and the reference apply the diff to float32 records too, so a
+// float32 diff record read as an absolute one would decode wrong.
 //
 // flags[0] (index_ok) drops when a record's parsed length disagrees with
 // the next index entry, a stuffed count is not the block's valid count (64
@@ -1129,14 +1130,15 @@ extern "C" int decode_scanned(const uint8_t* words, long long n_bytes, const int
 
 // K4, float32: flags 2 int32 set to 1 by the caller; valid: [nBlocks, 2]
 // u32 validity words, or null for an all-valid image (then the all-valid
-// instance runs); zmax [D] f32, inv the f64 invScale
+// instance runs); zmax [D] f32, inv the f64 invScale; diff_v5: version >= 5
+// (a depth-diff record then clears index_ok)
 extern "C" int decode_records(const uint8_t* words, long long n_bytes, const int* starts,
                               const int* valid, const float* zmax, double inv, int h, int w,
-                              int d, int cap_nb, int lut_unfit, float* img, int* flags,
-                              void* stream) {
+                              int d, int diff_v5, int cap_nb, int lut_unfit, float* img,
+                              int* flags, void* stream) {
     return launch_decode<float>(words, n_bytes, starts, valid, reinterpret_cast<const int*>(zmax),
-                                inv, 0, h, w, d, lerc2::DT_FLOAT, 0, cap_nb, lut_unfit, img, flags,
-                                (cudaStream_t)stream);
+                                inv, 0, h, w, d, lerc2::DT_FLOAT, diff_v5, cap_nb, lut_unfit, img,
+                                flags, (cudaStream_t)stream);
 }
 
 // K4 for the mosaic: n_units units of [H, W, D] (H, W multiples of mb, 8 or

@@ -9,18 +9,22 @@
 // candidate _lut_candidate_pre (:407) / _lut_candidate_post (:440). The TPU
 // version routes bits with one-hot matmuls and static roll chains, and sorts
 // each block's values with jnp.sort, because XLA gathers and scatters are
-// slow there; on Hopper one warp owns one block: shuffles reduce it, and
-// shared-memory atomicOr assembles its record. The integer K1 and K2 are
-// strip kernels instead: K1 a warp a strip of blocks, a thread a block; K2
-// a CTA a strip, its records built as one span, a thread a header or a
-// record's payload row (below).
+// slow there. On Hopper every K1 but the LUT one, and the integer and LUT
+// K2, are strip kernels: a CTA owns a strip of consecutive blocks of one
+// block row with all their records (record.cuh's strip_shape), staged in
+// shared memory with 16-byte loads; the K1s decide a record a lane (the
+// integer K1 a block and its depths a lane at D = 1 and 3; float64 four
+// lanes a record), the K2s build the strip's records as one span. The LUT
+// K1, the float32 K2 and the float64 K2 give a block a warp (or a group of
+// lanes) instead: shuffles reduce it, and shared-memory atomicOr assembles
+// its record.
 //
-// One warp, one block of MB x MB values, VPL = MB*MB/32 values per lane:
-// value j = 32k + lane (k < VPL) is block position j in row-major order.
-// The LUT-free K1/K2 (8x8 blocks, the resident codecs') are bodies of their
-// own with two values a lane (encode_blocks_body, write_records_body), no
-// LUT branch and one count byte: served by the LUT template with a flag
-// off, they ran slower per launch on the H100.
+// A warp-a-block body, one block of MB x MB values, VPL = MB*MB/32 values
+// per lane: value j = 32k + lane (k < VPL) is block position j in row-major
+// order. The LUT-free float32 K2 (8x8 blocks, the resident codecs') is a
+// body of its own with two values a lane (write_records_body), no LUT branch
+// and one count byte: served by the LUT template with a flag off, it ran
+// slower per launch on the H100.
 //
 // Masks and edge blocks: each block's validity is VPL u32 words (bit j of
 // word k = position 32k + j), exactly the ballots of the warp's lane rows.
@@ -56,9 +60,10 @@
 // blocks) replaces lerc_tpu/ops/device_f64.py::encode_tiles_f64 (:95), which
 // quantizes in double-single f32 pairs with a residual refinement, picks the
 // block offset's bits by a compound (hi, lo) key and routes records through
-// roll chains. Here the arithmetic is native f64, two values a lane: the
-// block min and max by shuffles, the offset the exact bits of the first valid
-// position holding the min; q = rint((x - zMin) * scale) in f64, clamped to
+// roll chains. Here the arithmetic is native f64: K1 on the float32 K1's
+// strips, four lanes a record (the block min and max, the offset the exact
+// bits of the first valid position holding the min); K2 a warp a record,
+// two values a lane. q = rint((x - zMin) * scale) in f64, clamped to
 // [0, 2^30], with the sign-directed +-1 fixup judged under the decoder's own
 // reconstruction zMin + q * (2 * maxZError), a candidate kept only when
 // strictly closer, so every decoded value lies within maxZError. JAX's wire
@@ -103,6 +108,24 @@ __device__ __forceinline__ uint32_t quantize(float x, float zmin, float scale, f
     float best = errc < fabsf(resid) ? qc : q0;
     best = fminf(fmaxf(best, 0.f), 2147483648.f);
     return (uint32_t)best;
+}
+
+// the float64 encoder's scalars
+struct EncP64 {
+    double scale, inv;  // 1 / (2 * maxZError), 2 * maxZError
+    int integ_mask;
+};
+
+// one quantized f64 value: q0 = rint((x - zmin) * scale) in [0, 2^30], and
+// q0 + sign(resid) when the decoder's reconstruction of it is strictly closer
+__device__ __forceinline__ uint32_t quantize_f64(double x, double zmin, double scale,
+                                                 double inv) {
+    const double q0 = fmin(fmax(rint(__dmul_rn(__dsub_rn(x, zmin), scale)), 0.0), 1073741824.0);
+    const double resid = __dsub_rn(x, __dadd_rn(zmin, __dmul_rn(q0, inv)));
+    const double sgn = resid > 0.0 ? 1.0 : (resid < 0.0 ? -1.0 : 0.0);
+    const double qc = fmin(fmax(__dadd_rn(q0, sgn), 0.0), 1073741824.0);
+    const double errc = fabs(__dsub_rn(x, __dadd_rn(zmin, __dmul_rn(qc, inv))));
+    return (uint32_t)(errc < fabs(resid) ? qc : q0);
 }
 
 __device__ __forceinline__ int wrap_sub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
@@ -228,151 +251,6 @@ template <> struct ZOf<int16_t> { using type = int; };
 template <> struct ZOf<uint16_t> { using type = int; };
 template <> struct ZOf<int32_t> { using type = int; };
 template <> struct ZOf<uint32_t> { using type = int; };
-
-// ---------------------------------------------------------------------------
-// K1: one warp decides one record. Integer instances (encode_tiles
-// :591-614, :651-653, :677-722): int32 block minimum (uint32: unsigned
-// minimum, and unsigned image ranges), f32 block maximum for the mode
-// heuristics, offsets reduced per dtype, raw records of 1 + cnt * size
-// native bytes (forced for a block of range 2^31 or more), and the
-// depth-diff candidate of 8/16-bit lossless slices at v >= 5: the warp of
-// record (b, di > 0) also loads slice di-1 of block b and takes the diff
-// record (flag bit 2, offset reduced as INT) when it is strictly shorter.
-// ---------------------------------------------------------------------------
-
-// the per-depth image range over the valid values: merge the CTA's warps,
-// one atomic per depth (a block with no valid value takes no part: di < 0).
-// di = t * D + depth addresses tile t's ranges at zrange[t * 2D ...] (the
-// tile-batched instances; a one-tile launch passes the depth)
-template <typename Z>
-__device__ __forceinline__ void merge_range(Z (&s_min)[WARPS], Z (&s_max)[WARPS],
-                                            int (&s_di)[WARPS], int warp, int lane, Z lo, Z hi,
-                                            int di, int d, Z* zrange, int flip = 0) {
-    if (lane == 0) {
-        s_min[warp] = lo;
-        s_max[warp] = hi;
-        s_di[warp] = di;
-    }
-    __syncthreads();
-    if (threadIdx.x < WARPS && s_di[threadIdx.x] >= 0) {
-        const int me = threadIdx.x, dm = s_di[me];
-        bool first = true;
-        for (int k = 0; k < me; ++k) first &= s_di[k] != dm;
-        if (first) {
-            Z l = s_min[me], h = s_max[me];
-            for (int k = me + 1; k < WARPS; ++k) {
-                if (s_di[k] == dm) {
-                    if constexpr (std::is_same<Z, float>::value) {
-                        l = fminf(l, s_min[k]);
-                        h = fmaxf(h, s_max[k]);
-                    } else if constexpr (std::is_same<Z, double>::value) {
-                        l = fmin(l, s_min[k]);
-                        h = fmax(h, s_max[k]);
-                    } else {
-                        l = min(l ^ flip, s_min[k] ^ flip) ^ flip;
-                        h = max(h ^ flip, s_max[k] ^ flip) ^ flip;
-                    }
-                }
-            }
-            Z* zr = zrange + (dm / d) * 2 * d + dm % d;
-            if constexpr (std::is_same<Z, int>::value) {
-                if (flip) {  // uint32: unsigned atomics
-                    atomicMin((unsigned*)zr, (unsigned)l);
-                    atomicMax((unsigned*)(zr + d), (unsigned)h);
-                    return;
-                }
-            }
-            atomic_min_z(zr, l);
-            atomic_max_z(zr + d, h);
-        }
-    }
-}
-
-// the float32 K1 (all-valid and masked); the integer instances are the
-// strip kernel below
-template <typename T, bool MASKED>
-__device__ __forceinline__ void encode_blocks_body(
-        const T* __restrict__ data, const int2* __restrict__ valid, int w, int d, int nbh,
-        int n_rec, const EncP& P, int* __restrict__ rec_info,
-        typename ZOf<T>::type* __restrict__ zrange, int* __restrict__ fits) {
-    static_assert(std::is_same<T, float>::value, "the float32 K1");
-    using Z = float;
-    __shared__ Z s_min[WARPS], s_max[WARPS];
-    __shared__ int s_di[WARPS];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.x * WARPS + warp;
-    const bool live = r < n_rec;  // warp-uniform
-    Z lo = 0, hi = 0;  // the block's range over its valid values
-    int cnt = 0;
-    if (live) {
-        const int b = r / d, di = r % d;
-        uint32_t vw0 = FULL, vw1 = FULL;
-        cnt = 64;
-        if constexpr (MASKED) {
-            const int2 v = valid[b];
-            vw0 = (uint32_t)v.x;
-            vw1 = (uint32_t)v.y;
-            cnt = __popc(vw0) + __popc(vw1);
-        }
-        const bool ok0 = !MASKED || ((vw0 >> lane) & 1u);
-        const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
-        T x0, x1;
-        load_pair<T, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
-        float zmin = fminf(ok0 ? x0 : CUDART_INF_F, ok1 ? x1 : CUDART_INF_F);
-        float zmax = fmaxf(ok0 ? x0 : -CUDART_INF_F, ok1 ? x1 : -CUDART_INF_F);
-        for (int o = 16; o > 0; o >>= 1) {
-            zmin = fminf(zmin, __shfl_xor_sync(FULL, zmin, o));
-            zmax = fmaxf(zmax, __shfl_xor_sync(FULL, zmax, o));
-        }
-        if (MASKED && cnt == 0) zmin = zmax = 0.f;  // const-0 record
-        lo = zmin;
-        hi = zmax;
-        const uint32_t max_q = __reduce_max_sync(
-            FULL, max(ok0 ? quantize(x0, zmin, P.scale, P.inv) : 0u,
-                      ok1 ? quantize(x1, zmin, P.scale, P.inv) : 0u));
-        if (lane == 0) {
-            const int nb = bit_len(max_q);
-            const float max_val = __fmul_rn(__fsub_rn(zmax, zmin), P.scale);
-            const bool const0 = zmin == 0.f && zmax == 0.f;
-            const bool force_raw = (P.mze == 0.f && zmax > zmin)
-                                   || (P.mze > 0.f && max_val > 1073741823.f);
-            int tc, off_w;
-            uint32_t off_word;
-            reduce_offset_float(zmin, tc, off_w, off_word);
-            // count byte width 1 (cnt < 256); raw: 4 B a value
-            const int stuff_len = 1 + off_w
-                                  + (max_q ? 2 + (MASKED ? (cnt * nb + 7) >> 3 : 8 * nb) : 0);
-            const int raw_len = MASKED ? 1 + 4 * cnt : 1 + 64 * 4;
-            const bool use_stuff = !force_raw && stuff_len < raw_len;
-            const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
-            const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
-            const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
-            const int flag = integ | mode | ((mode == 1 || mode == 3) ? tc << 6 : 0);
-            int* info = rec_info + 4 * (size_t)r;
-            info[0] = length;
-            info[1] = flag | (mode << 8) | (nb << 16) | (off_w << 24);
-            info[2] = (int)off_word;
-            info[3] = __float_as_int(zmin);
-            if ((mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok)) *fits = 0;
-        }
-    }
-    merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && (!MASKED || cnt > 0) ? r % d : -1, d, zrange);
-}
-
-__global__ void encode_blocks_kernel(const float* __restrict__ data, int w, int d, int nbh,
-                                     int n_rec, EncP P, int* __restrict__ rec_info,
-                                     float* __restrict__ zrange, int* __restrict__ fits) {
-    encode_blocks_body<float, false>(data, nullptr, w, d, nbh, n_rec, P, rec_info, zrange, fits);
-}
-
-__global__ void encode_blocks_masked_kernel(const float* __restrict__ data,
-                                            const int2* __restrict__ valid, int w, int d,
-                                            int nbh, int n_rec, EncP P,
-                                            int* __restrict__ rec_info,
-                                            float* __restrict__ zrange, int* __restrict__ fits) {
-    encode_blocks_body<float, true>(data, valid, w, d, nbh, n_rec, P, rec_info, zrange, fits);
-}
 
 // ---------------------------------------------------------------------------
 // K1, integer instances (encode_tiles :591-614, :651-653, :677-722): strips.
@@ -692,6 +570,448 @@ __global__ void __launch_bounds__(32) encode_blocks_int_kernel(
         __syncwarp();  // the stage and buffers are the next chunk's
     }
     if (__any_sync(FULL, bad) && lane == 0) *fits = 0;
+}
+
+// ---------------------------------------------------------------------------
+// K1, float32 and float64 (encode_tiles :556-597, :617-671, :726-744;
+// device_f64.py::encode_tiles_f64 :163-277): strips, on the integer K1's
+// machinery above. A strip is record.cuh's strip_shape with lead 0 (no
+// depth-diff candidate): S consecutive 8x8 blocks of one block row with all
+// their D records, or one block and its depths in chunks of dc (32 float32
+// or 16 float64 depths: 8 KB of image); a CTA a strip. The strip is staged
+// in shared memory: where a row of the image is 16-aligned by asynchronous
+// 16-byte copies (cp.async: no registers held, every copy in flight at
+// once), else by load16 (any W, D and alignment) or, for chunks, value by
+// value; the validity words are read while the copies fly. Rows and columns
+// past the image are not read: their positions are invalid in the validity
+// words, and the all-valid instances take aligned images only. Then LPR
+// lanes decide a record: float32 one lane a record (a CTA of one warp: S =
+// 32 records at D = 1, 30 at D = 3), float64 four (a CTA of two warps, 16
+// records at D = 1; a lane holds columns s and s + 4 of the block, and the
+// reduction's two cross-lane steps are one shuffle each).
+// - The min and max by fminf/fmaxf (fmin/fmax) in the order of a warp's
+//   xor-shuffle reduction of the block as lane 0 sees it -- positions j and
+//   j + 32 first, then strides 16, 8, 4, 2, 1, the lower position first,
+//   the order of the earlier warp-a-block K1 -- so that the picks among
+//   -0.0/+0.0 and NaN stay as they were; invalid positions are +-inf.
+// - numBits from the max alone where it settles it (settled_q: the
+//   quanta's maximum lies within one of zMax's q0, so where q0 - 1 and q0 +
+//   1 have one bit length that is numBits; a constant block's quanta are
+//   0): on DEM tiles all but ~0.1% of records. The others take a second
+//   pass over the stage for the quanta's maximum (quantize, quantize_f64)
+//   against the min. The f64 quantize costs a third of the float64 kernel
+//   where every record takes the pass (chip_tune_k1float.py).
+// - float64's offset: the bits of the first valid position in row-major
+//   order holding the min. A non-zero finite min has one bit pattern, its
+//   own; for a zero min (-0.0 and +0.0 in one block: the first one's) or
+//   none, the pass (or a scan alone) finds the position. Quanta against
+//   that offset equal those against the min: the two differ only in the
+//   sign of a zero, which no quantum sees.
+// D = 1 reads a row's values as 16-byte words (float32) or 8-byte values
+// (float64) of the stage, the order of each lane's two turned by its block
+// so that no two lanes of a quarter warp (float32) or a half warp (float64)
+// read one bank: no bank conflicts by the address arithmetic. Other depths
+// read one value at a time (2-way conflicts at D = 3). The record's
+// decision (float_record, f64_record): const-0 for a block with no valid
+// value, force_raw (float32: maxZError 0 and zMax > zMin, or a quantized
+// range past 2^30 - 1; float64: past 2^30 - 1), the count byte of width 1,
+// the reduced float32 offset, the full float64 one. Each record leaves as
+// one 16-byte store (a strip's records are consecutive: the stores are
+// coalesced). The per-depth ranges merge as the warp-a-block K1's did: in
+// each group of 8 consecutive records (r / 8) by fminf/fmaxf in record
+// order, then the groups through the integer order of atomic_min_z /
+// atomic_max_z (IEEE bits, negative ones reversed) -- as keys in shared
+// memory, one global pair a depth and strip, at a tile's ranges (tile_rec:
+// a strip lies in one block row, hence in one tile of a stack). Where a
+// group of 8 is split between two strips (S * D or the block row's records
+// not a multiple of 8) each part merges on its own, which differs only
+// where one part's records are all NaN. fits (float32) is stored once, when
+// it drops.
+//
+// Bound: bytes (the image once, 16 B a record); the min and max and the
+// settled numBits take a few operations a value, the pass (where taken)
+// ~25 (float64: ~20 of them at the f64 rate).
+// ---------------------------------------------------------------------------
+
+// a 16-byte copy from the device's memory to shared memory that holds no
+// registers: cp.async (the first `n` bytes read, the rest of the 16
+// zeroed; src 16-aligned), completed by copy_async_wait
+__device__ __forceinline__ void copy16_async(uint8_t* dst, const uint8_t* src, int n) {
+#ifdef __CUDA_ARCH__
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+#else
+    for (int i = 0; i < 16; ++i) dst[i] = i < n ? src[i] : 0;
+#endif
+}
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+template <typename T> struct K1F;  // the float K1's choices per value type
+template <> struct K1F<float> {
+    using Params = EncP;
+    using Key = int;
+    static constexpr Key KEY_MAX = INT_MAX;
+    static constexpr int LPR = 1;                 // lanes a record
+    static constexpr int THREADS = 32 * LPR;      // a strip's 32 records at most
+};
+template <> struct K1F<double> {
+    using Params = EncP64;
+    using Key = long long;
+    static constexpr Key KEY_MAX = LLONG_MAX;
+    static constexpr int LPR = 4;
+    static constexpr int THREADS = 16 * LPR;      // a strip's 16 records at most
+};
+
+__device__ __forceinline__ float zmin2(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float zmax2(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double zmin2(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double zmax2(double a, double b) { return fmax(a, b); }
+
+// the order of atomic_min_z / atomic_max_z as a signed integer key, and back
+__device__ __forceinline__ int z_key(float v) {
+    const int b = __float_as_int(v);
+    return b >= 0 ? b : b ^ INT_MAX;
+}
+__device__ __forceinline__ long long z_key(double v) {
+    const long long b = __double_as_longlong(v);
+    return b >= 0 ? b : b ^ LLONG_MAX;
+}
+__device__ __forceinline__ float z_of(int k) { return __int_as_float(k >= 0 ? k : k ^ INT_MAX); }
+__device__ __forceinline__ double z_of(long long k) {
+    return __longlong_as_double(k >= 0 ? k : k ^ LLONG_MAX);
+}
+
+// the float32 record (device_encode.py:643-671, :726-744); bad: it does not
+// fit the cap
+__device__ __forceinline__ int4 float_record(const EncP& P, bool masked, int cnt, float zmin,
+                                             float zmax, uint32_t max_q, int bcol, bool& bad) {
+    const int nb = bit_len(max_q);
+    const float max_val = __fmul_rn(__fsub_rn(zmax, zmin), P.scale);
+    const bool const0 = zmin == 0.f && zmax == 0.f;
+    const bool force_raw = (P.mze == 0.f && zmax > zmin) || (P.mze > 0.f && max_val > 1073741823.f);
+    int tc, off_w;
+    uint32_t off_word;
+    reduce_offset_float(zmin, tc, off_w, off_word);
+    // count byte width 1 (cnt < 256); raw: 4 B a value
+    const int stuff_len = 1 + off_w + (max_q ? 2 + (masked ? (cnt * nb + 7) >> 3 : 8 * nb) : 0);
+    const int raw_len = masked ? 1 + 4 * cnt : 1 + 64 * 4;
+    const bool use_stuff = !force_raw && stuff_len < raw_len;
+    const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+    const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+    const int integ = ((bcol & 15) << 2) & P.integ_mask;
+    const int flag = integ | mode | ((mode == 1 || mode == 3) ? tc << 6 : 0);
+    bad = (mode == 1 && nb > P.cap_nb) || (mode == 0 && !P.raw_ok);
+    return make_int4(length, flag | (mode << 8) | (nb << 16) | (off_w << 24), (int)off_word,
+                     __float_as_int(zmin));
+}
+
+// the float64 record (device_f64.py:201-277): [flag][offset 8 B][numBits |
+// 0x80][count][payload], count byte width 1, raw 8 B a valid value
+__device__ __forceinline__ int4 f64_record(const EncP64& P, bool masked, int cnt, double zmin,
+                                           double zmax, uint32_t max_q,
+                                           unsigned long long off_bits, int bcol) {
+    const int nb = bit_len(max_q);
+    const bool const0 = (masked && cnt == 0) || (zmin == 0.0 && zmax == 0.0);
+    const bool force_raw = __dmul_rn(__dsub_rn(zmax, zmin), P.scale) > 1073741823.0;
+    const int stuff_len = 9 + (max_q ? 2 + ((cnt * nb + 7) >> 3) : 0);
+    const int raw_len = 1 + 8 * cnt;
+    const bool use_stuff = !force_raw && stuff_len < raw_len;
+    const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
+    const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
+    const int integ = ((bcol & 15) << 2) & P.integ_mask;
+    return make_int4(length, (integ | mode) | (mode << 8) | (nb << 16) | (8 << 24),
+                     (int)(uint32_t)off_bits, (int)(uint32_t)(off_bits >> 32));
+}
+
+__device__ __forceinline__ uint32_t quantize_z(float x, float z, const EncP& P) {
+    return quantize(x, z, P.scale, P.inv);
+}
+__device__ __forceinline__ uint32_t quantize_z(double x, double z, const EncP64& P) {
+    return quantize_f64(x, z, P.scale, P.inv);
+}
+
+// bits [0, n) of a word, n <= 32
+__device__ __forceinline__ unsigned low_bits(int n) { return n >= 32 ? ~0u : (1u << n) - 1u; }
+
+__device__ __forceinline__ bool z_finite(float v) { return fabsf(v) < CUDART_INF_F; }
+__device__ __forceinline__ bool z_finite(double v) { return fabs(v) < CUDART_INF; }
+
+// The quanta's maximum where the block max's own quantum settles its bit
+// length, with no pass over the values (false: the pass counts it). q0(x) =
+// rint((x - zMin) * scale), each step rounded, is monotone in x, so every
+// valid x <= zMax has q0(x) <= t = q0(zMax); its quantum is q0(x) or q0(x)
+// +- 1, so the maximum lies in [t - 1, t + 1] (zMax's own is at least t -
+// 1). Where t - 1 and t + 1 have one bit length (t >= 2) that is numBits,
+// and t stands for the maximum (a record reads only its bit length and
+// whether it is 0); where zMax == zMin every quantum is 0. Not settled: a
+// range not finite (no valid value but NaN, an infinity), float32 maxZError
+// 0, t < 2 or beside a power of two, float32 t past 2^24 (where q0 + 1
+// rounds).
+__device__ __forceinline__ bool settled_q(float zmin, float zmax, const EncP& P, uint32_t& q) {
+    if (!(P.mze > 0.f) || !z_finite(zmin) || !z_finite(zmax)) return false;
+    if (zmax == zmin) return q = 0, true;
+    const float t = rintf(__fmul_rn(__fsub_rn(zmax, zmin), P.scale));
+    if (!(t >= 2.f && t <= 16777214.f)) return false;
+    q = (uint32_t)t;
+    return bit_len(q - 1) == bit_len(q + 1);
+}
+__device__ __forceinline__ bool settled_q(double zmin, double zmax, const EncP64& P,
+                                          uint32_t& q) {
+    if (!z_finite(zmin) || !z_finite(zmax)) return false;
+    if (zmax == zmin) return q = 0, true;
+    const double t = rint(__dmul_rn(__dsub_rn(zmax, zmin), P.scale));
+    if (!(t >= 2.0 && t <= 1073741822.0)) return false;
+    q = (uint32_t)t;
+    return bit_len(q - 1) == bit_len(q + 1);
+}
+__device__ __forceinline__ long long z_bits(double v) { return __double_as_longlong(v); }
+__device__ __forceinline__ long long z_bits(float v) { return __float_as_int(v); }
+
+// column j (< 8 / LPR) of the lane's share of a block row: all 8 (LPR 1),
+// half s of {0, 1, 4, 5} / {2, 3, 6, 7} (LPR 2), or {s, s + 4} (LPR 4)
+template <int LPR>
+__device__ __forceinline__ int k1f_col(int j, int s) {
+    return LPR == 1 ? j : LPR == 2 ? (j & 1) + 2 * s + 4 * (j >> 1) : s + 4 * j;
+}
+
+// the values of a 16-byte word of the stage into x[at .. at + 16 / size)
+__device__ __forceinline__ void k1f_unpack(const uint4& v, float (&x)[8], int at) {
+    x[at] = __uint_as_float(v.x), x[at + 1] = __uint_as_float(v.y);
+    x[at + 2] = __uint_as_float(v.z), x[at + 3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void k1f_unpack(const uint4& v, double (&x)[4], int at) {
+    x[at] = __hiloint2double((int)v.y, (int)v.x), x[at + 1] = __hiloint2double((int)v.w, (int)v.z);
+}
+
+// the lane's values of row r of its record: at D = 1 (ONE) as the row's two
+// 16-byte words (float32: words 0, 1; float64: words s and 2 + s), loaded
+// in the order rot turns (no two lanes of a quarter warp then read one
+// bank), else one value at a time (`step` bytes a pixel)
+template <typename T, int LPR, bool ONE>
+__device__ __forceinline__ void k1f_row(const uint8_t* at, int step, int s, int rot,
+                                        T (&x)[8 / LPR]) {
+    if constexpr (ONE && LPR == 4) {  // columns s and s + 4, in the order rot turns
+        const T a = *reinterpret_cast<const T*>(at + k1f_col<LPR>(rot, s) * step);
+        const T b = *reinterpret_cast<const T*>(at + k1f_col<LPR>(rot ^ 1, s) * step);
+        x[0] = rot ? b : a, x[1] = rot ? a : b;
+    } else if constexpr (ONE) {
+        static_assert(8 / LPR * sizeof(T) == 32, "a lane's share of a row is two 16-byte words");
+        const int w0 = LPR == 1 ? rot : 2 * rot + s, w1 = LPR == 1 ? rot ^ 1 : 2 * (rot ^ 1) + s;
+        const uint4 a = *reinterpret_cast<const uint4*>(at + 16 * w0);
+        const uint4 b = *reinterpret_cast<const uint4*>(at + 16 * w1);
+        k1f_unpack(rot ? b : a, x, 0);
+        k1f_unpack(rot ? a : b, x, 16 / (int)sizeof(T));
+    } else {
+#pragma unroll
+        for (int j = 0; j < 8 / LPR; ++j)
+            x[j] = *reinterpret_cast<const T*>(at + k1f_col<LPR>(j, s) * step);
+    }
+}
+
+template <typename T, bool MASKED, bool ONE>
+__global__ void __launch_bounds__(K1F<T>::THREADS) encode_blocks_float_kernel(
+        const T* __restrict__ data, const int2* __restrict__ valid, int h, int w, int d, int nbh,
+        int S, int dc, int spr, int tile_rec, typename K1F<T>::Params P, int* __restrict__ rec_info,
+        T* __restrict__ zrange, int* __restrict__ fits) {
+    using Key = typename K1F<T>::Key;
+    constexpr int SZ = sizeof(T), LPR = K1F<T>::LPR, CPL = 8 / LPR;  // columns a lane
+    constexpr int NT = K1F<T>::THREADS;
+    const T INF = sizeof(T) == 4 ? (T)CUDART_INF_F : (T)CUDART_INF;
+    __shared__ __align__(16) uint8_t stage[8 * K1S_PITCH];
+    __shared__ Key s_lo[32], s_hi[32];
+    __shared__ T s_zl[32], s_zh[32];
+    __shared__ unsigned s_has, s_recs;  // depths with a range, records with a valid value
+    const int lane = threadIdx.x;  // a record's lane, or a thread of the strip
+    const int brow = blockIdx.x / spr, c0 = (blockIdx.x - brow * spr) * S;
+    const int nb = min(S, nbh - c0);               // blocks of the strip
+    const int row0 = 8 * brow, col0 = 8 * c0;
+    const int npx = min(8 * nb, w - col0);         // in-image pixels a row
+    const int rows = min(8, h - row0);
+    const long long b0 = (long long)brow * nbh + c0;
+    T* zr_tile = zrange + (b0 * d / tile_rec) * 2 * d;
+    const int q = lane / LPR, s = lane % LPR;      // the lane's record of a chunk, its half
+    bool bad = false;
+    for (int dlo = 0; dlo < d; dlo += dc) {
+        const int dn = min(dc, d - dlo);
+        const int pitch = dn == d ? (8 * S * d * SZ + 15) / 16 * 16 : 8 * dn * SZ;
+        if (lane < dn) s_lo[lane] = K1F<T>::KEY_MAX, s_hi[lane] = -K1F<T>::KEY_MAX - 1;
+        if (lane == 0) s_has = 0, s_recs = 0;
+        const bool live = q < nb * dn;
+        const int bl = live ? q / dn : 0, dq = live ? q - bl * dn : 0;
+        int cnt;  // the validity words read before the image arrives
+        const uint64_t vm = block_bits<MASKED>(valid, b0 + bl, cnt);
+        if (dn == d) {  // whole rows: the image's bytes, 16 at a time
+            const int len = npx * d * SZ, nch = (len + 15) / 16;
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(data)
+                                 + ((long long)row0 * w + col0) * d * SZ;
+            const long long row_b = (long long)w * d * SZ;
+            if ((reinterpret_cast<uintptr_t>(src) | (uintptr_t)row_b) % 16 == 0) {
+                for (int r = 0; r < rows; ++r)  // aligned rows: asynchronous copies
+                    for (int m = lane; m < nch; m += NT)
+                        copy16_async(stage + r * pitch + 16 * m, src + r * row_b + 16 * m,
+                                     min(16, len - 16 * m));
+                copy_async_wait();
+            } else {
+                for (int r = 0; r < rows; ++r)
+                    for (int m = lane; m < nch; m += NT)
+                        *reinterpret_cast<uint4*>(stage + r * pitch + 16 * m) =
+                            load16(src + r * row_b + 16 * m, min(16, len - 16 * m));
+            }
+        } else {  // a chunk of depths: element by element
+            const int n = rows * npx * dn;
+            for (int t = lane; t < n; t += NT) {
+                const int r = t / (npx * dn), rem = t - r * npx * dn;
+                const int px = rem / dn, k = rem - px * dn;
+                reinterpret_cast<T*>(stage + r * pitch)[px * dn + k] =
+                    data[((long long)(row0 + r) * w + col0 + px) * d + dlo + k];
+            }
+        }
+        __syncthreads();
+        const int step = (dn == d ? d : dn) * SZ;  // bytes a pixel in the stage
+        const uint8_t* at = stage + (bl * 8 * (step / SZ) + dq) * SZ;
+        // 16-byte reads at D = 1: the order of the lane's words by its block
+        const int rot = ONE ? (LPR == 1 ? (bl >> 2) & 1 : (bl >> 1) & 1) : 0;
+        auto row_bits = [&](int r) {  // the validity bits of block row r
+            return MASKED ? (uint32_t)(vm >> (8 * r)) & 0xFFu : 0xFFu;
+        };
+        // ---- the min and max in the warp reduction's order: rows r and
+        // r + 4 (positions j and j + 32), then rows 0 and 2, 1 and 3, then
+        // 0 and 1; then columns c and c + 4, c and c + 2, 0 and 1
+        T lo_c[CPL], hi_c[CPL], lo_w[CPL], hi_w[CPL];  // rows 0, 4, 2, 6 and 1, 5, 3, 7
+#pragma unroll
+        for (int pr = 0; pr < 4; ++pr) {  // rows ra and ra + 4: ra = 0, 2, 1, 3
+            const int ra = (pr & 1) * 2 + (pr >> 1);
+            T xa[CPL], xb[CPL];
+            k1f_row<T, LPR, ONE>(at + ra * pitch, step, s, rot, xa);
+            k1f_row<T, LPR, ONE>(at + (ra + 4) * pitch, step, s, rot, xb);
+            const uint32_t ba = row_bits(ra), bb = row_bits(ra + 4);
+#pragma unroll
+            for (int j = 0; j < CPL; ++j) {
+                const int c = k1f_col<LPR>(j, s);
+                const bool oa = ba >> c & 1u, ob = bb >> c & 1u;
+                const T ul = zmin2(oa ? xa[j] : INF, ob ? xb[j] : INF);
+                const T uh = zmax2(oa ? xa[j] : -INF, ob ? xb[j] : -INF);
+                if (pr == 0) lo_c[j] = ul, hi_c[j] = uh;
+                else if (pr == 1) lo_c[j] = zmin2(lo_c[j], ul), hi_c[j] = zmax2(hi_c[j], uh);
+                else if (pr == 2) lo_w[j] = ul, hi_w[j] = uh;
+                else lo_w[j] = zmin2(lo_w[j], ul), hi_w[j] = zmax2(hi_w[j], uh);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) lo_c[j] = zmin2(lo_c[j], lo_w[j]), hi_c[j] = zmax2(hi_c[j], hi_w[j]);
+        T zmin, zmax;
+        if constexpr (LPR == 1) {
+#pragma unroll
+            for (int o = 4; o > 0; o >>= 1) {
+#pragma unroll
+                for (int c = 0; c < o; ++c)
+                    lo_c[c] = zmin2(lo_c[c], lo_c[c + o]), hi_c[c] = zmax2(hi_c[c], hi_c[c + o]);
+            }
+            zmin = lo_c[0], zmax = hi_c[0];
+        } else if constexpr (LPR == 4) {  // columns s, s + 4 in the lane; then across lanes
+            T l = zmin2(lo_c[0], lo_c[1]), hh = zmax2(hi_c[0], hi_c[1]);
+#pragma unroll
+            for (int o = 2; o > 0; o >>= 1) {  // columns c, c + 2, then 0 and 1: the lower first
+                const T ol = __shfl_xor_sync(FULL, l, o), oh = __shfl_xor_sync(FULL, hh, o);
+                l = s & o ? zmin2(ol, l) : zmin2(l, ol);
+                hh = s & o ? zmax2(oh, hh) : zmax2(hh, oh);
+            }
+            zmin = l, zmax = hh;
+        } else {  // columns c, c + 4 in the lane; c, c + 2 across the pair (half 0 first)
+            const T l0 = zmin2(lo_c[0], lo_c[2]), l1 = zmin2(lo_c[1], lo_c[3]);
+            const T h0 = zmax2(hi_c[0], hi_c[2]), h1 = zmax2(hi_c[1], hi_c[3]);
+            const T ol0 = __shfl_xor_sync(FULL, l0, 1), ol1 = __shfl_xor_sync(FULL, l1, 1);
+            const T oh0 = __shfl_xor_sync(FULL, h0, 1), oh1 = __shfl_xor_sync(FULL, h1, 1);
+            zmin = zmin2(s ? zmin2(ol0, l0) : zmin2(l0, ol0), s ? zmin2(ol1, l1) : zmin2(l1, ol1));
+            zmax = zmax2(s ? zmax2(oh0, h0) : zmax2(h0, oh0), s ? zmax2(oh1, h1) : zmax2(h1, oh1));
+        }
+        if (MASKED && cnt == 0) zmin = zmax = (T)0;  // const-0 record
+        // ---- the quanta's maximum, where the max's quantum does not settle
+        // it (settled_q); float64 also the first position at the min, where
+        // the min is a zero or not finite (else the offset is the min's bits)
+        uint32_t max_q = 0, q_set = 0;
+        const bool settled = settled_q(zmin, zmax, P, q_set);
+        const bool scan = LPR > 1 && !(zmin != (T)0 && z_finite(zmin));
+        int first = 64;
+        if (!settled || scan) {
+#pragma unroll 1
+            for (int r = 0; r < 8; ++r) {
+                T x[CPL];
+                k1f_row<T, LPR, ONE>(at + r * pitch, step, s, rot, x);
+                const uint32_t br = row_bits(r);
+#pragma unroll
+                for (int j = 0; j < CPL; ++j) {
+                    const bool ok = br >> k1f_col<LPR>(j, s) & 1u;
+                    if (!settled) max_q = max(max_q, ok ? quantize_z(x[j], zmin, P) : 0u);
+                    if (LPR > 1 && ok && x[j] == zmin)
+                        first = min(first, 8 * r + k1f_col<LPR>(j, s));
+                }
+            }
+        }
+        if (settled) max_q = q_set;
+        int4 rec;
+        if constexpr (LPR == 1) {
+            bool b = false;
+            rec = float_record(P, MASKED, cnt, zmin, zmax, max_q, c0 + bl, b);
+            bad |= live && b;
+        } else {
+#pragma unroll
+            for (int o = 1; o < LPR; o <<= 1) {
+                max_q = max(max_q, __shfl_xor_sync(FULL, max_q, o));
+                first = min(first, __shfl_xor_sync(FULL, first, o));
+            }
+            const unsigned long long off_bits =
+                !scan ? (unsigned long long)z_bits(zmin)
+                : first < 64 ? *reinterpret_cast<const unsigned long long*>(
+                                   at + (first >> 3) * pitch + (first & 7) * step)
+                             : 0ull;
+            rec = f64_record(P, MASKED, cnt, zmin, zmax, max_q, off_bits, c0 + bl);
+        }
+        const long long rb = b0 * d + dlo;  // the chunk's first record
+        if (live && s == 0) {
+            reinterpret_cast<int4*>(rec_info)[rb + q] = rec;
+            s_zl[q] = zmin, s_zh[q] = zmax;
+            if (!MASKED || cnt > 0) atomicOr(&s_recs, 1u << q);
+        }
+        // the ranges: in each group of 8 records (r / 8) a chain per depth in
+        // record order, then the groups' keys, one global pair a depth
+        __syncthreads();
+        const unsigned has = s_recs;
+        const int nq = nb * dn;
+        if (lane < nq && (has >> lane & 1u)) {
+            const int gs = lane - (int)((rb + lane) & 7), g0 = max(0, gs), g1 = min(nq, gs + 8);
+            const int dl = ONE ? 0 : lane % dn;
+            unsigned at_dl = ~0u;  // the chunk's records at depth dl, as bits
+            if (!ONE) {
+                at_dl = 0;
+                for (int k = dl; k < nq; k += dn) at_dl |= 1u << k;
+            }
+            const unsigned mine = has & at_dl;
+            if (!(mine & ((1u << lane) - (1u << g0)))) {  // the group's first at this depth
+                T l = s_zl[lane], hh = s_zh[lane];
+                // the group's later records at this depth, in record order
+                for (unsigned m = mine & (low_bits(g1) & ~low_bits(lane + 1)); m; m &= m - 1) {
+                    const int k = __ffs((int)m) - 1;
+                    l = zmin2(l, s_zl[k]), hh = zmax2(hh, s_zh[k]);
+                }
+                atomicMin(s_lo + dl, z_key(l));
+                atomicMax(s_hi + dl, z_key(hh));
+                atomicOr(&s_has, 1u << dl);
+            }
+        }
+        __syncthreads();
+        if (lane < dn && (s_has >> lane & 1u)) {
+            T* zr = zr_tile + dlo + lane;
+            atomic_min_z(zr, z_of(s_lo[lane]));
+            atomic_max_z(zr + d, z_of(s_hi[lane]));
+        }
+        __syncthreads();  // the stage and the keys are the next chunk's
+    }
+    if (__any_sync(FULL, bad) && (lane & 31) == 0) *fits = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1746,100 +2066,9 @@ __global__ void __launch_bounds__(K2L_THREADS) write_records_lut_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// float64: K1/K2 on 8x8 blocks, two values a lane (module comment)
+// float64 K2 on 8x8 blocks, a warp a record, two values a lane (module
+// comment; the float64 K1 is the float strip kernel above)
 // ---------------------------------------------------------------------------
-
-struct EncP64 {
-    double scale, inv;  // 1 / (2 * maxZError), 2 * maxZError
-    int integ_mask;
-};
-
-// one quantized f64 value: q0 = rint((x - zmin) * scale) in [0, 2^30], and
-// q0 + sign(resid) when the decoder's reconstruction of it is strictly closer
-__device__ __forceinline__ uint32_t quantize_f64(double x, double zmin, double scale,
-                                                 double inv) {
-    const double q0 = fmin(fmax(rint(__dmul_rn(__dsub_rn(x, zmin), scale)), 0.0), 1073741824.0);
-    const double resid = __dsub_rn(x, __dadd_rn(zmin, __dmul_rn(q0, inv)));
-    const double sgn = resid > 0.0 ? 1.0 : (resid < 0.0 ? -1.0 : 0.0);
-    const double qc = fmin(fmax(__dadd_rn(q0, sgn), 0.0), 1073741824.0);
-    const double errc = fabs(__dsub_rn(x, __dadd_rn(zmin, __dmul_rn(qc, inv))));
-    return (uint32_t)(errc < fabs(resid) ? qc : q0);
-}
-
-// the block offset: the bits of the first valid position (32k + lane order)
-// whose value equals the block minimum; 0 without one
-__device__ __forceinline__ unsigned long long first_min_bits(double x0, double x1, bool ok0,
-                                                             bool ok1, double zmin) {
-    const uint32_t m0 = __ballot_sync(FULL, ok0 && x0 == zmin);
-    const uint32_t m1 = __ballot_sync(FULL, ok1 && x1 == zmin);
-    const int src = m0 ? __ffs(m0) - 1 : (m1 ? __ffs(m1) - 1 : 0);
-    const unsigned long long mine = (unsigned long long)__double_as_longlong(m0 ? x0 : x1);
-    const unsigned long long bits = __shfl_sync(FULL, mine, src);
-    return (m0 | m1) ? bits : 0ull;
-}
-
-template <bool MASKED>
-__global__ void encode_blocks_f64_kernel(const double* __restrict__ data,
-                                         const int2* __restrict__ valid, int w, int d, int nbh,
-                                         int n_rec, int tile_rec, EncP64 P,
-                                         int* __restrict__ rec_info,
-                                         double* __restrict__ zrange) {
-    __shared__ double s_min[WARPS], s_max[WARPS];
-    __shared__ int s_di[WARPS];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.x * WARPS + warp;
-    const bool live = r < n_rec;  // warp-uniform
-    double lo = 0.0, hi = 0.0;
-    int cnt = 0;
-    if (live) {
-        const int b = r / d, di = r % d;
-        uint32_t vw0 = FULL, vw1 = FULL;
-        cnt = 64;
-        if constexpr (MASKED) {
-            const int2 v = valid[b];
-            vw0 = (uint32_t)v.x;
-            vw1 = (uint32_t)v.y;
-            cnt = __popc(vw0) + __popc(vw1);
-        }
-        const bool ok0 = !MASKED || ((vw0 >> lane) & 1u);
-        const bool ok1 = !MASKED || ((vw1 >> lane) & 1u);
-        double x0, x1;
-        load_pair<double, MASKED>(data, w, d, nbh, b, di, lane, ok0, ok1, x0, x1);
-        double zmin = fmin(ok0 ? x0 : CUDART_INF, ok1 ? x1 : CUDART_INF);
-        double zmax = fmax(ok0 ? x0 : -CUDART_INF, ok1 ? x1 : -CUDART_INF);
-        for (int o = 16; o > 0; o >>= 1) {
-            zmin = fmin(zmin, __shfl_xor_sync(FULL, zmin, o));
-            zmax = fmax(zmax, __shfl_xor_sync(FULL, zmax, o));
-        }
-        if (MASKED && cnt == 0) zmin = zmax = 0.0;  // const-0 record
-        lo = zmin;
-        hi = zmax;
-        const unsigned long long off_bits = first_min_bits(x0, x1, ok0, ok1, zmin);
-        const double off = __longlong_as_double((long long)off_bits);
-        const uint32_t max_q = __reduce_max_sync(
-            FULL, max(ok0 ? quantize_f64(x0, off, P.scale, P.inv) : 0u,
-                      ok1 ? quantize_f64(x1, off, P.scale, P.inv) : 0u));
-        if (lane == 0) {
-            const int nb = bit_len(max_q);
-            const bool const0 = (MASKED && cnt == 0) || (zmin == 0.0 && zmax == 0.0);
-            const bool force_raw = __dmul_rn(__dsub_rn(zmax, zmin), P.scale) > 1073741823.0;
-            // [flag][offset 8 B][numBits | 0x80][count][payload]: count byte width 1
-            const int stuff_len = 9 + (max_q ? 2 + ((cnt * nb + 7) >> 3) : 0);
-            const int raw_len = 1 + 8 * cnt;
-            const bool use_stuff = !force_raw && stuff_len < raw_len;
-            const int mode = const0 ? 2 : (use_stuff ? (max_q ? 1 : 3) : 0);
-            const int length = mode == 2 ? 1 : (mode == 0 ? raw_len : stuff_len);
-            const int integ = (((b % nbh) & 15) << 2) & P.integ_mask;
-            int* info = rec_info + 4 * (size_t)r;
-            info[0] = length;
-            info[1] = (integ | mode) | (mode << 8) | (nb << 16) | (8 << 24);
-            info[2] = (int)(uint32_t)off_bits;
-            info[3] = (int)(uint32_t)(off_bits >> 32);
-        }
-    }
-    merge_range(s_min, s_max, s_di, warp, lane, lo, hi,
-                live && (!MASKED || cnt > 0) ? r % d + d * (r / tile_rec) : -1, d, zrange);
-}
 
 template <bool MASKED>
 __global__ void write_records_f64_kernel(const double* __restrict__ data,
@@ -1913,19 +2142,31 @@ __global__ void write_records_f64_kernel(const double* __restrict__ data,
 
 // ---- launches
 
-// the float32 K1, 8x8 blocks; valid null for an aligned all-valid image
-int launch_k1(const float* x, const int* valid, int h, int w, int d, const EncP& P,
-              int* rec_info, float* z, int* fits, cudaStream_t st) {
+// the float K1 (strips), 8x8 blocks, float32 or float64; valid null for an
+// aligned all-valid image; tile_rec as encode_blocks_f64's (0: one tile)
+template <typename T>
+int launch_k1_float(const T* x, const int* valid, int h, int w, int d, int tile_rec,
+                    const typename K1F<T>::Params& P, int* rec_info, T* z, int* fits,
+                    cudaStream_t st) {
+    const StripShape g = strip_shape(8, w, d, (int)sizeof(T), 0);
     const int nbh = (w + 7) / 8;
-    const int n_rec = ((h + 7) / 8) * nbh * d;
-    const int grid = (n_rec + WARPS - 1) / WARPS;
+    const long long n_rec = (long long)((h + 7) / 8) * nbh * d;
+    const long long grid = (long long)((h + 7) / 8) * g.spr;  // a CTA (a warp) a strip
+    if (n_rec > INT_MAX || grid > INT_MAX || (!valid && (h % 8 || w % 8)))
+        return (int)cudaErrorInvalidValue;
+    if (n_rec == 0) return 0;
+    const int tr = tile_rec > 0 ? tile_rec : (int)n_rec;
     const int2* v = reinterpret_cast<const int2*>(valid);
-    if (valid)
-        encode_blocks_masked_kernel<<<grid, WARPS * 32, 0, st>>>(x, v, w, d, nbh, n_rec, P,
-                                                                 rec_info, z, fits);
-    else
-        encode_blocks_kernel<<<grid, WARPS * 32, 0, st>>>(x, w, d, nbh, n_rec, P, rec_info, z,
-                                                          fits);
+#define K1F_ARGS x, v, h, w, d, nbh, g.S, g.dc, g.spr, tr, P, rec_info, z, fits
+    const unsigned n = (unsigned)grid, nt = K1F<T>::THREADS;
+    if (valid) {
+        if (d == 1) encode_blocks_float_kernel<T, true, true><<<n, nt, 0, st>>>(K1F_ARGS);
+        else encode_blocks_float_kernel<T, true, false><<<n, nt, 0, st>>>(K1F_ARGS);
+    } else {
+        if (d == 1) encode_blocks_float_kernel<T, false, true><<<n, nt, 0, st>>>(K1F_ARGS);
+        else encode_blocks_float_kernel<T, false, false><<<n, nt, 0, st>>>(K1F_ARGS);
+    }
+#undef K1F_ARGS
     return (int)cudaGetLastError();
 }
 
@@ -2074,13 +2315,15 @@ EncP float_params(float mze, float scale, float inv, int integ_mask, int cap_nb,
 }  // namespace
 
 // valid: [nBlocks, 2] u32 validity words (masks, edge blocks), or null for
-// an aligned all-valid image (then the all-valid kernel runs)
+// an aligned all-valid image (then the all-valid instance runs; refused
+// where H or W is not a multiple of 8)
 extern "C" int encode_blocks(const float* data, const int* valid, int h, int w, int d,
                              float mze, float scale, float inv, int integ_mask, int cap_nb,
                              int raw_ok, int* rec_info, float* zrange, int* fits,
                              void* stream) {
     const EncP P = float_params(mze, scale, inv, integ_mask, cap_nb, raw_ok);
-    return launch_k1(data, valid, h, w, d, P, rec_info, zrange, fits, (cudaStream_t)stream);
+    return launch_k1_float<float>(data, valid, h, w, d, 0, P, rec_info, zrange, fits,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int write_records(const float* data, const int* valid, int h, int w, int d,
@@ -2166,19 +2409,9 @@ extern "C" int write_records_lut(const void* data, int is_int, const int* valid,
 extern "C" int encode_blocks_f64(const double* data, const int* valid, int h, int w, int d,
                                  double scale, double inv, int integ_mask, int tile_rec,
                                  int* rec_info, double* zrange, void* stream) {
-    const int nbh = (w + 7) / 8;
-    const int n_rec = ((h + 7) / 8) * nbh * d;
-    const int grid = (n_rec + WARPS - 1) / WARPS;
     const EncP64 P{scale, inv, integ_mask};
-    const int2* v = reinterpret_cast<const int2*>(valid);
-    const int tr = tile_rec > 0 ? tile_rec : n_rec;
-    if (valid)
-        encode_blocks_f64_kernel<true><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-            data, v, w, d, nbh, n_rec, tr, P, rec_info, zrange);
-    else
-        encode_blocks_f64_kernel<false><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-            data, nullptr, w, d, nbh, n_rec, tr, P, rec_info, zrange);
-    return (int)cudaGetLastError();
+    return launch_k1_float<double>(data, valid, h, w, d, tile_rec, P, rec_info, zrange, nullptr,
+                                   (cudaStream_t)stream);
 }
 
 extern "C" int write_records_f64(const double* data, const int* valid, int h, int w, int d,

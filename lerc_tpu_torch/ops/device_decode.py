@@ -42,9 +42,11 @@ instances of K4 (``decode_records_int``, counted as e.g.
 ``decode_records_i16``): per-dtype offset widths and signs, raw values of
 1, 2 or 4 bytes, exact ``min(offset + q * round(2 mze), zMax)`` in int32,
 the image in the native dtype. A depth-diff record (flag bit 2 at version
->= 5) clears ``index_ok``: it needs the previous slice, which only the
-scanned decode adds. The float32 instance has no such rule (JAX's
-decode_tiles_fast checks no diff bit for any dtype).
+>= 5) clears ``index_ok`` in every instance, float32 included: it needs the
+previous slice, which only the scanned decode adds (the host decoder and
+the reference apply the diff to float32 records too; JAX's
+decode_tiles_fast checks no diff bit for any dtype, and reads a float32
+diff record as an absolute one).
 
 Kernel K6 ``decode_scanned`` decodes from record descriptors without any
 index -- those of the device record scan (``device_scan.scan_records``, K5)
@@ -129,7 +131,7 @@ def decode_tiles_fast(stream: torch.Tensor, starts: torch.Tensor, max_z_error: f
                                         dt, version, cap_nb, 0 < nb_cap <= 16, mask)
     else:
         img, flags = decode_records(stream, starts, z_max_vec, 2.0 * float(max_z_error),
-                                    h, w, d, cap_nb, 0 < nb_cap <= 16, mask)
+                                    h, w, d, version, cap_nb, 0 < nb_cap <= 16, mask)
     return img, flags[0] != 0, flags[1] != 0
 
 
@@ -167,31 +169,32 @@ def _check_records(stream, starts, zmax, n_rec, d, ztype):
 
 
 def decode_records(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
-                   inv: float, h: int, w: int, d: int, cap_nb: int, lut_unfit: bool,
-                   valid: torch.Tensor | None = None):
+                   inv: float, h: int, w: int, d: int, version: int, cap_nb: int,
+                   lut_unfit: bool, valid: torch.Tensor | None = None):
     """(img [H, W, D] f32, flags [2] int32 = {index_ok, fits}).
 
     stream: [S] int32 u32 words; starts: [nRec] int32 byte offsets; zmax:
-    [D] f32 clamp values; inv: f64 invScale; cap_nb: widest record that
-    fits (32: all); lut_unfit: a LUT record also clears fits; valid: block
+    [D] f32 clamp values; inv: f64 invScale; version: the blob's (at >= 5 a
+    depth-diff record clears index_ok); cap_nb: widest record that fits
+    (32: all); lut_unfit: a LUT record also clears fits; valid: block
     validity words, or None when every pixel is valid."""
     n_rec = (h // 8) * (w // 8) * d
     _check_records(stream, starts, zmax, n_rec, d, torch.float32)
     vt, sfx, valid_ptr = _valid_args(valid, h, w)
     if not build.on_cuda(stream, starts, zmax, *vt):
-        return decode_records_ref(stream, starts, zmax, inv, h, w, d, cap_nb, lut_unfit, valid)
+        return decode_records_ref(stream, starts, zmax, inv, h, w, d, version, cap_nb, lut_unfit,
+                                  valid)
     fn = build.library("decode").decode_records
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_double] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     dev = stream.device
     with torch.cuda.device(dev):
         img = torch.empty(h, w, d, dtype=torch.float32, device=dev)
         flags = torch.ones(2, dtype=torch.int32, device=dev)
         err = fn(stream.data_ptr(), 4 * stream.numel(), starts.data_ptr(), valid_ptr,
-                 zmax.data_ptr(), inv, h, w, d, cap_nb, int(lut_unfit), img.data_ptr(),
-                 flags.data_ptr(), build.launch_stream(stream))
+                 zmax.data_ptr(), inv, h, w, d, int(version >= 5), cap_nb, int(lut_unfit),
+                 img.data_ptr(), flags.data_ptr(), build.launch_stream(stream))
         build.check(err, "decode_records" + sfx)
     build.LAUNCHES["decode_records" + sfx] += 1
     return img, flags
@@ -268,10 +271,11 @@ def _index_flags(r: SimpleNamespace, cap_nb: int, lut_unfit: bool, bad):
 
 
 def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.Tensor,
-                       inv: float, h: int, w: int, d: int, cap_nb: int, lut_unfit: bool,
-                       valid: torch.Tensor | None = None):
+                       inv: float, h: int, w: int, d: int, version: int, cap_nb: int,
+                       lut_unfit: bool, valid: torch.Tensor | None = None):
     """Plain PyTorch version of K4: f64 ScaleBack as two separately rounded
-    operations, invalid positions +0.0."""
+    operations, invalid positions +0.0; a depth-diff record (flag bit 2 at
+    version >= 5) clears index_ok."""
     r = _parse_records(stream, starts, DataType.FLOAT, d, valid)
     offset = float_offset_ref(r.acc, r.b67)
     zm = zmax.repeat(r.p.numel() // d)[:, None]
@@ -282,7 +286,8 @@ def decode_records_ref(stream: torch.Tensor, starts: torch.Tensor, zmax: torch.T
     z = torch.where(m2 == 0, z_raw,
                     torch.where(m2 == 2, 0.0, torch.where(m2 == 3, offset[:, None], z_stuff)))
     img = _to_image(torch.where(r.vb, z, 0.0), h, w, d, torch.float32)
-    return img, _index_flags(r, cap_nb, lut_unfit, torch.zeros_like(r.vb[:, 0]))
+    diff = ((r.flag & 4) != 0) & (version >= 5)
+    return img, _index_flags(r, cap_nb, lut_unfit, diff)
 
 
 # ---------------------------------------------------------------------------

@@ -34,10 +34,17 @@ that as ``__fmaf_rn`` and the plain version emulates it (``_fmaf``). A
 tie-prone test (values half a quantization step off the grid) holds both to
 the JAX encoder.
 
+K1 is a strip kernel for float32, float64 and the integer dtypes: a CTA
+owns a strip of consecutive blocks of one block row with all their records
+(``device_decode.strip_shape``), stages its image in shared memory and
+decides a record a lane (float64: four lanes a record, a CTA of two warps;
+integers at depths 1 and 3: a block a lane). The float K1s take numBits
+from the block max's own quantum where that settles it, and count the
+quanta in a second pass over the stage only where it does not.
+
 Integer dtypes (:591-614, :651-653, :677-722) run their own template
 instances of K1 and K2 (``encode_blocks_int``/``write_records_int``,
-counted as e.g. ``encode_blocks_i16``; K1's are strip kernels, a CTA a
-strip of blocks with all their records, ``device_decode.strip_shape``): int32 block
+counted as e.g. ``encode_blocks_i16``): int32 block
 minimum, f32 block maximum for the mode heuristics, lossless
 ``q = x - zmin`` at maxZError 0.5, the lossy f32 ``q0`` with the
 sign-directed fixup against the exact integer reconstruction, offsets reduced per dtype (``_reduce_offset_int``
@@ -378,7 +385,12 @@ def encode_blocks(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor | Non
 
     tile_rec > 0 (the LUT instances): data is a stack of tiles of tile_rec
     records each, and zrange is [nTiles * 2D], each tile's ranges in turn
-    (counted as ``encode_tiles_lut...``)."""
+    (counted as ``encode_tiles_lut...``).
+
+    Launches encode_blocks_float_kernel<float> (the float32 strips; an
+    all-valid image must be aligned to 8x8 blocks, else the launch is
+    refused), encode_blocks_int_kernel (the integer strips) or, with
+    `lut`, encode_blocks_lut_kernel."""
     h, w, d = data.shape
     lut_sfx = _lut_args(data, p, valid, mb, lut)
     vt, sfx, valid_ptr = _valid_args(valid, h, w, mb)
@@ -776,7 +788,10 @@ def write_records(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.Tens
     """The record stream: [cap_w] int32 u32 words, zero past the last
     record. Records running past the capacity are cut (K1 has cleared
     `fits` for them). With validity words, each record holds its block's
-    valid values only, in position order."""
+    valid values only, in position order. Launches write_records_kernel /
+    write_records_masked_kernel (float32, a warp a record),
+    write_records_int_kernel (the integer strips) or, with `lut`,
+    write_records_lut_kernel (strips)."""
     h, w, d = data.shape
     n = _n_rec(data, mb)
     if rec_info.shape != (n, 4) or starts.shape != (n,):
@@ -1009,7 +1024,9 @@ def encode_blocks_f64(data: torch.Tensor, p: EncodeParams, valid: torch.Tensor |
     zrange [2D] f64 = per-depth min then max over the valid values). valid:
     block validity words, or None when every pixel is valid (H, W multiples
     of 8). tile_rec > 0: a stack of tiles of tile_rec records each, zrange
-    [nTiles * 2D] (counted as ``encode_tiles_f64``)."""
+    [nTiles * 2D] (counted as ``encode_tiles_f64``). Launches
+    encode_blocks_float_kernel<double>: the float32 K1's strips, four lanes
+    a record."""
     h, w, d = data.shape
     _check_f64(data, h, w, d)
     vt, sfx, valid_ptr = _valid_args(valid, h, w)
@@ -1088,7 +1105,8 @@ def write_records_f64(data: torch.Tensor, rec_info: torch.Tensor, starts: torch.
                       cap_w: int, p: EncodeParams, valid: torch.Tensor | None = None) -> torch.Tensor:
     """K2 f64: the record stream, [cap_w] int32 u32 words, zero past the
     last record: [flag], [flag][offset 8 B], [flag][offset][numBits | 0x80]
-    [count][quanta at numBits] or [flag][the valid values, 8 B each]."""
+    [count][quanta at numBits] or [flag][the valid values, 8 B each].
+    Launches write_records_f64_kernel (a warp a record)."""
     h, w, d = data.shape
     _check_f64(data, h, w, d)
     n = _n_rec(data)

@@ -7,10 +7,12 @@ stream. The first test holds the plain K4, as the resident codec calls it
 (``decode_tiles_fast``), bit for bit and flags included to JAX's
 ``decode_tiles_fast`` at the strips' edges: widths 8(S-1), 8S, 8S+8 and
 8(2S+1) at depths 1 and 3, all-valid and under a crop of the bench mask,
-and an all-raw strip of 32 x 257 B that passes the stage. The second pins
-the float32 rule for a depth-diff record (flag bit 2 at v6): neither
-decoder clears index_ok for it, and both read it as an absolute record.
-The third runs the kernel's CUDA source on the CPU (tools/cuda_standin)
+and an all-raw strip of 32 x 257 B that passes the stage. The next two
+hold the port to the host decoder on float32 depth-diff records (flag bit
+2 at v6): the plain K4 clears index_ok for them (JAX's decode_tiles_fast
+does not, and its image differs from the host decoder's: a JAX fault kept
+beside the port's flags), and the resident codecs refuse the blob. The
+last runs the kernel's CUDA source on the CPU (tools/cuda_standin)
 against the plain version on chip_smoke's float32 strip cases at depths 1,
 3 and 33 (a block past the output stage, its depths in chunks), all-valid
 and masked, with strip_k4_hostile's indexes; the stream, the starts and the
@@ -29,7 +31,9 @@ import chip_smoke
 from lerc_tpu.constants import DataType as JDT
 from lerc_tpu.ops import device_decode as jdec
 from lerc_tpu.ops.device_softf64 import decompose_scalar
-from lerc_tpu_torch import encode_band_device
+from lerc_tpu_torch import FusedResidentCodec, encode_band_device
+from lerc_tpu_torch.codec import lerc2_decode
+from lerc_tpu_torch.codec.resident import ResidentBlob
 from lerc_tpu_torch.constants import DataType
 from lerc_tpu_torch.ops import device_decode as dec
 
@@ -112,10 +116,14 @@ def _diff_blob(lut_block):
 @pytest.mark.parametrize("lut_block", [True, False], ids=["with-lut-record", "no-lut-record"])
 def test_float_diff_record_flags_beside_jax(lut_block):
     """A float32 record with flag bit 2 at v6, through the resident form of
-    both decoders: the port's flags and image equal JAX's. The diff bit
-    clears neither index_ok nor fits in either (JAX's decode_tiles_fast
-    checks no diff bit; the float32 K4 keeps that); the record is read as an
-    absolute one. Index_ok drops only for the blob's one LUT record."""
+    both decoders. The port is held to the host decoder: the diff record
+    needs the previous slice, which the indexed decode does not add, so the
+    plain K4 clears index_ok (fits stays) at v6 and keeps it at v4, where
+    bit 2 is no diff flag. JAX's decode_tiles_fast checks no diff bit: it
+    clears index_ok only for the blob's one LUT record and returns the
+    records read as absolute ones, an image the host decoder does not give
+    (a JAX fault, recorded beside the port's flags). Both read the same
+    records, so the images equal."""
     blob, mask = _diff_blob(lut_block)
     stream, starts, zmax, valid, hd, _pos = _blob_unit(blob)
     assert (hd.micro_block_size, hd.version, hd.n_depth) == (8, 6, 2)
@@ -123,11 +131,58 @@ def test_float_diff_record_flags_beside_jax(lut_block):
     img, ok, fits = dec.decode_tiles_fast(stream, starts, mze, zmax.reshape(d), h, w, d,
                                           DataType.FLOAT, 6, mask=valid)
     jimg, jok, jfits = _jax_decode(stream, starts, zmax.reshape(d), h, w, d, mask, mze)
-    assert (bool(ok), bool(fits), jok, jfits) == (not lut_block, True, not lut_block, True)
+    assert (bool(ok), bool(fits)) == (False, True)
+    assert (jok, jfits) == (not lut_block, True)  # JAX's fault: the diff bit is not checked
     np.testing.assert_array_equal(img.numpy().view(np.uint32), jimg.view(np.uint32))
+    host = np.asarray(lerc2_decode.decode_band(blob).data)
+    sel = np.repeat(mask[:, :, None], d, 2)
+    assert not np.array_equal(jimg[sel], host[sel])  # the absolute reading is wrong
     r = dec._parse_records(stream, starts, DataType.FLOAT, d, valid)
     assert int(r.is_lut.sum()) == int(lut_block)
     assert int(((r.flag & 4) != 0).sum()) > 0
+    _img4, ok4, fits4 = dec.decode_tiles_fast(stream, starts, mze, zmax.reshape(d), h, w, d,
+                                              DataType.FLOAT, 4, mask=valid)
+    assert (bool(ok4), bool(fits4)) == (not lut_block, True)
+
+
+def _fused_header(codec, blob, pos):
+    """A standard blob's header as FusedResidentCodec.decode_fast takes it:
+    the blob's bytes before the stream without the mask section's static
+    even part."""
+    h = codec._head_len
+    small = blob[:h] + blob[h + len(codec._static_mid):pos]
+    return torch.tensor(list(small), dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("diff", [True, False], ids=["diff-records", "control"])
+def test_resident_decode_refuses_float_diff_records(diff):
+    """The resident codecs on _diff_blob (float32 depth-diff records at
+    v6, read with the record index): FusedResidentCodec.decode_fast returns
+    ok False and ResidentCodec.decode raises, where the host decoder applies
+    the diff. The control, the same band encoded with no diff bit set, is
+    decoded ok and equal to the host decoder."""
+    if diff:
+        blob, mask = _diff_blob(False)
+    else:
+        rng = np.random.default_rng(6)
+        mask = rng.random((48, 48)) > 0.3
+        s0 = np.cumsum(rng.normal(0, 1, (48, 48)), 1).astype(np.float32) * 10
+        blob = encode_band_device(np.stack([s0, s0 + 0.25], -1), mask, 0.01, device="cpu")
+    stream, starts, _zmax, _valid, hd, pos = _blob_unit(blob)
+    codec = FusedResidentCodec(hd.n_rows, hd.n_cols, hd.n_depth, np.float32, hd.max_z_error,
+                               hd.version, mask=mask, device="cpu")
+    img, ok = codec.decode_fast(_fused_header(codec, blob, pos), stream, starts)
+    rblob = ResidentBlob(bytes(blob[:pos]), stream, len(blob) - pos, hd.checksum, hd, starts)
+    host = np.asarray(lerc2_decode.decode_band(blob).data)
+    sel = np.repeat(mask[:, :, None], hd.n_depth, 2)
+    if diff:
+        assert not bool(ok)
+        with pytest.raises(ValueError, match="index inconsistent"):
+            codec.decode(rblob)
+    else:
+        assert bool(ok)
+        np.testing.assert_array_equal(img.numpy()[sel], host[sel])
+        np.testing.assert_array_equal(codec.decode(rblob).numpy()[sel], host[sel])
 
 
 STANDIN_RUN = r"""
@@ -168,7 +223,7 @@ case = chip_smoke.strip_k4_case
 
 def paged_case(args, tag):
     a = list(args)
-    a[0], a[1], a[9] = paged(a[0]), paged(a[1]), paged(a[9])
+    a[0], a[1], a[10] = paged(a[0]), paged(a[1]), paged(a[10])
     case(tuple(a), tag)
     print("ok", tag, flush=True)
 

@@ -227,6 +227,9 @@ inline float __int_as_float(int i) { return standin_bits<float>(i); }
 inline float __uint_as_float(unsigned i) { return standin_bits<float>(i); }
 inline long long __double_as_longlong(double d) { return standin_bits<long long>(d); }
 inline double __longlong_as_double(long long i) { return standin_bits<double>(i); }
+inline double __hiloint2double(int hi, int lo) {
+    return standin_bits<double>(((uint64_t)(uint32_t)hi << 32) | (uint32_t)lo);
+}
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
